@@ -1,0 +1,20 @@
+"""stereomatch_tpu_torch — the stereo engine on PyTorch and CUDA.
+
+The port of ``stereomatch_tpu`` (JAX/XLA/Pallas) to PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper in place of the Pallas TPU
+kernels.  It mirrors the JAX package's module names; the JAX package is
+the reference it is tested against, and this package never imports JAX.
+
+This slice runs the main path: SSD (or SAD) cost -> 8-path SGM with the
+adaptive P2 -> winner-takes-all.  Plain PyTorch versions run on CPU
+tensors and are the kernels' oracles; CUDA tensors go through the
+kernels, which are built with ``nvcc`` at first use.
+"""
+
+from . import aggregation, cli_common, convert, cost, disparity_reduce
+from .pipeline import Pipeline
+
+__version__ = "0.1.0"
+
+__all__ = ["Pipeline", "aggregation", "cli_common", "convert", "cost",
+           "disparity_reduce", "__version__"]

@@ -1,0 +1,68 @@
+"""Build the port's pipeline from a JAX package ``Pipeline``.
+
+The stereo engine has no weights: the state that carries across is each
+stage's configuration (the cost's ``max_disparity``, ``kernel_size`` and
+``cost_volume_dtype``, the SGM penalties, the reducer).  It is read from
+the JAX objects by attribute and class name, so this module never
+imports JAX and works on any object of that shape.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .aggregation import Semiglobal
+from .cost import SAD, SSD
+from .disparity_reduce import WinnerTakesAll
+from .pipeline import Device, Pipeline
+
+_COSTS = {"SSD": SSD, "SAD": SAD}
+_DTYPES = {"float32": torch.float32, "int32": torch.int32}
+
+
+def _kind(stage) -> str:
+    cls = type(stage)
+    if not cls.__module__.startswith("stereomatch_tpu."):
+        raise TypeError(f"{cls.__module__}.{cls.__name__} is not a stage of "
+                        "the JAX package stereomatch_tpu")
+    return cls.__name__
+
+
+def _not_ported(kind: str):
+    return NotImplementedError(
+        f"the JAX stage {kind} is not ported to stereomatch_tpu_torch yet "
+        "(see ROADMAP.md queue A)")
+
+
+def _dtype(jax_dtype) -> torch.dtype:
+    name = np.dtype(getattr(jax_dtype, "dtype", jax_dtype)).name
+    if name not in _DTYPES:
+        raise _not_ported(f"cost volume dtype {name}")
+    return _DTYPES[name]
+
+
+def pipeline_from_jax(jax_pipeline, device: Device = None) -> Pipeline:
+    """The port's equivalent of ``jax_pipeline``, running on ``device``."""
+    cost = jax_pipeline.cost
+    kind = _kind(cost)
+    if kind not in _COSTS:
+        raise _not_ported(kind)
+    port_cost = _COSTS[kind](cost.max_disparity,
+                             kernel_size=cost.kernel_size,
+                             cost_volume_dtype=_dtype(cost.cost_volume_dtype))
+
+    port_aggregation = None
+    if jax_pipeline.aggregation is not None:
+        agg = jax_pipeline.aggregation
+        kind = _kind(agg)
+        if kind != "Semiglobal":
+            raise _not_ported(kind)
+        port_aggregation = Semiglobal(penalty1=agg.penalty1,
+                                      penalty2=agg.penalty2)
+
+    kind = _kind(jax_pipeline.disparity_reduce)
+    if kind != "WinnerTakesAll":
+        raise _not_ported(kind)
+    return Pipeline(port_cost, WinnerTakesAll(),
+                    aggregation=port_aggregation, device=device)

@@ -1,0 +1,85 @@
+"""Cost-function API: ``SSD`` and ``SAD``, counterparts of
+``stereomatch_tpu/cost.py``.
+
+  * ``max_disparity`` is a mutable attribute (the reference's evaluation
+    workflow mutates it per scene).
+  * ``cost_volume=`` is accepted for source compatibility with the
+    reference and ignored: the caching allocator reuses the buffers.
+  * ``backend``: "auto" launches the CUDA kernel (``ops/ssd_cuda.py``)
+    for CUDA tensors and runs the plain PyTorch version for CPU tensors;
+    "cuda" demands the kernel and raises on CPU tensors; "torch" runs the
+    plain version on the images' own device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .ops import cost as cost_ops
+from .ops import ssd_cuda
+from .utils import validation
+from .utils.backend import resolve_backend
+
+
+def _diff_cost_dispatch(left, right, *, max_disparity, kernel_size,
+                        cost_dtype, absolute, backend):
+    if cost_dtype not in validation.COST_DTYPES:
+        raise validation.DTypeError(
+            f"cost_volume_dtype must be one of "
+            f"{[str(d) for d in validation.COST_DTYPES]}, got {cost_dtype}")
+    if resolve_backend(backend, left) == "cuda":
+        return ssd_cuda.diff_cost_volume_cuda(
+            left, right, max_disparity=max_disparity,
+            kernel_size=kernel_size, cost_dtype=cost_dtype,
+            absolute=absolute)
+    fn = cost_ops.sad_cost_volume if absolute else cost_ops.ssd_cost_volume
+    return fn(left, right, max_disparity=max_disparity,
+              kernel_size=kernel_size, cost_dtype=cost_dtype)
+
+
+class _DiffCost:
+    absolute = False
+
+    def __init__(self, max_disparity: int, kernel_size: int = 7,
+                 cost_volume_dtype: torch.dtype = torch.float32,
+                 backend: str = "auto"):
+        validation.check_positive("max_disparity", max_disparity)
+        validation.check_positive("kernel_size", kernel_size)
+        self.max_disparity = max_disparity
+        self.kernel_size = kernel_size
+        self.cost_volume_dtype = cost_volume_dtype
+        self.backend = backend
+
+    def __call__(self, left_image: torch.Tensor, right_image: torch.Tensor,
+                 cost_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
+        validation.check_stereo_pair(left_image, right_image)
+        return _diff_cost_dispatch(left_image, right_image,
+                                   max_disparity=self.max_disparity,
+                                   kernel_size=self.kernel_size,
+                                   cost_dtype=self.cost_volume_dtype,
+                                   absolute=self.absolute,
+                                   backend=self.backend)
+
+
+class SSD(_DiffCost):
+    """Sum-of-squared-differences cost (reference: stereomatch/cost.py:13-48).
+
+    Attributes:
+        max_disparity: number of disparity hypotheses (the D axis).
+        kernel_size: window half-extent k; the window is [i-k, i+k).
+        cost_volume_dtype: torch.float32 or torch.int32 (the reference's
+            integer chain, for integer images).
+        backend: "auto" | "cuda" | "torch" (see the module docstring).
+    """
+
+    absolute = False
+
+
+class SAD(_DiffCost):
+    """Sum-of-absolute-differences cost: the SSD window and validity with
+    an L1 summand (beyond the reference's cost surface).  Attributes as
+    :class:`SSD`."""
+
+    absolute = True

@@ -1,0 +1,140 @@
+"""Build and load the hand-written CUDA kernels at first use.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
+with a plain C interface, which is loaded with ``ctypes``.  Nothing here
+includes PyTorch's headers, so a build takes seconds, not minutes.  The
+library lands in ``stereomatch_tpu_torch/_build/`` (ignored by git) under
+a name keyed by a hash of the sources and the flags, so an edited kernel
+is rebuilt and an unchanged one is loaded as it is.
+
+Importing this module builds nothing and needs no ``nvcc``: the build
+runs only when a CUDA tensor first asks for a kernel (or when
+:func:`build` is called), and a missing ``nvcc`` raises then.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` on top of the
+kernels' explicit ``__fadd_rn``/``__fmul_rn``: a contracted
+``acc + d * d`` rounds once where the plain PyTorch version rounds
+twice, which would break bit-equality with it.  ``--use_fast_math`` is
+never used (it flushes denormals and approximates division).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points of csrc/*.cu and their argument types.  Every one
+# returns the cudaError_t of its launch (0 = success).
+_SIGNATURES = {
+    # (left, right, out, H, W, D, k, absolute, stream)
+    "stm_ssd_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "stm_ssd_i32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (cost, image, out, H, W, D, dy, dx, p1, p2, accumulate, stream)
+    "stm_sgm_rows_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+    "stm_sgm_horizontal_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+                               _P),
+}
+
+
+class BuildResult(NamedTuple):
+    path: Path
+    seconds: float      # 0.0 when the library was already built
+    log: str            # nvcc's output (ptxas register/spill report)
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if (DEFAULT_CUDA_HOME / "bin" / "nvcc").is_file():
+        return str(DEFAULT_CUDA_HOME / "bin" / "nvcc")
+    raise RuntimeError(
+        "the CUDA kernels of stereomatch_tpu_torch need nvcc to build; none "
+        f"found under $CUDA_HOME, $CUDA_PATH, on PATH or in "
+        f"{DEFAULT_CUDA_HOME}")
+
+
+def _key() -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def build() -> BuildResult:
+    """Compile the kernels unless a library for these sources exists."""
+    target = BUILD_DIR / f"libstm_kernels_{_key()}.so"
+    if target.is_file():
+        return BuildResult(target, 0.0, "")
+    nvcc = _nvcc()
+    cu_files = [str(p) for p in _sources() if p.suffix == ".cu"]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Compile to a private name, then rename: a concurrent process never
+    # loads a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu_files]
+    start = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return BuildResult(target, time.perf_counter() - start,
+                       proc.stdout + proc.stderr)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def check_launch(name: str, status: int) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{status}")

@@ -1,0 +1,124 @@
+"""Cost-volume construction, plain PyTorch versions.
+
+Port of ``stereomatch_tpu/ops/cost.py`` (``shifted_right_stack``,
+``_box_sum``, ``_diff_cost_volume``, ``ssd_cost_volume``,
+``sad_cost_volume``).  These run on any device and are the oracle of the
+CUDA kernel in ``ops/ssd_cuda.py``; ``cost.SSD``/``cost.SAD`` choose
+between the two.
+
+Semantics (reference ``src/ssd.cu:15-81``):
+  - the window along each axis is half-open, [i-k, i+k): 2k taps,
+    realised with zero padding (k before, k-1 after), which equals
+    window clipping because the summand is non-negative;
+  - the w < d wedge is zeroed before the box sum (so the column window's
+    lower bound becomes max(c-k, d)) and set to +inf (int32 max for the
+    integer chain) after it.
+
+Summation order: each box sum is 2k explicit shifted adds in window
+order, the H axis first and then the W axis.  That is the association
+XLA's ``reduce_window`` takes on the CPU, so these volumes equal the JAX
+oracle's bit for bit; the CUDA kernel keeps the same order.  No
+cumulative sum (its cancellation changes the values) and no
+convolution (cuDNN's default TF32 truncates the mantissa).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _inf_value(dtype: torch.dtype):
+    """+inf for float dtypes, the max value for integer dtypes."""
+    if dtype.is_floating_point:
+        return float("inf")
+    return torch.iinfo(dtype).max
+
+
+def compute_dtype(cost_dtype: torch.dtype) -> torch.dtype:
+    """Accumulation dtype of the window sums for a cost dtype."""
+    return torch.float32 if cost_dtype.is_floating_point else torch.int32
+
+
+def shifted_right_stack(right: torch.Tensor,
+                        max_disparity: int) -> torch.Tensor:
+    """S[h, w, d] = right[h, w - d], zero where w - d < 0."""
+    width = right.shape[1]
+    w_idx = torch.arange(width, device=right.device)[:, None]
+    d_idx = torch.arange(max_disparity, device=right.device)[None, :]
+    src = w_idx - d_idx
+    gathered = right[:, src.clamp(min=0)]                    # [H, W, D]
+    return torch.where(src >= 0, gathered,
+                       torch.zeros((), dtype=right.dtype,
+                                   device=right.device))
+
+
+def _box_sum(volume: torch.Tensor, kernel_size: int,
+             axes: tuple) -> torch.Tensor:
+    """Separable clipped box sum over the half-open window [i-k, i+k).
+
+    Per axis: zero-pad (k, k-1), then add the 2k shifted views in window
+    order — the association of XLA's reduce_window on the CPU.
+    """
+    k = kernel_size
+    for ax in axes:
+        n = volume.shape[ax]
+        before = list(volume.shape)
+        before[ax] = k
+        after = list(volume.shape)
+        after[ax] = k - 1
+        padded = torch.cat([volume.new_zeros(before), volume,
+                            volume.new_zeros(after)], dim=ax)
+        acc = padded.narrow(ax, 0, n).clone()
+        for t in range(1, 2 * k):
+            acc.add_(padded.narrow(ax, t, n))
+        volume = acc
+    return volume
+
+
+def _diff_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
+                      max_disparity: int, kernel_size: int,
+                      cost_dtype: torch.dtype,
+                      absolute: bool) -> torch.Tensor:
+    """Shared body of the SSD / SAD windowed-difference cost volumes."""
+    cdt = compute_dtype(cost_dtype)
+    left_c = left.to(cdt)
+    right_c = right.to(cdt)
+
+    shifted = shifted_right_stack(right_c, max_disparity)    # [H, W, D]
+    diff = left_c[:, :, None] - shifted
+    term = diff.abs() if absolute else diff * diff
+
+    # Zero out w < d so the column window's lower bound becomes
+    # max(c - k, d) (ssd.cu:40-42).
+    w_idx = torch.arange(left.shape[1], device=left.device)[:, None]
+    d_idx = torch.arange(max_disparity, device=left.device)[None, :]
+    valid = (w_idx >= d_idx)[None]
+    term = torch.where(valid, term, torch.zeros((), dtype=cdt,
+                                                device=left.device))
+    cost = _box_sum(term, kernel_size, axes=(0, 1))
+    return torch.where(valid, cost.to(cost_dtype),
+                       torch.tensor(_inf_value(cost_dtype), dtype=cost_dtype,
+                                    device=left.device))
+
+
+def ssd_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
+                    max_disparity: int, kernel_size: int = 7,
+                    cost_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sum-of-squared-differences cost volume [H, W, D], plain PyTorch.
+
+    For each pixel and disparity d <= c, the sum over the clipped window
+    of (L[r, c] - R[r, c - d])^2; +inf (int32 max) where d > c.
+    """
+    return _diff_cost_volume(left, right, max_disparity=max_disparity,
+                             kernel_size=kernel_size, cost_dtype=cost_dtype,
+                             absolute=False)
+
+
+def sad_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
+                    max_disparity: int, kernel_size: int = 7,
+                    cost_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sum-of-absolute-differences cost volume [H, W, D], plain PyTorch:
+    the SSD window and validity with an L1 summand."""
+    return _diff_cost_volume(left, right, max_disparity=max_disparity,
+                             kernel_size=kernel_size, cost_dtype=cost_dtype,
+                             absolute=True)

@@ -1,0 +1,66 @@
+"""Launcher of the windowed SSD/SAD CUDA kernel (``csrc/ssd.cu``).
+
+Replaces ``stereomatch_tpu/ops/ssd_pallas.py::_cost_kernel``.  Its plain
+PyTorch version, and oracle, is ``ops/cost.py::_diff_cost_volume``; on
+the same inputs the two are equal bit for bit (the kernel keeps the
+plain version's summation order and rounds every operation on its own).
+
+The launcher takes CUDA tensors only: it checks device, dtype and shape,
+allocates the output with ``torch.empty``, launches on the current
+stream and raises if the launch failed.  ``LAUNCHES`` counts its
+launches, so a run can show that it went through the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .cost import compute_dtype
+
+LAUNCHES = 0
+
+_MAX_GRID_Y = 65535         # the block grid's y extent carries the rows
+
+
+def diff_cost_volume_cuda(left: torch.Tensor, right: torch.Tensor, *,
+                          max_disparity: int, kernel_size: int,
+                          cost_dtype: torch.dtype,
+                          absolute: bool) -> torch.Tensor:
+    """SSD (``absolute=False``) or SAD cost volume [H, W, D] on the card."""
+    global LAUNCHES
+    if not (left.is_cuda and right.is_cuda):
+        raise ValueError("diff_cost_volume_cuda needs CUDA tensors, got "
+                         f"{left.device} and {right.device}")
+    if left.device != right.device:
+        raise ValueError(f"images on two devices: {left.device}, "
+                         f"{right.device}")
+    if left.ndim != 2 or left.shape != right.shape:
+        raise ValueError("images must be two [H, W] tensors of one shape, "
+                         f"got {tuple(left.shape)} and {tuple(right.shape)}")
+    if cost_dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"cost_dtype must be float32 or int32, got "
+                        f"{cost_dtype}")
+    if max_disparity < 1 or kernel_size < 1:
+        raise ValueError("max_disparity and kernel_size must be positive")
+    height, width = left.shape
+    if height > _MAX_GRID_Y:
+        raise ValueError(f"height {height} exceeds the kernel's "
+                         f"{_MAX_GRID_Y}-row grid")
+    cdt = compute_dtype(cost_dtype)
+    left_c = left.to(cdt).contiguous()
+    right_c = right.to(cdt).contiguous()
+    out = torch.empty((height, width, max_disparity), dtype=cost_dtype,
+                      device=left.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    fn = lib.stm_ssd_f32 if cdt == torch.float32 else lib.stm_ssd_i32
+    with torch.cuda.device(left.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(left_c.data_ptr(), right_c.data_ptr(), out.data_ptr(),
+                    height, width, max_disparity, kernel_size,
+                    int(absolute), stream)
+    _build.check_launch("stm_ssd", status)
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,92 @@
+"""Stereo-matching pipeline composition: cost -> optional aggregation ->
+reduce, counterpart of ``stereomatch_tpu/pipeline.py``.
+
+PyTorch runs eagerly: each stage launches its kernels on the current
+CUDA stream, and the stages share the caching allocator's buffers from
+frame to frame.  ``estimate_refined``, ``last_confidence`` and
+``compiled()`` (a CUDA graph of the whole pipeline) come with later
+slices of the port (ROADMAP A.4, A.10).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from .utils import profiling, validation
+
+Image = Union[torch.Tensor, np.ndarray]
+Device = Union[str, torch.device, None]
+
+
+def _as_image_tensor(image: Image, device: Device) -> torch.Tensor:
+    """A tensor on ``device``.  With ``device=None`` a tensor stays where
+    it is and a numpy array goes to the CPU, where its data already is.
+    A numpy array is copied: it may be read-only, a tensor never is."""
+    if isinstance(image, np.ndarray):
+        image = torch.from_numpy(np.array(image, order="C"))
+    if device is not None:
+        image = image.to(device)
+    return image
+
+
+class Pipeline:
+    """Composable stereo pipeline: cost -> optional aggregation -> reduce
+    (reference: stereomatch/pipeline.py:36-94)."""
+
+    def __init__(self, cost: Callable, disparity_reduce: Callable,
+                 aggregation: Optional[Callable] = None,
+                 device: Device = None):
+        """
+        Args:
+            cost: callable (left, right) -> [H, W, D] cost volume.
+            disparity_reduce: callable (volume) -> [H, W] int32 disparity.
+            aggregation: optional callable (volume, left_image) -> volume.
+            device: where ``estimate`` puts its inputs when its own
+              ``device=`` is not given; None leaves them where they are.
+        """
+        self.cost = cost
+        self.disparity_reduce = disparity_reduce
+        self.aggregation = aggregation
+        self.device = device
+
+        # Diagnostic captures of the last run's intermediates, matching
+        # the reference's reusable-buffer attributes (pipeline.py:65-67).
+        self._cost_volume = None
+        self._aggregation_volume = None
+        self._disparity_image = None
+
+    def _run(self, left_image: torch.Tensor, right_image: torch.Tensor):
+        # Stage spans show up in torch.profiler captures.
+        with profiling.annotate("stm/cost"):
+            cost_volume = self.cost(left_image, right_image)
+        if self.aggregation is not None:
+            with profiling.annotate("stm/aggregation"):
+                aggregation_volume = self.aggregation(cost_volume, left_image)
+        else:
+            aggregation_volume = cost_volume
+        with profiling.annotate("stm/disparity_reduce"):
+            disparity = self.disparity_reduce(aggregation_volume)
+        return cost_volume, aggregation_volume, disparity
+
+    def estimate(self, left_image: Image, right_image: Image,
+                 device: Device = None) -> torch.Tensor:
+        """Run the pipeline; returns an int32 [H, W] disparity tensor on
+        the device the images ran on (``device``, else ``self.device``,
+        else the images' own device)."""
+        device = device if device is not None else self.device
+        left_image = _as_image_tensor(left_image, device)
+        right_image = _as_image_tensor(right_image, device)
+        validation.check_stereo_pair(left_image, right_image)
+        (self._cost_volume, self._aggregation_volume,
+         self._disparity_image) = self._run(left_image, right_image)
+        return self._disparity_image
+
+    def estimate_fn(self) -> Callable:
+        """The pipeline as a plain function ``(left, right) -> disparity``
+        on tensors, with no capture of intermediates."""
+        def fn(left_image, right_image):
+            return self._run(left_image, right_image)[2]
+        return fn

@@ -1,0 +1,73 @@
+"""Argument validation for the ops API.
+
+Counterpart of ``stereomatch_tpu/utils/validation.py`` with torch dtypes.
+Checks run eagerly in Python before any kernel launch, so a bad call
+fails with a readable message instead of a wrong read inside a kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+# Input images: the reference's STM_DISPATCH_COSTFUNC_TYPES set
+# (uint8 / int16 / float32).  bfloat16 joins with bf16 volume storage.
+IMAGE_DTYPES = (torch.uint8, torch.int16, torch.float32)
+# Cost volumes (reference: int32 / float32).
+COST_DTYPES = (torch.int32, torch.float32)
+
+
+class ShapeError(ValueError):
+    """Raised when an op receives tensors of the wrong rank/shape."""
+
+
+class DTypeError(TypeError):
+    """Raised when an op receives tensors of an unsupported dtype."""
+
+
+def check_rank(name: str, arr, rank: int) -> None:
+    if arr.ndim != rank:
+        raise ShapeError(
+            f"{name} must have rank {rank}, got shape {tuple(arr.shape)}")
+
+
+def check_same_shape(name_a: str, a, name_b: str, b) -> None:
+    if tuple(a.shape) != tuple(b.shape):
+        raise ShapeError(
+            f"{name_a} and {name_b} must have the same shape, got "
+            f"{tuple(a.shape)} vs {tuple(b.shape)}")
+
+
+def check_dtype(name: str, arr, allowed: Sequence[torch.dtype]) -> None:
+    if arr.dtype not in allowed:
+        raise DTypeError(
+            f"{name} has unsupported dtype {arr.dtype}; expected one of "
+            f"{[str(d) for d in allowed]}")
+
+
+def check_same_device(name_a: str, a, name_b: str, b) -> None:
+    if a.device != b.device:
+        raise ValueError(f"{name_a} is on {a.device} but {name_b} is on "
+                         f"{b.device}; move both to one device")
+
+
+def check_stereo_pair(left, right) -> None:
+    """Validate a rectified stereo pair of [H, W] images."""
+    check_rank("left_image", left, 2)
+    check_rank("right_image", right, 2)
+    check_same_shape("left_image", left, "right_image", right)
+    check_dtype("left_image", left, IMAGE_DTYPES)
+    check_dtype("right_image", right, IMAGE_DTYPES)
+    check_same_device("left_image", left, "right_image", right)
+
+
+def check_cost_volume(volume) -> None:
+    """Validate a [H, W, D] cost volume."""
+    check_rank("cost_volume", volume, 3)
+    check_dtype("cost_volume", volume, COST_DTYPES)
+
+
+def check_positive(name: str, value: int) -> None:
+    if value <= 0:
+        raise ValueError(f"{name} must be positive, got {value}")

@@ -1,0 +1,110 @@
+"""The CUDA kernels' launchers and dispatch, on a machine without a card.
+
+No kernel can build or run here.  What can be held: a CPU tensor never
+reaches a kernel (backend="auto" takes the plain version, backend="cuda"
+raises), the plain path leaves the launch counters at 0, the launchers
+refuse CPU tensors, and importing the build module needs no nvcc until a
+build is asked for.
+"""
+
+import importlib
+
+import pytest
+import torch
+
+from stereomatch_tpu_torch import cli_common
+from stereomatch_tpu_torch.aggregation import Semiglobal
+from stereomatch_tpu_torch.cost import SAD, SSD
+from stereomatch_tpu_torch.io.synthetic import stereo_pair
+from stereomatch_tpu_torch.ops import _build, sgm_cuda, ssd_cuda
+from stereomatch_tpu_torch.utils.backend import resolve_backend
+
+
+@pytest.fixture
+def counters(monkeypatch):
+    monkeypatch.setattr(ssd_cuda, "LAUNCHES", 0)
+    monkeypatch.setattr(sgm_cuda, "ROW_LAUNCHES", 0)
+    monkeypatch.setattr(sgm_cuda, "HORIZONTAL_LAUNCHES", 0)
+
+
+def test_resolve_backend():
+    cpu = torch.zeros(1)
+    assert resolve_backend("auto", cpu) == "torch"
+    assert resolve_backend("torch", cpu) == "torch"
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        resolve_backend("cuda", cpu)
+    with pytest.raises(ValueError, match="unknown backend"):
+        resolve_backend("pallas", cpu)
+
+
+@pytest.mark.parametrize("stage", ["ssd", "sad", "sgm"])
+def test_cuda_backend_on_cpu_tensors_raises(stage, counters):
+    left = torch.rand(8, 12)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if stage == "sgm":
+            Semiglobal(backend="cuda")(torch.rand(8, 12, 4), left)
+        else:
+            (SSD if stage == "ssd" else SAD)(4, backend="cuda")(left, left)
+    assert ssd_cuda.LAUNCHES == 0 and sgm_cuda.ROW_LAUNCHES == 0
+
+
+def test_plain_path_launches_no_kernel(counters):
+    left, right, _ = stereo_pair(24, 40, 8, seed=4)
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=8)
+    pipe.estimate(left, right)
+    assert ssd_cuda.LAUNCHES == 0
+    assert sgm_cuda.ROW_LAUNCHES == 0
+    assert sgm_cuda.HORIZONTAL_LAUNCHES == 0
+
+
+def test_launchers_refuse_cpu_tensors(counters):
+    left = torch.rand(6, 9)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_cuda.diff_cost_volume_cuda(left, left, max_disparity=4,
+                                       kernel_size=2,
+                                       cost_dtype=torch.float32,
+                                       absolute=False)
+    vol = torch.rand(6, 9, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sgm_cuda.semiglobal_aggregate_cuda(vol, left)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sgm_cuda.traverse_cuda(vol, left, torch.empty_like(vol), (0, 1),
+                               0.1, 0.2, accumulate=False)
+    assert ssd_cuda.LAUNCHES == 0
+    assert sgm_cuda.ROW_LAUNCHES == sgm_cuda.HORIZONTAL_LAUNCHES == 0
+
+
+def test_build_module_needs_nvcc_only_for_a_build(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    build = importlib.reload(_build)              # importing: no nvcc needed
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "DEFAULT_CUDA_HOME", tmp_path / "no-cuda")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_key_follows_sources_and_flags():
+    key = _build._key()
+    assert key == _build._key() and len(key) == 16
+    names = {p.name for p in _build._sources()}
+    assert {"ssd.cu", "sgm.cu"} <= names
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_every_c_entry_point_is_declared():
+    """Each extern "C" function of csrc/*.cu has a ctypes signature whose
+    argument count matches its C parameter list."""
+    import re
+    declared = {}
+    for src in _build._sources():
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            declared[name] = len(params.split(","))
+    assert declared.keys() == _build._SIGNATURES.keys()
+    for name, n_args in declared.items():
+        assert len(_build._SIGNATURES[name]) == n_args, name

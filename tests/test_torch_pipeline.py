@@ -1,0 +1,133 @@
+"""The port's main path end to end against the JAX package and the
+committed golden anchors.
+
+Both packages build their pipelines from the same registry names
+(``convert.pipeline_from_jax`` carries the configuration across) and run
+the same numpy scene: the disparities must be identical.  The port's
+plain path must also reproduce the committed golden disparities
+(tests/data/golden_*_disparity.npz, generated by the XLA oracles) at
+every pixel.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from stereomatch_tpu import cli_common as jax_cli
+from stereomatch_tpu_torch import Pipeline, cli_common, convert
+from stereomatch_tpu_torch.aggregation import Semiglobal
+from stereomatch_tpu_torch.cost import SAD, SSD
+from stereomatch_tpu_torch.disparity_reduce import WinnerTakesAll
+from stereomatch_tpu_torch.io.synthetic import stereo_pair
+
+DATA = Path(__file__).parent / "data"
+
+
+@pytest.mark.parametrize("cost,aggr,dtype", [
+    ("ssd", "sgm", "float32"), ("sad", "sgm", "float32"),
+    ("ssd", None, "float32"), ("ssd", None, "int32")])
+def test_identical_disparities_to_jax(cost, aggr, dtype):
+    left, right, _ = stereo_pair(40, 64, 16, seed=3)
+    if dtype == "int32":
+        left = (left * 255).astype(np.uint8)
+        right = (right * 255).astype(np.uint8)
+    jax_pipe = jax_cli.create_pipeline(cost, "wta", aggr, max_disparity=16,
+                                       penalty1=0.15, penalty2=0.4,
+                                       volume_dtype=dtype)
+    port_pipe = convert.pipeline_from_jax(jax_pipe)
+    direct = cli_common.create_pipeline(cost, "wta", aggr, max_disparity=16,
+                                        penalty1=0.15, penalty2=0.4,
+                                        volume_dtype=dtype)
+    ref = np.asarray(jax_pipe.estimate(left, right))
+    out = port_pipe.estimate(left, right)
+    assert out.dtype == torch.int32 and out.device.type == "cpu"
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(direct.estimate(left, right).numpy(), ref)
+    np.testing.assert_array_equal(port_pipe._cost_volume.numpy(),
+                                  np.asarray(jax_pipe._cost_volume))
+    np.testing.assert_array_equal(port_pipe._aggregation_volume.numpy(),
+                                  np.asarray(jax_pipe._aggregation_volume))
+
+
+@pytest.mark.parametrize("name", ["golden_teddy_disparity.npz",
+                                  "golden_sgm_disparity.npz"])
+def test_plain_path_reproduces_golden(name):
+    g = np.load(DATA / name)
+    d = int(g["max_disparity"])
+    left, right, gt = stereo_pair(int(g["height"]), int(g["width"]), d,
+                                  seed=int(g["seed"]))
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=d,
+                                      penalty1=float(g["penalty1"]),
+                                      penalty2=float(g["penalty2"]))
+    pipe.cost.kernel_size = int(g["kernel_size"])
+    disp = pipe.estimate(left, right).numpy()
+    np.testing.assert_array_equal(disp, g["wta"])
+    bad = np.mean((np.abs(disp - gt) > 1)[:, d:])
+    assert bad <= float(g["bad_pixel_vs_gt"]) + 1e-9
+
+
+def test_estimate_takes_tensors_and_numpy_and_a_device():
+    left, right, _ = stereo_pair(24, 40, 8, seed=1)
+    pipe = Pipeline(SSD(8, kernel_size=3), WinnerTakesAll(),
+                    aggregation=Semiglobal())
+    from_numpy = pipe.estimate(left, right)
+    from_tensor = pipe.estimate(torch.from_numpy(left),
+                                torch.from_numpy(right), device="cpu")
+    assert torch.equal(from_numpy, from_tensor)
+    fn = pipe.estimate_fn()
+    assert torch.equal(fn(torch.from_numpy(left), torch.from_numpy(right)),
+                       from_numpy)
+    assert pipe._cost_volume.shape == (24, 40, 8)
+    assert pipe._disparity_image is from_tensor
+
+
+def test_pipeline_without_aggregation_reduces_the_cost_volume():
+    left, right, _ = stereo_pair(16, 32, 8, seed=2)
+    pipe = cli_common.create_pipeline("sad", "wta", max_disparity=8)
+    disp = pipe.estimate(left, right)
+    assert pipe._aggregation_volume is pipe._cost_volume
+    assert isinstance(pipe.cost, SAD)
+    assert torch.equal(disp, pipe._cost_volume.argmin(dim=2).int())
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(cost_method="census", disp_method="wta"),
+    dict(cost_method="ncc", disp_method="wta"),
+    dict(cost_method="ssd", disp_method="dyn"),
+    dict(cost_method="ssd", disp_method="wta", aggr_method="cvf"),
+    dict(cost_method="ssd", disp_method="wta", volume_dtype="bfloat16")])
+def test_not_ported_names_refuse_with_roadmap_item(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli_common.create_pipeline(**kwargs)
+
+
+def test_unknown_names_and_int32_aggregation_raise():
+    with pytest.raises(ValueError, match="unknown cost method"):
+        cli_common.create_pipeline("sdd", "wta")
+    with pytest.raises(ValueError, match="unknown aggregation"):
+        cli_common.create_pipeline("ssd", "wta", "sgn")
+    with pytest.raises(ValueError, match="int32"):
+        cli_common.create_pipeline("ssd", "wta", "sgm", volume_dtype="int32")
+
+
+def test_convert_reads_configuration_and_refuses_unported_stages():
+    jax_pipe = jax_cli.create_pipeline("sad", "wta", "sgm", max_disparity=24,
+                                       penalty1=0.3, penalty2=0.9)
+    jax_pipe.cost.kernel_size = 4
+    port = convert.pipeline_from_jax(jax_pipe, device="cpu")
+    assert isinstance(port.cost, SAD)
+    assert (port.cost.max_disparity, port.cost.kernel_size) == (24, 4)
+    assert port.cost.cost_volume_dtype == torch.float32
+    assert (port.aggregation.penalty1, port.aggregation.penalty2) == (0.3, 0.9)
+    assert isinstance(port.disparity_reduce, WinnerTakesAll)
+    assert port.device == "cpu"
+    for kw in (dict(cost_method="census", disp_method="wta"),
+               dict(cost_method="ssd", disp_method="dyn"),
+               dict(cost_method="ssd", disp_method="wta", aggr_method="cvf")):
+        with pytest.raises(NotImplementedError):
+            convert.pipeline_from_jax(jax_cli.create_pipeline(**kw))
+    with pytest.raises(TypeError):
+        convert.pipeline_from_jax(
+            Pipeline(SSD(8), WinnerTakesAll()))      # not a JAX pipeline
