@@ -5,14 +5,23 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``stereomatch_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, drives the
-main path (SSD -> 8-path SGM -> WTA at the golden teddy scene, 375x450,
-D=128) through ``cli_common.create_pipeline``, checks it against the
-committed golden disparities, and times kernels and pipeline with CUDA
-events.  Any failure raises and exits non-zero.  The last line of
+holds each against its plain PyTorch version on the card (teddy 375x450
+D=128, 37x53 D=24 and HD 1024x1280 D=256), drives three paths through
+``cli_common.create_pipeline`` and ``Pipeline.estimate`` at the golden
+teddy scene, each with the launch counts set to 0 just before it and
+read just after:
+
+* the main path, SSD -> 8-path SGM -> WTA, against golden ``"wta"``;
+* SSD -> SGM -> scanline DP, against golden ``"dp"``;
+* census -> guided-filter aggregation (CVF) -> WTA, against
+  ``tests/data/golden_torch_cvf_teddy.npz``;
+
+times kernels, plain versions and pipelines with CUDA events, and
+profiles each path with ``torch.profiler`` (device time by kernel, idle
+share).  Any failure raises and exits non-zero; nothing falls back.  The last line of
 standard output is one JSON object with ``"ok": true`` and the device;
-the line before it lists the kernels with their launch counts, errors
-and times.  It imports nothing of JAX.
+the line before it lists the kernels with their launch counts, errors,
+times and bounds.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,13 +37,21 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "golden_teddy_disparity.npz"
+GOLDEN_CVF = ROOT / "tests" / "data" / "golden_torch_cvf_teddy.npz"
 
 SSD_RTOL = 2e-6     # tests/test_ssd_pallas.py's bound: last-ulp scale of
 SSD_ATOL = 2e-6     # the value or of the running-sum magnitude
 SGM_RTOL = 2e-6     # the JAX package's Pallas-vs-XLA SGM bound
 SGM_ATOL = 1e-5
+CVF_RTOL = 1e-4     # the JAX package's Pallas-vs-XLA CVF bound; the
+CVF_ATOL = 1e-5     # kernels keep the plain association (0 expected)
 GOLDEN_MAX_DIFF = 16        # pixels of 168,750 (0.01%); 0 expected
+CVF_GOLDEN_MAX_DIFF = 169   # pixels of 168,750 (0.1%); 0 expected
 WARMUP, REPS = 3, 20
+
+# The card's published rates (NVIDIA H100 SXM data sheet, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -76,6 +93,58 @@ def time_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the card's memory
+    rate and float32 operations over its non-tensor-core peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bounds(h, w, d, k, r):
+    """Least time of each kernel's function at [h, w, d]: each input read
+    once, each output written once (float32 4 bytes, pointers 1 byte),
+    and the operations of the separable algorithm.  dp_backward reads
+    the one pointer per pixel that its walk needs."""
+    n, hw = h * w * d, h * w
+    return {
+        "ssd": bound(2 * hw * 4 + n * 4, n * (2 + 4 * k)),
+        "sgm_rows": bound(n * 4 + hw * 4 + n * 4, n * 9 * 6),
+        "sgm_horizontal": bound(n * 4 + hw * 4 + n * 4, n * 9 * 2),
+        "dp_forward": bound(n * 4 + n + h * d * 4, n * 4),
+        "dp_backward": bound(h * d * 4 + hw + hw * 4, h * d + 2 * hw),
+        "cvf": bound(n * 4 + 5 * hw * 4 + 2 * h * d * 4 + n * 4,
+                     n * (16 * r + 25)),
+    }
+
+
+def profile_path(torch, fn, frames: int = 10):
+    """Device time over ``frames`` calls of ``fn`` under ``torch.profiler``
+    (after one warm-up call).  Returns (wall ms per frame, kernel ms per
+    frame by name, stage ms per frame by span, device operations per
+    frame): the pipeline's ``stm/*``
+    spans appear on the device timeline too, and are kept apart from the
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3 / frames
+    kernels, spans, count = {}, {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            into = spans if evt.name.startswith("stm/") else kernels
+            ms = evt.time_range.elapsed_us() / 1e3 / frames
+            into[evt.name] = into.get(evt.name, 0.0) + ms
+            count += into is kernels
+    return wall_ms, kernels, spans, count / frames
+
+
 def compare(name, ref, out, rtol, atol, exact=False) -> float:
     """Hold ``out`` against ``ref``: identical non-finite placement, then
     exact equality or |out - ref| <= atol + rtol * |ref|.  Returns the
@@ -111,7 +180,8 @@ def main() -> int:
 
     # Phase 1: device.
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-    require((ROOT / "stereomatch_tpu_torch").is_dir() and GOLDEN.is_file(),
+    require((ROOT / "stereomatch_tpu_torch").is_dir() and GOLDEN.is_file()
+            and GOLDEN_CVF.is_file(),
             f"{ROOT} is not a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     card = card_line()
@@ -124,9 +194,12 @@ def main() -> int:
 
     from stereomatch_tpu_torch import cli_common
     from stereomatch_tpu_torch.io.synthetic import stereo_pair
-    from stereomatch_tpu_torch.ops import _build, sgm_cuda, ssd_cuda
+    from stereomatch_tpu_torch.ops import (_build, cvf_cuda, dp_cuda,
+                                           sgm_cuda, ssd_cuda)
     from stereomatch_tpu_torch.ops import aggregation as agg_ops
     from stereomatch_tpu_torch.ops import cost as cost_ops
+    from stereomatch_tpu_torch.ops import cvf as cvf_ops
+    from stereomatch_tpu_torch.ops import disparity as disp_ops
 
     # Phase 2: build.
     start = time.perf_counter()
@@ -201,40 +274,89 @@ def main() -> int:
                 sgm_cuda.semiglobal_aggregate_cuda(ref, left, penalty1=p1,
                                                    penalty2=p2),
                 SGM_RTOL, SGM_ATOL)
-        del ref
+        # The DP kernels on the SSD volume: each against its plain step.
+        ptr_ref, final_ref = disp_ops.dp_forward(ref)
+        ptr, final = dp_cuda.dp_forward_cuda(ref)
+        errors[f"dp_forward_{tag}"] = max(
+            compare(f"dp_forward pointers {tag}", ptr_ref, ptr, 0, 0,
+                    exact=True),
+            compare(f"dp_forward final costs {tag}", final_ref, final, 0, 0,
+                    exact=True))
+        errors[f"dp_backward_{tag}"] = compare(
+            f"dp_backward {tag}",
+            disp_ops.dp_backward(ptr_ref,
+                                 disp_ops.dp_end_disparities(final_ref)),
+            dp_cuda.dp_backward_cuda(ptr_ref, final_ref), 0, 0, exact=True)
+        del ref, ptr_ref, final_ref, ptr, final
+        # Census on the card equals census on the CPU; CVF on its volume.
+        census_kw = dict(max_disparity=d, window_size=5, kernel_size=1)
+        census = cost_ops.census_hamming_cost_volume(left, right, **census_kw)
+        compare(f"census plain card vs CPU {tag}",
+                cost_ops.census_hamming_cost_volume(left.cpu(), right.cpu(),
+                                                    **census_kw).to(dev),
+                census, 0, 0, exact=True)
+        cvf_kw = dict(radius=8, eps=1e-4, wedge_offset=0)
+        errors[f"cvf_{tag}"] = compare(
+            f"cvf {tag}", cvf_ops.guided_filter_aggregate(census, left,
+                                                          **cvf_kw),
+            cvf_cuda.guided_filter_aggregate_cuda(census, left, **cvf_kw),
+            CVF_RTOL, CVF_ATOL)
+        del census
         torch.cuda.empty_cache()
 
-    # Phase 4: the main path, through the entry points a user calls.
+    # Phase 4: the paths, through the entry points a user calls; the
+    # launch counts are set to 0 just before each and read just after.
+    counters = {"ssd": (ssd_cuda, "LAUNCHES"),
+                "sgm_rows": (sgm_cuda, "ROW_LAUNCHES"),
+                "sgm_horizontal": (sgm_cuda, "HORIZONTAL_LAUNCHES"),
+                "dp_forward": (dp_cuda, "FORWARD_LAUNCHES"),
+                "dp_backward": (dp_cuda, "BACKWARD_LAUNCHES"),
+                "cvf": (cvf_cuda, "STATS_LAUNCHES"),
+                "cvf_filter": (cvf_cuda, "FILTER_LAUNCHES")}
+
+    def run_path(label, run, kernels):
+        torch.cuda.synchronize()
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
+        disp = run()
+        torch.cuda.synchronize()
+        counts = {name: getattr(module, attr)
+                  for name, (module, attr) in counters.items()}
+        log(f"  launches: {counts}")
+        for name in kernels:
+            require(counts[name] > 0, f"{label} launched {name} no time")
+        require(disp.is_cuda and disp.dtype == torch.int32
+                and tuple(disp.shape) == (375, 450),
+                f"disparity {disp.device} {disp.dtype} {tuple(disp.shape)}")
+        disp_np = disp.cpu().numpy()
+        require(disp_np.min() >= 0 and disp_np.max() < 128,
+                "disparity out of range")
+        return disp_np, counts
+
+    def check_golden(label, disp_np, want, gt, d, max_diff, golden_bad,
+                     bad_slack):
+        n_diff = int((disp_np != want).sum())
+        bad = float(np.mean((np.abs(disp_np - gt) > 1)[:, d:]))
+        log(f"  pixels differing from golden {label}: {n_diff} of "
+            f"{disp_np.size}")
+        log(f"  bad-pixel vs ground truth: {bad!r} (golden {golden_bad!r})")
+        require(n_diff <= max_diff, f"{n_diff} pixels differ from golden "
+                f"{label}")
+        require(bad <= golden_bad + bad_slack,
+                f"bad-pixel {bad} above the golden's")
+
     log("[main path] ssd -> sgm -> wta, teddy 375x450 D=128")
     left, right, gt, d, k = shapes["teddy"]
     pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=d,
                                       penalty1=p1, penalty2=p2)
     pipe.cost.kernel_size = k
     left_np, right_np = left.cpu().numpy(), right.cpu().numpy()
-    torch.cuda.synchronize()
-    ssd_cuda.LAUNCHES = 0
-    sgm_cuda.ROW_LAUNCHES = 0
-    sgm_cuda.HORIZONTAL_LAUNCHES = 0
-    disp = pipe.estimate(left_np, right_np, device="cuda")
-    torch.cuda.synchronize()
-    launches = {"ssd": ssd_cuda.LAUNCHES, "sgm_rows": sgm_cuda.ROW_LAUNCHES,
-                "sgm_horizontal": sgm_cuda.HORIZONTAL_LAUNCHES}
-    log(f"  launches: {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"the main path launched {name} no time")
-    require(disp.is_cuda and disp.dtype == torch.int32
-            and tuple(disp.shape) == (375, 450),
-            f"disparity {disp.device} {disp.dtype} {tuple(disp.shape)}")
-    disp_np = disp.cpu().numpy()
-    require(disp_np.min() >= 0 and disp_np.max() < d, "disparity out of range")
-    n_diff = int((disp_np != golden["wta"]).sum())
-    bad = float(np.mean((np.abs(disp_np - gt) > 1)[:, d:]))
-    log(f"  pixels differing from golden wta: {n_diff} of {disp_np.size}")
-    log(f"  bad-pixel vs ground truth: {bad!r} (golden "
-        f"{float(golden['bad_pixel_vs_gt'])!r})")
-    require(n_diff <= GOLDEN_MAX_DIFF, f"{n_diff} pixels differ from golden")
-    require(bad <= float(golden["bad_pixel_vs_gt"]) + 1e-4,
-            f"bad-pixel {bad} above the golden's")
+    disp_np, launches = run_path(
+        "the main path",
+        lambda: pipe.estimate(left_np, right_np, device="cuda"),
+        ("ssd", "sgm_rows", "sgm_horizontal"))
+    check_golden("wta", disp_np, golden["wta"], gt, d, GOLDEN_MAX_DIFF,
+                 float(golden["bad_pixel_vs_gt"]), 1e-4)
 
     # WTA ties go to the lower disparity on the card, as on the CPU.
     tied = torch.from_numpy(
@@ -244,15 +366,53 @@ def main() -> int:
     require(np.array_equal(got, want), "argmin tie order differs on CUDA")
     log("  wta tie check: ties go to the lower disparity")
 
+    log("[dyn path] ssd -> sgm -> dyn, teddy 375x450 D=128, default device")
+    pipe_dyn = cli_common.create_pipeline("ssd", "dyn", "sgm",
+                                          max_disparity=d, penalty1=p1,
+                                          penalty2=p2)
+    pipe_dyn.cost.kernel_size = k
+    disp_np, dyn_counts = run_path(
+        "ssd -> sgm -> dyn", lambda: pipe_dyn.estimate(left_np, right_np),
+        ("ssd", "sgm_rows", "sgm_horizontal", "dp_forward", "dp_backward"))
+    golden_dp_bad = float(np.mean((np.abs(golden["dp"] - gt) > 1)[:, d:]))
+    check_golden("dp", disp_np, golden["dp"], gt, d, GOLDEN_MAX_DIFF,
+                 golden_dp_bad, 1e-4)
+    launches.update(dp_forward=dyn_counts["dp_forward"],
+                    dp_backward=dyn_counts["dp_backward"])
+
+    log("[cvf path] census -> cvf -> wta, teddy 375x450 D=128, default "
+        "device")
+    golden_cvf = np.load(GOLDEN_CVF)
+    pipe_cvf = cli_common.create_pipeline(
+        "census", "wta", "cvf", max_disparity=d,
+        cvf_radius=int(golden_cvf["cvf_radius"]),
+        cvf_eps=float(golden_cvf["cvf_eps"]),
+        census_window=int(golden_cvf["census_window"]))
+    disp_np, cvf_counts = run_path(
+        "census -> cvf -> wta", lambda: pipe_cvf.estimate(left_np, right_np),
+        ("cvf", "cvf_filter"))
+    check_golden("census_cvf_wta", disp_np, golden_cvf["census_cvf_wta"], gt,
+                 d, CVF_GOLDEN_MAX_DIFF,
+                 float(golden_cvf["bad_pixel_vs_gt"]), 1e-3)
+    launches["cvf"] = cvf_counts["cvf"]
+    require(cvf_counts["cvf"] == cvf_counts["cvf_filter"],
+            "the two CVF kernels launched a different number of times")
+
     # Phase 5: timings (CUDA events, median of REPS after WARMUP).
     log(f"[timings] median of {REPS} after {WARMUP} warm-ups; card: {card}")
-    times = {}
+    times, bounds = {}, {}
     for tag in ("teddy", "hd"):
         left, right, _, d, k = shapes[tag]
+        h, w = left.shape
+        bounds[tag] = kernel_bounds(h, w, d, k, 8)
         kw = dict(max_disparity=d, kernel_size=k)
         vol = cost_ops.ssd_cost_volume(left, right, **kw)
         image = left.contiguous()
         out = torch.empty_like(vol)
+        ptr, final = dp_cuda.dp_forward_cuda(vol)
+        census = cost_ops.census_hamming_cost_volume(left, right,
+                                                     max_disparity=d)
+        cvf_kw = dict(radius=8, eps=1e-4, wedge_offset=0)
 
         def ssd_kernel():
             ssd_cuda.diff_cost_volume_cuda(left, right,
@@ -280,6 +440,16 @@ def main() -> int:
                     lambda: cost_ops.ssd_cost_volume(left, right, **kw)),
             "sgm_rows": (family_kernel(rows), family_plain(rows)),
             "sgm_horizontal": (family_kernel(horiz), family_plain(horiz)),
+            "dp_forward": (lambda: dp_cuda.dp_forward_cuda(vol),
+                           lambda: disp_ops.dp_forward(vol)),
+            "dp_backward": (
+                lambda: dp_cuda.dp_backward_cuda(ptr, final),
+                lambda: disp_ops.dp_backward(
+                    ptr, disp_ops.dp_end_disparities(final))),
+            "cvf": (lambda: cvf_cuda.guided_filter_aggregate_cuda(
+                        census, image, **cvf_kw),
+                    lambda: cvf_ops.guided_filter_aggregate(
+                        census, image, **cvf_kw)),
         }
         for name, (kern, plain) in pairs.items():
             # Plain, kernel, kernel, plain: the two orders cancel drift.
@@ -287,46 +457,106 @@ def main() -> int:
             t_kern = [time_ms(torch, kern), time_ms(torch, kern)]
             t_plain.append(time_ms(torch, plain))
             times[(name, tag)] = (min(t_kern), min(t_plain))
-            log(f"  {name} {tag}: kernel {t_kern} ms, plain {t_plain} ms "
-                f"[{card}]")
+            b_ms, b_by = bounds[tag][name]
+            log(f"  {name} {tag}: kernel {t_kern} ms, plain {t_plain} ms, "
+                f"bound {b_ms!r} ms ({b_by}) [{card}]")
         t_wta = time_ms(torch, lambda: pipe.disparity_reduce(vol))
         log(f"  wta (torch.argmin) {tag}: {t_wta!r} ms [{card}]")
-        del vol, out
+        t_census = time_ms(torch, lambda: cost_ops.census_hamming_cost_volume(
+            left, right, max_disparity=d))
+        log(f"  census plain {tag}: {t_census!r} ms [{card}]")
+        del vol, out, ptr, final, census
         torch.cuda.empty_cache()
 
-        pipe_tag = cli_common.create_pipeline("ssd", "wta", "sgm",
-                                              max_disparity=d, penalty1=p1,
-                                              penalty2=p2)
-        pipe_tag.cost.kernel_size = k
-        e2e = time_ms(torch, lambda: pipe_tag.estimate(left, right))
-        times[("e2e", tag)] = e2e
-        log(f"  end-to-end ssd+sgm+wta {tag} {tuple(left.shape)} D={d}: "
-            f"{e2e!r} ms/frame = {1000.0 / e2e!r} frames/s "
-            f"(device-resident images) [{card}]")
+        for label, (cost, reducer, aggr) in (
+                ("ssd+sgm+wta", ("ssd", "wta", "sgm")),
+                ("ssd+sgm+dyn", ("ssd", "dyn", "sgm")),
+                ("census+cvf+wta", ("census", "wta", "cvf"))):
+            pipe_tag = cli_common.create_pipeline(cost, reducer, aggr,
+                                                  max_disparity=d,
+                                                  penalty1=p1, penalty2=p2)
+            if cost == "ssd":
+                pipe_tag.cost.kernel_size = k
+            e2e = time_ms(torch, lambda: pipe_tag.estimate(left, right))
+            times[(label, tag)] = e2e
+            log(f"  end-to-end {label} {tag} {tuple(left.shape)} D={d}: "
+                f"{e2e!r} ms/frame = {1000.0 / e2e!r} frames/s "
+                f"(device-resident images) [{card}]")
+            del pipe_tag
+            torch.cuda.empty_cache()
+
+    # Phase 6: where the time goes, per path and geometry, from a
+    # torch.profiler capture (device kernel time against host wall time).
+    # The first capture in a process pays the profiler's own start-up
+    # (it read a 0.56 idle share where later ones read 0.11): one
+    # throw-away capture takes it.
+    log("[profile] torch.profiler, 10 frames after one warm-up, "
+        "device-resident images")
+    profile_path(torch, lambda: torch.ones(1, device=dev) + 1, frames=1)
+    for tag in ("teddy", "hd"):
+        left, right, _, d, k = shapes[tag]
+        for label, (cost, reducer, aggr) in (
+                ("ssd+sgm+wta", ("ssd", "wta", "sgm")),
+                ("ssd+sgm+dyn", ("ssd", "dyn", "sgm")),
+                ("census+cvf+wta", ("census", "wta", "cvf"))):
+            pipe_tag = cli_common.create_pipeline(cost, reducer, aggr,
+                                                  max_disparity=d,
+                                                  penalty1=p1, penalty2=p2)
+            if cost == "ssd":
+                pipe_tag.cost.kernel_size = k
+            wall, by_name, spans, ops = profile_path(
+                torch, lambda: pipe_tag.estimate(left, right))
+            busy = sum(by_name.values())
+            require(busy > 0, f"the profiler saw no device time in {label}")
+            log(f"  {label} {tag}: wall {wall!r} ms/frame, device busy "
+                f"{busy!r} ms/frame, idle share {1.0 - busy / wall!r}, "
+                f"{ops!r} device operations/frame [{card}]")
+            log(f"    stage spans (device timeline) ms/frame: {spans}")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            for name, ms in top:
+                log(f"    {ms!r} ms/frame  {name[:90]}")
+            del pipe_tag
+            torch.cuda.empty_cache()
 
     require("jax" not in sys.modules, "jax was imported")
+    require(not any(m == "stereomatch_tpu" or m.startswith("stereomatch_tpu.")
+                    for m in sys.modules),
+            "the JAX package was imported")
 
     sources = {"ssd": ("stereomatch_tpu_torch/csrc/ssd.cu",
                        "stereomatch_tpu/ops/ssd_pallas.py:121"),
                "sgm_rows": ("stereomatch_tpu_torch/csrc/sgm.cu",
                             "stereomatch_tpu/ops/sgm_pallas.py:323"),
                "sgm_horizontal": ("stereomatch_tpu_torch/csrc/sgm.cu",
-                                  "stereomatch_tpu/ops/sgm_pallas.py:150")}
+                                  "stereomatch_tpu/ops/sgm_pallas.py:150"),
+               "dp_forward": ("stereomatch_tpu_torch/csrc/dp.cu",
+                              "stereomatch_tpu/ops/dp_pallas.py:40"),
+               "dp_backward": ("stereomatch_tpu_torch/csrc/dp.cu",
+                               "stereomatch_tpu/ops/dp_pallas.py:83"),
+               "cvf": ("stereomatch_tpu_torch/csrc/cvf.cu",
+                       "stereomatch_tpu/ops/cvf_pallas.py:105")}
     kernels = []
     for name, (source, replaces) in sources.items():
-        kernels.append({
+        b_ms, b_by = bounds["teddy"][name]
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errors[f"{name}_teddy"],
             "ms": times[(name, "teddy")][0],
             "plain_ms": times[(name, "teddy")][1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "hd_ms": times[(name, "hd")][0],
             "hd_plain_ms": times[(name, "hd")][1],
-        })
-    log(json.dumps({"kernels": kernels,
-                    "e2e_ms": {"teddy": times[("e2e", "teddy")],
-                               "hd": times[("e2e", "hd")]},
-                    "card": card}))
+            "hd_bound_ms": bounds["hd"][name][0],
+        }
+        if name == "cvf":
+            # K10, the W-chunked form of the same TPU kernel, at HD.
+            entry["also_replaces"] = "stereomatch_tpu/ops/cvf_pallas.py:679"
+            entry["launches_filter_kernel"] = cvf_counts["cvf_filter"]
+        kernels.append(entry)
+    e2e = {label: {tag: times[(label, tag)] for tag in ("teddy", "hd")}
+           for label in ("ssd+sgm+wta", "ssd+sgm+dyn", "census+cvf+wta")}
+    log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

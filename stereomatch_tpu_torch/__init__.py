@@ -5,10 +5,12 @@ hand-written CUDA kernels for NVIDIA Hopper in place of the Pallas TPU
 kernels.  It mirrors the JAX package's module names; the JAX package is
 the reference it is tested against, and this package never imports JAX.
 
-This slice runs the main path: SSD (or SAD) cost -> 8-path SGM with the
-adaptive P2 -> winner-takes-all.  Plain PyTorch versions run on CPU
-tensors and are the kernels' oracles; CUDA tensors go through the
-kernels, which are built with ``nvcc`` at first use.
+It runs SSD, SAD or census costs -> 8-path SGM with the adaptive P2 or
+guided-filter cost-volume filtering (the wedge path) -> winner-takes-all
+or scanline dynamic programming.  Pipelines run on the card unless the
+caller asks for the CPU.  Plain PyTorch versions run on CPU tensors and
+are the kernels' oracles; CUDA tensors go through the kernels, which are
+built with ``nvcc`` at first use.
 """
 
 from . import aggregation, cli_common, convert, cost, disparity_reduce

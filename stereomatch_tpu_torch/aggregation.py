@@ -1,4 +1,4 @@
-"""Aggregation API: ``Semiglobal``, counterpart of
+"""Aggregation API: ``Semiglobal`` and ``CostFilter``, counterparts of
 ``stereomatch_tpu/aggregation.py``."""
 
 from __future__ import annotations
@@ -7,8 +7,9 @@ from typing import Optional
 
 import torch
 
-from .ops import sgm_cuda
+from .ops import cvf_cuda, sgm_cuda
 from .ops.aggregation import semiglobal_aggregate
+from .ops.cvf import check_filter_args, guided_filter_aggregate
 from .utils import validation
 from .utils.backend import resolve_backend
 
@@ -57,3 +58,68 @@ class Semiglobal:
         return semiglobal_aggregate(cost_volume, left_image,
                                     penalty1=float(self.penalty1),
                                     penalty2=float(self.penalty2))
+
+
+class CostFilter:
+    """Guided-filter cost-volume aggregation (Hosni et al., PAMI 2013),
+    the counterpart of the JAX package's ``CostFilter``.
+
+    Edge-aware local smoothing of every disparity slice with the left
+    image as the guide (see ``ops/cvf.py``).  This slice ports the wedge
+    path: ``wedge_offset`` declares that the volume's +inf cells are
+    exactly ``x < d + wedge_offset``, which every registry cost family
+    writes (``cli_common.create_pipeline`` passes 0).  ``wedge_offset=None``
+    and ``subsample > 1`` raise ``NotImplementedError`` (ROADMAP A.9).
+
+    ``penalty1``/``penalty2`` are accepted for registry compatibility with
+    :class:`Semiglobal` and do not apply.
+    """
+
+    def __init__(self, radius: int = 8, eps: float = 1e-4,
+                 subsample: int = 1, penalty1: float = None,
+                 penalty2: float = None, backend: str = "auto",
+                 wedge_offset=None):
+        """
+        Args:
+            radius: box window half-size (support (2*radius+1)^2; the
+              second filter stage doubles the effective reach).
+            eps: edge-stop regulariser in image-intensity^2 units.
+            subsample: 1 (the exact filter); > 1 is not ported yet.
+            penalty1/penalty2: ignored (registry compatibility).
+            backend: "auto" (the CUDA kernels for CUDA tensors, the plain
+              version for CPU tensors), "cuda" (the kernels; raises on
+              CPU tensors) or "torch" (the plain version on the tensors'
+              own device).
+            wedge_offset: the wedge of the volume's invalid cells.
+        """
+        del penalty1, penalty2
+        check_filter_args(int(radius), float(eps), int(subsample),
+                          wedge_offset=wedge_offset)
+        self.radius = radius
+        self.eps = eps
+        self.subsample = subsample
+        self.backend = backend
+        self.wedge_offset = wedge_offset
+
+    def __call__(self, cost_volume: torch.Tensor, left_image: torch.Tensor,
+                 sga_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
+        validation.check_cost_volume(cost_volume)
+        validation.check_rank("left_image", left_image, 2)
+        validation.check_same_device("cost_volume", cost_volume,
+                                     "left_image", left_image)
+        if tuple(cost_volume.shape[:2]) != tuple(left_image.shape):
+            raise validation.ShapeError(
+                f"cost_volume spatial dims {tuple(cost_volume.shape[:2])} do "
+                f"not match left_image {tuple(left_image.shape)}")
+        if not cost_volume.dtype.is_floating_point:
+            raise validation.DTypeError(
+                "cost-volume filtering computes windowed means, a float "
+                f"quantity; got cost volume dtype {cost_volume.dtype}")
+        wedge = None if self.wedge_offset is None else int(self.wedge_offset)
+        kw = dict(radius=int(self.radius), eps=float(self.eps))
+        if resolve_backend(self.backend, cost_volume) == "cuda":
+            return cvf_cuda.guided_filter_aggregate_cuda(
+                cost_volume, left_image, wedge_offset=wedge, **kw)
+        return guided_filter_aggregate(cost_volume, left_image,
+                                       subsample=int(self.subsample),
+                                       wedge_offset=wedge, **kw)

@@ -1,8 +1,9 @@
 """Build the port's pipeline from a JAX package ``Pipeline``.
 
 The stereo engine has no weights: the state that carries across is each
-stage's configuration (the cost's ``max_disparity``, ``kernel_size`` and
-``cost_volume_dtype``, the SGM penalties, the reducer).  It is read from
+stage's configuration (the cost's ``max_disparity``, ``kernel_size``,
+``cost_volume_dtype`` and census ``window_size``, the SGM penalties, the
+guided filter's radius, eps, subsample and wedge offset, the reducer).  It is read from
 the JAX objects by attribute and class name, so this module never
 imports JAX and works on any object of that shape.
 """
@@ -12,12 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .aggregation import Semiglobal
-from .cost import SAD, SSD
-from .disparity_reduce import WinnerTakesAll
+from .aggregation import CostFilter, Semiglobal
+from .cost import SAD, SSD, Census
+from .disparity_reduce import DynamicProgramming, WinnerTakesAll
 from .pipeline import Device, Pipeline
 
-_COSTS = {"SSD": SSD, "SAD": SAD}
+_COSTS = {"SSD": SSD, "SAD": SAD, "Census": Census}
 _DTYPES = {"float32": torch.float32, "int32": torch.int32}
 
 
@@ -42,27 +43,37 @@ def _dtype(jax_dtype) -> torch.dtype:
     return _DTYPES[name]
 
 
-def pipeline_from_jax(jax_pipeline, device: Device = None) -> Pipeline:
-    """The port's equivalent of ``jax_pipeline``, running on ``device``."""
+def pipeline_from_jax(jax_pipeline, device: Device = "cuda") -> Pipeline:
+    """The port's equivalent of ``jax_pipeline``, running on ``device``
+    (the card unless ``"cpu"`` is asked for)."""
     cost = jax_pipeline.cost
     kind = _kind(cost)
     if kind not in _COSTS:
         raise _not_ported(kind)
+    extra = {"window_size": cost.window_size} if kind == "Census" else {}
     port_cost = _COSTS[kind](cost.max_disparity,
                              kernel_size=cost.kernel_size,
-                             cost_volume_dtype=_dtype(cost.cost_volume_dtype))
+                             cost_volume_dtype=_dtype(cost.cost_volume_dtype),
+                             **extra)
 
     port_aggregation = None
     if jax_pipeline.aggregation is not None:
         agg = jax_pipeline.aggregation
         kind = _kind(agg)
-        if kind != "Semiglobal":
+        if kind == "Semiglobal":
+            port_aggregation = Semiglobal(penalty1=agg.penalty1,
+                                          penalty2=agg.penalty2)
+        elif kind == "CostFilter":
+            port_aggregation = CostFilter(radius=agg.radius, eps=agg.eps,
+                                          subsample=agg.subsample,
+                                          wedge_offset=agg.wedge_offset)
+        else:
             raise _not_ported(kind)
-        port_aggregation = Semiglobal(penalty1=agg.penalty1,
-                                      penalty2=agg.penalty2)
 
     kind = _kind(jax_pipeline.disparity_reduce)
-    if kind != "WinnerTakesAll":
+    reducers = {"WinnerTakesAll": WinnerTakesAll,
+                "DynamicProgramming": DynamicProgramming}
+    if kind not in reducers:
         raise _not_ported(kind)
-    return Pipeline(port_cost, WinnerTakesAll(),
+    return Pipeline(port_cost, reducers[kind](),
                     aggregation=port_aggregation, device=device)

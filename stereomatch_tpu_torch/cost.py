@@ -1,4 +1,4 @@
-"""Cost-function API: ``SSD`` and ``SAD``, counterparts of
+"""Cost-function API: ``SSD``, ``SAD`` and ``Census``, counterparts of
 ``stereomatch_tpu/cost.py``.
 
   * ``max_disparity`` is a mutable attribute (the reference's evaluation
@@ -83,3 +83,44 @@ class SAD(_DiffCost):
     :class:`SSD`."""
 
     absolute = True
+
+
+class Census:
+    """Census-transform + Hamming-distance cost (Zabih-Woodfill), the
+    counterpart of the JAX package's ``Census``.
+
+    Plain PyTorch on every device: the JAX package computes it in XLA,
+    with no Pallas kernel, so the port has no CUDA kernel for it.
+
+    Attributes:
+        max_disparity: number of disparity hypotheses.
+        window_size: census window (odd; 5x5 -> one 24-bit code word,
+            larger windows pack several int32 words).
+        kernel_size: optional clipped box-sum window over the Hamming
+            costs (1 = pixelwise, the usual choice before aggregation).
+        cost_volume_dtype: torch.float32 or torch.int32.
+    """
+
+    def __init__(self, max_disparity: int, window_size: int = 5,
+                 kernel_size: int = 1,
+                 cost_volume_dtype: torch.dtype = torch.float32):
+        validation.check_positive("max_disparity", max_disparity)
+        validation.check_positive("window_size", window_size)
+        validation.check_positive("kernel_size", kernel_size)
+        if cost_volume_dtype not in validation.COST_DTYPES:
+            raise validation.DTypeError(
+                f"cost_volume_dtype must be one of "
+                f"{[str(d) for d in validation.COST_DTYPES]}, got "
+                f"{cost_volume_dtype}")
+        self.max_disparity = max_disparity
+        self.window_size = window_size
+        self.kernel_size = kernel_size
+        self.cost_volume_dtype = cost_volume_dtype
+
+    def __call__(self, left_image: torch.Tensor, right_image: torch.Tensor,
+                 cost_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
+        validation.check_stereo_pair(left_image, right_image)
+        return cost_ops.census_hamming_cost_volume(
+            left_image, right_image, max_disparity=self.max_disparity,
+            window_size=self.window_size, kernel_size=self.kernel_size,
+            cost_dtype=self.cost_volume_dtype)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels at first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, which is loaded with ``ctypes``.  Nothing here
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a
+plain C interface, which is loaded with ``ctypes``.  Nothing here
 includes PyTorch's headers, so a build takes seconds, not minutes.  The
 library lands in ``stereomatch_tpu_torch/_build/`` (ignored by git) under
 a name keyed by a hash of the sources and the flags, so an edited kernel
@@ -14,8 +15,10 @@ runs only when a CUDA tensor first asks for a kernel (or when
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` on top of the
 kernels' explicit ``__fadd_rn``/``__fmul_rn``: a contracted
 ``acc + d * d`` rounds once where the plain PyTorch version rounds
-twice, which would break bit-equality with it.  ``--use_fast_math`` is
-never used (it flushes denormals and approximates division).
+twice, which would break bit-equality with it; a kernel fuses a
+multiply-add only where its plain version does, with ``__fmaf_rn``.
+``--use_fast_math`` is never used (it flushes denormals and approximates
+division).
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +56,16 @@ _SIGNATURES = {
     "stm_sgm_rows_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     "stm_sgm_horizontal_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
                                _P),
+    # (cost, ptr, final_costs, H, W, D, stream)
+    "stm_dp_forward_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # (ptr, final_costs, disp, H, W, D, stream)
+    "stm_dp_backward": (_P, _P, _P, _I, _I, _I, _P),
+    # (vol, guide, hi1, lo1, hi2, lo2, pd1, pd2, a0, b0, H, W, D, r, off,
+    #  eps, stream)
+    "stm_cvf_stats_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _F, _P),
+    # (a0, b0, guide, q, H, W, D, r, off, stream)
+    "stm_cvf_filter_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -85,11 +98,25 @@ def _nvcc() -> str:
 
 
 def _key() -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return digest.hexdigest()[:16]
+
+
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; raise with the output of the first
+    that fails, else return all their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outputs)
 
 
 def build() -> BuildResult:
@@ -98,26 +125,23 @@ def build() -> BuildResult:
     if target.is_file():
         return BuildResult(target, 0.0, "")
     nvcc = _nvcc()
-    cu_files = [str(p) for p in _sources() if p.suffix == ".cu"]
+    cu_files = [p for p in _sources() if p.suffix == ".cu"]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile to a private name, then rename: a concurrent process never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu_files]
+    # Build in a private directory, then rename the library into place: a
+    # concurrent process never loads a half-written one.
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    objects = [str(work / f"{p.stem}.o") for p in cu_files]
+    tmp = work / "lib.so"
     start = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
+                         obj, str(src)]
+                        for obj, src in zip(objects, cu_files)])
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *objects]])
         os.replace(tmp, target)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildResult(target, time.perf_counter() - start,
-                       proc.stdout + proc.stderr)
+        shutil.rmtree(work, ignore_errors=True)
+    return BuildResult(target, time.perf_counter() - start, log)
 
 
 def library() -> ctypes.CDLL:

@@ -1,0 +1,76 @@
+"""Launcher of the guided-filter aggregation CUDA kernels (``csrc/cvf.cu``).
+
+Replaces ``stereomatch_tpu/ops/cvf_pallas.py::_fused_wedge_ring_kernel``
+in both its forms (full width, and W-chunked at HD): one design serves
+every geometry.  The plain PyTorch version, and oracle, is
+``ops/cvf.py::guided_filter_aggregate``; the guide planes
+(``ops/cvf.guide_planes``) are the same PyTorch code for both, and the
+kernels keep the plain version's association (window-order box sums, H
+then W, and fused multiply-adds where it fuses).  ``chip_smoke.py``
+holds the two to 1e-5 + 1e-4 |ref| with identical +inf placement; on an
+H100 they were equal bit for bit at teddy, 37x53 and HD.
+
+``STATS_LAUNCHES`` and ``FILTER_LAUNCHES`` count the launches of the two
+kernels (stage 1 -> a0, b0; stage 2 -> q).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .cvf import check_filter_args, check_volume_and_guide, guide_planes
+
+STATS_LAUNCHES = 0
+FILTER_LAUNCHES = 0
+
+_MAX_GRID_Y = 65535         # the block grid's y extent carries the rows
+
+
+def guided_filter_aggregate_cuda(cost_volume: torch.Tensor,
+                                 guide: torch.Tensor, *, radius: int = 8,
+                                 eps: float = 1e-4,
+                                 wedge_offset: int = 0) -> torch.Tensor:
+    """Wedge guided filter of a float32 [H, W, D] CUDA volume: [H, W, D]
+    float32 with +inf on the wedge ``x < d + wedge_offset``."""
+    global STATS_LAUNCHES, FILTER_LAUNCHES
+    check_volume_and_guide(cost_volume, guide)
+    check_filter_args(int(radius), float(eps), wedge_offset=wedge_offset)
+    if not (cost_volume.is_cuda and guide.is_cuda):
+        raise ValueError("guided_filter_aggregate_cuda needs CUDA tensors, "
+                         f"got {cost_volume.device} and {guide.device}")
+    if cost_volume.device != guide.device:
+        raise ValueError(f"tensors on two devices: {cost_volume.device}, "
+                         f"{guide.device}")
+    if cost_volume.dtype != torch.float32:
+        raise TypeError("the CVF kernels take float32 volumes, got "
+                        f"{cost_volume.dtype}")
+    height, width, max_disp = cost_volume.shape
+    if height > _MAX_GRID_Y:
+        raise ValueError(f"height {height} exceeds the kernels' "
+                         f"{_MAX_GRID_Y}-row grid")
+    r, off = int(radius), int(wedge_offset)
+    vol = cost_volume.contiguous()
+    planes = guide_planes(guide, r, off, max_disp)
+    a0 = torch.empty_like(vol)
+    b0 = torch.empty_like(vol)
+    out = torch.empty_like(vol)
+    if vol.numel() == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(vol.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.stm_cvf_stats_f32(
+            vol.data_ptr(), planes.guide.data_ptr(), planes.hi1.data_ptr(),
+            planes.lo1.data_ptr(), planes.hi2.data_ptr(),
+            planes.lo2.data_ptr(), planes.pd1.data_ptr(),
+            planes.pd2.data_ptr(), a0.data_ptr(), b0.data_ptr(), height,
+            width, max_disp, r, off, float(eps), stream)
+        _build.check_launch("stm_cvf_stats_f32", status)
+        STATS_LAUNCHES += 1
+        status = lib.stm_cvf_filter_f32(
+            a0.data_ptr(), b0.data_ptr(), planes.guide.data_ptr(),
+            out.data_ptr(), height, width, max_disp, r, off, stream)
+        _build.check_launch("stm_cvf_filter_f32", status)
+        FILTER_LAUNCHES += 1
+    return out

@@ -22,14 +22,13 @@ Device = Union[str, torch.device, None]
 
 
 def _as_image_tensor(image: Image, device: Device) -> torch.Tensor:
-    """A tensor on ``device``.  With ``device=None`` a tensor stays where
-    it is and a numpy array goes to the CPU, where its data already is.
-    A numpy array is copied: it may be read-only, a tensor never is."""
+    """A tensor on ``device``, numpy array or tensor alike.  A numpy array
+    is copied: it may be read-only, a tensor never is.  ``"cuda"`` on a
+    machine without a GPU raises, as ``Tensor.to`` does: there is no
+    fallback to the CPU."""
     if isinstance(image, np.ndarray):
         image = torch.from_numpy(np.array(image, order="C"))
-    if device is not None:
-        image = image.to(device)
-    return image
+    return image.to(device)
 
 
 class Pipeline:
@@ -38,14 +37,15 @@ class Pipeline:
 
     def __init__(self, cost: Callable, disparity_reduce: Callable,
                  aggregation: Optional[Callable] = None,
-                 device: Device = None):
+                 device: Device = "cuda"):
         """
         Args:
             cost: callable (left, right) -> [H, W, D] cost volume.
             disparity_reduce: callable (volume) -> [H, W] int32 disparity.
             aggregation: optional callable (volume, left_image) -> volume.
-            device: where ``estimate`` puts its inputs when its own
-              ``device=`` is not given; None leaves them where they are.
+            device: where ``estimate`` runs when its own ``device=`` is
+              not given: the card by default; ``"cpu"`` runs the plain
+              PyTorch versions on the CPU.
         """
         self.cost = cost
         self.disparity_reduce = disparity_reduce
@@ -74,8 +74,8 @@ class Pipeline:
     def estimate(self, left_image: Image, right_image: Image,
                  device: Device = None) -> torch.Tensor:
         """Run the pipeline; returns an int32 [H, W] disparity tensor on
-        the device the images ran on (``device``, else ``self.device``,
-        else the images' own device)."""
+        ``device``, else on ``self.device`` (the card unless the pipeline
+        was built for the CPU).  Images, numpy or tensors, go there."""
         device = device if device is not None else self.device
         left_image = _as_image_tensor(left_image, device)
         right_image = _as_image_tensor(right_image, device)

@@ -13,18 +13,28 @@ import pytest
 import torch
 
 from stereomatch_tpu_torch import cli_common
-from stereomatch_tpu_torch.aggregation import Semiglobal
+from stereomatch_tpu_torch.aggregation import CostFilter, Semiglobal
 from stereomatch_tpu_torch.cost import SAD, SSD
+from stereomatch_tpu_torch.disparity_reduce import DynamicProgramming
 from stereomatch_tpu_torch.io.synthetic import stereo_pair
-from stereomatch_tpu_torch.ops import _build, sgm_cuda, ssd_cuda
+from stereomatch_tpu_torch.ops import (_build, cvf_cuda, dp_cuda, sgm_cuda,
+                                       ssd_cuda)
 from stereomatch_tpu_torch.utils.backend import resolve_backend
+
+COUNTERS = ((ssd_cuda, "LAUNCHES"), (sgm_cuda, "ROW_LAUNCHES"),
+            (sgm_cuda, "HORIZONTAL_LAUNCHES"), (dp_cuda, "FORWARD_LAUNCHES"),
+            (dp_cuda, "BACKWARD_LAUNCHES"), (cvf_cuda, "STATS_LAUNCHES"),
+            (cvf_cuda, "FILTER_LAUNCHES"))
 
 
 @pytest.fixture
 def counters(monkeypatch):
-    monkeypatch.setattr(ssd_cuda, "LAUNCHES", 0)
-    monkeypatch.setattr(sgm_cuda, "ROW_LAUNCHES", 0)
-    monkeypatch.setattr(sgm_cuda, "HORIZONTAL_LAUNCHES", 0)
+    for module, name in COUNTERS:
+        monkeypatch.setattr(module, name, 0)
+
+
+def _all_zero():
+    return all(getattr(module, name) == 0 for module, name in COUNTERS)
 
 
 def test_resolve_backend():
@@ -37,24 +47,36 @@ def test_resolve_backend():
         resolve_backend("pallas", cpu)
 
 
-@pytest.mark.parametrize("stage", ["ssd", "sad", "sgm"])
+@pytest.mark.parametrize("stage", ["ssd", "sad", "sgm", "cvf", "dyn"])
 def test_cuda_backend_on_cpu_tensors_raises(stage, counters):
     left = torch.rand(8, 12)
+    vol = torch.rand(8, 12, 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         if stage == "sgm":
-            Semiglobal(backend="cuda")(torch.rand(8, 12, 4), left)
+            Semiglobal(backend="cuda")(vol, left)
+        elif stage == "cvf":
+            CostFilter(backend="cuda", wedge_offset=0)(vol, left)
+        elif stage == "dyn":
+            DynamicProgramming(backend="cuda")(vol)
         else:
             (SSD if stage == "ssd" else SAD)(4, backend="cuda")(left, left)
-    assert ssd_cuda.LAUNCHES == 0 and sgm_cuda.ROW_LAUNCHES == 0
+    assert _all_zero()
 
 
 def test_plain_path_launches_no_kernel(counters):
     left, right, _ = stereo_pair(24, 40, 8, seed=4)
     pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=8)
-    pipe.estimate(left, right)
-    assert ssd_cuda.LAUNCHES == 0
-    assert sgm_cuda.ROW_LAUNCHES == 0
-    assert sgm_cuda.HORIZONTAL_LAUNCHES == 0
+    pipe.estimate(left, right, device="cpu")
+    assert _all_zero()
+
+
+@pytest.mark.parametrize("cost,aggr,reducer", [
+    ("ssd", "sgm", "dyn"), ("census", "cvf", "wta"), ("census", "cvf", "dyn")])
+def test_new_plain_paths_launch_no_kernel(counters, cost, aggr, reducer):
+    left, right, _ = stereo_pair(24, 40, 8, seed=4)
+    pipe = cli_common.create_pipeline(cost, reducer, aggr, max_disparity=8)
+    pipe.estimate(left, right, device="cpu")
+    assert _all_zero()
 
 
 def test_launchers_refuse_cpu_tensors(counters):
@@ -70,8 +92,14 @@ def test_launchers_refuse_cpu_tensors(counters):
     with pytest.raises(ValueError, match="CUDA tensors"):
         sgm_cuda.traverse_cuda(vol, left, torch.empty_like(vol), (0, 1),
                                0.1, 0.2, accumulate=False)
-    assert ssd_cuda.LAUNCHES == 0
-    assert sgm_cuda.ROW_LAUNCHES == sgm_cuda.HORIZONTAL_LAUNCHES == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dp_cuda.dp_forward_cuda(vol)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dp_cuda.dp_backward_cuda(torch.zeros(6, 9, 4, dtype=torch.int8),
+                                 torch.zeros(6, 4))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cvf_cuda.guided_filter_aggregate_cuda(vol, left, wedge_offset=0)
+    assert _all_zero()
 
 
 def test_build_module_needs_nvcc_only_for_a_build(monkeypatch, tmp_path):
@@ -90,7 +118,7 @@ def test_build_key_follows_sources_and_flags():
     key = _build._key()
     assert key == _build._key() and len(key) == 16
     names = {p.name for p in _build._sources()}
-    assert {"ssd.cu", "sgm.cu"} <= names
+    assert {"ssd.cu", "sgm.cu", "dp.cu", "cvf.cu"} <= names
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -6,9 +6,12 @@ its reason, where there is none.  On the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
-The kernels keep their plain versions' association and round every
-operation on its own, so every comparison is bit-equality.  This file
-imports nothing of JAX, so it runs where JAX is not installed.
+The SSD, SGM and DP kernels keep their plain versions' association and
+round every operation on its own, so those comparisons are
+bit-equality.  The CVF kernels keep the plain version's association too
+but are held to chip_smoke.py's bound, 1e-5 + 1e-4 |ref| with identical
++inf placement.  This file imports nothing of JAX, so it runs where JAX
+is not installed.
 """
 
 import numpy as np
@@ -19,7 +22,11 @@ from stereomatch_tpu_torch import cli_common
 from stereomatch_tpu_torch.io.synthetic import stereo_pair
 from stereomatch_tpu_torch.ops import aggregation as agg_ops
 from stereomatch_tpu_torch.ops import cost as cost_ops
-from stereomatch_tpu_torch.ops import sgm_cuda, ssd_cuda
+from stereomatch_tpu_torch.ops import cvf as cvf_ops
+from stereomatch_tpu_torch.ops import disparity as disp_ops
+from stereomatch_tpu_torch.ops import cvf_cuda, dp_cuda, sgm_cuda, ssd_cuda
+
+CVF_RTOL, CVF_ATOL = 1e-4, 1e-5
 
 pytestmark = pytest.mark.cuda
 
@@ -103,7 +110,7 @@ def test_main_path_goes_through_kernels(device, monkeypatch):
     assert disp.is_cuda
     assert ssd_cuda.LAUNCHES == 1
     assert sgm_cuda.ROW_LAUNCHES == 6 and sgm_cuda.HORIZONTAL_LAUNCHES == 2
-    plain = pipe.estimate(left, right)            # numpy -> the CPU
+    plain = pipe.estimate(left, right, device="cpu")
     assert torch.equal(disp.cpu(), plain)
 
 
@@ -112,3 +119,109 @@ def test_wta_ties_go_to_lower_disparity_on_cuda(device):
     vol = rng.integers(0, 2, (32, 48, 64)).astype(np.float32)
     out = cli_common.DISPARITY_METHODS["wta"]()(torch.from_numpy(vol).to(device))
     np.testing.assert_array_equal(out.cpu().numpy(), np.argmin(vol, axis=2))
+
+
+def test_sgm_rows_kernel_bit_equal_at_hd(device):
+    """K4, the TPU's W-on-grid SGM pass, exists for HD's VMEM; its
+    counterpart here is sgm_rows_kernel itself, held at 1024x1280 D=256
+    for one row traversal."""
+    left, right = _images(1024, 1280, 11, device)
+    vol = cost_ops.ssd_cost_volume(left, right, max_disparity=256,
+                                   kernel_size=7)
+    ref = agg_ops.sweep(vol, left, 0.1, 0.2, (1, 0))
+    out = torch.empty_like(vol)
+    sgm_cuda.traverse_cuda(vol, left, out, (1, 0), 0.1, 0.2,
+                           accumulate=False)
+    assert torch.equal(out, ref)
+
+
+DP_SHAPES = [(37, 53, 24), (5, 1, 7), (6, 9, 1), (64, 96, 40), (20, 31, 300),
+             (9, 70, 128)]
+
+
+@pytest.mark.parametrize("shape", DP_SHAPES, ids=str)
+def test_dp_kernels_bit_equal(device, shape):
+    h, w, d = shape
+    rng = np.random.default_rng(h * w + d)
+    vol = torch.from_numpy(rng.random(shape, np.float32)).to(device)
+    ref_ptr, ref_final = disp_ops.dp_forward(vol)
+    ptr, final = dp_cuda.dp_forward_cuda(vol)
+    assert torch.equal(ptr, ref_ptr) and torch.equal(final, ref_final)
+    ref = disp_ops.dp_backward(ref_ptr, disp_ops.dp_end_disparities(
+        ref_final))
+    assert torch.equal(dp_cuda.dp_backward_cuda(ptr, final), ref)
+
+
+@pytest.mark.parametrize("kind", ["ssd_wedge", "ties", "distinct"])
+def test_dp_kernels_ties_and_wedge(device, kind):
+    rng = np.random.default_rng(2)
+    if kind == "ssd_wedge":
+        left, right = _images(33, 60, 4, device)
+        vol = cost_ops.ssd_cost_volume(left, right, max_disparity=20,
+                                       kernel_size=3)
+    elif kind == "ties":
+        vol = torch.from_numpy(rng.integers(0, 2, (16, 40, 33)).astype(
+            np.float32)).to(device)
+    else:
+        vol = torch.from_numpy(rng.permutation(16 * 24 * 64).reshape(
+            16, 24, 64).astype(np.float32)).to(device)
+    assert torch.equal(dp_cuda.dynamic_programming_cuda(vol),
+                       disp_ops.dynamic_programming(vol))
+
+
+CVF_SHAPES = [(20, 30, 12, 3, 0), (17, 25, 8, 2, 3), (33, 41, 16, 8, 0),
+              (12, 40, 16, 1, 0), (24, 26, 5, 4, 0), (8, 12, 4, 0, 0),
+              (37, 53, 24, 8, 0), (30, 300, 100, 8, 1)]
+
+
+def _cvf_close(out, ref):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    fin = torch.isfinite(ref)
+    assert torch.equal(fin, torch.isfinite(out))
+    assert torch.equal(out[~fin], ref[~fin])
+    err = (out[fin] - ref[fin]).abs()
+    assert bool((err <= CVF_ATOL + CVF_RTOL * ref[fin].abs()).all())
+
+
+@pytest.mark.parametrize("shape", CVF_SHAPES, ids=str)
+def test_cvf_kernels_within_bound(device, shape):
+    h, w, d, r, off = shape
+    rng = np.random.default_rng(h + w)
+    vol = rng.random((h, w, d), np.float32)
+    x, dd = np.meshgrid(np.arange(w), np.arange(d), indexing="ij")
+    vol[:, x < dd + off] = np.inf
+    vol = torch.from_numpy(vol).to(device)
+    guide = torch.from_numpy(rng.random((h, w), np.float32)).to(device)
+    kw = dict(radius=r, eps=1e-4, wedge_offset=off)
+    _cvf_close(cvf_cuda.guided_filter_aggregate_cuda(vol, guide, **kw),
+               cvf_ops.guided_filter_aggregate(vol, guide, **kw))
+
+
+def test_census_plain_on_card_equals_cpu(device):
+    left, right = _images(40, 64, 9, device)
+    kw = dict(max_disparity=24, window_size=7, kernel_size=3)
+    out = cost_ops.census_hamming_cost_volume(left, right, **kw)
+    ref = cost_ops.census_hamming_cost_volume(left.cpu(), right.cpu(), **kw)
+    assert out.is_cuda and torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("cost,aggr,reducer", [("ssd", "sgm", "dyn"),
+                                               ("census", "cvf", "wta"),
+                                               ("census", "cvf", "dyn")])
+def test_new_paths_go_through_kernels(device, monkeypatch, cost, aggr,
+                                      reducer):
+    for module, name in ((dp_cuda, "FORWARD_LAUNCHES"),
+                         (dp_cuda, "BACKWARD_LAUNCHES"),
+                         (cvf_cuda, "STATS_LAUNCHES"),
+                         (cvf_cuda, "FILTER_LAUNCHES")):
+        monkeypatch.setattr(module, name, 0)
+    left, right, _ = stereo_pair(48, 80, 16, seed=7)
+    pipe = cli_common.create_pipeline(cost, reducer, aggr, max_disparity=16)
+    disp = pipe.estimate(left, right)             # the card by default
+    assert disp.is_cuda
+    dp_runs = 1 if reducer == "dyn" else 0
+    cvf_runs = 1 if aggr == "cvf" else 0
+    assert dp_cuda.FORWARD_LAUNCHES == dp_cuda.BACKWARD_LAUNCHES == dp_runs
+    assert cvf_cuda.STATS_LAUNCHES == cvf_cuda.FILTER_LAUNCHES == cvf_runs
+    plain = pipe.estimate(left, right, device="cpu")
+    assert torch.equal(disp.cpu(), plain)

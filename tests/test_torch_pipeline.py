@@ -1,4 +1,4 @@
-"""The port's main path end to end against the JAX package and the
+"""The port's pipelines end to end against the JAX package and the
 committed golden anchors.
 
 Both packages build their pipelines from the same registry names
@@ -6,7 +6,8 @@ Both packages build their pipelines from the same registry names
 the same numpy scene: the disparities must be identical.  The port's
 plain path must also reproduce the committed golden disparities
 (tests/data/golden_*_disparity.npz, generated by the XLA oracles) at
-every pixel.
+every pixel.  Pipelines run on the card unless asked for the CPU: every
+run here passes ``device="cpu"``.
 """
 
 from pathlib import Path
@@ -17,9 +18,10 @@ import torch
 
 from stereomatch_tpu import cli_common as jax_cli
 from stereomatch_tpu_torch import Pipeline, cli_common, convert
-from stereomatch_tpu_torch.aggregation import Semiglobal
-from stereomatch_tpu_torch.cost import SAD, SSD
-from stereomatch_tpu_torch.disparity_reduce import WinnerTakesAll
+from stereomatch_tpu_torch.aggregation import CostFilter, Semiglobal
+from stereomatch_tpu_torch.cost import SAD, SSD, Census
+from stereomatch_tpu_torch.disparity_reduce import (DynamicProgramming,
+                                                     WinnerTakesAll)
 from stereomatch_tpu_torch.io.synthetic import stereo_pair
 
 DATA = Path(__file__).parent / "data"
@@ -36,10 +38,10 @@ def test_identical_disparities_to_jax(cost, aggr, dtype):
     jax_pipe = jax_cli.create_pipeline(cost, "wta", aggr, max_disparity=16,
                                        penalty1=0.15, penalty2=0.4,
                                        volume_dtype=dtype)
-    port_pipe = convert.pipeline_from_jax(jax_pipe)
+    port_pipe = convert.pipeline_from_jax(jax_pipe, device="cpu")
     direct = cli_common.create_pipeline(cost, "wta", aggr, max_disparity=16,
                                         penalty1=0.15, penalty2=0.4,
-                                        volume_dtype=dtype)
+                                        volume_dtype=dtype, device="cpu")
     ref = np.asarray(jax_pipe.estimate(left, right))
     out = port_pipe.estimate(left, right)
     assert out.dtype == torch.int32 and out.device.type == "cpu"
@@ -60,7 +62,8 @@ def test_plain_path_reproduces_golden(name):
                                   seed=int(g["seed"]))
     pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=d,
                                       penalty1=float(g["penalty1"]),
-                                      penalty2=float(g["penalty2"]))
+                                      penalty2=float(g["penalty2"]),
+                                      device="cpu")
     pipe.cost.kernel_size = int(g["kernel_size"])
     disp = pipe.estimate(left, right).numpy()
     np.testing.assert_array_equal(disp, g["wta"])
@@ -72,7 +75,7 @@ def test_estimate_takes_tensors_and_numpy_and_a_device():
     left, right, _ = stereo_pair(24, 40, 8, seed=1)
     pipe = Pipeline(SSD(8, kernel_size=3), WinnerTakesAll(),
                     aggregation=Semiglobal())
-    from_numpy = pipe.estimate(left, right)
+    from_numpy = pipe.estimate(left, right, device="cpu")
     from_tensor = pipe.estimate(torch.from_numpy(left),
                                 torch.from_numpy(right), device="cpu")
     assert torch.equal(from_numpy, from_tensor)
@@ -86,17 +89,18 @@ def test_estimate_takes_tensors_and_numpy_and_a_device():
 def test_pipeline_without_aggregation_reduces_the_cost_volume():
     left, right, _ = stereo_pair(16, 32, 8, seed=2)
     pipe = cli_common.create_pipeline("sad", "wta", max_disparity=8)
-    disp = pipe.estimate(left, right)
+    disp = pipe.estimate(left, right, device="cpu")
     assert pipe._aggregation_volume is pipe._cost_volume
     assert isinstance(pipe.cost, SAD)
     assert torch.equal(disp, pipe._cost_volume.argmin(dim=2).int())
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(cost_method="census", disp_method="wta"),
+    dict(cost_method="birchfield", disp_method="wta"),
     dict(cost_method="ncc", disp_method="wta"),
-    dict(cost_method="ssd", disp_method="dyn"),
-    dict(cost_method="ssd", disp_method="wta", aggr_method="cvf"),
+    dict(cost_method="ssd-texture", disp_method="dyn"),
+    dict(cost_method="ssd", disp_method="wta", aggr_method="cvf",
+         cvf_subsample=2),
     dict(cost_method="ssd", disp_method="wta", volume_dtype="bfloat16")])
 def test_not_ported_names_refuse_with_roadmap_item(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -123,11 +127,103 @@ def test_convert_reads_configuration_and_refuses_unported_stages():
     assert (port.aggregation.penalty1, port.aggregation.penalty2) == (0.3, 0.9)
     assert isinstance(port.disparity_reduce, WinnerTakesAll)
     assert port.device == "cpu"
-    for kw in (dict(cost_method="census", disp_method="wta"),
-               dict(cost_method="ssd", disp_method="dyn"),
-               dict(cost_method="ssd", disp_method="wta", aggr_method="cvf")):
+    for kw in (dict(cost_method="ncc", disp_method="wta"),
+               dict(cost_method="birchfield", disp_method="dyn"),
+               dict(cost_method="ssd", disp_method="wta", aggr_method="cvf",
+                    cvf_subsample=2)):
         with pytest.raises(NotImplementedError):
             convert.pipeline_from_jax(jax_cli.create_pipeline(**kw))
     with pytest.raises(TypeError):
         convert.pipeline_from_jax(
             Pipeline(SSD(8), WinnerTakesAll()))      # not a JAX pipeline
+
+
+def test_default_device_is_the_card():
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=8)
+    assert pipe.device == "cuda"
+    assert Pipeline(SSD(8), WinnerTakesAll()).device == "cuda"
+    jax_pipe = jax_cli.create_pipeline("ssd", "wta", max_disparity=8)
+    assert convert.pipeline_from_jax(jax_pipe).device == "cuda"
+    assert cli_common.create_pipeline("ssd", "wta",
+                                      device="cpu").device == "cpu"
+    if not torch.cuda.is_available():
+        # No silent fallback: without a card the default refuses to run.
+        left, right, _ = stereo_pair(8, 16, 4, seed=1)
+        with pytest.raises((RuntimeError, AssertionError)):
+            pipe.estimate(left, right)
+
+
+SMALL = np.load(DATA / "golden_sgm_disparity.npz")
+TEDDY = np.load(DATA / "golden_teddy_disparity.npz")
+
+
+def _golden_scene(g):
+    d = int(g["max_disparity"])
+    return stereo_pair(int(g["height"]), int(g["width"]), d,
+                       seed=int(g["seed"])) + (d,)
+
+
+@pytest.mark.parametrize("golden", [SMALL, TEDDY], ids=["96x128", "teddy"])
+def test_ssd_sgm_dyn_reproduces_golden_dp(golden):
+    left, right, _, d = _golden_scene(golden)
+    pipe = cli_common.create_pipeline(
+        "ssd", "dyn", "sgm", max_disparity=d,
+        penalty1=float(golden["penalty1"]),
+        penalty2=float(golden["penalty2"]), device="cpu")
+    pipe.cost.kernel_size = int(golden["kernel_size"])
+    assert isinstance(pipe.disparity_reduce, DynamicProgramming)
+    np.testing.assert_array_equal(pipe.estimate(left, right).numpy(),
+                                  golden["dp"])
+
+
+def test_census_sgm_wta_reproduces_golden_census():
+    """The census port's bit-level anchor, as tests/test_golden_anchor.py
+    holds the JAX package to it."""
+    left, right, gt, d = _golden_scene(SMALL)
+    pipe = cli_common.create_pipeline(
+        "census", "wta", "sgm", max_disparity=d,
+        penalty1=float(SMALL["penalty1"]),
+        penalty2=float(SMALL["penalty2"]), device="cpu")
+    assert isinstance(pipe.cost, Census)
+    disp = pipe.estimate(left, right).numpy()
+    np.testing.assert_array_equal(disp, SMALL["census_wta"])
+    bad = np.mean((np.abs(disp - gt) > 1)[:, d:])
+    assert bad <= float(SMALL["census_bad_pixel_vs_gt"]) + 1e-9
+
+
+@pytest.mark.parametrize("reducer", ["wta", "dyn"])
+@pytest.mark.parametrize("golden", [SMALL, TEDDY], ids=["96x128", "teddy"])
+def test_census_cvf_paths_match_jax(golden, reducer):
+    """At most 0.01% of pixels may differ from JAX (0 expected: the port
+    equals JAX's reduce_window lowering bit for bit, and JAX's einsum
+    lowering lands on the same disparities)."""
+    left, right, _, d = _golden_scene(golden)
+    jax_pipe = jax_cli.create_pipeline("census", reducer, "cvf",
+                                       max_disparity=d)
+    ref = np.asarray(jax_pipe.estimate(left, right))
+    port_pipe = convert.pipeline_from_jax(jax_pipe, device="cpu")
+    assert isinstance(port_pipe.aggregation, CostFilter)
+    assert port_pipe.aggregation.wedge_offset == 0
+    disp = port_pipe.estimate(left, right).numpy()
+    assert int((disp != ref).sum()) <= ref.size // 10_000
+    direct = cli_common.create_pipeline("census", reducer, "cvf",
+                                        max_disparity=d, device="cpu")
+    np.testing.assert_array_equal(direct.estimate(left, right).numpy(), disp)
+
+
+def test_convert_carries_the_new_stages():
+    jax_pipe = jax_cli.create_pipeline("census", "dyn", "cvf",
+                                       max_disparity=24, cvf_radius=5,
+                                       cvf_eps=3e-4, census_window=7)
+    jax_pipe.cost.kernel_size = 3
+    port = convert.pipeline_from_jax(jax_pipe, device="cpu")
+    assert isinstance(port.cost, Census)
+    assert (port.cost.max_disparity, port.cost.window_size,
+            port.cost.kernel_size) == (24, 7, 3)
+    agg = port.aggregation
+    assert (agg.radius, agg.eps, agg.subsample, agg.wedge_offset) == (
+        5, 3e-4, 1, 0)
+    assert isinstance(port.disparity_reduce, DynamicProgramming)
+    left, right, _ = stereo_pair(30, 48, 24, seed=6)
+    np.testing.assert_array_equal(port.estimate(left, right).numpy(),
+                                  np.asarray(jax_pipe.estimate(left, right)))
