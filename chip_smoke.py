@@ -6,15 +6,19 @@ NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``stereomatch_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card (teddy 375x450
-D=128, 37x53 D=24 and HD 1024x1280 D=256), drives three paths through
-``cli_common.create_pipeline`` and ``Pipeline.estimate`` at the golden
-teddy scene, each with the launch counts set to 0 just before it and
-read just after:
+D=128, 37x53 D=24 and HD 1024x1280 D=256; the SGM chunk kernel on the
+row chunks of 5, 2 and 4 tiles, carries included), drives the paths
+through the entry points a user calls at the golden teddy scene, each
+with the launch counts set to 0 just before it and read just after:
 
 * the main path, SSD -> 8-path SGM -> WTA, against golden ``"wta"``;
 * SSD -> SGM -> scanline DP, against golden ``"dp"``;
 * census -> guided-filter aggregation (CVF) -> WTA, against
   ``tests/data/golden_torch_cvf_teddy.npz``;
+* the row-sharded pipeline, ``parallel.ShardedPipeline`` over 5 row
+  tiles on cuda:0: exact carry hand-off with WTA and with DP, and
+  overlap mode, against the goldens; then HD over 4 tiles against the
+  single-card path (and, with more than one card, one tile per card);
 
 times kernels, plain versions and pipelines with CUDA events, and
 profiles each path with ``torch.profiler`` (device time by kernel, idle
@@ -48,6 +52,12 @@ CVF_ATOL = 1e-5     # kernels keep the plain association (0 expected)
 GOLDEN_MAX_DIFF = 16        # pixels of 168,750 (0.01%); 0 expected
 CVF_GOLDEN_MAX_DIFF = 169   # pixels of 168,750 (0.1%); 0 expected
 WARMUP, REPS = 3, 20
+# The plain versions are Python loops of small launches, hundreds of ms
+# a call at HD: fewer repetitions keep the run inside its time budget.
+PLAIN_WARMUP, PLAIN_REPS = 1, 3
+TEDDY_CUTS = (75, 150, 225, 300)     # 5 row tiles, as the sharded path
+CHUNK_CUTS = {"teddy": TEDDY_CUTS, "ragged": (12,),
+              "hd": (256, 512, 768)}
 
 # The card's published rates (NVIDIA H100 SXM data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -75,14 +85,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn) -> float:
-    """Median device time of ``fn`` over REPS calls after WARMUP calls,
-    each call bracketed by its own CUDA events."""
-    for _ in range(WARMUP):
+def time_ms(torch, fn, warmup=WARMUP, reps=REPS) -> float:
+    """Median device time of ``fn`` over ``reps`` calls after ``warmup``
+    calls, each call bracketed by its own CUDA events."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -101,15 +111,19 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_bounds(h, w, d, k, r):
+def kernel_bounds(h, w, d, k, r, tiles):
     """Least time of each kernel's function at [h, w, d]: each input read
     once, each output written once (float32 4 bytes, pointers 1 byte),
     and the operations of the separable algorithm.  dp_backward reads
-    the one pointer per pixel that its walk needs."""
+    the one pointer per pixel that its walk needs; sgm_chunk (the six
+    row traversals over ``tiles`` row chunks) also writes and reads the
+    [W, D] carry at each of the 6 * (tiles - 1) hand-offs."""
     n, hw = h * w * d, h * w
     return {
         "ssd": bound(2 * hw * 4 + n * 4, n * (2 + 4 * k)),
         "sgm_rows": bound(n * 4 + hw * 4 + n * 4, n * 9 * 6),
+        "sgm_chunk": bound(n * 4 + hw * 4 + n * 4
+                           + 6 * (tiles - 1) * 2 * w * d * 4, n * 9 * 6),
         "sgm_horizontal": bound(n * 4 + hw * 4 + n * 4, n * 9 * 2),
         "dp_forward": bound(n * 4 + n + h * d * 4, n * 4),
         "dp_backward": bound(h * d * 4 + hw + hw * 4, h * d + 2 * hw),
@@ -145,7 +159,7 @@ def profile_path(torch, fn, frames: int = 10):
     return wall_ms, kernels, spans, count / frames
 
 
-def compare(name, ref, out, rtol, atol, exact=False) -> float:
+def compare(name, ref, out, rtol, atol, exact=False, quiet=False) -> float:
     """Hold ``out`` against ``ref``: identical non-finite placement, then
     exact equality or |out - ref| <= atol + rtol * |ref|.  Returns the
     max abs error over finite cells."""
@@ -171,11 +185,75 @@ def compare(name, ref, out, rtol, atol, exact=False) -> float:
     bit_equal = torch.equal(ref, out)
     if exact:
         require(bit_equal, f"{name}: not bit-equal (max abs err {max_err})")
-    log(f"  {name}: max_abs_err={max_err!r} bit_equal={bit_equal}")
+    if not quiet:
+        log(f"  {name}: max_abs_err={max_err!r} bit_equal={bit_equal}")
     return max_err
 
 
+def chunk_spans(height, cuts, step):
+    """The row chunks cut at ``cuts``, in the scan order of ``step``."""
+    edges = [0, *cuts, height]
+    spans = list(zip(edges[:-1], edges[1:]))
+    return spans if step[0] > 0 else spans[::-1]
+
+
+def check_chunks(tag, vol, image, p1, p2) -> float:
+    """The chunk kernel against its plain version for the six row
+    traversals, each chunk from the plain version's carry of the chunk
+    before it in scan order: contributions within the SGM bound (0
+    expected), carries bit-equal.  Returns the max abs error."""
+    from stereomatch_tpu_torch.ops import aggregation as agg_ops
+    from stereomatch_tpu_torch.ops import sgm_cuda
+    max_err, n_equal, n_chunks = 0.0, 0, 0
+    for step in agg_ops.TRAVERSALS[2:]:
+        carry = (None, None)
+        for rank, (a, b) in enumerate(chunk_spans(vol.shape[0],
+                                                  CHUNK_CUTS[tag], step)):
+            kw = dict(penalty1=p1, penalty2=p2, seed=rank == 0)
+            ref, ref_carry = agg_ops.sweep_chunk_with_carry(
+                vol[a:b], image[a:b], step, *carry, **kw)
+            out, out_carry = sgm_cuda.sweep_chunk_with_carry_cuda(
+                vol[a:b], image[a:b], step, *carry, **kw)
+            name = f"sgm_chunk {tag} step {step} rows {a}:{b}"
+            max_err = max(max_err, compare(name, ref, out, SGM_RTOL,
+                                           SGM_ATOL, quiet=True))
+            for i in range(2):
+                compare(f"{name} carry", ref_carry[i], out_carry[i], 0, 0,
+                        exact=True, quiet=True)
+            n_equal += bool(ref.equal(out))
+            n_chunks += 1
+            carry = ref_carry
+    log(f"  sgm_chunk {tag}, chunks {CHUNK_CUTS[tag]}: {n_chunks} chunk "
+        f"launches, max_abs_err={max_err!r}, {n_equal} bit-equal, "
+        f"carries bit-equal")
+    return max_err
+
+
+def chunked_rows(torch, vol, image, p1, p2, cuts, kernel):
+    """The six row traversals of ``vol`` over the row chunks cut at
+    ``cuts`` with carry hand-off, through the chunk kernel (``kernel``)
+    or its plain version; the sharded exact path's SGM rows."""
+    from stereomatch_tpu_torch.ops import aggregation as agg_ops
+    from stereomatch_tpu_torch.ops import sgm_cuda
+    out = torch.empty_like(vol)
+    for i, step in enumerate(agg_ops.TRAVERSALS[2:]):
+        carry = (None, None)
+        for rank, (a, b) in enumerate(chunk_spans(vol.shape[0], cuts,
+                                                  step)):
+            kw = dict(penalty1=p1, penalty2=p2, seed=rank == 0)
+            if kernel:
+                _, carry = sgm_cuda.sweep_chunk_with_carry_cuda(
+                    vol[a:b], image[a:b], step, *carry, out=out[a:b],
+                    accumulate=i > 0, **kw)
+            else:
+                part, carry = agg_ops.sweep_chunk_with_carry(
+                    vol[a:b], image[a:b], step, *carry, **kw)
+                out[a:b] = part if i == 0 else out[a:b] + part
+    return out
+
+
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     # Phase 1: device.
@@ -192,7 +270,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    from stereomatch_tpu_torch import cli_common
+    from stereomatch_tpu_torch import cli_common, parallel
     from stereomatch_tpu_torch.io.synthetic import stereo_pair
     from stereomatch_tpu_torch.ops import (_build, cvf_cuda, dp_cuda,
                                            sgm_cuda, ssd_cuda)
@@ -274,6 +352,9 @@ def main() -> int:
                 sgm_cuda.semiglobal_aggregate_cuda(ref, left, penalty1=p1,
                                                    penalty2=p2),
                 SGM_RTOL, SGM_ATOL)
+        # The chunk kernel (K5; at HD also K6's discharge) on the chunks
+        # of the sharded path's row tiles.
+        errors[f"sgm_chunk_{tag}"] = check_chunks(tag, ref, left, p1, p2)
         # The DP kernels on the SSD volume: each against its plain step.
         ptr_ref, final_ref = disp_ops.dp_forward(ref)
         ptr, final = dp_cuda.dp_forward_cuda(ref)
@@ -308,13 +389,14 @@ def main() -> int:
     # launch counts are set to 0 just before each and read just after.
     counters = {"ssd": (ssd_cuda, "LAUNCHES"),
                 "sgm_rows": (sgm_cuda, "ROW_LAUNCHES"),
+                "sgm_chunk": (sgm_cuda, "CHUNK_LAUNCHES"),
                 "sgm_horizontal": (sgm_cuda, "HORIZONTAL_LAUNCHES"),
                 "dp_forward": (dp_cuda, "FORWARD_LAUNCHES"),
                 "dp_backward": (dp_cuda, "BACKWARD_LAUNCHES"),
                 "cvf": (cvf_cuda, "STATS_LAUNCHES"),
                 "cvf_filter": (cvf_cuda, "FILTER_LAUNCHES")}
 
-    def run_path(label, run, kernels):
+    def run_path(label, run, kernels, shape=(375, 450), d=128):
         torch.cuda.synchronize()
         for module, attr in counters.values():
             setattr(module, attr, 0)
@@ -326,10 +408,10 @@ def main() -> int:
         for name in kernels:
             require(counts[name] > 0, f"{label} launched {name} no time")
         require(disp.is_cuda and disp.dtype == torch.int32
-                and tuple(disp.shape) == (375, 450),
+                and tuple(disp.shape) == shape,
                 f"disparity {disp.device} {disp.dtype} {tuple(disp.shape)}")
         disp_np = disp.cpu().numpy()
-        require(disp_np.min() >= 0 and disp_np.max() < 128,
+        require(disp_np.min() >= 0 and disp_np.max() < d,
                 "disparity out of range")
         return disp_np, counts
 
@@ -398,13 +480,147 @@ def main() -> int:
     require(cvf_counts["cvf"] == cvf_counts["cvf_filter"],
             "the two CVF kernels launched a different number of times")
 
-    # Phase 5: timings (CUDA events, median of REPS after WARMUP).
-    log(f"[timings] median of {REPS} after {WARMUP} warm-ups; card: {card}")
+    # The row-sharded pipeline: 5 row tiles of 75 rows on one card.
+    mesh5 = parallel.make_mesh([dev] * 5, n_batch=1)
+    sharded_kw = dict(kernel_size=k, penalty1=p1, penalty2=p2)
+
+    def sharded_run(label, want, max_diff, golden_bad, kernels, counts_want,
+                    **kw):
+        log(f"[sharded path] {label}, teddy over 5 row tiles on {dev}")
+        pipe_sh = parallel.ShardedPipeline(mesh5, d, **sharded_kw, **kw)
+        disp_np, counts = run_path(
+            f"sharded {label}", lambda: pipe_sh.estimate(left_np, right_np),
+            kernels)
+        for name, n in counts_want.items():
+            require(counts[name] == n, f"sharded {label} launched {name} "
+                    f"{counts[name]} times, not {n}")
+        check_golden(label, disp_np, want, gt, d, max_diff, golden_bad,
+                     1e-4)
+        return counts
+
+    sharded_counts = sharded_run(
+        "exact ssd -> sgm -> wta", golden["wta"], GOLDEN_MAX_DIFF,
+        float(golden["bad_pixel_vs_gt"]),
+        ("ssd", "sgm_chunk", "sgm_horizontal"),
+        dict(ssd=5, sgm_chunk=30, sgm_rows=0, sgm_horizontal=10))
+    launches["sgm_chunk"] = sharded_counts["sgm_chunk"]
+    sharded_run("exact ssd -> sgm -> dyn", golden["dp"], GOLDEN_MAX_DIFF,
+                golden_dp_bad,
+                ("ssd", "sgm_chunk", "sgm_horizontal", "dp_forward",
+                 "dp_backward"),
+                dict(sgm_chunk=30, sgm_rows=0, dp_forward=5, dp_backward=5),
+                reducer="dynamic_programming")
+    sharded_run("overlap=300 ssd -> sgm -> wta", golden["wta"],
+                GOLDEN_MAX_DIFF, float(golden["bad_pixel_vs_gt"]),
+                ("ssd", "sgm_rows", "sgm_horizontal"),
+                dict(sgm_chunk=0, sgm_rows=30), sgm_mode="overlap",
+                overlap=300)
+
+    log(f"[sharded path] exact ssd -> sgm -> wta, hd over 4 row tiles on "
+        f"{dev}, against the single-card path")
+    hd_left, hd_right, _, hd_d, hd_k = shapes["hd"]
+    pipe_hd = cli_common.create_pipeline("ssd", "wta", "sgm",
+                                         max_disparity=hd_d, penalty1=p1,
+                                         penalty2=p2)
+    pipe_hd.cost.kernel_size = hd_k
+    single_hd = pipe_hd.estimate(hd_left, hd_right).cpu().numpy()
+    pipe_sh = parallel.ShardedPipeline(
+        parallel.make_mesh([dev] * 4, n_batch=1), hd_d, kernel_size=hd_k,
+        penalty1=p1, penalty2=p2)
+    disp_np, counts = run_path(
+        "sharded hd", lambda: pipe_sh.estimate(hd_left, hd_right),
+        ("ssd", "sgm_chunk", "sgm_horizontal"), shape=(1024, 1280), d=hd_d)
+    require(counts["sgm_chunk"] == 24 and counts["sgm_rows"] == 0,
+            f"sharded hd launches {counts}")
+    hd_chunk_launches = counts["sgm_chunk"]
+    n_diff = int((disp_np != single_hd).sum())
+    log(f"  pixels differing from the single-card path: {n_diff} of "
+        f"{disp_np.size}")
+    require(n_diff == 0, f"sharded hd differs from the single-card path at "
+            f"{n_diff} pixels")
+    del pipe_hd, pipe_sh
+    torch.cuda.empty_cache()
+
+    # With several cards, one tile per card (teddy: 375 rows in 3 or 5
+    # tiles; HD: 1024 rows in 2, 4 or 8), against the goldens and the
+    # single-card path, timed beside the same tiling on cuda:0.
+    n_cards = torch.cuda.device_count()
+    for tag, choices in (("teddy", (3, 5)), ("hd", (2, 4, 8))):
+        tiles = max([t for t in choices if t <= n_cards], default=1)
+        if tiles == 1:
+            log(f"[sharded path] one tile per card, {tag}: not run "
+                f"({n_cards} card)")
+            continue
+        log(f"[sharded path] exact ssd -> sgm -> wta, {tag} over {tiles} "
+            f"row tiles, one per card")
+        t_left, t_right, _, t_d, t_k = shapes[tag]
+        spread, stacked = (parallel.ShardedPipeline(
+            parallel.make_mesh(devices, n_batch=1), t_d, kernel_size=t_k,
+            penalty1=p1, penalty2=p2) for devices in (
+                [torch.device("cuda", i) for i in range(tiles)],
+                [dev] * tiles))
+        disp_np, _ = run_path(
+            f"sharded {tag} one tile per card",
+            lambda: spread.estimate(t_left.cpu().numpy(),
+                                    t_right.cpu().numpy()),
+            ("ssd", "sgm_chunk", "sgm_horizontal"),
+            shape=tuple(t_left.shape), d=t_d)
+        if tag == "teddy":
+            check_golden("wta", disp_np, golden["wta"], gt, d,
+                         GOLDEN_MAX_DIFF, float(golden["bad_pixel_vs_gt"]),
+                         1e-4)
+        else:
+            require(np.array_equal(disp_np, single_hd),
+                    "hd over one tile per card differs from the single-card "
+                    "path")
+            log("  pixels differing from the single-card path: 0")
+        t_spread = time_ms(torch, lambda: spread.estimate(t_left, t_right))
+        t_stacked = time_ms(torch, lambda: stacked.estimate(t_left, t_right))
+        log(f"  end-to-end {tag}, {tiles} tiles: one per card {t_spread!r} "
+            f"ms/frame, all on {dev} {t_stacked!r} ms/frame "
+            f"(images on {dev}) [{card}]")
+        del spread, stacked
+        torch.cuda.empty_cache()
+    del single_hd
+
+    def paths(tag):
+        """(label, pipeline factory) of each timed path at one geometry:
+        the three single-card paths and the sharded exact paths over
+        sharded_tiles[tag] row tiles on cuda:0."""
+        _, _, _, d, k = shapes[tag]
+        found = []
+        for label, (cost, reducer, aggr) in (
+                ("ssd+sgm+wta", ("ssd", "wta", "sgm")),
+                ("ssd+sgm+dyn", ("ssd", "dyn", "sgm")),
+                ("census+cvf+wta", ("census", "wta", "cvf"))):
+            def make(cost=cost, reducer=reducer, aggr=aggr):
+                pipe_tag = cli_common.create_pipeline(
+                    cost, reducer, aggr, max_disparity=d, penalty1=p1,
+                    penalty2=p2)
+                if cost == "ssd":
+                    pipe_tag.cost.kernel_size = k
+                return pipe_tag
+            found.append((label, make))
+        mesh = parallel.make_mesh([dev] * sharded_tiles[tag], n_batch=1)
+        for label, reducer in (("sharded ssd+sgm+wta", "wta"),
+                               ("sharded ssd+sgm+dyn", "dynamic_programming")):
+            found.append((label, lambda reducer=reducer:
+                          parallel.ShardedPipeline(
+                              mesh, d, kernel_size=k, reducer=reducer,
+                              penalty1=p1, penalty2=p2)))
+        return found
+
+    # Phase 5: timings (CUDA events, median of REPS after WARMUP; plain
+    # versions median of PLAIN_REPS after PLAIN_WARMUP).
+    log(f"[timings] kernels and paths median of {REPS} after {WARMUP} "
+        f"warm-ups, plain versions median of {PLAIN_REPS} after "
+        f"{PLAIN_WARMUP}; card: {card}")
     times, bounds = {}, {}
+    sharded_tiles = {"teddy": 5, "hd": 4}
     for tag in ("teddy", "hd"):
         left, right, _, d, k = shapes[tag]
         h, w = left.shape
-        bounds[tag] = kernel_bounds(h, w, d, k, 8)
+        bounds[tag] = kernel_bounds(h, w, d, k, 8, sharded_tiles[tag])
         kw = dict(max_disparity=d, kernel_size=k)
         vol = cost_ops.ssd_cost_volume(left, right, **kw)
         image = left.contiguous()
@@ -440,6 +656,11 @@ def main() -> int:
                     lambda: cost_ops.ssd_cost_volume(left, right, **kw)),
             "sgm_rows": (family_kernel(rows), family_plain(rows)),
             "sgm_horizontal": (family_kernel(horiz), family_plain(horiz)),
+            "sgm_chunk": (
+                lambda: chunked_rows(torch, vol, image, p1, p2,
+                                     CHUNK_CUTS[tag], kernel=True),
+                lambda: chunked_rows(torch, vol, image, p1, p2,
+                                     CHUNK_CUTS[tag], kernel=False)),
             "dp_forward": (lambda: dp_cuda.dp_forward_cuda(vol),
                            lambda: disp_ops.dp_forward(vol)),
             "dp_backward": (
@@ -453,9 +674,10 @@ def main() -> int:
         }
         for name, (kern, plain) in pairs.items():
             # Plain, kernel, kernel, plain: the two orders cancel drift.
-            t_plain = [time_ms(torch, plain)]
+            plain_reps = dict(warmup=PLAIN_WARMUP, reps=PLAIN_REPS)
+            t_plain = [time_ms(torch, plain, **plain_reps)]
             t_kern = [time_ms(torch, kern), time_ms(torch, kern)]
-            t_plain.append(time_ms(torch, plain))
+            t_plain.append(time_ms(torch, plain, **plain_reps))
             times[(name, tag)] = (min(t_kern), min(t_plain))
             b_ms, b_by = bounds[tag][name]
             log(f"  {name} {tag}: kernel {t_kern} ms, plain {t_plain} ms, "
@@ -468,15 +690,8 @@ def main() -> int:
         del vol, out, ptr, final, census
         torch.cuda.empty_cache()
 
-        for label, (cost, reducer, aggr) in (
-                ("ssd+sgm+wta", ("ssd", "wta", "sgm")),
-                ("ssd+sgm+dyn", ("ssd", "dyn", "sgm")),
-                ("census+cvf+wta", ("census", "wta", "cvf"))):
-            pipe_tag = cli_common.create_pipeline(cost, reducer, aggr,
-                                                  max_disparity=d,
-                                                  penalty1=p1, penalty2=p2)
-            if cost == "ssd":
-                pipe_tag.cost.kernel_size = k
+        for label, make in paths(tag):
+            pipe_tag = make()
             e2e = time_ms(torch, lambda: pipe_tag.estimate(left, right))
             times[(label, tag)] = e2e
             log(f"  end-to-end {label} {tag} {tuple(left.shape)} D={d}: "
@@ -495,15 +710,8 @@ def main() -> int:
     profile_path(torch, lambda: torch.ones(1, device=dev) + 1, frames=1)
     for tag in ("teddy", "hd"):
         left, right, _, d, k = shapes[tag]
-        for label, (cost, reducer, aggr) in (
-                ("ssd+sgm+wta", ("ssd", "wta", "sgm")),
-                ("ssd+sgm+dyn", ("ssd", "dyn", "sgm")),
-                ("census+cvf+wta", ("census", "wta", "cvf"))):
-            pipe_tag = cli_common.create_pipeline(cost, reducer, aggr,
-                                                  max_disparity=d,
-                                                  penalty1=p1, penalty2=p2)
-            if cost == "ssd":
-                pipe_tag.cost.kernel_size = k
+        for label, make in paths(tag):
+            pipe_tag = make()
             wall, by_name, spans, ops = profile_path(
                 torch, lambda: pipe_tag.estimate(left, right))
             busy = sum(by_name.values())
@@ -534,7 +742,9 @@ def main() -> int:
                "dp_backward": ("stereomatch_tpu_torch/csrc/dp.cu",
                                "stereomatch_tpu/ops/dp_pallas.py:83"),
                "cvf": ("stereomatch_tpu_torch/csrc/cvf.cu",
-                       "stereomatch_tpu/ops/cvf_pallas.py:105")}
+                       "stereomatch_tpu/ops/cvf_pallas.py:105"),
+               "sgm_chunk": ("stereomatch_tpu_torch/csrc/sgm.cu",
+                             "stereomatch_tpu/ops/sgm_pallas.py:552")}
     kernels = []
     for name, (source, replaces) in sources.items():
         b_ms, b_by = bounds["teddy"][name]
@@ -553,10 +763,17 @@ def main() -> int:
             # K10, the W-chunked form of the same TPU kernel, at HD.
             entry["also_replaces"] = "stereomatch_tpu/ops/cvf_pallas.py:679"
             entry["launches_filter_kernel"] = cvf_counts["cvf_filter"]
+        if name == "sgm_chunk":
+            # K6, the W-on-grid form of the same TPU kernel, at HD; the
+            # launches are those of the sharded exact path (teddy, 5
+            # tiles; HD, 4 tiles).
+            entry["also_replaces"] = "stereomatch_tpu/ops/sgm_pallas.py:627"
+            entry["hd_launches"] = hd_chunk_launches
         kernels.append(entry)
     e2e = {label: {tag: times[(label, tag)] for tag in ("teddy", "hd")}
-           for label in ("ssd+sgm+wta", "ssd+sgm+dyn", "census+cvf+wta")}
+           for label, _ in paths("teddy")}
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
+    log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

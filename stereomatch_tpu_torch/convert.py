@@ -1,22 +1,25 @@
-"""Build the port's pipeline from a JAX package ``Pipeline``.
+"""Build the port's pipeline and mesh from the JAX package's.
 
 The stereo engine has no weights: the state that carries across is each
 stage's configuration (the cost's ``max_disparity``, ``kernel_size``,
 ``cost_volume_dtype`` and census ``window_size``, the SGM penalties, the
-guided filter's radius, eps, subsample and wedge offset, the reducer).  It is read from
-the JAX objects by attribute and class name, so this module never
-imports JAX and works on any object of that shape.
+guided filter's radius, eps, subsample and wedge offset, the reducer)
+and, for the row-sharded pipeline, the mesh layout (its configuration
+is taken under the same keywords on both sides).  It is read from the
+JAX objects by attribute and class name, so this module never imports
+JAX and works on any object of that shape.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .aggregation import CostFilter, Semiglobal
 from .cost import SAD, SSD, Census
 from .disparity_reduce import DynamicProgramming, WinnerTakesAll
+from .parallel.mesh import BATCH_AXIS, TILE_AXIS, Mesh, make_mesh
 from .pipeline import Device, Pipeline
+from .utils import validation
 
 _COSTS = {"SSD": SSD, "SAD": SAD, "Census": Census}
 _DTYPES = {"float32": torch.float32, "int32": torch.int32}
@@ -37,7 +40,7 @@ def _not_ported(kind: str):
 
 
 def _dtype(jax_dtype) -> torch.dtype:
-    name = np.dtype(getattr(jax_dtype, "dtype", jax_dtype)).name
+    name = validation.dtype_name(jax_dtype)
     if name not in _DTYPES:
         raise _not_ported(f"cost volume dtype {name}")
     return _DTYPES[name]
@@ -77,3 +80,15 @@ def pipeline_from_jax(jax_pipeline, device: Device = "cuda") -> Pipeline:
         raise _not_ported(kind)
     return Pipeline(port_cost, reducers[kind](),
                     aggregation=port_aggregation, device=device)
+
+
+def mesh_from_jax(jax_mesh, devices) -> Mesh:
+    """The (batch, tile) layout of a JAX package mesh laid over the given
+    torch devices (as many as the JAX mesh has; they may repeat)."""
+    shape = jax_mesh.shape
+    n_batch, n_tile = int(shape[BATCH_AXIS]), int(shape[TILE_AXIS])
+    devices = list(devices)
+    if len(devices) != n_batch * n_tile:
+        raise ValueError(f"the JAX mesh is {n_batch} x {n_tile}; got "
+                         f"{len(devices)} torch devices")
+    return make_mesh(devices, n_batch=n_batch)

@@ -4,8 +4,13 @@
 //   _sweep_kernel (K2, entered through _sweep_pass): the vertical and both
 //     diagonal families, forward and reverse  -> sgm_rows_kernel;
 //   _hsweep_kernel_natural (K3, entered through _hsweep_pass_natural): the
-//     horizontal family, forward and reverse  -> sgm_horizontal_kernel.
-// Both kernels walk straight pixel paths with the same device function,
+//     horizontal family, forward and reverse  -> sgm_horizontal_kernel;
+//   _chunk_kernel (K5, entered through sweep_chunk_with_carry) and its
+//     W-on-grid form _chunk_kernel_wgrid (K6): one row traversal over a
+//     chunk of rows that starts from the carry of the row before the chunk
+//     and emits the carry of its last row, the exact cross-tile hand-off
+//     of the row-sharded pipeline  -> sgm_chunk_kernel.
+// All three kernels walk straight pixel paths with the same device function,
 // sgm_path, the design of the reference's semiglobal_gpu.cu: one warp per
 // path, the [D] carry in registers (lane l holds d = l*VPL .. l*VPL+VPL-1),
 // min over D by warp shuffles, and out (+)= L in place.  The TPU kernels'
@@ -25,13 +30,32 @@
 // One launch per traversal, in the plain version's order, fixes the order
 // of the accumulation into out.
 //
+// The chunk kernel (plain version: ops/aggregation.py::
+// sweep_chunk_with_carry) is sgm_path with WITH_CARRY set, a compile-time
+// flag, so the instantiations of the two whole-image kernels are the code
+// they were.  A path that enters through the chunk's first row in scan
+// order continues the path of its predecessor pixel (y - dy, x - dx) in
+// the row before the chunk: its first step takes prev = carry[x - dx] and
+// the intensity carry_image[x - dx] instead of L = C.  Where x - dx falls
+// outside [0, W) (the diagonal's entry column) or seed is set (the first
+// chunk in scan order) it starts with L = C, and so does every path that
+// enters through the side column.  Each path whose last pixel lies on the
+// chunk's last row in scan order writes its L there into carry_out[x];
+// every column of that row ends exactly one path.  The TPU kernel fused
+// the three row families into one [F, W, D] carry to save VMEM passes;
+// here one launch covers one traversal of one chunk, and its [W, D] carry
+// is read once and written once.
+//
 // What bounds it on an H100: the recurrence is sequential along a path,
 // and a traversal has only W, H or W+H-1 paths (450-824 warps at teddy),
 // a few warps per SM, so each step's latency (cost load, shuffle-min,
 // read-modify-write of out) bounds it, not bandwidth (each traversal
 // moves 3 * H*W*D*4 bytes, 259 MB at teddy).  The design hides what it
 // can: the next step's cost and out values are loaded before the current
-// step's shuffle-min, which does not depend on them.
+// step's shuffle-min, which does not depend on them.  A chunk launch has
+// the same W or W+Hc-1 warps over paths of at most Hc steps (75 at teddy
+// in 5 row tiles): the same latency bound over fewer steps, paid once per
+// chunk in launch and ramp-up.
 
 #include <cuda_runtime.h>
 
@@ -87,12 +111,22 @@ __host__ __device__ __forceinline__ int path_count(int H, int W, int dy,
   return W + H - 1;
 }
 
-template <int VPL>
+// Hand-off buffers of the chunk kernel: the carry [W, D] and intensities
+// [W] of the row before the chunk in scan order (unread when seed is
+// set), and the carry [W, D] of the chunk's last row.
+struct Carry {
+  const float* in;
+  const float* image;
+  float* out;
+  bool seed;
+};
+
+template <int VPL, bool WITH_CARRY>
 __device__ void sgm_path(const float* __restrict__ cost,
                          const float* __restrict__ image,
                          float* __restrict__ out, int H, int W, int D,
                          int dy, int dx, float p1, float p2, bool accumulate,
-                         int path) {
+                         int path, Carry carry) {
   const int lane = threadIdx.x & 31;
   const int d0 = lane * VPL;
   const Path p = path_of(path, H, W, dy, dx);
@@ -109,6 +143,22 @@ __device__ void sgm_path(const float* __restrict__ cost,
   float intensity = image[pix];
   float prev_int = 0.0f;
 
+  // A path entering through the chunk's first row (the first W paths,
+  // path_of) continues from the carry unless it seeds.
+  bool from_carry = false;
+  if constexpr (WITH_CARRY) {
+    const int xp = p.x - dx;
+    if (!carry.seed && path < W && xp >= 0 && xp < W) {
+      from_carry = true;
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        prev[j] = d0 + j < D ? carry.in[static_cast<long>(xp) * D + d0 + j]
+                             : inf_f();
+      }
+      prev_int = carry.image[xp];
+    }
+  }
+
   for (int s = 0; s < p.len; ++s) {
     // Loads of the next pixel: independent of this step's recurrence.
     const long next = pix + step;
@@ -123,7 +173,7 @@ __device__ void sgm_path(const float* __restrict__ cost,
     const float int_next = more ? image[next] : 0.0f;
 
     float L[VPL];
-    if (s == 0) {
+    if (s == 0 && !from_carry) {
 #pragma unroll
       for (int j = 0; j < VPL; ++j) L[j] = c[j];
     } else {
@@ -170,6 +220,18 @@ __device__ void sgm_path(const float* __restrict__ cost,
     intensity = int_next;
     pix = next;
   }
+
+  if constexpr (WITH_CARRY) {
+    // prev holds L at the path's last pixel.
+    const int y_end = p.y + dy * (p.len - 1);
+    if (y_end == (dy > 0 ? H - 1 : 0)) {
+      const long x_end = p.x + dx * (p.len - 1);
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        if (d0 + j < D) carry.out[x_end * D + d0 + j] = prev[j];
+      }
+    }
+  }
 }
 
 template <int VPL>
@@ -180,7 +242,8 @@ __global__ void sgm_rows_kernel(const float* __restrict__ cost,
                                 bool accumulate) {
   const int path = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
-  sgm_path<VPL>(cost, image, out, H, W, D, dy, dx, p1, p2, accumulate, path);
+  sgm_path<VPL, false>(cost, image, out, H, W, D, dy, dx, p1, p2, accumulate,
+                       path, Carry{});
 }
 
 template <int VPL>
@@ -191,31 +254,60 @@ __global__ void sgm_horizontal_kernel(const float* __restrict__ cost,
                                       bool accumulate) {
   const int path = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (path >= H) return;
-  sgm_path<VPL>(cost, image, out, H, W, D, 0, dx, p1, p2, accumulate, path);
+  sgm_path<VPL, false>(cost, image, out, H, W, D, 0, dx, p1, p2, accumulate,
+                       path, Carry{});
 }
 
 template <int VPL>
-void launch(bool rows, const float* cost, const float* image, float* out,
+__global__ void sgm_chunk_kernel(const float* __restrict__ cost,
+                                 const float* __restrict__ image,
+                                 float* __restrict__ out, int H, int W, int D,
+                                 int dy, int dx, float p1, float p2,
+                                 bool accumulate, Carry carry) {
+  const int path = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
+  sgm_path<VPL, true>(cost, image, out, H, W, D, dy, dx, p1, p2, accumulate,
+                      path, carry);
+}
+
+enum class Kind { kRows, kHorizontal, kChunk };
+
+template <int VPL>
+void launch(Kind kind, const float* cost, const float* image, float* out,
             int H, int W, int D, int dy, int dx, float p1, float p2,
-            bool accumulate, cudaStream_t stream) {
+            bool accumulate, Carry carry, cudaStream_t stream) {
   const int paths = path_count(H, W, dy, dx);
   const int blocks = (paths + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const int threads = 32 * kWarpsPerBlock;
-  if (rows) {
-    sgm_rows_kernel<VPL><<<blocks, threads, 0, stream>>>(
-        cost, image, out, H, W, D, dy, dx, p1, p2, accumulate);
-  } else {
-    sgm_horizontal_kernel<VPL><<<blocks, threads, 0, stream>>>(
-        cost, image, out, H, W, D, dx, p1, p2, accumulate);
+  switch (kind) {
+    case Kind::kRows:
+      sgm_rows_kernel<VPL><<<blocks, threads, 0, stream>>>(
+          cost, image, out, H, W, D, dy, dx, p1, p2, accumulate);
+      break;
+    case Kind::kHorizontal:
+      sgm_horizontal_kernel<VPL><<<blocks, threads, 0, stream>>>(
+          cost, image, out, H, W, D, dx, p1, p2, accumulate);
+      break;
+    case Kind::kChunk:
+      sgm_chunk_kernel<VPL><<<blocks, threads, 0, stream>>>(
+          cost, image, out, H, W, D, dy, dx, p1, p2, accumulate, carry);
+      break;
   }
 }
 
-int dispatch(bool rows, const void* cost, const void* image, void* out,
+int dispatch(Kind kind, const void* cost, const void* image, void* out,
              int H, int W, int D, int dy, int dx, float p1, float p2,
-             int accumulate, void* stream) {
-  // rows: dy in {-1, 1}, dx in {-1, 0, 1}; horizontal: dy == 0, |dx| == 1.
-  const bool ok = rows ? (dy == 1 || dy == -1) && dx >= -1 && dx <= 1
-                       : dy == 0 && (dx == 1 || dx == -1);
+             int accumulate, Carry carry, void* stream) {
+  // rows and chunk: dy in {-1, 1}, dx in {-1, 0, 1}; horizontal: dy == 0,
+  // |dx| == 1.  A chunk that does not seed needs the incoming carry.
+  const bool ok =
+      kind == Kind::kHorizontal
+          ? dy == 0 && (dx == 1 || dx == -1)
+          : (dy == 1 || dy == -1) && dx >= -1 && dx <= 1 &&
+                (kind != Kind::kChunk ||
+                 (carry.out != nullptr &&
+                  (carry.seed || (carry.in != nullptr &&
+                                  carry.image != nullptr))));
   if (!ok || D < 1 || D > 32 * 16 || H < 1 || W < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -225,15 +317,15 @@ int dispatch(bool rows, const void* cost, const void* image, void* out,
   const auto s = static_cast<cudaStream_t>(stream);
   const bool acc = accumulate != 0;
   if (D <= 32) {
-    launch<1>(rows, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
+    launch<1>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, carry, s);
   } else if (D <= 64) {
-    launch<2>(rows, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
+    launch<2>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, carry, s);
   } else if (D <= 128) {
-    launch<4>(rows, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
+    launch<4>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, carry, s);
   } else if (D <= 256) {
-    launch<8>(rows, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
+    launch<8>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, carry, s);
   } else {
-    launch<16>(rows, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
+    launch<16>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, carry, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -245,8 +337,8 @@ extern "C" int stm_sgm_rows_f32(const void* cost, const void* image,
                                 void* out, int H, int W, int D, int dy,
                                 int dx, float p1, float p2, int accumulate,
                                 void* stream) {
-  return dispatch(true, cost, image, out, H, W, D, dy, dx, p1, p2,
-                  accumulate, stream);
+  return dispatch(Kind::kRows, cost, image, out, H, W, D, dy, dx, p1, p2,
+                  accumulate, Carry{}, stream);
 }
 
 // One traversal of the horizontal family (step dy = 0, dx = +-1).
@@ -254,6 +346,22 @@ extern "C" int stm_sgm_horizontal_f32(const void* cost, const void* image,
                                       void* out, int H, int W, int D, int dy,
                                       int dx, float p1, float p2,
                                       int accumulate, void* stream) {
-  return dispatch(false, cost, image, out, H, W, D, dy, dx, p1, p2,
-                  accumulate, stream);
+  return dispatch(Kind::kHorizontal, cost, image, out, H, W, D, dy, dx, p1,
+                  p2, accumulate, Carry{}, stream);
+}
+
+// One row traversal (dy = +-1) over a chunk of H rows with carry hand-off:
+// carry [W, D] and carry_image [W] belong to the row before the chunk in
+// scan order (ignored, and may be null, when seed is set); carry_out
+// [W, D] receives the path costs of the chunk's last row in scan order.
+extern "C" int stm_sgm_chunk_f32(const void* cost, const void* image,
+                                 const void* carry, const void* carry_image,
+                                 void* out, void* carry_out, int H, int W,
+                                 int D, int dy, int dx, float p1, float p2,
+                                 int seed, int accumulate, void* stream) {
+  const Carry hand_off{static_cast<const float*>(carry),
+                       static_cast<const float*>(carry_image),
+                       static_cast<float*>(carry_out), seed != 0};
+  return dispatch(Kind::kChunk, cost, image, out, H, W, D, dy, dx, p1, p2,
+                  accumulate, hand_off, stream);
 }

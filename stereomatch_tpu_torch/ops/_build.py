@@ -56,6 +56,10 @@ _SIGNATURES = {
     "stm_sgm_rows_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     "stm_sgm_horizontal_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
                                _P),
+    # (cost, image, carry, carry_image, out, carry_out, H, W, D, dy, dx,
+    #  p1, p2, seed, accumulate, stream)
+    "stm_sgm_chunk_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                          _I, _I, _P),
     # (cost, ptr, final_costs, H, W, D, stream)
     "stm_dp_forward_f32": (_P, _P, _P, _I, _I, _I, _P),
     # (ptr, final_costs, disp, H, W, D, stream)

@@ -166,6 +166,60 @@ def sweep(cost: torch.Tensor, image: torch.Tensor, penalty1: float,
                            down_right=dy == dx, reverse=dy < 0)
 
 
+def sweep_chunk_with_carry(cost: torch.Tensor, image: torch.Tensor,
+                           step: tuple, carry=None, carry_image=None, *,
+                           penalty1: float, penalty2: float, seed: bool):
+    """One row traversal (``step`` = (dy, dx), dy = +-1) over a chunk of
+    rows, continuing the paths of the row before the chunk.
+
+    The plain version, and oracle, of ``sgm_cuda.sweep_chunk_with_carry_cuda``
+    (the counterpart of the TPU's ``_chunk_kernel``): the exact hand-off of
+    the row-sharded pipeline, where each row tile continues every path
+    from its predecessor tile in scan order.
+
+    Args:
+      cost: [Hc, W, D] float32, the chunk's rows in image order.
+      image: [Hc, W] float32 left-image intensities of the chunk.
+      carry: [W, D] path costs of the row just before the chunk in scan
+        order (image row above it for dy = 1, below it for dy = -1),
+        indexed by image column; required unless ``seed``.
+      carry_image: [W] intensities of that row.
+      seed: the chunk's first row in scan order is the image's: every
+        path starts there with L = C and the carry is not read.
+
+    Returns:
+      (contributions [Hc, W, D], (carry [W, D], intensities [W]) of the
+      chunk's last row in scan order), in image coordinates.  A chunk of
+      the whole image with ``seed=True`` gives ``sweep(...)`` bit for bit:
+      this is its scan, with the flips of ``_sweep_vertical`` and
+      ``_sweep_diagonal``.
+    """
+    dy, dx = step
+    if dy not in (1, -1) or dx not in (-1, 0, 1):
+        raise ValueError(f"a chunk sweep takes a row traversal, got {step}")
+    if not seed and (carry is None or carry_image is None):
+        raise ValueError("a chunk that does not seed needs the carry and "
+                         "intensities of the row before it")
+    # The scan frame: reversed traversals scan the flipped block, and the
+    # diagonals flip W with H (the volume rotated by 180 degrees).
+    dims = (0,) if dx == 0 else (0, 1)
+    shift = 0 if dx == 0 else (1 if dy == dx else -1)
+    vol, img = cost, image
+    init = None if seed else (carry, carry_image)
+    if dy < 0:
+        vol, img = vol.flip(dims), img.flip(dims)
+        if dx != 0 and init is not None:
+            init = (init[0].flip(0), init[1].flip(0))
+    (final, final_image), out = sgm_scan_with_carry(
+        vol, img, penalty1, penalty2, shift, init_carry=init,
+        seed_first=seed)
+    if dy < 0:
+        out = out.flip(dims)
+        if dx != 0:
+            final, final_image = final.flip(0), final_image.flip(0)
+    return out, (final, final_image)
+
+
 def semiglobal_aggregate(cost_volume: torch.Tensor, left_image: torch.Tensor,
                          *, penalty1: float = 0.1,
                          penalty2: float = 0.2) -> torch.Tensor:

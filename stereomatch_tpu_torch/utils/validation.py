@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 # Input images: the reference's STM_DISPATCH_COSTFUNC_TYPES set
@@ -24,6 +25,16 @@ class ShapeError(ValueError):
 
 class DTypeError(TypeError):
     """Raised when an op receives tensors of an unsupported dtype."""
+
+
+def dtype_name(dtype) -> str:
+    """The name ("float32", "bfloat16", ...) of a torch, numpy or JAX
+    dtype, scalar type or name, read without importing JAX."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    if isinstance(dtype, str):
+        return dtype
+    return getattr(dtype, "__name__", None) or np.dtype(dtype).name
 
 
 def check_rank(name: str, arr, rank: int) -> None:

@@ -22,6 +22,8 @@ from stereomatch_tpu_torch.aggregation import Semiglobal
 from stereomatch_tpu_torch.ops import aggregation as port_agg
 from stereomatch_tpu_torch.utils import validation
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 2e-6, 1e-5   # Pallas pass order vs the XLA traversal order
 
 

@@ -6,13 +6,15 @@ its reason, where there is none.  On the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
-The SSD, SGM and DP kernels keep their plain versions' association and
-round every operation on its own, so those comparisons are
-bit-equality.  The CVF kernels keep the plain version's association too
+The SSD, SGM (the chunk kernel's carries included) and DP kernels keep
+their plain versions' association and round every operation on its own,
+so those comparisons are bit-equality.  The CVF kernels keep the plain version's association too
 but are held to chip_smoke.py's bound, 1e-5 + 1e-4 |ref| with identical
 +inf placement.  This file imports nothing of JAX, so it runs where JAX
 is not installed.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from stereomatch_tpu_torch.ops import cost as cost_ops
 from stereomatch_tpu_torch.ops import cvf as cvf_ops
 from stereomatch_tpu_torch.ops import disparity as disp_ops
 from stereomatch_tpu_torch.ops import cvf_cuda, dp_cuda, sgm_cuda, ssd_cuda
+from stereomatch_tpu_torch.parallel import ShardedPipeline, make_mesh
 
 CVF_RTOL, CVF_ATOL = 1e-4, 1e-5
 
@@ -225,3 +228,79 @@ def test_new_paths_go_through_kernels(device, monkeypatch, cost, aggr,
     assert cvf_cuda.STATS_LAUNCHES == cvf_cuda.FILTER_LAUNCHES == cvf_runs
     plain = pipe.estimate(left, right, device="cpu")
     assert torch.equal(disp.cpu(), plain)
+
+
+def _chunks_against_plain(vol, image, step, cuts):
+    """Each chunk in scan order through the kernel and the plain version,
+    both from the plain version's carry of the chunk before it."""
+    edges = [0, *cuts, vol.shape[0]]
+    spans = list(zip(edges[:-1], edges[1:]))
+    carry = (None, None)
+    for rank, (a, b) in enumerate(spans if step[0] > 0 else spans[::-1]):
+        kw = dict(penalty1=0.1, penalty2=0.2, seed=rank == 0)
+        ref, ref_carry = agg_ops.sweep_chunk_with_carry(
+            vol[a:b], image[a:b], step, *carry, **kw)
+        out, out_carry = sgm_cuda.sweep_chunk_with_carry_cuda(
+            vol[a:b], image[a:b], step, *carry, **kw)
+        assert torch.equal(out, ref), (step, a, b)
+        assert torch.equal(out_carry[0], ref_carry[0]), (step, a, b)
+        assert torch.equal(out_carry[1], ref_carry[1]), (step, a, b)
+        carry = ref_carry
+
+
+@pytest.mark.parametrize("shape,cuts", [
+    ((375, 450, 128, 7), (75, 150, 225, 300)),      # teddy, 5 tiles
+    ((37, 53, 24, 3), (12,)),                        # ragged, 12 + 25
+    ((1024, 1280, 256, 7), (256, 512, 768))],        # HD, 4 tiles (K6)
+    ids=["teddy", "ragged", "hd"])
+def test_sgm_chunk_kernel_bit_equal_with_carry(device, shape, cuts):
+    h, w, d, k = shape
+    left, right = _images(h, w, h + 2 * w, device)
+    vol = cost_ops.ssd_cost_volume(left, right, max_disparity=d,
+                                   kernel_size=k)
+    for step in agg_ops.TRAVERSALS[2:]:
+        _chunks_against_plain(vol, left, step, cuts)
+
+
+def test_sgm_chunk_kernel_accumulates_and_refuses(device):
+    left, right = _images(20, 30, 4, device)
+    vol = cost_ops.ssd_cost_volume(left, right, max_disparity=12,
+                                   kernel_size=2)
+    ref, carry = agg_ops.sweep_chunk_with_carry(
+        vol[:8], left[:8], (1, 1), penalty1=0.1, penalty2=0.2, seed=True)
+    part, _ = agg_ops.sweep_chunk_with_carry(
+        vol[8:], left[8:], (1, 1), *carry, penalty1=0.1, penalty2=0.2,
+        seed=False)
+    out = torch.ones_like(vol[8:])
+    sgm_cuda.sweep_chunk_with_carry_cuda(
+        vol[8:], left[8:], (1, 1), *carry, penalty1=0.1, penalty2=0.2,
+        seed=False, out=out, accumulate=True)
+    assert torch.equal(out, torch.ones_like(out) + part)
+    with pytest.raises(ValueError, match="carry"):
+        sgm_cuda.sweep_chunk_with_carry_cuda(vol, left, (1, 0), penalty1=0.1,
+                                             penalty2=0.2, seed=False)
+    with pytest.raises(ValueError, match="row traversal"):
+        sgm_cuda.sweep_chunk_with_carry_cuda(vol, left, (0, 1), penalty1=0.1,
+                                             penalty2=0.2, seed=True)
+
+
+@pytest.mark.parametrize("reducer,key", [("wta", "wta"),
+                                         ("dynamic_programming", "dp")])
+def test_sharded_teddy_on_one_card_reproduces_golden(device, monkeypatch,
+                                                     reducer, key):
+    """5 row tiles on cuda:0: the exact hand-off through the chunk kernel,
+    30 launches a frame and no whole-image row launch."""
+    g = np.load(Path(__file__).parent / "data" / "golden_teddy_disparity.npz")
+    d = int(g["max_disparity"])
+    left, right, _ = stereo_pair(int(g["height"]), int(g["width"]), d,
+                                 seed=int(g["seed"]))
+    monkeypatch.setattr(sgm_cuda, "CHUNK_LAUNCHES", 0)
+    monkeypatch.setattr(sgm_cuda, "ROW_LAUNCHES", 0)
+    pipe = ShardedPipeline(make_mesh([device] * 5, n_batch=1), d,
+                           kernel_size=int(g["kernel_size"]),
+                           reducer=reducer, penalty1=float(g["penalty1"]),
+                           penalty2=float(g["penalty2"]))
+    out = pipe.estimate(left, right)
+    assert out.device == device
+    assert sgm_cuda.CHUNK_LAUNCHES == 30 and sgm_cuda.ROW_LAUNCHES == 0
+    np.testing.assert_array_equal(out.cpu().numpy(), g[key])

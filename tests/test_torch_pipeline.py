@@ -24,6 +24,8 @@ from stereomatch_tpu_torch.disparity_reduce import (DynamicProgramming,
                                                      WinnerTakesAll)
 from stereomatch_tpu_torch.io.synthetic import stereo_pair
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 DATA = Path(__file__).parent / "data"
 
 
