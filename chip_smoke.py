@@ -20,12 +20,15 @@ with the launch counts set to 0 just before it and read just after:
   overlap mode, against the goldens; then HD over 4 tiles against the
   single-card path (and, with more than one card, one tile per card);
 
-times kernels, plain versions and pipelines with CUDA events, and
-profiles each path with ``torch.profiler`` (device time by kernel, idle
-share).  Any failure raises and exits non-zero; nothing falls back.  The last line of
-standard output is one JSON object with ``"ok": true`` and the device;
-the line before it lists the kernels with their launch counts, errors,
-times and bounds.  It imports nothing of JAX.
+times kernels, plain versions and pipelines with CUDA events (the SGM
+rows and horizontal families also against the one-step walk they
+replaced, in turns, and over the ring depths and block shapes they are
+built for), and profiles each path with ``torch.profiler`` (device time
+by kernel, idle share).  Any failure raises and exits non-zero; nothing
+falls back.  The last line of standard output is one JSON object with
+``"ok": true`` and the device; the line before it lists the kernels with
+their launch counts, errors, times, bounds and design floors.  It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ PLAIN_WARMUP, PLAIN_REPS = 1, 3
 TEDDY_CUTS = (75, 150, 225, 300)     # 5 row tiles, as the sharded path
 CHUNK_CUTS = {"teddy": TEDDY_CUTS, "ragged": (12,),
               "hd": (256, 512, 768)}
+RING_WARPS = (1, 2, 4)      # warps a block in the SGM ring sweep
 
 # The card's published rates (NVIDIA H100 SXM data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -111,25 +115,56 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_bounds(h, w, d, k, r, tiles):
-    """Least time of each kernel's function at [h, w, d]: each input read
-    once, each output written once (float32 4 bytes, pointers 1 byte),
-    and the operations of the separable algorithm.  dp_backward reads
-    the one pointer per pixel that its walk needs; sgm_chunk (the six
-    row traversals over ``tiles`` row chunks) also writes and reads the
-    [W, D] carry at each of the 6 * (tiles - 1) hand-offs."""
-    n, hw = h * w * d, h * w
-    return {
-        "ssd": bound(2 * hw * 4 + n * 4, n * (2 + 4 * k)),
-        "sgm_rows": bound(n * 4 + hw * 4 + n * 4, n * 9 * 6),
-        "sgm_chunk": bound(n * 4 + hw * 4 + n * 4
-                           + 6 * (tiles - 1) * 2 * w * d * 4, n * 9 * 6),
-        "sgm_horizontal": bound(n * 4 + hw * 4 + n * 4, n * 9 * 2),
-        "dp_forward": bound(n * 4 + n + h * d * 4, n * 4),
-        "dp_backward": bound(h * d * 4 + hw + hw * 4, h * d + 2 * hw),
-        "cvf": bound(n * 4 + 5 * hw * 4 + 2 * h * d * 4 + n * 4,
-                     n * (16 * r + 25)),
+def kernel_work(h, w, d, k, r, tiles):
+    """Work of each kernel's function at [h, w, d], as {name: (bytes,
+    operations, design_bytes)}.
+
+    bytes: each input read once, each output written once (float32 4
+    bytes, pointers 1 byte); operations: those of the separable
+    algorithm.  dp_backward reads the one pointer per pixel that its walk
+    needs; sgm_chunk (the six row traversals over ``tiles`` row chunks)
+    also writes and reads the [W, D] carry at each of the
+    6 * (tiles - 1) hand-offs.
+
+    design_bytes: what the kernels' launch structure moves, one launch
+    per traversal as the path runs it.  sgm_rows: six traversals, each
+    reading the cost volume, the image and the out volume it accumulates
+    onto and writing out back (18 volumes, 6 images); sgm_horizontal: the
+    family's first launch writes out without reading it (5 volumes, 2
+    images); sgm_chunk: sgm_rows' traffic plus the carries; cvf: the
+    stats kernel reads the volume and the guide planes and writes a0 and
+    b0, the filter kernel reads a0, b0 and the guide and writes the
+    result.  The single-pass kernels move their function's bytes."""
+    vol, img, f = h * w * d, h * w, 4        # elements; float32 bytes
+    hd = h * d * f
+    carries = 6 * (tiles - 1) * 2 * w * d * f
+    rows = (18 * vol + 6 * img) * f
+    single = {
+        "ssd": ((2 * img + vol) * f, vol * (2 + 4 * k)),
+        "dp_forward": (vol * f + vol + hd, vol * 4),
+        "dp_backward": (hd + img + img * f, h * d + 2 * img),
     }
+    work = {name: (nbytes, ops, nbytes)
+            for name, (nbytes, ops) in single.items()}
+    work.update({
+        "sgm_rows": ((2 * vol + img) * f, vol * 9 * 6, rows),
+        "sgm_chunk": ((2 * vol + img) * f + carries, vol * 9 * 6,
+                      rows + carries),
+        "sgm_horizontal": ((2 * vol + img) * f, vol * 9 * 2,
+                           (5 * vol + 2 * img) * f),
+        "cvf": ((2 * vol + 5 * img) * f + 2 * hd, vol * (16 * r + 25),
+                (6 * vol + 6 * img) * f + 2 * hd),
+    })
+    return work
+
+
+def kernel_bounds(h, w, d, k, r, tiles):
+    """{name: (bound_ms, bound_by, design_floor_ms)}: the least time of
+    each kernel's function (:func:`bound`) and its design bytes over the
+    card's memory rate."""
+    return {name: (*bound(nbytes, ops), design / HBM_BYTES_PER_S * 1e3)
+            for name, (nbytes, ops, design)
+            in kernel_work(h, w, d, k, r, tiles).items()}
 
 
 def profile_path(torch, fn, frames: int = 10):
@@ -229,14 +264,14 @@ def check_chunks(tag, vol, image, p1, p2) -> float:
     return max_err
 
 
-def chunked_rows(torch, vol, image, p1, p2, cuts, kernel):
+def chunked_rows(vol, image, out, p1, p2, cuts, kernel):
     """The six row traversals of ``vol`` over the row chunks cut at
     ``cuts`` with carry hand-off, through the chunk kernel (``kernel``)
-    or its plain version; the sharded exact path's SGM rows."""
+    or its plain version, each added onto ``out``: the sharded exact
+    path's SGM rows, which add onto the horizontal family's volume."""
     from stereomatch_tpu_torch.ops import aggregation as agg_ops
     from stereomatch_tpu_torch.ops import sgm_cuda
-    out = torch.empty_like(vol)
-    for i, step in enumerate(agg_ops.TRAVERSALS[2:]):
+    for step in agg_ops.TRAVERSALS[2:]:
         carry = (None, None)
         for rank, (a, b) in enumerate(chunk_spans(vol.shape[0], cuts,
                                                   step)):
@@ -244,12 +279,11 @@ def chunked_rows(torch, vol, image, p1, p2, cuts, kernel):
             if kernel:
                 _, carry = sgm_cuda.sweep_chunk_with_carry_cuda(
                     vol[a:b], image[a:b], step, *carry, out=out[a:b],
-                    accumulate=i > 0, **kw)
+                    accumulate=True, **kw)
             else:
                 part, carry = agg_ops.sweep_chunk_with_carry(
                     vol[a:b], image[a:b], step, *carry, **kw)
-                out[a:b] = part if i == 0 else out[a:b] + part
-    return out
+                out[a:b] += part
 
 
 def main() -> int:
@@ -332,7 +366,9 @@ def main() -> int:
                         left, right, cost_dtype=torch.float32,
                         absolute=True, **kw), SSD_RTOL, SSD_ATOL)
         del out
-        # Each SGM kernel on its own family, then the whole aggregation.
+        # Each SGM kernel on its own family, then the whole aggregation:
+        # the ring walk keeps the recurrence's every operation and the
+        # plain version's order, so both are bit-equal.
         for fam, steps in (("sgm_horizontal", agg_ops.TRAVERSALS[:2]),
                            ("sgm_rows", agg_ops.TRAVERSALS[2:])):
             plain = None
@@ -344,14 +380,14 @@ def main() -> int:
                 sgm_cuda.traverse_cuda(ref, left, kern, step, p1, p2,
                                        accumulate=i > 0)
             errors[f"{fam}_{tag}"] = compare(f"{fam} family {tag}", plain,
-                                             kern, SGM_RTOL, SGM_ATOL)
+                                             kern, 0, 0, exact=True)
             del plain, kern
         compare(f"semiglobal_aggregate {tag}",
                 agg_ops.semiglobal_aggregate(ref, left, penalty1=p1,
                                              penalty2=p2),
                 sgm_cuda.semiglobal_aggregate_cuda(ref, left, penalty1=p1,
                                                    penalty2=p2),
-                SGM_RTOL, SGM_ATOL)
+                0, 0, exact=True)
         # The chunk kernel (K5; at HD also K6's discharge) on the chunks
         # of the sharded path's row tiles.
         errors[f"sgm_chunk_{tag}"] = check_chunks(tag, ref, left, p1, p2)
@@ -615,7 +651,7 @@ def main() -> int:
     log(f"[timings] kernels and paths median of {REPS} after {WARMUP} "
         f"warm-ups, plain versions median of {PLAIN_REPS} after "
         f"{PLAIN_WARMUP}; card: {card}")
-    times, bounds = {}, {}
+    times, bounds, old_walk_times, sweeps = {}, {}, {}, {}
     sharded_tiles = {"teddy": 5, "hd": 4}
     for tag in ("teddy", "hd"):
         left, right, _, d, k = shapes[tag]
@@ -624,7 +660,7 @@ def main() -> int:
         kw = dict(max_disparity=d, kernel_size=k)
         vol = cost_ops.ssd_cost_volume(left, right, **kw)
         image = left.contiguous()
-        out = torch.empty_like(vol)
+        out = torch.zeros_like(vol)
         ptr, final = dp_cuda.dp_forward_cuda(vol)
         census = cost_ops.census_hamming_cost_volume(left, right,
                                                      max_disparity=d)
@@ -635,11 +671,28 @@ def main() -> int:
                                            cost_dtype=torch.float32,
                                            absolute=False, **kw)
 
-        def family_kernel(steps):
+        def family_kernel(steps, v=vol, im=image, o=out, **ring):
+            """One family's traversals as the main path launches them:
+            the horizontal family writes out first, the row family adds
+            onto it (ring: the launch shape, defaults when empty)."""
+            onto = steps[0][0] != 0
+
             def run():
                 for i, step in enumerate(steps):
-                    sgm_cuda.traverse_cuda(vol, image, out, step, p1, p2,
-                                           accumulate=i > 0)
+                    sgm_cuda.traverse_cuda(v, im, o, step, p1, p2,
+                                           accumulate=onto or i > 0, **ring)
+            return run
+
+        def family_old_walk(steps, v, im, o, onto):
+            """The same launches through the chunk kernel's one-step walk:
+            one chunk over the whole image per traversal (seed=True),
+            equal to the whole-image traversal bit for bit; ``onto``: the
+            first launch adds onto ``o``."""
+            def run():
+                for i, step in enumerate(steps):
+                    sgm_cuda.sweep_chunk_with_carry_cuda(
+                        v, im, step, penalty1=p1, penalty2=p2, seed=True,
+                        out=o, accumulate=onto or i > 0)
             return run
 
         def family_plain(steps):
@@ -657,9 +710,9 @@ def main() -> int:
             "sgm_rows": (family_kernel(rows), family_plain(rows)),
             "sgm_horizontal": (family_kernel(horiz), family_plain(horiz)),
             "sgm_chunk": (
-                lambda: chunked_rows(torch, vol, image, p1, p2,
+                lambda: chunked_rows(vol, image, out, p1, p2,
                                      CHUNK_CUTS[tag], kernel=True),
-                lambda: chunked_rows(torch, vol, image, p1, p2,
+                lambda: chunked_rows(vol, image, out, p1, p2,
                                      CHUNK_CUTS[tag], kernel=False)),
             "dp_forward": (lambda: dp_cuda.dp_forward_cuda(vol),
                            lambda: disp_ops.dp_forward(vol)),
@@ -679,9 +732,72 @@ def main() -> int:
             t_kern = [time_ms(torch, kern), time_ms(torch, kern)]
             t_plain.append(time_ms(torch, plain, **plain_reps))
             times[(name, tag)] = (min(t_kern), min(t_plain))
-            b_ms, b_by = bounds[tag][name]
+            b_ms, b_by, floor_ms = bounds[tag][name]
             log(f"  {name} {tag}: kernel {t_kern} ms, plain {t_plain} ms, "
-                f"bound {b_ms!r} ms ({b_by}) [{card}]")
+                f"bound {b_ms!r} ms ({b_by}), design floor {floor_ms!r} ms "
+                f"[{card}]")
+
+        # The ring walk against the one-step walk it replaced, in turns
+        # (old, new, new, old).  The horizontal family's old walk is the
+        # vertical one on the transposed volume: the same paths and steps.
+        vol_t = vol.transpose(0, 1).contiguous()
+        image_t = image.t().contiguous()
+        out_old = torch.zeros_like(vol)
+        out_t = torch.zeros_like(vol_t)
+        ab = {"sgm_rows": (family_kernel(rows),
+                           family_old_walk(rows, vol, image, out_old,
+                                           onto=True),
+                           out_old, lambda x: x),
+              "sgm_horizontal": (family_kernel(horiz),
+                                 family_old_walk([(dx, dy)
+                                                  for dy, dx in horiz],
+                                                 vol_t, image_t, out_t,
+                                                 onto=False),
+                                 out_t, lambda x: x.transpose(0, 1))}
+        for name, (new, old, old_out, back) in ab.items():
+            out.zero_()
+            old_out.zero_()
+            new()
+            old()
+            require(torch.equal(out, back(old_out)),
+                    f"{name} {tag}: the ring and the one-step walk differ")
+            t_old = [time_ms(torch, old)]
+            t_new = [time_ms(torch, new), time_ms(torch, new)]
+            t_old.append(time_ms(torch, old))
+            old_walk_times[(name, tag)] = min(t_old)
+            log(f"  {name} {tag} A/B: ring {t_new} ms, one-step walk "
+                f"{t_old} ms, design floor {bounds[tag][name][2]!r} ms "
+                f"[{card}]")
+        del vol_t, image_t, out_old, out_t
+
+        # The ring's depth and warps a block, each against the defaults'
+        # result; at teddy also one 75-row tile's horizontal family (the
+        # sharded path's per-tile launch).
+        cases = [("sgm_rows", rows, vol, image, out),
+                 ("sgm_horizontal", horiz, vol, image, out)]
+        if tag == "teddy":
+            rows_tile = TEDDY_CUTS[0]
+            cases.append(("sgm_horizontal tile", horiz, vol[:rows_tile],
+                          image[:rows_tile], out[:rows_tile]))
+        for name, steps, v, im, o in cases:
+            o.zero_()
+            family_kernel(steps, v, im, o)()
+            want = o.clone()
+            found = {}
+            for stages in sgm_cuda.RING_STAGES:
+                for warps in RING_WARPS:
+                    run = family_kernel(steps, v, im, o, stages=stages,
+                                        warps_per_block=warps)
+                    o.zero_()
+                    run()
+                    require(torch.equal(o, want), f"{name} {tag} stages "
+                            f"{stages} warps {warps} differs")
+                    found[f"S{stages}/w{warps}"] = time_ms(torch, run)
+            sweeps[f"{name} {tag}"] = found
+            log(f"  ring sweep {name} {tag} {tuple(v.shape)} ms: {found} "
+                f"[{card}]")
+            del want
+
         t_wta = time_ms(torch, lambda: pipe.disparity_reduce(vol))
         log(f"  wta (torch.argmin) {tag}: {t_wta!r} ms [{card}]")
         t_census = time_ms(torch, lambda: cost_ops.census_hamming_cost_volume(
@@ -747,7 +863,7 @@ def main() -> int:
                              "stereomatch_tpu/ops/sgm_pallas.py:552")}
     kernels = []
     for name, (source, replaces) in sources.items():
-        b_ms, b_by = bounds["teddy"][name]
+        b_ms, b_by, floor_ms = bounds["teddy"][name]
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -758,7 +874,13 @@ def main() -> int:
             "hd_ms": times[(name, "hd")][0],
             "hd_plain_ms": times[(name, "hd")][1],
             "hd_bound_ms": bounds["hd"][name][0],
+            "design_floor_ms": floor_ms,
+            "hd_design_floor_ms": bounds["hd"][name][2],
         }
+        if (name, "teddy") in old_walk_times:
+            # The one-step walk (the chunk kernel's) on the same launches.
+            entry["old_walk_ms"] = old_walk_times[(name, "teddy")]
+            entry["hd_old_walk_ms"] = old_walk_times[(name, "hd")]
         if name == "cvf":
             # K10, the W-chunked form of the same TPU kernel, at HD.
             entry["also_replaces"] = "stereomatch_tpu/ops/cvf_pallas.py:679"
@@ -772,6 +894,7 @@ def main() -> int:
         kernels.append(entry)
     e2e = {label: {tag: times[(label, tag)] for tag in ("teddy", "hd")}
            for label, _ in paths("teddy")}
+    log(json.dumps({"ring_sweep_ms": sweeps, "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -10,12 +10,15 @@
 //     chunk of rows that starts from the carry of the row before the chunk
 //     and emits the carry of its last row, the exact cross-tile hand-off
 //     of the row-sharded pipeline  -> sgm_chunk_kernel.
-// All three kernels walk straight pixel paths with the same device function,
-// sgm_path, the design of the reference's semiglobal_gpu.cu: one warp per
-// path, the [D] carry in registers (lane l holds d = l*VPL .. l*VPL+VPL-1),
-// min over D by warp shuffles, and out (+)= L in place.  The TPU kernels'
-// W-on-grid layouts, zero-row padding and transposed P2 maps were VMEM
-// workarounds and have no counterpart here.
+// All three kernels walk straight pixel paths, the design of the reference's
+// semiglobal_gpu.cu: one warp per path, the [D] carry in registers (lane l
+// holds d = l*VPL .. l*VPL+VPL-1), min over D by warp shuffles, and out (+)= L
+// in place.  They share the recurrence step (warp_min, p2_of, advance) and
+// differ in how the operands reach the registers: the two whole-image kernels
+// through a ring of asynchronous copies (ring_path), the chunk kernel by plain
+// loads one step ahead (chunk_path).  The TPU kernels' W-on-grid layouts,
+// zero-row padding and transposed P2 maps were VMEM workarounds and have no
+// counterpart here.
 //
 // Semantics (plain version: stereomatch_tpu_torch/ops/aggregation.py, the
 // XLA scan's association, stereomatch_tpu/ops/aggregation.py:107-138):
@@ -31,37 +34,45 @@
 // of the accumulation into out.
 //
 // The chunk kernel (plain version: ops/aggregation.py::
-// sweep_chunk_with_carry) is sgm_path with WITH_CARRY set, a compile-time
-// flag, so the instantiations of the two whole-image kernels are the code
-// they were.  A path that enters through the chunk's first row in scan
-// order continues the path of its predecessor pixel (y - dy, x - dx) in
-// the row before the chunk: its first step takes prev = carry[x - dx] and
-// the intensity carry_image[x - dx] instead of L = C.  Where x - dx falls
-// outside [0, W) (the diagonal's entry column) or seed is set (the first
-// chunk in scan order) it starts with L = C, and so does every path that
-// enters through the side column.  Each path whose last pixel lies on the
-// chunk's last row in scan order writes its L there into carry_out[x];
-// every column of that row ends exactly one path.  The TPU kernel fused
-// the three row families into one [F, W, D] carry to save VMEM passes;
-// here one launch covers one traversal of one chunk, and its [W, D] carry
-// is read once and written once.
+// sweep_chunk_with_carry): a path that enters through the chunk's first
+// row in scan order continues the path of its predecessor pixel
+// (y - dy, x - dx) in the row before the chunk: its first step takes
+// prev = carry[x - dx] and the intensity carry_image[x - dx] instead of
+// L = C.  Where x - dx falls outside [0, W) (the diagonal's entry column)
+// or seed is set (the first chunk in scan order) it starts with L = C, and
+// so does every path that enters through the side column.  Each path whose
+// last pixel lies on the chunk's last row in scan order writes its L there
+// into carry_out[x]; every column of that row ends exactly one path.  The
+// TPU kernel fused the three row families into one [F, W, D] carry to save
+// VMEM passes; here one launch covers one traversal of one chunk, and its
+// [W, D] carry is read once and written once.
 //
-// What bounds it on an H100: the recurrence is sequential along a path,
-// and a traversal has only W, H or W+H-1 paths (450-824 warps at teddy),
-// a few warps per SM, so each step's latency (cost load, shuffle-min,
-// read-modify-write of out) bounds it, not bandwidth (each traversal
-// moves 3 * H*W*D*4 bytes, 259 MB at teddy).  The design hides what it
-// can: the next step's cost and out values are loaded before the current
-// step's shuffle-min, which does not depend on them.  A chunk launch has
-// the same W or W+Hc-1 warps over paths of at most Hc steps (75 at teddy
-// in 5 row tiles): the same latency bound over fewer steps, paid once per
-// chunk in launch and ramp-up.
+// What bounds it on an H100: the recurrence is sequential along a path: a
+// step's min over D (five shuffle rounds, each feeding a NaN-aware min) and
+// band are a chain of dependent shuffles and selects, about 0.3 us a step
+// (PERF.md), and a traversal has only W, H or W+H-1 paths (375-824 warps at
+// teddy, about one per scheduler), so nothing else hides that latency.  A
+// step's cost and out rows come from device memory, about a microsecond away
+// under load; fetched one step ahead, as the chunk kernel still does, that
+// round trip adds to every step.  The whole-image kernels therefore keep a
+// ring of STAGES steps per warp in shared memory (ring_path): at step s the
+// warp takes stage s, issues cp.async copies of step s + STAGES - 1 and runs
+// the recurrence, so the loads of STAGES - 1 steps are in flight behind it,
+// and P2' (a division) is computed 32 steps at a time off the chain.  At
+// teddy what is left is the step chain of the longest path; at HD (1280-2303
+// warps of D = 256) the bytes of the launch structure, three volumes a
+// traversal.  One-warp blocks spread teddy's paths over all 132 SMs.  The
+// chunk kernel's W or W+Hc-1 warps walk paths of at most Hc steps (75 at
+// teddy in 5 row tiles): the same latency bound over fewer steps, paid once
+// per chunk in launch and ramp-up.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kWarpsPerBlock = 4;       // the chunk kernel's blocks
 constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
@@ -111,6 +122,53 @@ __host__ __device__ __forceinline__ int path_count(int H, int W, int dy,
   return W + H - 1;
 }
 
+// The recurrence, in three parts: m = min_d prev over the warp, P2' from
+// the two intensities, and L from m, P2' and the costs c.
+
+template <int VPL>
+__device__ __forceinline__ float warp_min(const float (&prev)[VPL]) {
+  float m = prev[0];
+#pragma unroll
+  for (int j = 1; j < VPL; ++j) m = nan_min(m, prev[j]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    m = nan_min(m, __shfl_xor_sync(kFullMask, m, off));
+  }
+  return m;
+}
+
+__device__ __forceinline__ float p2_of(float intensity, float prev_int,
+                                       float p1, float p2) {
+  const float grad = fabsf(__fsub_rn(intensity, prev_int));
+  return nan_max(p1, __fdiv_rn(p2, grad));
+}
+
+template <int VPL>
+__device__ __forceinline__ void advance(float (&L)[VPL],
+                                        const float (&c)[VPL],
+                                        const float (&prev)[VPL], float m,
+                                        float p2_adj, int lane, int D,
+                                        float p1) {
+  const int d0 = lane * VPL;
+  float n[VPL];
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) n[j] = __fsub_rn(prev[j], m);
+  float from_left = __shfl_up_sync(kFullMask, n[VPL - 1], 1);
+  float from_right = __shfl_down_sync(kFullMask, n[0], 1);
+  if (lane == 0) from_left = inf_f();
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int d = d0 + j;
+    const float up = j > 0 ? n[j - 1] : from_left;         // d - 1
+    float down = j + 1 < VPL ? n[j + 1] : from_right;       // d + 1
+    if (d + 1 >= D) down = inf_f();
+    const float band =
+        nan_min(nan_min(n[j], __fadd_rn(up, p1)),
+                nan_min(__fadd_rn(down, p1), p2_adj));
+    L[j] = __fadd_rn(c[j], band);
+  }
+}
+
 // Hand-off buffers of the chunk kernel: the carry [W, D] and intensities
 // [W] of the row before the chunk in scan order (unread when seed is
 // set), and the carry [W, D] of the chunk's last row.
@@ -121,12 +179,13 @@ struct Carry {
   bool seed;
 };
 
-template <int VPL, bool WITH_CARRY>
-__device__ void sgm_path(const float* __restrict__ cost,
-                         const float* __restrict__ image,
-                         float* __restrict__ out, int H, int W, int D,
-                         int dy, int dx, float p1, float p2, bool accumulate,
-                         int path, Carry carry) {
+// The chunk kernel's walk: plain loads of the next pixel, one step ahead.
+template <int VPL>
+__device__ void chunk_path(const float* __restrict__ cost,
+                           const float* __restrict__ image,
+                           float* __restrict__ out, int H, int W, int D,
+                           int dy, int dx, float p1, float p2,
+                           bool accumulate, int path, Carry carry) {
   const int lane = threadIdx.x & 31;
   const int d0 = lane * VPL;
   const Path p = path_of(path, H, W, dy, dx);
@@ -146,17 +205,15 @@ __device__ void sgm_path(const float* __restrict__ cost,
   // A path entering through the chunk's first row (the first W paths,
   // path_of) continues from the carry unless it seeds.
   bool from_carry = false;
-  if constexpr (WITH_CARRY) {
-    const int xp = p.x - dx;
-    if (!carry.seed && path < W && xp >= 0 && xp < W) {
-      from_carry = true;
+  const int xp = p.x - dx;
+  if (!carry.seed && path < W && xp >= 0 && xp < W) {
+    from_carry = true;
 #pragma unroll
-      for (int j = 0; j < VPL; ++j) {
-        prev[j] = d0 + j < D ? carry.in[static_cast<long>(xp) * D + d0 + j]
-                             : inf_f();
-      }
-      prev_int = carry.image[xp];
+    for (int j = 0; j < VPL; ++j) {
+      prev[j] = d0 + j < D ? carry.in[static_cast<long>(xp) * D + d0 + j]
+                           : inf_f();
     }
+    prev_int = carry.image[xp];
   }
 
   for (int s = 0; s < p.len; ++s) {
@@ -177,35 +234,10 @@ __device__ void sgm_path(const float* __restrict__ cost,
 #pragma unroll
       for (int j = 0; j < VPL; ++j) L[j] = c[j];
     } else {
-      float m = prev[0];
-#pragma unroll
-      for (int j = 1; j < VPL; ++j) m = nan_min(m, prev[j]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        m = nan_min(m, __shfl_xor_sync(kFullMask, m, off));
-      }
-      const float grad = fabsf(__fsub_rn(intensity, prev_int));
-      const float p2_adj = nan_max(p1, __fdiv_rn(p2, grad));
-
-      float n[VPL];
-#pragma unroll
-      for (int j = 0; j < VPL; ++j) n[j] = __fsub_rn(prev[j], m);
-      float from_left = __shfl_up_sync(kFullMask, n[VPL - 1], 1);
-      float from_right = __shfl_down_sync(kFullMask, n[0], 1);
-      if (lane == 0) from_left = inf_f();
-#pragma unroll
-      for (int j = 0; j < VPL; ++j) {
-        const int d = d0 + j;
-        const float up = j > 0 ? n[j - 1] : from_left;         // d - 1
-        float down = j + 1 < VPL ? n[j + 1] : from_right;       // d + 1
-        if (d + 1 >= D) down = inf_f();
-        const float band =
-            nan_min(nan_min(n[j], __fadd_rn(up, p1)),
-                    nan_min(__fadd_rn(down, p1), p2_adj));
-        L[j] = __fadd_rn(c[j], band);
-      }
+      const float m = warp_min<VPL>(prev);
+      advance<VPL>(L, c, prev, m, p2_of(intensity, prev_int, p1, p2), lane,
+                   D, p1);
     }
-
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
       const int d = d0 + j;
@@ -221,41 +253,265 @@ __device__ void sgm_path(const float* __restrict__ cost,
     pix = next;
   }
 
-  if constexpr (WITH_CARRY) {
-    // prev holds L at the path's last pixel.
-    const int y_end = p.y + dy * (p.len - 1);
-    if (y_end == (dy > 0 ? H - 1 : 0)) {
-      const long x_end = p.x + dx * (p.len - 1);
+  // prev holds L at the path's last pixel.
+  const int y_end = p.y + dy * (p.len - 1);
+  if (y_end == (dy > 0 ? H - 1 : 0)) {
+    const long x_end = p.x + dx * (p.len - 1);
 #pragma unroll
-      for (int j = 0; j < VPL; ++j) {
-        if (d0 + j < D) carry.out[x_end * D + d0 + j] = prev[j];
-      }
+    for (int j = 0; j < VPL; ++j) {
+      if (d0 + j < D) carry.out[x_end * D + d0 + j] = prev[j];
     }
   }
 }
 
+// cp.async: an asynchronous copy from device to shared memory that the
+// issuing thread waits for by commit group.  16-byte copies skip L1 (.cg,
+// the volume is streamed); 4-byte copies go through it (.ca, the only
+// form for that size).
+__device__ __forceinline__ unsigned smem_addr(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// Copies issued only where `live` holds: a predicated instruction, no
+// branch.
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool live) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p cp.async.cg.shared.global [%0], [%1], 16;\n}\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(static_cast<int>(live))
+      : "memory");
+}
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool live) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p cp.async.ca.shared.global [%0], [%1], 4;\n}\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(static_cast<int>(live))
+      : "memory");
+}
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Floats of one warp's ring: per stage the cost row, then (when
+// accumulating) the out row, 32 * VPL floats each in d order.
 template <int VPL>
+__host__ __device__ __forceinline__ int ring_floats(int stages,
+                                                   bool accumulate) {
+  return stages * (accumulate ? 2 : 1) * 32 * VPL;
+}
+
+// The whole-image kernels' walk: a ring of STAGES steps in shared memory,
+// filled by cp.async STAGES - 1 steps ahead of the recurrence.
+//
+// The warp copies a step's cost row (and out row) in coalesced pieces,
+// 16 bytes a lane (VEC) or 4, so a lane reads back values that other
+// lanes copied: each lane waits for its own copies, then __syncwarp
+// publishes them to the warp.  Every step issues the same copies as
+// predicated instructions, without a branch: a piece past D, or of a step
+// past the path's end, is not copied.  The ring's entries past D hold
+// +inf (cost) and 0 (out), written once by the lane that reads them, so
+// lanes past D read those and never a copied value.  Each step commits
+// one group, so at step s exactly
+// STAGES - 1 + s groups are committed, and waiting until at most
+// STAGES - 2 are pending means step s's group has landed.  The copies of
+// step s + STAGES - 1, issued at step s after its wait, go to the slot of
+// step s - 1, which every lane finished reading before the __syncwarp of
+// step s.  Issuing them before the recurrence, in one basic block with
+// it, lets the compiler place them in the stalls of its shuffle chain.
+//
+// Fetching out STAGES - 1 steps early is safe because each pixel lies on
+// exactly one path of a traversal: within one launch no path writes a
+// pixel that another path reads, and a path writes a pixel only at the
+// step that reads it.  Without ACC, out is not fetched at all.
+//
+// P2' leaves the step chain: lane k computes it for step t0 + k of each
+// block of 32 steps from intensities loaded a block ahead, and step t
+// takes it by one shuffle, so the division runs once per 32 steps.  The
+// operations and their operands are those of p2_of.
+//
+// VEC: 16-byte copies and stores, for VPL % 4 == 0, D % 4 == 0 and
+// 16-byte-aligned cost and out (four floats lie wholly inside or past D);
+// otherwise 4-byte copies and stores.
+template <int VPL, int STAGES, bool VEC, bool ACC>
+__device__ void ring_path(const float* __restrict__ cost,
+                          const float* __restrict__ image,
+                          float* __restrict__ out, int H, int W, int D,
+                          int dy, int dx, float p1, float p2, int path,
+                          float* ring) {
+  static_assert(STAGES >= 4 && (STAGES & (STAGES - 1)) == 0,
+                "STAGES is a power of two of at least 4");
+  static_assert(!VEC || VPL % 4 == 0, "16-byte pieces need VPL % 4 == 0");
+  constexpr int kRow = 32 * VPL;
+  constexpr int kPiece = VEC ? 4 : 1;           // floats a copy moves
+  constexpr int kPieces = VPL / kPiece;         // copies a lane a row
+  const int lane = threadIdx.x & 31;
+  const int d0 = lane * VPL;
+  const Path p = path_of(path, H, W, dy, dx);
+  const long step_pix = static_cast<long>(dy) * W + dx;
+  const long first_pix = static_cast<long>(p.y) * W + p.x;
+  const long step = step_pix * D;  // in floats
+  const long first = first_pix * D;
+  float* const cost_ring = ring;
+  float* const out_ring = ring + STAGES * kRow;
+
+  // Piece i of a row starts at float e[i]; in[i]: it lies inside D.
+  int e[kPieces];
+  bool in[kPieces];
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    e[i] = i * 32 * kPiece + kPiece * lane;
+    in[i] = e[i] < D;
+  }
+  // The ring's entries past D, for every stage.
+#pragma unroll 1
+  for (int slot = 0; slot < STAGES; ++slot) {
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      if (d0 + j >= D) {
+        cost_ring[slot * kRow + d0 + j] = inf_f();
+        if constexpr (ACC) out_ring[slot * kRow + d0 + j] = 0.0f;
+      }
+    }
+  }
+  // The copies of steps t = 0, 1, ... in turn into their stages; `ahead`
+  // is the next step's first float.
+  int fetched = 0;
+  long ahead = first;
+  auto fetch = [&]() {
+    const bool live = fetched < p.len;
+    const int slot = fetched & (STAGES - 1);
+    const float* const src = cost + ahead;
+    const float* const osrc = out + ahead;
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      float* const dst = cost_ring + slot * kRow + e[i];
+      float* const odst = dst + STAGES * kRow;
+      if constexpr (VEC) {
+        copy16(dst, src + e[i], live && in[i]);
+        if constexpr (ACC) copy16(odst, osrc + e[i], live && in[i]);
+      } else {
+        copy4(dst, src + e[i], live && in[i]);
+        if constexpr (ACC) copy4(odst, osrc + e[i], live && in[i]);
+      }
+    }
+    commit_copies();
+    ++fetched;
+    ahead += step;
+  };
+  // Intensities of steps [t0, t0 + 32), lane k holding step t0 + k.
+  auto intensities = [&](int t0) {
+    const int t = t0 + lane;
+    return t < p.len ? image[first_pix + t * step_pix] : 0.0f;
+  };
+  // Step t's costs and out values from its stage, once it has landed.
+  auto take = [&](int t, float (&c)[VPL], float (&o)[VPL]) {
+    wait_copies<STAGES - 2>();
+    __syncwarp();
+    const int slot = t & (STAGES - 1);
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      c[j] = cost_ring[slot * kRow + d0 + j];
+      o[j] = ACC ? out_ring[slot * kRow + d0 + j] : 0.0f;
+    }
+  };
+  // out (+)= L at the pixel `at`; prev takes L (+inf past D).
+  auto store = [&](long at, const float (&o)[VPL], const float (&L)[VPL],
+                   float (&prev)[VPL]) {
+    float v[VPL];
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      v[j] = ACC ? __fadd_rn(o[j], L[j]) : L[j];
+      prev[j] = d0 + j < D ? L[j] : inf_f();
+    }
+    float* const dst = out + at + d0;
+#pragma unroll
+    for (int q = 0; q < VPL; q += kPiece) {
+      if (d0 + q < D) {
+        if constexpr (VEC) {
+          *reinterpret_cast<float4*>(dst + q) =
+              make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+        } else {
+          dst[q] = v[q];
+        }
+      }
+    }
+  };
+
+#pragma unroll 1
+  for (int t = 0; t < STAGES - 1; ++t) fetch();
+
+  // P2' of the block of steps [t0, t0 + 32), lane k for step t0 + k; the
+  // intensities of the next block are loaded as this one starts.
+  float block_int = intensities(0);
+  float next_int = intensities(32);
+  float last_int = 0.0f;  // the intensity before the block
+  auto block_p2 = [&]() {
+    float before = __shfl_up_sync(kFullMask, block_int, 1);
+    if (lane == 0) before = last_int;
+    const float p2s = p2_of(block_int, before, p1, p2);
+    last_int = __shfl_sync(kFullMask, block_int, 31);
+    return p2s;
+  };
+  float p2s = block_p2();
+
+  // Step 0 starts the path: L = C.
+  float c[VPL], o[VPL], prev[VPL];
+  take(0, c, o);
+  fetch();
+  store(first, o, c, prev);
+  long at = first + step;
+  for (int s = 1; s < p.len; ++s) {
+    if ((s & 31) == 0) {
+      block_int = next_int;
+      next_int = intensities(s + 32);
+      p2s = block_p2();
+    }
+    const float p2_adj = __shfl_sync(kFullMask, p2s, s & 31);
+    take(s, c, o);
+    fetch();
+    float L[VPL];
+    advance<VPL>(L, c, prev, warp_min<VPL>(prev), p2_adj, lane, D, p1);
+    store(at, o, L, prev);
+    at += step;
+  }
+}
+
+template <int VPL, int STAGES, bool VEC, bool ACC>
 __global__ void sgm_rows_kernel(const float* __restrict__ cost,
                                 const float* __restrict__ image,
                                 float* __restrict__ out, int H, int W, int D,
-                                int dy, int dx, float p1, float p2,
-                                bool accumulate) {
-  const int path = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+                                int dy, int dx, float p1, float p2) {
+  extern __shared__ __align__(16) float ring[];
+  const int warp = threadIdx.x >> 5;
+  const int path = blockIdx.x * (blockDim.x >> 5) + warp;
   if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
-  sgm_path<VPL, false>(cost, image, out, H, W, D, dy, dx, p1, p2, accumulate,
-                       path, Carry{});
+  ring_path<VPL, STAGES, VEC, ACC>(cost, image, out, H, W, D, dy, dx, p1,
+                                   p2, path,
+                                   ring + warp * ring_floats<VPL>(STAGES, ACC));
 }
 
-template <int VPL>
+// dy is 0; it is a parameter so that the two kernels share a launcher.
+template <int VPL, int STAGES, bool VEC, bool ACC>
 __global__ void sgm_horizontal_kernel(const float* __restrict__ cost,
                                       const float* __restrict__ image,
                                       float* __restrict__ out, int H, int W,
-                                      int D, int dx, float p1, float p2,
-                                      bool accumulate) {
-  const int path = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+                                      int D, int dy, int dx, float p1,
+                                      float p2) {
+  extern __shared__ __align__(16) float ring[];
+  const int warp = threadIdx.x >> 5;
+  const int path = blockIdx.x * (blockDim.x >> 5) + warp;
   if (path >= H) return;
-  sgm_path<VPL, false>(cost, image, out, H, W, D, 0, dx, p1, p2, accumulate,
-                       path, Carry{});
+  ring_path<VPL, STAGES, VEC, ACC>(cost, image, out, H, W, D, 0, dx, p1, p2,
+                                   path,
+                                   ring + warp * ring_floats<VPL>(STAGES, ACC));
 }
 
 template <int VPL>
@@ -266,49 +522,103 @@ __global__ void sgm_chunk_kernel(const float* __restrict__ cost,
                                  bool accumulate, Carry carry) {
   const int path = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
-  sgm_path<VPL, true>(cost, image, out, H, W, D, dy, dx, p1, p2, accumulate,
-                      path, carry);
+  chunk_path<VPL>(cost, image, out, H, W, D, dy, dx, p1, p2, accumulate,
+                  path, carry);
 }
 
-enum class Kind { kRows, kHorizontal, kChunk };
+// The ring's depth and the warps of a block when the caller passes 0.
+// Of 4, 8 and 16 stages and 1, 2 and 4 warps, measured at teddy (VPL 4)
+// and HD (VPL 8) on an H100 (PERF.md), 8 stages and one warp were the
+// best or within noise of it at both: 7 steps ahead keep about 3 MB in
+// flight over teddy's 375-824 warps, and one-warp blocks spread them over
+// every SM.
+constexpr int kRingStages = 8;
+constexpr int kRingWarpsPerBlock = 1;
+constexpr int kMaxRingWarpsPerBlock = 8;
+
+enum class Kind { kRows, kHorizontal };
+
+template <int VPL, int STAGES, bool VEC, bool ACC>
+int launch_kernel(Kind kind, const float* cost, const float* image,
+                  float* out, int H, int W, int D, int dy, int dx, float p1,
+                  float p2, int warps, cudaStream_t stream) {
+  decltype(&sgm_rows_kernel<VPL, STAGES, VEC, ACC>) kernel =
+      kind == Kind::kRows ? &sgm_rows_kernel<VPL, STAGES, VEC, ACC>
+                          : &sgm_horizontal_kernel<VPL, STAGES, VEC, ACC>;
+  const size_t smem = static_cast<size_t>(warps) *
+                      ring_floats<VPL>(STAGES, ACC) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int paths = path_count(H, W, dy, dx);
+  kernel<<<(paths + warps - 1) / warps, 32 * warps, smem, stream>>>(
+      cost, image, out, H, W, D, dy, dx, p1, p2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 16-byte pieces where the shape and the pointers allow them.
+template <int VPL, int STAGES, bool ACC>
+int launch_vec(Kind kind, const float* cost, const float* image, float* out,
+               int H, int W, int D, int dy, int dx, float p1, float p2,
+               int warps, cudaStream_t stream) {
+  if constexpr (VPL % 4 == 0) {
+    if (D % 4 == 0 && reinterpret_cast<std::uintptr_t>(cost) % 16 == 0 &&
+        reinterpret_cast<std::uintptr_t>(out) % 16 == 0) {
+      return launch_kernel<VPL, STAGES, true, ACC>(kind, cost, image, out, H,
+                                                   W, D, dy, dx, p1, p2, warps,
+                                                   stream);
+    }
+  }
+  return launch_kernel<VPL, STAGES, false, ACC>(kind, cost, image, out, H, W,
+                                                D, dy, dx, p1, p2, warps,
+                                                stream);
+}
+
+template <int VPL, int STAGES>
+int launch_ring(Kind kind, const float* cost, const float* image, float* out,
+                int H, int W, int D, int dy, int dx, float p1, float p2,
+                bool accumulate, int warps, cudaStream_t stream) {
+  return accumulate
+             ? launch_vec<VPL, STAGES, true>(kind, cost, image, out, H, W, D,
+                                             dy, dx, p1, p2, warps, stream)
+             : launch_vec<VPL, STAGES, false>(kind, cost, image, out, H, W, D,
+                                              dy, dx, p1, p2, warps, stream);
+}
 
 template <int VPL>
-void launch(Kind kind, const float* cost, const float* image, float* out,
-            int H, int W, int D, int dy, int dx, float p1, float p2,
-            bool accumulate, Carry carry, cudaStream_t stream) {
-  const int paths = path_count(H, W, dy, dx);
-  const int blocks = (paths + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int threads = 32 * kWarpsPerBlock;
-  switch (kind) {
-    case Kind::kRows:
-      sgm_rows_kernel<VPL><<<blocks, threads, 0, stream>>>(
-          cost, image, out, H, W, D, dy, dx, p1, p2, accumulate);
-      break;
-    case Kind::kHorizontal:
-      sgm_horizontal_kernel<VPL><<<blocks, threads, 0, stream>>>(
-          cost, image, out, H, W, D, dx, p1, p2, accumulate);
-      break;
-    case Kind::kChunk:
-      sgm_chunk_kernel<VPL><<<blocks, threads, 0, stream>>>(
-          cost, image, out, H, W, D, dy, dx, p1, p2, accumulate, carry);
-      break;
+int ring_for_vpl(Kind kind, const float* cost, const float* image,
+                 float* out, int H, int W, int D, int dy, int dx, float p1,
+                 float p2, bool accumulate, int stages, int warps,
+                 cudaStream_t s) {
+  switch (stages == 0 ? kRingStages : stages) {
+    case 4:
+      return launch_ring<VPL, 4>(kind, cost, image, out, H, W, D, dy, dx, p1,
+                                 p2, accumulate, warps, s);
+    case 8:
+      return launch_ring<VPL, 8>(kind, cost, image, out, H, W, D, dy, dx, p1,
+                                 p2, accumulate, warps, s);
+    case 16:
+      return launch_ring<VPL, 16>(kind, cost, image, out, H, W, D, dy, dx,
+                                  p1, p2, accumulate, warps, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int dispatch(Kind kind, const void* cost, const void* image, void* out,
-             int H, int W, int D, int dy, int dx, float p1, float p2,
-             int accumulate, Carry carry, void* stream) {
-  // rows and chunk: dy in {-1, 1}, dx in {-1, 0, 1}; horizontal: dy == 0,
-  // |dx| == 1.  A chunk that does not seed needs the incoming carry.
-  const bool ok =
-      kind == Kind::kHorizontal
-          ? dy == 0 && (dx == 1 || dx == -1)
-          : (dy == 1 || dy == -1) && dx >= -1 && dx <= 1 &&
-                (kind != Kind::kChunk ||
-                 (carry.out != nullptr &&
-                  (carry.seed || (carry.in != nullptr &&
-                                  carry.image != nullptr))));
-  if (!ok || D < 1 || D > 32 * 16 || H < 1 || W < 1) {
+// The whole-image traversals: rows (dy = +-1, dx in {-1, 0, 1}) or
+// horizontal (dy == 0, |dx| == 1); stages in {0, 4, 8, 16} and warps in
+// [0, kMaxRingWarpsPerBlock], 0 taking the defaults above.
+int dispatch_ring(Kind kind, const void* cost, const void* image, void* out,
+                  int H, int W, int D, int dy, int dx, float p1, float p2,
+                  int accumulate, int stages, int warps, void* stream) {
+  const bool ok = kind == Kind::kHorizontal
+                      ? dy == 0 && (dx == 1 || dx == -1)
+                      : (dy == 1 || dy == -1) && dx >= -1 && dx <= 1;
+  if (!ok || D < 1 || D > 32 * 16 || H < 1 || W < 1 || warps < 0 ||
+      warps > kMaxRingWarpsPerBlock) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* c = static_cast<const float*>(cost);
@@ -316,38 +626,56 @@ int dispatch(Kind kind, const void* cost, const void* image, void* out,
   auto* o = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   const bool acc = accumulate != 0;
+  const int w = warps == 0 ? kRingWarpsPerBlock : warps;
   if (D <= 32) {
-    launch<1>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, carry, s);
+    return ring_for_vpl<1>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc,
+                           stages, w, s);
   } else if (D <= 64) {
-    launch<2>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, carry, s);
+    return ring_for_vpl<2>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc,
+                           stages, w, s);
   } else if (D <= 128) {
-    launch<4>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, carry, s);
+    return ring_for_vpl<4>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc,
+                           stages, w, s);
   } else if (D <= 256) {
-    launch<8>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, carry, s);
-  } else {
-    launch<16>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, carry, s);
+    return ring_for_vpl<8>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc,
+                           stages, w, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return ring_for_vpl<16>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc,
+                          stages, w, s);
+}
+
+template <int VPL>
+void launch_chunk(const float* cost, const float* image, float* out, int H,
+                  int W, int D, int dy, int dx, float p1, float p2,
+                  bool accumulate, Carry carry, cudaStream_t stream) {
+  const int paths = path_count(H, W, dy, dx);
+  const int blocks = (paths + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  sgm_chunk_kernel<VPL><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
+      cost, image, out, H, W, D, dy, dx, p1, p2, accumulate, carry);
 }
 
 }  // namespace
 
 // One traversal of the vertical or a diagonal family (step dy = +-1).
+// stages / warps_per_block: the ring's depth and the warps of a block,
+// 0 for the defaults.
 extern "C" int stm_sgm_rows_f32(const void* cost, const void* image,
                                 void* out, int H, int W, int D, int dy,
                                 int dx, float p1, float p2, int accumulate,
+                                int stages, int warps_per_block,
                                 void* stream) {
-  return dispatch(Kind::kRows, cost, image, out, H, W, D, dy, dx, p1, p2,
-                  accumulate, Carry{}, stream);
+  return dispatch_ring(Kind::kRows, cost, image, out, H, W, D, dy, dx, p1,
+                       p2, accumulate, stages, warps_per_block, stream);
 }
 
 // One traversal of the horizontal family (step dy = 0, dx = +-1).
 extern "C" int stm_sgm_horizontal_f32(const void* cost, const void* image,
                                       void* out, int H, int W, int D, int dy,
                                       int dx, float p1, float p2,
-                                      int accumulate, void* stream) {
-  return dispatch(Kind::kHorizontal, cost, image, out, H, W, D, dy, dx, p1,
-                  p2, accumulate, Carry{}, stream);
+                                      int accumulate, int stages,
+                                      int warps_per_block, void* stream) {
+  return dispatch_ring(Kind::kHorizontal, cost, image, out, H, W, D, dy, dx,
+                       p1, p2, accumulate, stages, warps_per_block, stream);
 }
 
 // One row traversal (dy = +-1) over a chunk of H rows with carry hand-off:
@@ -359,9 +687,32 @@ extern "C" int stm_sgm_chunk_f32(const void* cost, const void* image,
                                  void* out, void* carry_out, int H, int W,
                                  int D, int dy, int dx, float p1, float p2,
                                  int seed, int accumulate, void* stream) {
+  // dy in {-1, 1}, dx in {-1, 0, 1}; a chunk that does not seed needs the
+  // incoming carry.
+  const bool ok = (dy == 1 || dy == -1) && dx >= -1 && dx <= 1 &&
+                  carry_out != nullptr &&
+                  (seed != 0 || (carry != nullptr && carry_image != nullptr));
+  if (!ok || D < 1 || D > 32 * 16 || H < 1 || W < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Carry hand_off{static_cast<const float*>(carry),
                        static_cast<const float*>(carry_image),
                        static_cast<float*>(carry_out), seed != 0};
-  return dispatch(Kind::kChunk, cost, image, out, H, W, D, dy, dx, p1, p2,
-                  accumulate, hand_off, stream);
+  const auto* c = static_cast<const float*>(cost);
+  const auto* im = static_cast<const float*>(image);
+  auto* o = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool acc = accumulate != 0;
+  if (D <= 32) {
+    launch_chunk<1>(c, im, o, H, W, D, dy, dx, p1, p2, acc, hand_off, s);
+  } else if (D <= 64) {
+    launch_chunk<2>(c, im, o, H, W, D, dy, dx, p1, p2, acc, hand_off, s);
+  } else if (D <= 128) {
+    launch_chunk<4>(c, im, o, H, W, D, dy, dx, p1, p2, acc, hand_off, s);
+  } else if (D <= 256) {
+    launch_chunk<8>(c, im, o, H, W, D, dy, dx, p1, p2, acc, hand_off, s);
+  } else {
+    launch_chunk<16>(c, im, o, H, W, D, dy, dx, p1, p2, acc, hand_off, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

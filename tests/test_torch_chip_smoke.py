@@ -1,0 +1,63 @@
+"""The byte and operation counts behind ``chip_smoke.py``'s bounds.
+
+``kernel_work`` gives each kernel's function bytes (each input read once,
+each output written once) and its design bytes (what one launch per
+traversal moves as the path runs it).  These are computed from shapes, so
+they are held here on the CPU at the two geometries the script times.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(chip_smoke)
+
+GEOMETRIES = {"teddy": (375, 450, 128, 7, 8, 5),
+              "hd": (1024, 1280, 256, 7, 8, 4)}
+
+
+@pytest.mark.parametrize("tag", GEOMETRIES)
+def test_sgm_design_bytes(tag):
+    """sgm_rows: six traversals, each reading cost, image and out and
+    writing out (18 volumes, 6 images); sgm_horizontal: the first launch
+    writes out unread (5 volumes, 2 images); sgm_chunk adds the carries
+    to sgm_rows."""
+    h, w, d, k, r, tiles = GEOMETRIES[tag]
+    volume, image = h * w * d * 4, h * w * 4
+    work = chip_smoke.kernel_work(h, w, d, k, r, tiles)
+    assert work["sgm_rows"][2] == 18 * volume + 6 * image
+    assert work["sgm_horizontal"][2] == 5 * volume + 2 * image
+    carries = 6 * (tiles - 1) * 2 * w * d * 4
+    assert work["sgm_chunk"][2] == work["sgm_rows"][2] + carries
+    # The function itself reads cost and image once and writes out once.
+    for name in ("sgm_rows", "sgm_horizontal"):
+        assert work[name][0] == 2 * volume + image
+
+
+@pytest.mark.parametrize("tag,rows_ms,horizontal_ms", [
+    ("teddy", 0.4654, 0.1294), ("hd", 7.2211, 2.0064)])
+def test_design_floor_ms(tag, rows_ms, horizontal_ms):
+    """The design floors over the card's 3.35 TB/s, and the function
+    bounds they sit above."""
+    bounds = chip_smoke.kernel_bounds(*GEOMETRIES[tag])
+    assert bounds["sgm_rows"][2] == pytest.approx(rows_ms, abs=1e-4)
+    assert bounds["sgm_horizontal"][2] == pytest.approx(horizontal_ms,
+                                                        abs=1e-4)
+    for name, (bound_ms, bound_by, floor_ms) in bounds.items():
+        assert bound_by in ("bytes", "operations")
+        if bound_by == "bytes":
+            assert floor_ms >= bound_ms * (1 - 1e-12), name
+
+
+def test_function_bounds_unchanged_at_teddy():
+    """bound_ms at teddy, as PERF.md's kernel table records it."""
+    bounds = chip_smoke.kernel_bounds(*GEOMETRIES["teddy"])
+    want = {"ssd": 0.0262, "sgm_rows": 0.0518, "sgm_horizontal": 0.0518,
+            "sgm_chunk": 0.0551, "dp_forward": 0.0323, "dp_backward": 0.0003,
+            "cvf": 0.0527}
+    for name, ms in want.items():
+        assert bounds[name][0] == pytest.approx(ms, abs=1e-4), name

@@ -136,3 +136,17 @@ def test_every_c_entry_point_is_declared():
     assert declared.keys() == _build._SIGNATURES.keys()
     for name, n_args in declared.items():
         assert len(_build._SIGNATURES[name]) == n_args, name
+
+
+@pytest.mark.parametrize("ring", [dict(stages=2), dict(stages=32),
+                                  dict(warps_per_block=-1),
+                                  dict(warps_per_block=9)])
+def test_sgm_launcher_refuses_unbuilt_ring_shapes(counters, ring):
+    """The ring depths are template constants (RING_STAGES) and a block
+    holds at most MAX_WARPS_PER_BLOCK warps; anything else raises before
+    a tensor is looked at."""
+    vol = torch.rand(6, 9, 4)
+    with pytest.raises(ValueError, match="stages|warps_per_block"):
+        sgm_cuda.traverse_cuda(vol, torch.rand(6, 9), torch.empty_like(vol),
+                               (1, 0), 0.1, 0.2, accumulate=False, **ring)
+    assert _all_zero()
