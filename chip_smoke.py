@@ -21,14 +21,14 @@ with the launch counts set to 0 just before it and read just after:
   single-card path (and, with more than one card, one tile per card);
 
 times kernels, plain versions and pipelines with CUDA events (the SGM
-rows and horizontal families also against the one-step walk they
-replaced, in turns, and over the ring depths and block shapes they are
-built for), and profiles each path with ``torch.profiler`` (device time
-by kernel, idle share).  Any failure raises and exits non-zero; nothing
-falls back.  The last line of standard output is one JSON object with
-``"ok": true`` and the device; the line before it lists the kernels with
-their launch counts, errors, times, bounds and design floors.  It
-imports nothing of JAX.
+row family also against the one-step walk it replaced, in turns), and
+profiles each path with ``torch.profiler`` (device time by kernel, idle
+share).  Any failure raises and exits non-zero; nothing falls back.  The
+last line of standard output is one JSON object with ``"ok": true`` and
+the device; the lines before it give each kernel's design floor (the
+bytes its launches move, over the memory rate) and list the kernels with
+their launch counts, errors, times and bounds.  It imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -61,7 +61,6 @@ PLAIN_WARMUP, PLAIN_REPS = 1, 3
 TEDDY_CUTS = (75, 150, 225, 300)     # 5 row tiles, as the sharded path
 CHUNK_CUTS = {"teddy": TEDDY_CUTS, "ragged": (12,),
               "hd": (256, 512, 768)}
-RING_WARPS = (1, 2, 4)      # warps a block in the SGM ring sweep
 
 # The card's published rates (NVIDIA H100 SXM data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -651,7 +650,7 @@ def main() -> int:
     log(f"[timings] kernels and paths median of {REPS} after {WARMUP} "
         f"warm-ups, plain versions median of {PLAIN_REPS} after "
         f"{PLAIN_WARMUP}; card: {card}")
-    times, bounds, old_walk_times, sweeps = {}, {}, {}, {}
+    times, bounds, old_walk_times = {}, {}, {}
     sharded_tiles = {"teddy": 5, "hd": 4}
     for tag in ("teddy", "hd"):
         left, right, _, d, k = shapes[tag]
@@ -671,28 +670,28 @@ def main() -> int:
                                            cost_dtype=torch.float32,
                                            absolute=False, **kw)
 
-        def family_kernel(steps, v=vol, im=image, o=out, **ring):
+        def family_kernel(steps):
             """One family's traversals as the main path launches them:
             the horizontal family writes out first, the row family adds
-            onto it (ring: the launch shape, defaults when empty)."""
+            onto it."""
             onto = steps[0][0] != 0
 
             def run():
                 for i, step in enumerate(steps):
-                    sgm_cuda.traverse_cuda(v, im, o, step, p1, p2,
-                                           accumulate=onto or i > 0, **ring)
+                    sgm_cuda.traverse_cuda(vol, image, out, step, p1, p2,
+                                           accumulate=onto or i > 0)
             return run
 
-        def family_old_walk(steps, v, im, o, onto):
-            """The same launches through the chunk kernel's one-step walk:
+        def rows_old_walk(o):
+            """The row family through the chunk kernel's one-step walk:
             one chunk over the whole image per traversal (seed=True),
-            equal to the whole-image traversal bit for bit; ``onto``: the
-            first launch adds onto ``o``."""
+            equal to the whole-image traversal bit for bit, each added
+            onto ``o`` as the main path adds it."""
             def run():
-                for i, step in enumerate(steps):
+                for step in rows:
                     sgm_cuda.sweep_chunk_with_carry_cuda(
-                        v, im, step, penalty1=p1, penalty2=p2, seed=True,
-                        out=o, accumulate=onto or i > 0)
+                        vol, image, step, penalty1=p1, penalty2=p2,
+                        seed=True, out=o, accumulate=True)
             return run
 
         def family_plain(steps):
@@ -737,66 +736,22 @@ def main() -> int:
                 f"bound {b_ms!r} ms ({b_by}), design floor {floor_ms!r} ms "
                 f"[{card}]")
 
-        # The ring walk against the one-step walk it replaced, in turns
-        # (old, new, new, old).  The horizontal family's old walk is the
-        # vertical one on the transposed volume: the same paths and steps.
-        vol_t = vol.transpose(0, 1).contiguous()
-        image_t = image.t().contiguous()
+        # The row family's ring walk against the one-step walk it
+        # replaced, in turns (old, new, new, old).
         out_old = torch.zeros_like(vol)
-        out_t = torch.zeros_like(vol_t)
-        ab = {"sgm_rows": (family_kernel(rows),
-                           family_old_walk(rows, vol, image, out_old,
-                                           onto=True),
-                           out_old, lambda x: x),
-              "sgm_horizontal": (family_kernel(horiz),
-                                 family_old_walk([(dx, dy)
-                                                  for dy, dx in horiz],
-                                                 vol_t, image_t, out_t,
-                                                 onto=False),
-                                 out_t, lambda x: x.transpose(0, 1))}
-        for name, (new, old, old_out, back) in ab.items():
-            out.zero_()
-            old_out.zero_()
-            new()
-            old()
-            require(torch.equal(out, back(old_out)),
-                    f"{name} {tag}: the ring and the one-step walk differ")
-            t_old = [time_ms(torch, old)]
-            t_new = [time_ms(torch, new), time_ms(torch, new)]
-            t_old.append(time_ms(torch, old))
-            old_walk_times[(name, tag)] = min(t_old)
-            log(f"  {name} {tag} A/B: ring {t_new} ms, one-step walk "
-                f"{t_old} ms, design floor {bounds[tag][name][2]!r} ms "
-                f"[{card}]")
-        del vol_t, image_t, out_old, out_t
-
-        # The ring's depth and warps a block, each against the defaults'
-        # result; at teddy also one 75-row tile's horizontal family (the
-        # sharded path's per-tile launch).
-        cases = [("sgm_rows", rows, vol, image, out),
-                 ("sgm_horizontal", horiz, vol, image, out)]
-        if tag == "teddy":
-            rows_tile = TEDDY_CUTS[0]
-            cases.append(("sgm_horizontal tile", horiz, vol[:rows_tile],
-                          image[:rows_tile], out[:rows_tile]))
-        for name, steps, v, im, o in cases:
-            o.zero_()
-            family_kernel(steps, v, im, o)()
-            want = o.clone()
-            found = {}
-            for stages in sgm_cuda.RING_STAGES:
-                for warps in RING_WARPS:
-                    run = family_kernel(steps, v, im, o, stages=stages,
-                                        warps_per_block=warps)
-                    o.zero_()
-                    run()
-                    require(torch.equal(o, want), f"{name} {tag} stages "
-                            f"{stages} warps {warps} differs")
-                    found[f"S{stages}/w{warps}"] = time_ms(torch, run)
-            sweeps[f"{name} {tag}"] = found
-            log(f"  ring sweep {name} {tag} {tuple(v.shape)} ms: {found} "
-                f"[{card}]")
-            del want
+        new, old = family_kernel(rows), rows_old_walk(out_old)
+        out.zero_()
+        new()
+        old()
+        require(torch.equal(out, out_old),
+                f"sgm_rows {tag}: the ring and the one-step walk differ")
+        t_old = [time_ms(torch, old)]
+        t_new = [time_ms(torch, new), time_ms(torch, new)]
+        t_old.append(time_ms(torch, old))
+        old_walk_times[tag] = min(t_old)
+        log(f"  sgm_rows {tag} A/B: ring {t_new} ms, one-step walk {t_old} "
+            f"ms, design floor {bounds[tag]['sgm_rows'][2]!r} ms [{card}]")
+        del out_old
 
         t_wta = time_ms(torch, lambda: pipe.disparity_reduce(vol))
         log(f"  wta (torch.argmin) {tag}: {t_wta!r} ms [{card}]")
@@ -863,7 +818,7 @@ def main() -> int:
                              "stereomatch_tpu/ops/sgm_pallas.py:552")}
     kernels = []
     for name, (source, replaces) in sources.items():
-        b_ms, b_by, floor_ms = bounds["teddy"][name]
+        b_ms, b_by, _ = bounds["teddy"][name]
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -874,13 +829,11 @@ def main() -> int:
             "hd_ms": times[(name, "hd")][0],
             "hd_plain_ms": times[(name, "hd")][1],
             "hd_bound_ms": bounds["hd"][name][0],
-            "design_floor_ms": floor_ms,
-            "hd_design_floor_ms": bounds["hd"][name][2],
         }
-        if (name, "teddy") in old_walk_times:
+        if name == "sgm_rows":
             # The one-step walk (the chunk kernel's) on the same launches.
-            entry["old_walk_ms"] = old_walk_times[(name, "teddy")]
-            entry["hd_old_walk_ms"] = old_walk_times[(name, "hd")]
+            entry["old_walk_ms"] = old_walk_times["teddy"]
+            entry["hd_old_walk_ms"] = old_walk_times["hd"]
         if name == "cvf":
             # K10, the W-chunked form of the same TPU kernel, at HD.
             entry["also_replaces"] = "stereomatch_tpu/ops/cvf_pallas.py:679"
@@ -894,7 +847,11 @@ def main() -> int:
         kernels.append(entry)
     e2e = {label: {tag: times[(label, tag)] for tag in ("teddy", "hd")}
            for label, _ in paths("teddy")}
-    log(json.dumps({"ring_sweep_ms": sweeps, "card": card}))
+    # Computed from the shapes, as bound_ms is; kept off the kernels line,
+    # whose other numbers are measured.
+    log(json.dumps({"design_floor_ms": {
+        name: {tag: bounds[tag][name][2] for tag in ("teddy", "hd")}
+        for name in sources}, "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {

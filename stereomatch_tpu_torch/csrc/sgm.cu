@@ -55,9 +55,9 @@
 // step's cost and out rows come from device memory, about a microsecond away
 // under load; fetched one step ahead, as the chunk kernel still does, that
 // round trip adds to every step.  The whole-image kernels therefore keep a
-// ring of STAGES steps per warp in shared memory (ring_path): at step s the
-// warp takes stage s, issues cp.async copies of step s + STAGES - 1 and runs
-// the recurrence, so the loads of STAGES - 1 steps are in flight behind it,
+// ring of kRingStages (8) steps per warp in shared memory (ring_path): at
+// step s the warp takes stage s, issues cp.async copies of step s + 7 and
+// runs the recurrence, so the loads of 7 steps are in flight behind it,
 // and P2' (a division) is computed 32 steps at a time off the chain.  At
 // teddy what is left is the step chain of the longest path; at HD (1280-2303
 // warps of D = 256) the bytes of the launch structure, three volumes a
@@ -300,16 +300,21 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The ring's depth and the warps of a block.  Of 4, 8 and 16 stages and
+// 1, 2 and 4 warps, measured at teddy (VPL 4) and HD (VPL 8) on an H100
+// (PERF.md), 8 stages and one warp were the best or within noise of it at
+// both: 7 steps ahead keep about 3 MB in flight over teddy's 375-824
+// warps, and one-warp blocks spread them over every SM.
+constexpr int kRingStages = 8;
+constexpr int kRingWarpsPerBlock = 1;
+
 // Floats of one warp's ring: per stage the cost row, then (when
 // accumulating) the out row, 32 * VPL floats each in d order.
-template <int VPL>
-__host__ __device__ __forceinline__ int ring_floats(int stages,
-                                                   bool accumulate) {
-  return stages * (accumulate ? 2 : 1) * 32 * VPL;
-}
+template <int VPL, bool ACC>
+constexpr int kRingFloats = kRingStages * (ACC ? 2 : 1) * 32 * VPL;
 
-// The whole-image kernels' walk: a ring of STAGES steps in shared memory,
-// filled by cp.async STAGES - 1 steps ahead of the recurrence.
+// The whole-image kernels' walk: a ring of S = kRingStages steps in shared
+// memory, filled by cp.async S - 1 steps ahead of the recurrence.
 //
 // The warp copies a step's cost row (and out row) in coalesced pieces,
 // 16 bytes a lane (VEC) or 4, so a lane reads back values that other
@@ -319,15 +324,15 @@ __host__ __device__ __forceinline__ int ring_floats(int stages,
 // past the path's end, is not copied.  The ring's entries past D hold
 // +inf (cost) and 0 (out), written once by the lane that reads them, so
 // lanes past D read those and never a copied value.  Each step commits
-// one group, so at step s exactly
-// STAGES - 1 + s groups are committed, and waiting until at most
-// STAGES - 2 are pending means step s's group has landed.  The copies of
-// step s + STAGES - 1, issued at step s after its wait, go to the slot of
-// step s - 1, which every lane finished reading before the __syncwarp of
-// step s.  Issuing them before the recurrence, in one basic block with
-// it, lets the compiler place them in the stalls of its shuffle chain.
+// one group, so at step s exactly S - 1 + s groups are committed, and
+// waiting until at most S - 2 are pending means step s's group has
+// landed.  The copies of step s + S - 1, issued at step s after its wait,
+// go to the slot of step s - 1, which every lane finished reading before
+// the __syncwarp of step s.  Issuing them before the recurrence, in one
+// basic block with it, lets the compiler place them in the stalls of its
+// shuffle chain.
 //
-// Fetching out STAGES - 1 steps early is safe because each pixel lies on
+// Fetching out S - 1 steps early is safe because each pixel lies on
 // exactly one path of a traversal: within one launch no path writes a
 // pixel that another path reads, and a path writes a pixel only at the
 // step that reads it.  Without ACC, out is not fetched at all.
@@ -340,14 +345,14 @@ __host__ __device__ __forceinline__ int ring_floats(int stages,
 // VEC: 16-byte copies and stores, for VPL % 4 == 0, D % 4 == 0 and
 // 16-byte-aligned cost and out (four floats lie wholly inside or past D);
 // otherwise 4-byte copies and stores.
-template <int VPL, int STAGES, bool VEC, bool ACC>
+template <int VPL, bool VEC, bool ACC>
 __device__ void ring_path(const float* __restrict__ cost,
                           const float* __restrict__ image,
                           float* __restrict__ out, int H, int W, int D,
                           int dy, int dx, float p1, float p2, int path,
                           float* ring) {
-  static_assert(STAGES >= 4 && (STAGES & (STAGES - 1)) == 0,
-                "STAGES is a power of two of at least 4");
+  static_assert(kRingStages >= 4 && (kRingStages & (kRingStages - 1)) == 0,
+                "kRingStages is a power of two of at least 4");
   static_assert(!VEC || VPL % 4 == 0, "16-byte pieces need VPL % 4 == 0");
   constexpr int kRow = 32 * VPL;
   constexpr int kPiece = VEC ? 4 : 1;           // floats a copy moves
@@ -360,7 +365,7 @@ __device__ void ring_path(const float* __restrict__ cost,
   const long step = step_pix * D;  // in floats
   const long first = first_pix * D;
   float* const cost_ring = ring;
-  float* const out_ring = ring + STAGES * kRow;
+  float* const out_ring = ring + kRingStages * kRow;
 
   // Piece i of a row starts at float e[i]; in[i]: it lies inside D.
   int e[kPieces];
@@ -372,7 +377,7 @@ __device__ void ring_path(const float* __restrict__ cost,
   }
   // The ring's entries past D, for every stage.
 #pragma unroll 1
-  for (int slot = 0; slot < STAGES; ++slot) {
+  for (int slot = 0; slot < kRingStages; ++slot) {
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
       if (d0 + j >= D) {
@@ -387,13 +392,13 @@ __device__ void ring_path(const float* __restrict__ cost,
   long ahead = first;
   auto fetch = [&]() {
     const bool live = fetched < p.len;
-    const int slot = fetched & (STAGES - 1);
+    const int slot = fetched & (kRingStages - 1);
     const float* const src = cost + ahead;
     const float* const osrc = out + ahead;
 #pragma unroll
     for (int i = 0; i < kPieces; ++i) {
       float* const dst = cost_ring + slot * kRow + e[i];
-      float* const odst = dst + STAGES * kRow;
+      float* const odst = dst + kRingStages * kRow;
       if constexpr (VEC) {
         copy16(dst, src + e[i], live && in[i]);
         if constexpr (ACC) copy16(odst, osrc + e[i], live && in[i]);
@@ -413,9 +418,9 @@ __device__ void ring_path(const float* __restrict__ cost,
   };
   // Step t's costs and out values from its stage, once it has landed.
   auto take = [&](int t, float (&c)[VPL], float (&o)[VPL]) {
-    wait_copies<STAGES - 2>();
+    wait_copies<kRingStages - 2>();
     __syncwarp();
-    const int slot = t & (STAGES - 1);
+    const int slot = t & (kRingStages - 1);
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
       c[j] = cost_ring[slot * kRow + d0 + j];
@@ -446,7 +451,7 @@ __device__ void ring_path(const float* __restrict__ cost,
   };
 
 #pragma unroll 1
-  for (int t = 0; t < STAGES - 1; ++t) fetch();
+  for (int t = 0; t < kRingStages - 1; ++t) fetch();
 
   // P2' of the block of steps [t0, t0 + 32), lane k for step t0 + k; the
   // intensities of the next block are loaded as this one starts.
@@ -484,22 +489,21 @@ __device__ void ring_path(const float* __restrict__ cost,
   }
 }
 
-template <int VPL, int STAGES, bool VEC, bool ACC>
+template <int VPL, bool VEC, bool ACC>
 __global__ void sgm_rows_kernel(const float* __restrict__ cost,
                                 const float* __restrict__ image,
                                 float* __restrict__ out, int H, int W, int D,
                                 int dy, int dx, float p1, float p2) {
   extern __shared__ __align__(16) float ring[];
   const int warp = threadIdx.x >> 5;
-  const int path = blockIdx.x * (blockDim.x >> 5) + warp;
+  const int path = blockIdx.x * kRingWarpsPerBlock + warp;
   if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
-  ring_path<VPL, STAGES, VEC, ACC>(cost, image, out, H, W, D, dy, dx, p1,
-                                   p2, path,
-                                   ring + warp * ring_floats<VPL>(STAGES, ACC));
+  ring_path<VPL, VEC, ACC>(cost, image, out, H, W, D, dy, dx, p1, p2, path,
+                           ring + warp * kRingFloats<VPL, ACC>);
 }
 
 // dy is 0; it is a parameter so that the two kernels share a launcher.
-template <int VPL, int STAGES, bool VEC, bool ACC>
+template <int VPL, bool VEC, bool ACC>
 __global__ void sgm_horizontal_kernel(const float* __restrict__ cost,
                                       const float* __restrict__ image,
                                       float* __restrict__ out, int H, int W,
@@ -507,11 +511,10 @@ __global__ void sgm_horizontal_kernel(const float* __restrict__ cost,
                                       float p2) {
   extern __shared__ __align__(16) float ring[];
   const int warp = threadIdx.x >> 5;
-  const int path = blockIdx.x * (blockDim.x >> 5) + warp;
+  const int path = blockIdx.x * kRingWarpsPerBlock + warp;
   if (path >= H) return;
-  ring_path<VPL, STAGES, VEC, ACC>(cost, image, out, H, W, D, 0, dx, p1, p2,
-                                   path,
-                                   ring + warp * ring_floats<VPL>(STAGES, ACC));
+  ring_path<VPL, VEC, ACC>(cost, image, out, H, W, D, 0, dx, p1, p2, path,
+                           ring + warp * kRingFloats<VPL, ACC>);
 }
 
 template <int VPL>
@@ -526,99 +529,66 @@ __global__ void sgm_chunk_kernel(const float* __restrict__ cost,
                   path, carry);
 }
 
-// The ring's depth and the warps of a block when the caller passes 0.
-// Of 4, 8 and 16 stages and 1, 2 and 4 warps, measured at teddy (VPL 4)
-// and HD (VPL 8) on an H100 (PERF.md), 8 stages and one warp were the
-// best or within noise of it at both: 7 steps ahead keep about 3 MB in
-// flight over teddy's 375-824 warps, and one-warp blocks spread them over
-// every SM.
-constexpr int kRingStages = 8;
-constexpr int kRingWarpsPerBlock = 1;
-constexpr int kMaxRingWarpsPerBlock = 8;
-
 enum class Kind { kRows, kHorizontal };
 
-template <int VPL, int STAGES, bool VEC, bool ACC>
+template <int VPL, bool VEC, bool ACC>
 int launch_kernel(Kind kind, const float* cost, const float* image,
                   float* out, int H, int W, int D, int dy, int dx, float p1,
-                  float p2, int warps, cudaStream_t stream) {
-  decltype(&sgm_rows_kernel<VPL, STAGES, VEC, ACC>) kernel =
-      kind == Kind::kRows ? &sgm_rows_kernel<VPL, STAGES, VEC, ACC>
-                          : &sgm_horizontal_kernel<VPL, STAGES, VEC, ACC>;
-  const size_t smem = static_cast<size_t>(warps) *
-                      ring_floats<VPL>(STAGES, ACC) * sizeof(float);
-  if (smem > 48 * 1024) {
+                  float p2, cudaStream_t stream) {
+  decltype(&sgm_rows_kernel<VPL, VEC, ACC>) kernel =
+      kind == Kind::kRows ? &sgm_rows_kernel<VPL, VEC, ACC>
+                          : &sgm_horizontal_kernel<VPL, VEC, ACC>;
+  constexpr size_t kSmem =
+      static_cast<size_t>(kRingWarpsPerBlock) * kRingFloats<VPL, ACC> *
+      sizeof(float);
+  if constexpr (kSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(kSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int paths = path_count(H, W, dy, dx);
-  kernel<<<(paths + warps - 1) / warps, 32 * warps, smem, stream>>>(
+  const int blocks = (paths + kRingWarpsPerBlock - 1) / kRingWarpsPerBlock;
+  kernel<<<blocks, 32 * kRingWarpsPerBlock, kSmem, stream>>>(
       cost, image, out, H, W, D, dy, dx, p1, p2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // 16-byte pieces where the shape and the pointers allow them.
-template <int VPL, int STAGES, bool ACC>
+template <int VPL, bool ACC>
 int launch_vec(Kind kind, const float* cost, const float* image, float* out,
                int H, int W, int D, int dy, int dx, float p1, float p2,
-               int warps, cudaStream_t stream) {
+               cudaStream_t stream) {
   if constexpr (VPL % 4 == 0) {
     if (D % 4 == 0 && reinterpret_cast<std::uintptr_t>(cost) % 16 == 0 &&
         reinterpret_cast<std::uintptr_t>(out) % 16 == 0) {
-      return launch_kernel<VPL, STAGES, true, ACC>(kind, cost, image, out, H,
-                                                   W, D, dy, dx, p1, p2, warps,
-                                                   stream);
+      return launch_kernel<VPL, true, ACC>(kind, cost, image, out, H, W, D,
+                                           dy, dx, p1, p2, stream);
     }
   }
-  return launch_kernel<VPL, STAGES, false, ACC>(kind, cost, image, out, H, W,
-                                                D, dy, dx, p1, p2, warps,
-                                                stream);
-}
-
-template <int VPL, int STAGES>
-int launch_ring(Kind kind, const float* cost, const float* image, float* out,
-                int H, int W, int D, int dy, int dx, float p1, float p2,
-                bool accumulate, int warps, cudaStream_t stream) {
-  return accumulate
-             ? launch_vec<VPL, STAGES, true>(kind, cost, image, out, H, W, D,
-                                             dy, dx, p1, p2, warps, stream)
-             : launch_vec<VPL, STAGES, false>(kind, cost, image, out, H, W, D,
-                                              dy, dx, p1, p2, warps, stream);
+  return launch_kernel<VPL, false, ACC>(kind, cost, image, out, H, W, D, dy,
+                                        dx, p1, p2, stream);
 }
 
 template <int VPL>
-int ring_for_vpl(Kind kind, const float* cost, const float* image,
-                 float* out, int H, int W, int D, int dy, int dx, float p1,
-                 float p2, bool accumulate, int stages, int warps,
-                 cudaStream_t s) {
-  switch (stages == 0 ? kRingStages : stages) {
-    case 4:
-      return launch_ring<VPL, 4>(kind, cost, image, out, H, W, D, dy, dx, p1,
-                                 p2, accumulate, warps, s);
-    case 8:
-      return launch_ring<VPL, 8>(kind, cost, image, out, H, W, D, dy, dx, p1,
-                                 p2, accumulate, warps, s);
-    case 16:
-      return launch_ring<VPL, 16>(kind, cost, image, out, H, W, D, dy, dx,
-                                  p1, p2, accumulate, warps, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+int launch_ring(Kind kind, const float* cost, const float* image, float* out,
+                int H, int W, int D, int dy, int dx, float p1, float p2,
+                bool accumulate, cudaStream_t stream) {
+  return accumulate ? launch_vec<VPL, true>(kind, cost, image, out, H, W, D,
+                                            dy, dx, p1, p2, stream)
+                    : launch_vec<VPL, false>(kind, cost, image, out, H, W, D,
+                                             dy, dx, p1, p2, stream);
 }
 
 // The whole-image traversals: rows (dy = +-1, dx in {-1, 0, 1}) or
-// horizontal (dy == 0, |dx| == 1); stages in {0, 4, 8, 16} and warps in
-// [0, kMaxRingWarpsPerBlock], 0 taking the defaults above.
+// horizontal (dy == 0, |dx| == 1).
 int dispatch_ring(Kind kind, const void* cost, const void* image, void* out,
                   int H, int W, int D, int dy, int dx, float p1, float p2,
-                  int accumulate, int stages, int warps, void* stream) {
+                  int accumulate, void* stream) {
   const bool ok = kind == Kind::kHorizontal
                       ? dy == 0 && (dx == 1 || dx == -1)
                       : (dy == 1 || dy == -1) && dx >= -1 && dx <= 1;
-  if (!ok || D < 1 || D > 32 * 16 || H < 1 || W < 1 || warps < 0 ||
-      warps > kMaxRingWarpsPerBlock) {
+  if (!ok || D < 1 || D > 32 * 16 || H < 1 || W < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* c = static_cast<const float*>(cost);
@@ -626,22 +596,16 @@ int dispatch_ring(Kind kind, const void* cost, const void* image, void* out,
   auto* o = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   const bool acc = accumulate != 0;
-  const int w = warps == 0 ? kRingWarpsPerBlock : warps;
   if (D <= 32) {
-    return ring_for_vpl<1>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc,
-                           stages, w, s);
+    return launch_ring<1>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
   } else if (D <= 64) {
-    return ring_for_vpl<2>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc,
-                           stages, w, s);
+    return launch_ring<2>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
   } else if (D <= 128) {
-    return ring_for_vpl<4>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc,
-                           stages, w, s);
+    return launch_ring<4>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
   } else if (D <= 256) {
-    return ring_for_vpl<8>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc,
-                           stages, w, s);
+    return launch_ring<8>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
   }
-  return ring_for_vpl<16>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc,
-                          stages, w, s);
+  return launch_ring<16>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
 }
 
 template <int VPL>
@@ -657,25 +621,21 @@ void launch_chunk(const float* cost, const float* image, float* out, int H,
 }  // namespace
 
 // One traversal of the vertical or a diagonal family (step dy = +-1).
-// stages / warps_per_block: the ring's depth and the warps of a block,
-// 0 for the defaults.
 extern "C" int stm_sgm_rows_f32(const void* cost, const void* image,
                                 void* out, int H, int W, int D, int dy,
                                 int dx, float p1, float p2, int accumulate,
-                                int stages, int warps_per_block,
                                 void* stream) {
   return dispatch_ring(Kind::kRows, cost, image, out, H, W, D, dy, dx, p1,
-                       p2, accumulate, stages, warps_per_block, stream);
+                       p2, accumulate, stream);
 }
 
 // One traversal of the horizontal family (step dy = 0, dx = +-1).
 extern "C" int stm_sgm_horizontal_f32(const void* cost, const void* image,
                                       void* out, int H, int W, int D, int dy,
                                       int dx, float p1, float p2,
-                                      int accumulate, int stages,
-                                      int warps_per_block, void* stream) {
+                                      int accumulate, void* stream) {
   return dispatch_ring(Kind::kHorizontal, cost, image, out, H, W, D, dy, dx,
-                       p1, p2, accumulate, stages, warps_per_block, stream);
+                       p1, p2, accumulate, stream);
 }
 
 // One row traversal (dy = +-1) over a chunk of H rows with carry hand-off:

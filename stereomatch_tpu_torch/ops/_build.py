@@ -52,12 +52,10 @@ _SIGNATURES = {
     # (left, right, out, H, W, D, k, absolute, stream)
     "stm_ssd_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "stm_ssd_i32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # (cost, image, out, H, W, D, dy, dx, p1, p2, accumulate, stages,
-    #  warps_per_block, stream)
-    "stm_sgm_rows_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
-                         _P),
+    # (cost, image, out, H, W, D, dy, dx, p1, p2, accumulate, stream)
+    "stm_sgm_rows_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     "stm_sgm_horizontal_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
-                               _I, _I, _P),
+                               _P),
     # (cost, image, carry, carry_image, out, carry_out, H, W, D, dy, dx,
     #  p1, p2, seed, accumulate, stream)
     "stm_sgm_chunk_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,

@@ -13,10 +13,8 @@ sub/add/div and exact min/max, and the traversals accumulate in the
 plain version's order, one launch each.
 
 The rows and horizontal kernels fetch their operands through a ring of
-asynchronous copies, ``stages`` steps deep, in blocks of
-``warps_per_block`` warps (one path per warp); 0 takes the kernels'
-defaults, and any other pair is there to measure the ring (chip_smoke.py
-phase 5).  The chunk kernel keeps its one-step walk.
+asynchronous copies eight steps deep, one path per one-warp block; the
+chunk kernel keeps its one-step walk.
 
 ``ROW_LAUNCHES``, ``HORIZONTAL_LAUNCHES`` and ``CHUNK_LAUNCHES`` count
 the launches of the three kernels, so a run can show that it went
@@ -35,8 +33,6 @@ HORIZONTAL_LAUNCHES = 0
 CHUNK_LAUNCHES = 0
 
 MAX_DISPARITY = 512         # 32 lanes x 16 registers per lane
-RING_STAGES = (4, 8, 16)    # the ring depths the kernels are built for
-MAX_WARPS_PER_BLOCK = 8
 
 
 def _check_out(out: torch.Tensor, like: torch.Tensor, name: str) -> None:
@@ -68,20 +64,10 @@ def _check(cost: torch.Tensor, image: torch.Tensor) -> None:
 
 def traverse_cuda(cost: torch.Tensor, image: torch.Tensor,
                   out: torch.Tensor, step: tuple, penalty1: float,
-                  penalty2: float, accumulate: bool, *, stages: int = 0,
-                  warps_per_block: int = 0) -> None:
+                  penalty2: float, accumulate: bool) -> None:
     """One traversal with pixel step ``step`` = (dy, dx): writes its path
-    costs into ``out`` (``accumulate=False``) or adds them in place.
-    ``stages`` (0 or one of ``RING_STAGES``) and ``warps_per_block`` (0
-    to ``MAX_WARPS_PER_BLOCK``) shape the launch, 0 for the defaults; the
-    result is the same for every pair."""
+    costs into ``out`` (``accumulate=False``) or adds them in place."""
     global ROW_LAUNCHES, HORIZONTAL_LAUNCHES
-    if stages not in (0, *RING_STAGES):
-        raise ValueError(f"stages={stages}: the kernels are built for "
-                         f"{RING_STAGES} (0 for the default)")
-    if not 0 <= warps_per_block <= MAX_WARPS_PER_BLOCK:
-        raise ValueError(f"warps_per_block={warps_per_block} is outside "
-                         f"[0, {MAX_WARPS_PER_BLOCK}]")
     _check(cost, image)
     _check_out(out, cost, "out")
     if cost.numel() == 0:
@@ -96,8 +82,7 @@ def traverse_cuda(cost: torch.Tensor, image: torch.Tensor,
     with torch.cuda.device(cost.device):
         status = fn(cost.data_ptr(), image.data_ptr(), out.data_ptr(),
                     height, width, max_disp, dy, dx, float(penalty1),
-                    float(penalty2), int(accumulate), int(stages),
-                    int(warps_per_block),
+                    float(penalty2), int(accumulate),
                     torch.cuda.current_stream().cuda_stream)
     _build.check_launch(name, status)
     if dy == 0:

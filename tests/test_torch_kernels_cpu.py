@@ -19,6 +19,7 @@ from stereomatch_tpu_torch.disparity_reduce import DynamicProgramming
 from stereomatch_tpu_torch.io.synthetic import stereo_pair
 from stereomatch_tpu_torch.ops import (_build, cvf_cuda, dp_cuda, sgm_cuda,
                                        ssd_cuda)
+from stereomatch_tpu_torch.ops.aggregation import TRAVERSALS
 from stereomatch_tpu_torch.utils.backend import resolve_backend
 
 COUNTERS = ((ssd_cuda, "LAUNCHES"), (sgm_cuda, "ROW_LAUNCHES"),
@@ -138,15 +139,18 @@ def test_every_c_entry_point_is_declared():
         assert len(_build._SIGNATURES[name]) == n_args, name
 
 
-@pytest.mark.parametrize("ring", [dict(stages=2), dict(stages=32),
-                                  dict(warps_per_block=-1),
-                                  dict(warps_per_block=9)])
-def test_sgm_launcher_refuses_unbuilt_ring_shapes(counters, ring):
-    """The ring depths are template constants (RING_STAGES) and a block
-    holds at most MAX_WARPS_PER_BLOCK warps; anything else raises before
-    a tensor is looked at."""
-    vol = torch.rand(6, 9, 4)
-    with pytest.raises(ValueError, match="stages|warps_per_block"):
-        sgm_cuda.traverse_cuda(vol, torch.rand(6, 9), torch.empty_like(vol),
-                               (1, 0), 0.1, 0.2, accumulate=False, **ring)
-    assert _all_zero()
+@pytest.mark.parametrize("step", TRAVERSALS, ids=str)
+def test_sgm_launchers_refuse_cpu_tensors_for_every_traversal(counters,
+                                                              step):
+    """Each traversal's launcher, the chunk kernel's for the row ones,
+    refuses CPU tensors before a launch and counts nothing."""
+    vol, left = torch.rand(6, 9, 4), torch.rand(6, 9)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sgm_cuda.traverse_cuda(vol, left, torch.empty_like(vol), step, 0.1,
+                               0.2, accumulate=False)
+    if step[0] != 0:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            sgm_cuda.sweep_chunk_with_carry_cuda(vol, left, step,
+                                                 penalty1=0.1, penalty2=0.2,
+                                                 seed=True)
+    assert _all_zero() and sgm_cuda.CHUNK_LAUNCHES == 0
