@@ -50,8 +50,6 @@ SSD_RTOL = 2e-6     # tests/test_ssd_pallas.py's bound: last-ulp scale of
 SSD_ATOL = 2e-6     # the value or of the running-sum magnitude
 SGM_RTOL = 2e-6     # the JAX package's Pallas-vs-XLA SGM bound
 SGM_ATOL = 1e-5
-CVF_RTOL = 1e-4     # the JAX package's Pallas-vs-XLA CVF bound; the
-CVF_ATOL = 1e-5     # kernels keep the plain association (0 expected)
 GOLDEN_MAX_DIFF = 16        # pixels of 168,750 (0.01%); 0 expected
 CVF_GOLDEN_MAX_DIFF = 169   # pixels of 168,750 (0.1%); 0 expected
 WARMUP, REPS = 3, 20
@@ -131,9 +129,11 @@ def kernel_work(h, w, d, k, r, tiles):
     onto and writing out back (18 volumes, 6 images); sgm_horizontal: the
     family's first launch writes out without reading it (5 volumes, 2
     images); sgm_chunk: sgm_rows' traffic plus the carries; cvf: the
-    stats kernel reads the volume and the guide planes and writes a0 and
-    b0, the filter kernel reads a0, b0 and the guide and writes the
-    result.  The single-pass kernels move their function's bytes."""
+    stats kernel reads its tiles of the volume and the guide with their
+    halos (:func:`cvf_tile_reads`) and the guide planes and writes a0 and
+    b0, the filter kernel reads its tiles of a0 and b0 and the guide and
+    writes the result.  The single-pass kernels move their function's
+    bytes."""
     vol, img, f = h * w * d, h * w, 4        # elements; float32 bytes
     hd = h * d * f
     carries = 6 * (tiles - 1) * 2 * w * d * f
@@ -152,9 +152,31 @@ def kernel_work(h, w, d, k, r, tiles):
         "sgm_horizontal": ((2 * vol + img) * f, vol * 9 * 2,
                            (5 * vol + 2 * img) * f),
         "cvf": ((2 * vol + 5 * img) * f + 2 * hd, vol * (16 * r + 25),
-                (6 * vol + 6 * img) * f + 2 * hd),
+                (cvf_tile_reads(h, w, d, r, 16, 2) * (d + 1)
+                 + 2 * cvf_tile_reads(h, w, d, r, 8, 3) * d
+                 + 3 * vol + 5 * img) * f + 2 * hd),
     })
     return work
+
+
+def cvf_tile_reads(h, w, d, r, td, blocks_per_sm, sms=132, tx=32,
+                   group=4):
+    """Pixels (row, column pairs) that a CVF kernel with ``td``
+    disparities and ``blocks_per_sm`` blocks an SM (at r = 8 on an H100:
+    stats 16 and 2, filter 8 and 3) stages from device memory, halos
+    included: ``csrc/cvf.cu``'s launch cuts rows into chunks so that the
+    grid holds about four times the blocks the card runs at once, never
+    chunks under 4r rows, and each chunk of each 32-column tile reads its
+    rows and columns within r of it that lie in the image."""
+    tiles = -(-w // tx) * -(-d // td)
+    chunks = -(-4 * sms * blocks_per_sm // tiles)
+    chunks = min(chunks, max(1, h // max(4 * r, 4 * group)))
+    ch = -(-(-(-h // chunks)) // group) * group
+    rows = sum(min(y0 + ch - 1 + r, h - 1) - max(y0 - r, 0) + 1
+               for y0 in range(0, h, ch))
+    cols = sum(min(x0 + tx - 1 + r, w - 1) - max(x0 - r, 0) + 1
+               for x0 in range(0, w, tx))
+    return rows * cols
 
 
 def kernel_bounds(h, w, d, k, r, tiles):
@@ -416,7 +438,7 @@ def main() -> int:
             f"cvf {tag}", cvf_ops.guided_filter_aggregate(census, left,
                                                           **cvf_kw),
             cvf_cuda.guided_filter_aggregate_cuda(census, left, **cvf_kw),
-            CVF_RTOL, CVF_ATOL)
+            0, 0, exact=True)
         del census
         torch.cuda.empty_cache()
 
@@ -758,6 +780,17 @@ def main() -> int:
         t_census = time_ms(torch, lambda: cost_ops.census_hamming_cost_volume(
             left, right, max_disparity=d))
         log(f"  census plain {tag}: {t_census!r} ms [{card}]")
+        # The whole CVF call (pairs["cvf"]) is the guide planes in PyTorch
+        # plus the two launches; each timed alone here.
+        planes = cvf_ops.guide_planes(image, 8, 0, d)
+        t_cvf = [time_ms(torch, lambda: cvf_cuda._launch_kernels(
+            census, planes, 8, 1e-4, 0)) for _ in range(2)]
+        times[("cvf_kernels", tag)] = min(t_cvf)
+        t_planes = time_ms(torch, lambda: cvf_ops.guide_planes(image, 8, 0, d))
+        log(f"  cvf {tag}: stats + filter launches alone {t_cvf} ms, guide "
+            f"planes {t_planes!r} ms, whole call {times[('cvf', tag)][0]!r} "
+            f"ms [{card}]")
+        del planes
         del vol, out, ptr, final, census
         torch.cuda.empty_cache()
 
@@ -838,6 +871,9 @@ def main() -> int:
             # K10, the W-chunked form of the same TPU kernel, at HD.
             entry["also_replaces"] = "stereomatch_tpu/ops/cvf_pallas.py:679"
             entry["launches_filter_kernel"] = cvf_counts["cvf_filter"]
+            # The two launches alone, on precomputed guide planes.
+            entry["kernel_ms"] = times[("cvf_kernels", "teddy")]
+            entry["hd_kernel_ms"] = times[("cvf_kernels", "hd")]
         if name == "sgm_chunk":
             # K6, the W-on-grid form of the same TPU kernel, at HD; the
             # launches are those of the sharded exact path (teddy, 5

@@ -1,11 +1,11 @@
 // Guided-filter cost-volume aggregation (wedge path) for Hopper (sm_90a).
 //
-// Replaces: stereomatch_tpu/ops/cvf_pallas.py, _fused_wedge_ring_kernel,
-// entered through guided_filter_wedge_pallas (full width) and
-// guided_filter_wedge_chunked_pallas (W chunks with 2r halos, for HD).
-// The TPU kernel streamed rows through a VMEM ring with running H sums
-// and cut HD into W chunks to fit 16 MB of VMEM; neither constraint
-// exists here, so one design serves every geometry.
+// Replaces: stereomatch_tpu/ops/cvf_pallas.py:105 _fused_wedge_ring_kernel,
+// entered through guided_filter_wedge_pallas (full width, pallas_call at
+// :493) and guided_filter_wedge_chunked_pallas (W chunks with 2r halos, for
+// HD, :679).  The TPU kernel streamed rows through a VMEM ring with running
+// (lead/lag) H sums and did both stages in one pass; running sums round
+// differently from the plain version, so neither is kept here.
 //
 // Semantics (plain version: stereomatch_tpu_torch/ops/cvf.py), for a
 // volume whose invalid cells are exactly the wedge x < d + off:
@@ -17,188 +17,487 @@
 //   a0, b0 = valid ? (a, b) : 0
 //   q = (box(a0) / count) * I + box(b0) / count; +inf where invalid.
 // box is the clipped symmetric (2r+1)^2 window sum, H first and then W,
-// each in window order: the plain version's association.  Every
-// operation rounds on its own (__fadd_rn, __fmul_rn, __fdiv_rn, and
-// -fmad=false), except the four product-and-add pairs that the plain
-// version fuses, as XLA does, which are __fmaf_rn here.
+// each in window order from 0: the plain version's association (its zero
+// pads add +0, which changes nothing).  Every operation rounds on its own
+// (__fadd_rn, __fmul_rn, __fdiv_rn, and -fmad=false), except the four
+// product-and-add pairs that the plain version fuses, as XLA does, which
+// are __fmaf_rn here.  No window sum reuses another's partial sum.
 //
-// Two kernels: cvf_stats_kernel writes a0 and b0 (two float32 volumes of
-// scratch), cvf_filter_kernel writes q.  What bounds them on an H100:
-// the volume bytes (one read and one write of H*W*D*4: 86.4 MB each at
-// teddy 375x450 D=128) against the window taps.  Design, as in ssd.cu:
-// one block owns one row y, kTileW output columns and blockDim.x
-// disparities (one per thread, so loads and stores are coalesced along
-// D).  Each thread first forms the vertical (H) window sums of the
-// kTileW + 2r columns its outputs read into its own column of shared
-// memory (2r+1 taps each), then each output adds 2r+1 of them: about
-// (kTileW + 2r)(2r+1)/kTileW + 2r+1 taps per output and statistic (43 at
-// r = 8) instead of (2r+1)^2 = 289.  Threads own disjoint shared columns,
-// so no barrier is needed.  The vertical taps of neighbouring rows and
-// tiles overlap; they are served by L2, not by device memory.
+// Two kernels, one template (cvf_kernel): the stats kernel reads the
+// volume and writes a0 and b0 (float32 scratch volumes), the filter kernel
+// reads a0 and b0 and writes q.  Each output needs 2 x 2 x (2r+1) window
+// adds that no reuse may share (68 at r = 8) and five (stats) or two
+// (filter) IEEE divisions; the function moves three volumes a kernel.
+// PR 2's kernels re-read every vertical window tap from device memory,
+// about 25 reads of each input element through L2 at r = 8.  This design
+// reads each element from device memory about once and feeds every add
+// from a register:
+//
+// * A block owns kTX output columns x TD disparities x CH output rows (a
+//   chunk) and walks the chunk in groups of G rows.  Input rows stream
+//   into a shared-memory ring of G + 2r rows of (kTX + 2r) columns x TD
+//   by cp.async, coalesced 16-byte pieces where D % 4 == 0 and the volume
+//   is 16-byte aligned, 4-byte pieces otherwise; rows and columns outside
+//   the image are stored as zeros.  Group k + 1's rows are requested when
+//   group k's vertical sums are done, into the slots of group k's first G
+//   rows, with the epilogue's operands of group k + 1 (guide planes or
+//   guide) into the second of two buffers.  Each input element leaves
+//   device memory (kTX + 2r)(CH + 2r) / (kTX CH) times (1.5-2 at r = 8).
+//   Disparity tiles are the grid's fastest axis, so the blocks that share
+//   a 128-byte line of a row run together.
+// * Vertical sums: one thread per (column, disparity) of the span reads
+//   its column's G + 2r ring rows once each and adds every value into the
+//   G window sums it belongs to (window_sums: a static ramp in, a counted
+//   steady state, a static ramp out), so each add has its operand in a
+//   register; the G vertical sums go to a second shared-memory buffer.
+// * Horizontal sums: one thread per (row, XB columns, disparity) reads its
+//   XB + 2r vertical sums once each the same way, then computes the
+//   outputs' epilogue and stores them, TD disparities contiguous.
+//
+// What bounds it on an H100 (PERF.md §6, PR 7): the bytes and the issue
+// of instructions in turn, not overlapped.  At HD, with the sums and the
+// epilogue cut out, the staging alone takes 37% (stats) and 52% (filter)
+// of each kernel's time, at about 1.4x and 1.5x the time of its bytes at
+// the card's 3.35 TB/s: a block has one group of rows in flight, during
+// its horizontal pass only.  The vertical sums add 35% and 29% (some 15
+// instructions a ring row for 8 adds: the load, the wedge mask, the guide
+// product and the ring's wrap), the epilogue's divisions 26% and 18%.
+// Larger G, wider tiles, a deeper ring and L2 prefetching were measured
+// and lost: each cost occupancy or issue more than it saved.
+//
+// The tile shape follows from r in one function (tile_of): the first of
+// kTiles whose ramps r allows (G, XB <= 2r + 2) and whose shared memory
+// fits kSmemTarget (two blocks an SM), else the card's 227 KB.  At r = 8:
+// G = 4, XB = 8, TD = 16 (stats, 93 KB, two blocks an SM) or 8 (filter,
+// 73 KB, three).  A radius that fits no tile (r above 34 for the filter)
+// is refused.  CH is cut from the image height so that the grid fills
+// the card about four times over, never below 4r rows.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kTileW = 32;
+constexpr int kTX = 32;          // output columns of a block
+constexpr int kSmemTarget = 110 * 1024;   // two blocks on an SM
+constexpr int kSmemMax = 227 * 1024;
+constexpr int kRefused = -1;     // returned for a radius that cannot fit
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 // torch.clamp_min / jnp.maximum against a constant: NaN propagates.
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
-// Clipped window counts as the plain version computes them.
-__device__ __forceinline__ float window_count(int y, int x, int dlo, int H,
-                                              int W, int r) {
-  const float ch = static_cast<float>(min(y + r, H - 1) - max(y - r, 0) + 1);
-  const float cw = static_cast<float>(
-      max(min(x + r, W - 1) - max(max(x - r, 0), dlo) + 1, 0));
-  return max_nan(__fmul_rn(ch, cw), 1.0f);
+// cp.async: an asynchronous copy from device to shared memory that the
+// issuing thread waits for by commit group (as in sgm.cu).
+__device__ __forceinline__ unsigned smem_addr(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Vertical window sums of two statistics for the block's span of
-// columns.  Stage 1 (kStats): the statistics are p0 and I * p0 of the
-// volume; stage 2: a0 and b0.  Invalid columns (c < dlo) and columns
-// outside the image sum to zero in the plain version: they are skipped.
-template <bool kStats>
-__device__ __forceinline__ void vertical_sums(
-    const float* __restrict__ first, const float* __restrict__ second,
-    const float* __restrict__ guide, float* vs1, float* vs2, int y, int x0,
-    int d, int dlo, int H, int W, int D, int r) {
+// B consecutive window sums of two sequences: s[j] = sum of v(t) for t =
+// j .. j + 2r, added in t order from 0, where load(t) gives v(t) of both
+// sequences; it is called for t = 0, 1, ..., B + 2r - 1 in turn.  Each v(t) is loaded once and added into every sum it
+// belongs to.  Needs B <= 2r + 2, so that the ramp in (t < B - 1) ends
+// before the first window does.
+template <int B, typename Load>
+__device__ __forceinline__ void window_sums(int r, Load load, float (&s1)[B],
+                                            float (&s2)[B]) {
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    s1[j] = 0.0f;
+    s2[j] = 0.0f;
+  }
+  float a, b;
+#pragma unroll
+  for (int t = 0; t < B - 1; ++t) {
+    load(t, a, b);
+#pragma unroll
+    for (int j = 0; j <= t; ++j) {
+      s1[j] = __fadd_rn(s1[j], a);
+      s2[j] = __fadd_rn(s2[j], b);
+    }
+  }
+#pragma unroll 4
+  for (int t = B - 1; t <= 2 * r; ++t) {
+    load(t, a, b);
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      s1[j] = __fadd_rn(s1[j], a);
+      s2[j] = __fadd_rn(s2[j], b);
+    }
+  }
+#pragma unroll
+  for (int s = 1; s < B; ++s) {
+    load(2 * r + s, a, b);
+#pragma unroll
+    for (int j = s; j < B; ++j) {
+      s1[j] = __fadd_rn(s1[j], a);
+      s2[j] = __fadd_rn(s2[j], b);
+    }
+  }
+}
+
+// Shared-memory layout of a block, in floats.  Ring row: the span's
+// volume values (one volume for stats, a0 then b0 for the filter), S x TD
+// each in (column, disparity) order, then the stats kernel's S guide
+// values, padded to 4 floats.  The vertical-sum buffer: two statistics x
+// G rows x SP columns x TD, SP = S rounded up to odd so that the rows a
+// warp reads fall into different banks.  The epilogue's operands of a
+// group's G output rows, in two buffers (groups k and k + 1): stats, hi1,
+// lo1, hi2 and lo2 over the kTX columns and pd1 and pd2 over the TD
+// disparities; filter, the guide.
+struct Layout {
+  int S, R, SP, row, ring, vbuf, plane, pd;
+  __host__ __device__ Layout(int r, int G, int TD, bool stats) {
+    S = kTX + 2 * r;
+    R = G + 2 * r;
+    SP = S | 1;
+    row = S * TD * (stats ? 1 : 2) + (stats ? (S + 3) / 4 * 4 : 0);
+    ring = R * row;
+    vbuf = 2 * G * SP * TD;
+    pd = (stats ? 4 : 1) * G * kTX;          // offset of pd1 in a buffer
+    plane = pd + (stats ? 2 * G * TD : 0);   // floats of one buffer
+  }
+  __host__ __device__ size_t bytes() const {
+    return static_cast<size_t>(ring + vbuf + 2 * plane) * sizeof(float);
+  }
+};
+
+// Threads of a block: one a horizontal item (a row, XB columns and a
+// disparity of a group).
+template <int G, int XB, int TD>
+constexpr int kBlock = G * (kTX / XB) * TD;
+
+struct Args {
+  const float* in1;    // stats: the volume; filter: a0
+  const float* in2;    // filter: b0
+  const float* guide;
+  const float *hi1, *lo1, *hi2, *lo2, *pd1, *pd2;
+  float* out1;         // stats: a0; filter: q
+  float* out2;         // stats: b0
+  int H, W, D, r, off, CH;
+  float eps;
+  int vec;             // 16-byte pieces
+};
+
+// Ring rows n in [n0, n1): image row y0 - r + n into slot n % R; and the
+// epilogue's operands of group `g` into buffer g % 2.  One commit group.
+template <int NT, int G, int TD, bool kStats>
+__device__ __forceinline__ void stage(const Args& a, const Layout& L,
+                                      float* ring, float* planes, int n0,
+                                      int n1, int g, int y0, int x0, int dz,
+                                      int y_last) {
   const int tid = threadIdx.x;
-  const int span = kTileW + 2 * r;
-  const int r_lo = max(y - r, 0);
-  const int r_hi = min(y + r, H - 1);
-  for (int j = 0; j < span; ++j) {
-    const int c = x0 - r + j;
-    float s1 = 0.0f;
-    float s2 = 0.0f;
-    if (d < D && c >= 0 && c < W && c >= dlo) {
-      for (int row = r_lo; row <= r_hi; ++row) {
-        const size_t idx = (static_cast<size_t>(row) * W + c) * D + d;
-        if constexpr (kStats) {
-          const float p = first[idx];
-          s1 = __fadd_rn(s1, p);
-          s2 = __fadd_rn(s2, __fmul_rn(guide[row * W + c], p));
-        } else {
-          s1 = __fadd_rn(s1, first[idx]);
-          s2 = __fadd_rn(s2, second[idx]);
+  const int nvol = kStats ? 1 : 2;
+  const int piece = a.vec ? 4 : 1;
+  // Pieces a column: TD / piece, a power of two.
+  const int shift = __ffs(TD / piece) - 1;
+  const int per_row = L.S << shift;
+  for (int n = n0; n < n1; ++n) {
+    const int y = y0 - a.r + n;
+    if (y > y_last) break;           // no output row of the chunk reads it
+    float* const dst_row = ring + (n % L.R) * L.row;
+    const bool row_in = y >= 0 && y < a.H;
+    for (int i = tid; i < per_row; i += NT) {
+      const int c = i >> shift;
+      const int d = (i - (c << shift)) * piece;
+      const int x = x0 - a.r + c;
+      const bool in = row_in && x >= 0 && x < a.W;
+      const size_t src = (static_cast<size_t>(y) * a.W + x) * a.D + dz + d;
+      for (int v = 0; v < nvol; ++v) {
+        float* const dst = dst_row + v * L.S * TD + c * TD + d;
+        const float* const base = v == 0 ? a.in1 : a.in2;
+        if (!in) {
+          for (int k = 0; k < piece; ++k) dst[k] = 0.0f;
+        } else if (dz + d < a.D) {
+          if (a.vec) {
+            copy16(dst, base + src);
+          } else {
+            copy4(dst, base + src);
+          }
         }
       }
     }
-    vs1[j * blockDim.x + tid] = s1;
-    vs2[j * blockDim.x + tid] = s2;
+    if (kStats) {
+      float* const gr = dst_row + L.S * TD;
+      for (int c = tid; c < L.S; c += NT) {
+        const int x = x0 - a.r + c;
+        if (row_in && x >= 0 && x < a.W) {
+          copy4(gr + c, a.guide + static_cast<size_t>(y) * a.W + x);
+        } else {
+          gr[c] = 0.0f;
+        }
+      }
+    }
   }
+  // Entries outside the image are left as they are: no output reads them.
+  float* const buf = planes + (g % 2) * L.plane;
+  const int yg = y0 + g * G;
+  for (int i = tid; i < L.pd; i += NT) {
+    const int p = i / (G * kTX);
+    const int j = (i / kTX) % G;
+    const int x = x0 + i % kTX;
+    if (yg + j < a.H && x < a.W) {
+      const size_t pix = static_cast<size_t>(yg + j) * a.W + x;
+      const float* const src = !kStats ? a.guide
+                               : p == 0 ? a.hi1
+                               : p == 1 ? a.lo1
+                               : p == 2 ? a.hi2
+                                        : a.lo2;
+      copy4(buf + i, src + pix);
+    }
+  }
+  if (kStats) {
+    for (int i = tid; i < 2 * G * TD; i += NT) {
+      const int j = (i / TD) % G;
+      const int d = dz + i % TD;
+      if (yg + j < a.H && d < a.D) {
+        copy4(buf + L.pd + i,
+              (i < G * TD ? a.pd1 : a.pd2) +
+                  static_cast<size_t>(yg + j) * a.D + d);
+      }
+    }
+  }
+  commit_copies();
 }
 
-__global__ void cvf_stats_kernel(
-    const float* __restrict__ vol, const float* __restrict__ guide,
-    const float* __restrict__ hi1, const float* __restrict__ lo1,
-    const float* __restrict__ hi2, const float* __restrict__ lo2,
-    const float* __restrict__ pd1, const float* __restrict__ pd2,
-    float* __restrict__ a0, float* __restrict__ b0, int H, int W, int D,
-    int r, int off, float eps) {
-  extern __shared__ float smem[];
-  const int span = kTileW + 2 * r;
-  float* vp = smem;
-  float* vgp = smem + span * blockDim.x;
+template <int G, int XB, int TD, bool kStats>
+__global__ void __launch_bounds__(kBlock<G, XB, TD>)
+    cvf_kernel(const Args a) {
+  static_assert(kTX % XB == 0 && 32 % TD == 0, "tile shape");
+  constexpr int NT = kBlock<G, XB, TD>;
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(a.r, G, TD, kStats);
+  float* const ring = smem;
+  float* const ring_end = smem + L.ring;
+  float* const vbuf = ring_end;
+  float* const planes = vbuf + L.vbuf;
   const int tid = threadIdx.x;
-  const int y = blockIdx.y;
-  const int x0 = blockIdx.x * kTileW;
-  const int d = blockIdx.z * blockDim.x + tid;
-  const int dlo = d + off;
-  vertical_sums<true>(vol, nullptr, guide, vp, vgp, y, x0, d, dlo, H, W, D,
-                      r);
-  if (d >= D) return;
-  for (int i = 0; i < kTileW; ++i) {
-    const int x = x0 + i;
-    if (x >= W) break;
-    const size_t pix = static_cast<size_t>(y) * W + x;
-    const size_t out = pix * D + d;
-    if (x < dlo) {
-      a0[out] = 0.0f;
-      b0[out] = 0.0f;
-      continue;
+  const int r = a.r;
+  const int dz = blockIdx.x * TD;
+  const int x0 = blockIdx.y * kTX;
+  const int y0 = blockIdx.z * a.CH;
+  const int y1 = min(y0 + a.CH, a.H);
+  const int y_last = y1 - 1 + r;   // rows past H are staged as zeros
+  const int groups = (y1 - y0 + G - 1) / G;
+  const int vstat = G * L.SP * TD;   // floats of one statistic's sums
+
+  stage<NT, G, TD, kStats>(a, L, ring, planes, 0, G + 2 * r, 0, y0, x0, dz,
+                           y_last);
+  // This thread's horizontal item: row j, columns xb * XB + [0, XB),
+  // disparity d of the tile.
+  const int hd = tid % TD;
+  const int hj = (tid / TD) % G;
+  const int hxb = tid / (TD * G);
+  const int dd = dz + hd;
+  const int dlo = dd + a.off;
+  for (int k = 0; k < groups; ++k) {
+    wait_copies<0>();
+    __syncthreads();
+    // Vertical sums of the group's G rows, for every span column.
+    for (int i = tid; i < L.S * TD; i += NT) {
+      const int c = i / TD;
+      const int d = i % TD;
+      // Stats: the wedge's columns (x < d + off) hold p0 = 0.
+      const bool live = x0 - r + c >= dz + d + a.off;
+      // The column's next row (rows 0, 1, ... of the group in turn), and
+      // the offset of its guide value from it.
+      const float* p = ring + (k * G) % L.R * L.row + c * TD + d;
+      const int to_guide = L.S * TD + c - (c * TD + d);
+      auto load = [&](int, float& v1, float& v2) {
+        if constexpr (kStats) {
+          const float p0 = live ? p[0] : 0.0f;
+          v1 = p0;
+          v2 = __fmul_rn(p[to_guide], p0);
+        } else {
+          v1 = p[0];
+          v2 = p[L.S * TD];
+        }
+        p += L.row;
+        if (p >= ring_end) p -= L.ring;
+      };
+      float s1[G], s2[G];
+      window_sums<G>(r, load, s1, s2);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        vbuf[(j * L.SP + c) * TD + d] = s1[j];
+        vbuf[vstat + (j * L.SP + c) * TD + d] = s2[j];
+      }
     }
-    float s_p = 0.0f;
-    float s_gp = 0.0f;
-    for (int s = 0; s <= 2 * r; ++s) {
-      s_p = __fadd_rn(s_p, vp[(i + s) * blockDim.x + tid]);
-      s_gp = __fadd_rn(s_gp, vgp[(i + s) * blockDim.x + tid]);
+    __syncthreads();
+    // The ring slots of this group's first G rows, and the buffer of
+    // group k - 1's operands, are free: request group k + 1's, which land
+    // while this group's horizontal sums run.
+    stage<NT, G, TD, kStats>(a, L, ring, planes, (k + 1) * G + 2 * r,
+                             (k + 2) * G + 2 * r, k + 1, y0, x0, dz, y_last);
+    // Horizontal sums and the epilogue of this thread's outputs.
+    const float* const vrow = vbuf + (hj * L.SP + hxb * XB) * TD + hd;
+    auto load = [&](int t, float& v1, float& v2) {
+      v1 = vrow[t * TD];
+      v2 = vrow[vstat + t * TD];
+    };
+    float s1[XB], s2[XB];
+    window_sums<XB>(r, load, s1, s2);
+    const int y = y0 + k * G + hj;
+    if (y >= y1 || dd >= a.D) continue;
+    const float* const buf = planes + (k % 2) * L.plane + hj * kTX + hxb * XB;
+    const float ch =
+        static_cast<float>(min(y + r, a.H - 1) - max(y - r, 0) + 1);
+    const size_t first = (static_cast<size_t>(y) * a.W + x0 + hxb * XB) *
+                             a.D + dd;
+#pragma unroll
+    for (int u = 0; u < XB; ++u) {
+      const int x = x0 + hxb * XB + u;
+      if (x >= a.W) continue;
+      const size_t out = first + static_cast<size_t>(u) * a.D;
+      const float cw = static_cast<float>(
+          max(min(x + r, a.W - 1) - max(max(x - r, 0), dlo) + 1, 0));
+      // max(countH * countW, 1), as the plain version computes it.
+      const float count = max_nan(__fmul_rn(ch, cw), 1.0f);
+      if constexpr (kStats) {
+        if (x < dlo) {
+          a.out1[out] = 0.0f;
+          a.out2[out] = 0.0f;
+          continue;
+        }
+        const bool cond = (x - r) >= dlo;
+        const float* const pd = planes + (k % 2) * L.plane + L.pd +
+                                hj * TD + hd;
+        const float s_g = __fsub_rn(buf[u], cond ? buf[G * kTX + u] : pd[0]);
+        const float s_gg = __fsub_rn(buf[2 * G * kTX + u],
+                                     cond ? buf[3 * G * kTX + u]
+                                          : pd[G * TD]);
+        const float mean_p = __fdiv_rn(s1[u], count);
+        const float mean_i = __fdiv_rn(s_g, count);
+        const float corr_ip = __fdiv_rn(s2[u], count);
+        const float corr_ii = __fdiv_rn(s_gg, count);
+        const float var_i =
+            max_nan(__fmaf_rn(-mean_i, mean_i, corr_ii), 0.0f);
+        const float cov_ip = __fmaf_rn(-mean_i, mean_p, corr_ip);
+        const float av = __fdiv_rn(cov_ip, __fadd_rn(var_i, a.eps));
+        a.out1[out] = av;
+        a.out2[out] = __fmaf_rn(-av, mean_i, mean_p);
+      } else {
+        a.out1[out] = x < dlo ? inf_f()
+                              : __fmaf_rn(__fdiv_rn(s1[u], count), buf[u],
+                                          __fdiv_rn(s2[u], count));
+      }
     }
-    const bool cond = (x - r) >= dlo;
-    const size_t col = static_cast<size_t>(y) * D + d;
-    const float s_g = __fsub_rn(hi1[pix], cond ? lo1[pix] : pd1[col]);
-    const float s_gg = __fsub_rn(hi2[pix], cond ? lo2[pix] : pd2[col]);
-    const float count = window_count(y, x, dlo, H, W, r);
-    const float mean_p = __fdiv_rn(s_p, count);
-    const float mean_i = __fdiv_rn(s_g, count);
-    const float corr_ip = __fdiv_rn(s_gp, count);
-    const float corr_ii = __fdiv_rn(s_gg, count);
-    const float var_i = max_nan(__fmaf_rn(-mean_i, mean_i, corr_ii), 0.0f);
-    const float cov_ip = __fmaf_rn(-mean_i, mean_p, corr_ip);
-    const float a = __fdiv_rn(cov_ip, __fadd_rn(var_i, eps));
-    a0[out] = a;
-    b0[out] = __fmaf_rn(-a, mean_i, mean_p);
   }
 }
 
-__global__ void cvf_filter_kernel(const float* __restrict__ a0,
-                                  const float* __restrict__ b0,
-                                  const float* __restrict__ guide,
-                                  float* __restrict__ q, int H, int W, int D,
-                                  int r, int off) {
-  extern __shared__ float smem[];
-  const int span = kTileW + 2 * r;
-  float* va = smem;
-  float* vb = smem + span * blockDim.x;
-  const int tid = threadIdx.x;
-  const int y = blockIdx.y;
-  const int x0 = blockIdx.x * kTileW;
-  const int d = blockIdx.z * blockDim.x + tid;
-  const int dlo = d + off;
-  vertical_sums<false>(a0, b0, nullptr, va, vb, y, x0, d, dlo, H, W, D, r);
-  if (d >= D) return;
-  for (int i = 0; i < kTileW; ++i) {
-    const int x = x0 + i;
-    if (x >= W) break;
-    const size_t pix = static_cast<size_t>(y) * W + x;
-    if (x < dlo) {
-      q[pix * D + d] = __int_as_float(0x7f800000);  // +inf
-      continue;
-    }
-    float sa = 0.0f;
-    float sb = 0.0f;
-    for (int s = 0; s <= 2 * r; ++s) {
-      sa = __fadd_rn(sa, va[(i + s) * blockDim.x + tid]);
-      sb = __fadd_rn(sb, vb[(i + s) * blockDim.x + tid]);
-    }
-    const float count = window_count(y, x, dlo, H, W, r);
-    q[pix * D + d] = __fmaf_rn(__fdiv_rn(sa, count), guide[pix],
-                               __fdiv_rn(sb, count));
-  }
-}
-
-struct Launch {
-  dim3 grid;
-  int threads;
+// The tile of a radius: G rows a group, XB columns a horizontal thread,
+// TD disparities a block (see the note at the top).  kTiles lists the
+// candidates in order of preference; a radius takes the first whose ramps
+// it allows (G, XB <= 2r + 2) and whose shared memory fits.
+struct Tile {
+  int G, XB, TD, index;
   size_t smem;
 };
 
-Launch launch_shape(int H, int W, int D, int r) {
-  Launch l;
-  l.threads = D > 32 ? 64 : 32;
-  l.grid = dim3((W + kTileW - 1) / kTileW, H, (D + l.threads - 1) / l.threads);
-  l.smem = static_cast<size_t>(kTileW + 2 * r) * l.threads * 2 * sizeof(float);
-  return l;
+constexpr int kTiles[6][3] = {{4, 8, 16}, {4, 8, 8}, {4, 8, 4},
+                              {2, 8, 4},  {4, 4, 16}, {2, 2, 16}};
+
+bool tile_of(int r, bool stats, Tile* t) {
+  const int limits[2] = {kSmemTarget, kSmemMax};
+  for (int limit : limits) {
+    for (int i = 0; i < 6; ++i) {
+      t->G = kTiles[i][0];
+      t->XB = kTiles[i][1];
+      t->TD = kTiles[i][2];
+      t->index = i;
+      t->smem = Layout(r, t->G, t->TD, stats).bytes();
+      if (t->G <= 2 * r + 2 && t->XB <= 2 * r + 2 &&
+          t->smem <= static_cast<size_t>(limit)) {
+        return true;
+      }
+    }
+  }
+  return false;
 }
 
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
+template <int G, int XB, int TD, bool kStats>
+int launch(const Args& a, size_t smem, cudaStream_t stream) {
+  auto kernel = cvf_kernel<G, XB, TD, kStats>;
+  int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
+  if (err != 0) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = static_cast<int>(cudaGetDevice(&dev))) != 0) return err;
+  if ((err = static_cast<int>(cudaDeviceGetAttribute(
+           &sms, cudaDevAttrMultiProcessorCount, dev))) != 0) {
+    return err;
+  }
+  if ((err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kBlock<G, XB, TD>, smem))) != 0) {
+    return err;
+  }
+  // Chunks of rows: enough blocks to fill the card about four times over,
+  // never chunks shorter than 4r rows (their halo would be re-read more
+  // than the chunk).
+  const int tiles = ((a.W + kTX - 1) / kTX) * ((a.D + TD - 1) / TD);
+  const int want = 4 * sms * std::max(per_sm, 1);
+  int chunks = (want + tiles - 1) / tiles;
+  chunks = std::min(chunks, std::max(1, a.H / std::max(4 * a.r, 4 * G)));
+  Args b = a;
+  b.CH = ((a.H + chunks - 1) / chunks + G - 1) / G * G;
+  // Disparity tiles first: the blocks that share each 128-byte line of a
+  // row run together.
+  const dim3 grid((a.D + TD - 1) / TD, (a.W + kTX - 1) / kTX,
+                  (a.H + b.CH - 1) / b.CH);
+  cvf_kernel<G, XB, TD, kStats><<<grid, kBlock<G, XB, TD>, smem, stream>>>(b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStats>
+int dispatch(const Args& a, cudaStream_t stream) {
+  // A radius either kernel refuses is refused by both, before any launch.
+  Tile t, filter;
+  if (!tile_of(a.r, kStats, &t) || !tile_of(a.r, false, &filter)) {
+    return kRefused;
+  }
+  const size_t m = t.smem;
+#define STM_TILE(i) \
+  case i:           \
+    return launch<kTiles[i][0], kTiles[i][1], kTiles[i][2], kStats>(a, m, stream)
+  switch (t.index) {
+    STM_TILE(0);
+    STM_TILE(1);
+    STM_TILE(2);
+    STM_TILE(3);
+    STM_TILE(4);
+    default:
+      return launch<kTiles[5][0], kTiles[5][1], kTiles[5][2], kStats>(a, m,
+                                                                       stream);
+  }
+#undef STM_TILE
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -209,30 +508,40 @@ extern "C" int stm_cvf_stats_f32(const void* vol, const void* guide,
                                  const void* pd1, const void* pd2, void* a0,
                                  void* b0, int H, int W, int D, int r,
                                  int off, float eps, void* stream) {
-  const Launch l = launch_shape(H, W, D, r);
-  const int err = allow_smem(cvf_stats_kernel, l.smem);
-  if (err != 0) return err;
-  cvf_stats_kernel<<<l.grid, l.threads, l.smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vol), static_cast<const float*>(guide),
-      static_cast<const float*>(hi1), static_cast<const float*>(lo1),
-      static_cast<const float*>(hi2), static_cast<const float*>(lo2),
-      static_cast<const float*>(pd1), static_cast<const float*>(pd2),
-      static_cast<float*>(a0), static_cast<float*>(b0), H, W, D, r, off,
-      eps);
-  return static_cast<int>(cudaGetLastError());
+  Args a{};
+  a.in1 = static_cast<const float*>(vol);
+  a.guide = static_cast<const float*>(guide);
+  a.hi1 = static_cast<const float*>(hi1);
+  a.lo1 = static_cast<const float*>(lo1);
+  a.hi2 = static_cast<const float*>(hi2);
+  a.lo2 = static_cast<const float*>(lo2);
+  a.pd1 = static_cast<const float*>(pd1);
+  a.pd2 = static_cast<const float*>(pd2);
+  a.out1 = static_cast<float*>(a0);
+  a.out2 = static_cast<float*>(b0);
+  a.H = H;
+  a.W = W;
+  a.D = D;
+  a.r = r;
+  a.off = off;
+  a.eps = eps;
+  a.vec = D % 4 == 0 && aligned16(vol);
+  return dispatch<true>(a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int stm_cvf_filter_f32(const void* a0, const void* b0,
                                   const void* guide, void* q, int H, int W,
                                   int D, int r, int off, void* stream) {
-  const Launch l = launch_shape(H, W, D, r);
-  const int err = allow_smem(cvf_filter_kernel, l.smem);
-  if (err != 0) return err;
-  cvf_filter_kernel<<<l.grid, l.threads, l.smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a0), static_cast<const float*>(b0),
-      static_cast<const float*>(guide), static_cast<float*>(q), H, W, D, r,
-      off);
-  return static_cast<int>(cudaGetLastError());
+  Args a{};
+  a.in1 = static_cast<const float*>(a0);
+  a.in2 = static_cast<const float*>(b0);
+  a.guide = static_cast<const float*>(guide);
+  a.out1 = static_cast<float*>(q);
+  a.H = H;
+  a.W = W;
+  a.D = D;
+  a.r = r;
+  a.off = off;
+  a.vec = D % 4 == 0 && aligned16(a0) && aligned16(b0);
+  return dispatch<false>(a, static_cast<cudaStream_t>(stream));
 }

@@ -61,3 +61,25 @@ def test_function_bounds_unchanged_at_teddy():
             "cvf": 0.0527}
     for name, ms in want.items():
         assert bounds[name][0] == pytest.approx(ms, abs=1e-4), name
+
+
+@pytest.mark.parametrize("tag,floor_ms", [("teddy", 0.2264), ("hd", 3.0286)])
+def test_cvf_design_floor_ms(tag, floor_ms):
+    """The CVF kernels' design floor: the stats kernel's tiles of volume
+    and guide with their halos, the filter kernel's tiles of a0 and b0,
+    three volumes written, the planes and the guide once."""
+    bounds = chip_smoke.kernel_bounds(*GEOMETRIES[tag])
+    assert bounds["cvf"][2] == pytest.approx(floor_ms, abs=1e-4)
+
+
+@pytest.mark.parametrize("tag", GEOMETRIES)
+def test_cvf_tile_reads_count_the_halos(tag):
+    """Each 32-column tile reads r columns either side that lie in the
+    image, each row chunk r rows above and below: more than the image
+    once, less than the 1.6 x 1.6 of the narrowest chunks."""
+    h, w, d, _, r, _ = GEOMETRIES[tag]
+    for td, blocks_per_sm in ((16, 2), (8, 3)):
+        pixels = chip_smoke.cvf_tile_reads(h, w, d, r, td, blocks_per_sm)
+        assert h * w < pixels < 2.56 * h * w
+    # One chunk, one tile: the image exactly.
+    assert chip_smoke.cvf_tile_reads(20, 30, 4, 8, 16, 1, sms=1) == 20 * 30

@@ -103,6 +103,17 @@ def test_launchers_refuse_cpu_tensors(counters):
     assert _all_zero()
 
 
+def test_cvf_launch_function_refuses_cpu_tensors(counters):
+    """The two CVF launches on precomputed guide planes (what chip_smoke.py
+    times alone) refuse CPU tensors and count nothing."""
+    from stereomatch_tpu_torch.ops.cvf import guide_planes
+    vol = torch.rand(6, 9, 4)
+    planes = guide_planes(torch.rand(6, 9), 2, 0, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cvf_cuda._launch_kernels(vol, planes, 2, 1e-4, 0)
+    assert _all_zero()
+
+
 def test_build_module_needs_nvcc_only_for_a_build(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)

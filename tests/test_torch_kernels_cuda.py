@@ -10,9 +10,10 @@ The SSD, SGM (the ring's tails and short paths, and the chunk kernel's
 carries included) and DP kernels keep their plain versions' association
 and round every operation on its own, so those comparisons are
 bit-equality.  The CVF kernels keep the plain version's association too
-but are held to chip_smoke.py's bound, 1e-5 + 1e-4 |ref| with identical
-+inf placement.  This file imports nothing of JAX, so it runs where JAX
-is not installed.
+and are held equal to it, +inf placement included, at the edges of their
+tile (narrow and ragged W, H shorter than the window or than a row
+chunk, odd D, radii 0 to 32, a wedge offset, a misaligned volume).  This
+file imports nothing of JAX, so it runs where JAX is not installed.
 """
 
 from pathlib import Path
@@ -29,8 +30,6 @@ from stereomatch_tpu_torch.ops import cvf as cvf_ops
 from stereomatch_tpu_torch.ops import disparity as disp_ops
 from stereomatch_tpu_torch.ops import cvf_cuda, dp_cuda, sgm_cuda, ssd_cuda
 from stereomatch_tpu_torch.parallel import ShardedPipeline, make_mesh
-
-CVF_RTOL, CVF_ATOL = 1e-4, 1e-5
 
 pytestmark = pytest.mark.cuda
 
@@ -227,32 +226,53 @@ def test_dp_kernels_ties_and_wedge(device, kind):
                        disp_ops.dynamic_programming(vol))
 
 
-CVF_SHAPES = [(20, 30, 12, 3, 0), (17, 25, 8, 2, 3), (33, 41, 16, 8, 0),
-              (12, 40, 16, 1, 0), (24, 26, 5, 4, 0), (8, 12, 4, 0, 0),
-              (37, 53, 24, 8, 0), (30, 300, 100, 8, 1)]
+# (H, W, D, radius, wedge_offset, misaligned): the kernels' tile is 32
+# output columns, 16 / 8 / 4 disparities and row chunks of at least 4r
+# rows, walked in groups of 4 (2 at r = 0).
+CVF_SHAPES = [(20, 30, 12, 3, 0, False), (17, 25, 8, 2, 3, False),
+              (33, 41, 16, 8, 0, False), (12, 40, 16, 1, 0, False),
+              (24, 26, 5, 4, 0, False), (8, 12, 4, 0, 0, False),
+              (37, 53, 24, 8, 0, False), (30, 300, 100, 8, 1, False),
+              (40, 20, 16, 8, 0, False),     # W < 32
+              (9, 70, 1, 8, 0, False),       # H < 2r + 1, D = 1
+              (203, 45, 37, 8, 3, False),    # H not a multiple of a chunk
+              (50, 33, 129, 8, 0, False),    # D = 129
+              (30, 50, 16, 20, 0, False), (70, 40, 8, 32, 2, False),
+              (64, 33, 40, 8, 0, True), (21, 34, 7, 5, 2, True)]
 
 
-def _cvf_close(out, ref):
+def _cvf_equal(out, ref):
     assert out.dtype == ref.dtype and out.shape == ref.shape
     fin = torch.isfinite(ref)
     assert torch.equal(fin, torch.isfinite(out))
     assert torch.equal(out[~fin], ref[~fin])
-    err = (out[fin] - ref[fin]).abs()
-    assert bool((err <= CVF_ATOL + CVF_RTOL * ref[fin].abs()).all())
+    assert torch.equal(out, ref), float((out[fin] - ref[fin]).abs().max())
 
 
 @pytest.mark.parametrize("shape", CVF_SHAPES, ids=str)
 def test_cvf_kernels_within_bound(device, shape):
-    h, w, d, r, off = shape
+    h, w, d, r, off, misaligned = shape
     rng = np.random.default_rng(h + w)
     vol = rng.random((h, w, d), np.float32)
     x, dd = np.meshgrid(np.arange(w), np.arange(d), indexing="ij")
     vol[:, x < dd + off] = np.inf
     vol = torch.from_numpy(vol).to(device)
+    if misaligned:
+        # A contiguous volume 4 bytes past a 16-byte boundary.
+        buf = torch.empty(vol.numel() + 1, device=device)
+        buf[1:] = vol.reshape(-1)
+        vol = buf[1:].view(h, w, d)
+        assert vol.data_ptr() % 16 == 4
     guide = torch.from_numpy(rng.random((h, w), np.float32)).to(device)
     kw = dict(radius=r, eps=1e-4, wedge_offset=off)
-    _cvf_close(cvf_cuda.guided_filter_aggregate_cuda(vol, guide, **kw),
+    _cvf_equal(cvf_cuda.guided_filter_aggregate_cuda(vol, guide, **kw),
                cvf_ops.guided_filter_aggregate(vol, guide, **kw))
+
+
+def test_cvf_kernels_refuse_a_radius_past_shared_memory(device):
+    vol = torch.zeros(4, 8, 4, device=device)
+    with pytest.raises(ValueError, match="shared memory"):
+        cvf_cuda.guided_filter_aggregate_cuda(vol, vol[:, :, 0], radius=40)
 
 
 def test_census_plain_on_card_equals_cpu(device):
