@@ -62,7 +62,7 @@ def x_fastest(src):
                 "- 1) / TD,")
 
 
-def deep_ring(src):
+def deep_ring(src, target="113 * 1024"):
     """A ring of 2G + 2r rows: group k + 1's rows are requested before
     group k's vertical sums."""
     call = ("    stage<NT, G, TD, kStats>(a, L, ring, planes, (k + 1) * G + "
@@ -72,9 +72,15 @@ def deep_ring(src):
     src = edit(src, call, "")
     wait = "    wait_copies<0>();\n    __syncthreads();\n"
     src = edit(src, wait, wait + call + "\n")
-    return edit(src, "constexpr int kSmemTarget = 110 * 1024;",
-                "constexpr int kSmemTarget = 113 * 1024;")
+    return src.replace("constexpr int kSmemTarget = 110 * 1024;",
+                       f"constexpr int kSmemTarget = {target};").replace(
+        "constexpr int kSmemTarget = 227 * 1024;",
+        f"constexpr int kSmemTarget = {target};")
 
+
+# One block an SM: the tile may take all of its shared memory.
+WIDE = edit(SRC, "constexpr int kSmemTarget = 110 * 1024;",
+            "constexpr int kSmemTarget = 227 * 1024;")
 
 NO_EPILOGUE = cut(
     cut(SRC, "        const bool cond = (x - r) >= dlo;",
@@ -82,8 +88,9 @@ NO_EPILOGUE = cut(
         "a.out1[out] = s1[u];\n        a.out2[out] = s2[u];"),
     "        a.out1[out] = x < dlo ? inf_f()", "__fdiv_rn(s2[u], count));",
     "a.out1[out] = __fadd_rn(s1[u], s2[u]);")
-NO_VERTICAL = edit(NO_EPILOGUE, "      window_sums<G>(r, load, s1, s2);",
-                   "      for (int j = 0; j < G; ++j) s1[j] = s2[j] = 0.0f;")
+NO_VERTICAL = edit(NO_EPILOGUE, "        window_sums<G>(r, load, s1, s2);",
+                   "        for (int j = 0; j < G; ++j) s1[j] = s2[j] = "
+                   "0.0f;")
 STAGE_ONLY = edit(NO_VERTICAL, "    window_sums<XB>(r, load, s1, s2);",
                   "    for (int j = 0; j < XB; ++j) s1[j] = s2[j] = "
                   "vrow[0];")
@@ -93,6 +100,9 @@ VARIANTS = {
     "final": (SRC, True),
     "x_fastest_grid": (x_fastest(SRC), True),
     "deep_ring": (deep_ring(SRC), True),
+    "deep_ring_td8_td4": (deep_ring(tiles(SRC, "{4, 8, 8}, {4, 8, 4}"),
+                                    "60 * 1024"), True),
+    "td32_td16": (tiles(WIDE, "{4, 8, 32}, {4, 8, 16}"), True),
     "g6": (tiles(SRC, "{6, 8, 8}, {4, 8, 8}"), True),
     "stats_td8": (tiles(SRC, "{4, 8, 8}, {4, 8, 8}"), True),
     "tx64_g5": (tiles(edit(SRC, "constexpr int kTX = 32;",

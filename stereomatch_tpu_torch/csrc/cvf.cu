@@ -60,8 +60,8 @@
 // of each kernel's time, at about 1.4x and 1.5x the time of its bytes at
 // the card's 3.35 TB/s: a block has one group of rows in flight, during
 // its horizontal pass only.  The vertical sums add 35% and 29% (some 15
-// instructions a ring row for 8 adds: the load, the wedge mask, the guide
-// product and the ring's wrap), the epilogue's divisions 26% and 18%.
+// instructions a ring row for 8 adds: the loads, the guide product and
+// the ring's wrap), the epilogue's divisions 26% and 18%.
 // Larger G, wider tiles, a deeper ring and L2 prefetching were measured
 // and lost: each cost occupancy or issue more than it saved.
 //
@@ -320,17 +320,14 @@ __global__ void __launch_bounds__(kBlock<G, XB, TD>)
     for (int i = tid; i < L.S * TD; i += NT) {
       const int c = i / TD;
       const int d = i % TD;
-      // Stats: the wedge's columns (x < d + off) hold p0 = 0.
-      const bool live = x0 - r + c >= dz + d + a.off;
       // The column's next row (rows 0, 1, ... of the group in turn), and
       // the offset of its guide value from it.
       const float* p = ring + (k * G) % L.R * L.row + c * TD + d;
       const int to_guide = L.S * TD + c - (c * TD + d);
       auto load = [&](int, float& v1, float& v2) {
         if constexpr (kStats) {
-          const float p0 = live ? p[0] : 0.0f;
-          v1 = p0;
-          v2 = __fmul_rn(p[to_guide], p0);
+          v1 = p[0];
+          v2 = __fmul_rn(p[to_guide], v1);
         } else {
           v1 = p[0];
           v2 = p[L.S * TD];
@@ -339,7 +336,14 @@ __global__ void __launch_bounds__(kBlock<G, XB, TD>)
         if (p >= ring_end) p -= L.ring;
       };
       float s1[G], s2[G];
-      window_sums<G>(r, load, s1, s2);
+      // Stats: a column on the wedge (x < d + off) holds p0 = 0 in every
+      // row, so its sums are 0 + 0 + ... = +0.
+      if (kStats && x0 - r + c < dz + d + a.off) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) s1[j] = s2[j] = 0.0f;
+      } else {
+        window_sums<G>(r, load, s1, s2);
+      }
 #pragma unroll
       for (int j = 0; j < G; ++j) {
         vbuf[(j * L.SP + c) * TD + d] = s1[j];
