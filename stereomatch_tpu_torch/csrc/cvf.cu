@@ -57,13 +57,14 @@
 // What bounds it on an H100 (PERF.md §6, PR 7): the bytes and the issue
 // of instructions in turn, not overlapped.  At HD, with the sums and the
 // epilogue cut out, the staging alone takes 37% (stats) and 52% (filter)
-// of each kernel's time, at about 1.4x and 1.5x the time of its bytes at
-// the card's 3.35 TB/s: a block has one group of rows in flight, during
-// its horizontal pass only.  The vertical sums add 35% and 29% (some 15
+// of each kernel's time, at 1.4x and 1.5x the time of its bytes at the
+// card's 3.35 TB/s: a block has one group of rows in flight, during its
+// horizontal pass only.  The vertical sums add 30% and 29% (some 15
 // instructions a ring row for 8 adds: the loads, the guide product and
-// the ring's wrap), the epilogue's divisions 26% and 18%.
-// Larger G, wider tiles, a deeper ring and L2 prefetching were measured
-// and lost: each cost occupancy or issue more than it saved.
+// the ring's wrap), the horizontal ones 7% and 1%, the epilogue's
+// divisions 26% and 18%.  Larger G, wider or narrower tiles and a deeper
+// ring were measured and lost: each cost occupancy or issue more than
+// it saved.
 //
 // The tile shape follows from r in one function (tile_of): the first of
 // kTiles whose ramps r allows (G, XB <= 2r + 2) and whose shared memory

@@ -35,7 +35,6 @@ def guided_filter_aggregate_cuda(cost_volume: torch.Tensor,
     float32 with +inf on the wedge ``x < d + wedge_offset``."""
     check_volume_and_guide(cost_volume, guide)
     check_filter_args(int(radius), float(eps), wedge_offset=wedge_offset)
-    _check_cuda(cost_volume, guide)
     r, off = int(radius), int(wedge_offset)
     planes = guide_planes(guide, r, off, cost_volume.shape[2])
     return _launch_kernels(cost_volume, planes, r, float(eps), off)
