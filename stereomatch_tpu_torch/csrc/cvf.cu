@@ -119,9 +119,10 @@ __device__ __forceinline__ void wait_copies() {
 
 // B consecutive window sums of two sequences: s[j] = sum of v(t) for t =
 // j .. j + 2r, added in t order from 0, where load(t) gives v(t) of both
-// sequences; it is called for t = 0, 1, ..., B + 2r - 1 in turn.  Each v(t) is loaded once and added into every sum it
-// belongs to.  Needs B <= 2r + 2, so that the ramp in (t < B - 1) ends
-// before the first window does.
+// sequences and is called for t = 0, 1, ..., B + 2r - 1 in turn.  Each
+// v(t) is loaded once and added into every sum it belongs to.  Needs
+// B <= 2r + 2, so that the ramp in (t < B - 1) ends before the first
+// window does.
 template <int B, typename Load>
 __device__ __forceinline__ void window_sums(int r, Load load, float (&s1)[B],
                                             float (&s2)[B]) {
@@ -354,9 +355,13 @@ __global__ void __launch_bounds__(kBlock<G, XB, TD>)
     __syncthreads();
     // The ring slots of this group's first G rows, and the buffer of
     // group k - 1's operands, are free: request group k + 1's, which land
-    // while this group's horizontal sums run.
-    stage<NT, G, TD, kStats>(a, L, ring, planes, (k + 1) * G + 2 * r,
-                             (k + 2) * G + 2 * r, k + 1, y0, x0, dz, y_last);
+    // while this group's horizontal sums run.  After the last group none
+    // is requested, so no copy is in flight when the block exits.
+    if (k + 1 < groups) {
+      stage<NT, G, TD, kStats>(a, L, ring, planes, (k + 1) * G + 2 * r,
+                               (k + 2) * G + 2 * r, k + 1, y0, x0, dz,
+                               y_last);
+    }
     // Horizontal sums and the epilogue of this thread's outputs.
     const float* const vrow = vbuf + (hj * L.SP + hxb * XB) * TD + hd;
     auto load = [&](int t, float& v1, float& v2) {
@@ -485,20 +490,20 @@ int dispatch(const Args& a, cudaStream_t stream) {
     return kRefused;
   }
   const size_t m = t.smem;
-#define STM_TILE(i) \
-  case i:           \
-    return launch<kTiles[i][0], kTiles[i][1], kTiles[i][2], kStats>(a, m, stream)
+#define STM_TILE(i)                                               \
+  case i:                                                         \
+    return launch<kTiles[i][0], kTiles[i][1], kTiles[i][2], kStats>( \
+        a, m, stream)
   switch (t.index) {
     STM_TILE(0);
     STM_TILE(1);
     STM_TILE(2);
     STM_TILE(3);
     STM_TILE(4);
-    default:
-      return launch<kTiles[5][0], kTiles[5][1], kTiles[5][2], kStats>(a, m,
-                                                                       stream);
+    STM_TILE(5);
   }
 #undef STM_TILE
+  return kRefused;
 }
 
 bool aligned16(const void* p) {
