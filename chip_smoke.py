@@ -20,10 +20,10 @@ with the launch counts set to 0 just before it and read just after:
   overlap mode, against the goldens; then HD over 4 tiles against the
   single-card path (and, with more than one card, one tile per card);
 
-times kernels, plain versions and pipelines with CUDA events (the SGM
-row family also against the one-step walk it replaced, in turns), and
+times kernels, plain versions and pipelines with CUDA events, and
 profiles each path with ``torch.profiler`` (device time by kernel, idle
-share).  Any failure raises and exits non-zero; nothing falls back.  The
+share; the chunk kernel's device time beside its CUDA-event time).  Every
+kernel is held bit-equal to its plain version.  Any failure raises and exits non-zero; nothing falls back.  The
 last line of standard output is one JSON object with ``"ok": true`` and
 the device; the lines before it give each kernel's design floor (the
 bytes its launches move, over the memory rate) and list the kernels with
@@ -46,10 +46,6 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "golden_teddy_disparity.npz"
 GOLDEN_CVF = ROOT / "tests" / "data" / "golden_torch_cvf_teddy.npz"
 
-SSD_RTOL = 2e-6     # tests/test_ssd_pallas.py's bound: last-ulp scale of
-SSD_ATOL = 2e-6     # the value or of the running-sum magnitude
-SGM_RTOL = 2e-6     # the JAX package's Pallas-vs-XLA SGM bound
-SGM_ATOL = 1e-5
 GOLDEN_MAX_DIFF = 16        # pixels of 168,750 (0.01%); 0 expected
 CVF_GOLDEN_MAX_DIFF = 169   # pixels of 168,750 (0.1%); 0 expected
 WARMUP, REPS = 3, 20
@@ -256,11 +252,11 @@ def chunk_spans(height, cuts, step):
 def check_chunks(tag, vol, image, p1, p2) -> float:
     """The chunk kernel against its plain version for the six row
     traversals, each chunk from the plain version's carry of the chunk
-    before it in scan order: contributions within the SGM bound (0
-    expected), carries bit-equal.  Returns the max abs error."""
+    before it in scan order: contributions and carries bit-equal.
+    Returns the max abs error (0)."""
     from stereomatch_tpu_torch.ops import aggregation as agg_ops
     from stereomatch_tpu_torch.ops import sgm_cuda
-    max_err, n_equal, n_chunks = 0.0, 0, 0
+    max_err, n_chunks = 0.0, 0
     for step in agg_ops.TRAVERSALS[2:]:
         carry = (None, None)
         for rank, (a, b) in enumerate(chunk_spans(vol.shape[0],
@@ -271,17 +267,15 @@ def check_chunks(tag, vol, image, p1, p2) -> float:
             out, out_carry = sgm_cuda.sweep_chunk_with_carry_cuda(
                 vol[a:b], image[a:b], step, *carry, **kw)
             name = f"sgm_chunk {tag} step {step} rows {a}:{b}"
-            max_err = max(max_err, compare(name, ref, out, SGM_RTOL,
-                                           SGM_ATOL, quiet=True))
+            max_err = max(max_err, compare(name, ref, out, 0, 0, exact=True,
+                                           quiet=True))
             for i in range(2):
                 compare(f"{name} carry", ref_carry[i], out_carry[i], 0, 0,
                         exact=True, quiet=True)
-            n_equal += bool(ref.equal(out))
             n_chunks += 1
             carry = ref_carry
     log(f"  sgm_chunk {tag}, chunks {CHUNK_CUTS[tag]}: {n_chunks} chunk "
-        f"launches, max_abs_err={max_err!r}, {n_equal} bit-equal, "
-        f"carries bit-equal")
+        f"launches, contributions and carries bit-equal")
     return max_err
 
 
@@ -367,26 +361,24 @@ def main() -> int:
     errors = {}
     for tag, (left, right, _, d, k) in shapes.items():
         kw = dict(max_disparity=d, kernel_size=k)
-        ref = cost_ops.ssd_cost_volume(left, right, **kw)
-        out = ssd_cuda.diff_cost_volume_cuda(
-            left, right, cost_dtype=torch.float32, absolute=False, **kw)
-        errors[f"ssd_{tag}"] = compare(f"ssd f32 {tag}", ref, out,
-                                       SSD_RTOL, SSD_ATOL)
+        # The SSD kernel: f32 SSD and SAD, and the int32 chain on uint8
+        # images, each bit-equal to its plain version.
         left8 = (left * 255).to(torch.uint8)
         right8 = (right * 255).to(torch.uint8)
-        compare(f"ssd int32 (uint8 images) {tag}",
-                cost_ops.ssd_cost_volume(left8, right8, cost_dtype=torch.int32,
-                                         **kw),
-                ssd_cuda.diff_cost_volume_cuda(
-                    left8, right8, cost_dtype=torch.int32, absolute=False,
-                    **kw), 0, 0, exact=True)
-        if tag == "ragged":
-            compare(f"sad f32 {tag}",
-                    cost_ops.sad_cost_volume(left, right, **kw),
-                    ssd_cuda.diff_cost_volume_cuda(
-                        left, right, cost_dtype=torch.float32,
-                        absolute=True, **kw), SSD_RTOL, SSD_ATOL)
-        del out
+        for label, images, dtype, absolute in (
+                ("ssd f32", (left, right), torch.float32, False),
+                ("sad f32", (left, right), torch.float32, True),
+                ("ssd int32 (uint8 images)", (left8, right8), torch.int32,
+                 False)):
+            err = compare(
+                f"{label} {tag}",
+                cost_ops._diff_cost_volume(*images, cost_dtype=dtype,
+                                           absolute=absolute, **kw),
+                ssd_cuda.diff_cost_volume_cuda(*images, cost_dtype=dtype,
+                                               absolute=absolute, **kw),
+                0, 0, exact=True)
+            errors.setdefault(f"ssd_{tag}", err)
+        ref = cost_ops.ssd_cost_volume(left, right, **kw)
         # Each SGM kernel on its own family, then the whole aggregation:
         # the ring walk keeps the recurrence's every operation and the
         # plain version's order, so both are bit-equal.
@@ -672,7 +664,7 @@ def main() -> int:
     log(f"[timings] kernels and paths median of {REPS} after {WARMUP} "
         f"warm-ups, plain versions median of {PLAIN_REPS} after "
         f"{PLAIN_WARMUP}; card: {card}")
-    times, bounds, old_walk_times = {}, {}, {}
+    times, bounds = {}, {}
     sharded_tiles = {"teddy": 5, "hd": 4}
     for tag in ("teddy", "hd"):
         left, right, _, d, k = shapes[tag]
@@ -702,18 +694,6 @@ def main() -> int:
                 for i, step in enumerate(steps):
                     sgm_cuda.traverse_cuda(vol, image, out, step, p1, p2,
                                            accumulate=onto or i > 0)
-            return run
-
-        def rows_old_walk(o):
-            """The row family through the chunk kernel's one-step walk:
-            one chunk over the whole image per traversal (seed=True),
-            equal to the whole-image traversal bit for bit, each added
-            onto ``o`` as the main path adds it."""
-            def run():
-                for step in rows:
-                    sgm_cuda.sweep_chunk_with_carry_cuda(
-                        vol, image, step, penalty1=p1, penalty2=p2,
-                        seed=True, out=o, accumulate=True)
             return run
 
         def family_plain(steps):
@@ -758,23 +738,6 @@ def main() -> int:
                 f"bound {b_ms!r} ms ({b_by}), design floor {floor_ms!r} ms "
                 f"[{card}]")
 
-        # The row family's ring walk against the one-step walk it
-        # replaced, in turns (old, new, new, old).
-        out_old = torch.zeros_like(vol)
-        new, old = family_kernel(rows), rows_old_walk(out_old)
-        out.zero_()
-        new()
-        old()
-        require(torch.equal(out, out_old),
-                f"sgm_rows {tag}: the ring and the one-step walk differ")
-        t_old = [time_ms(torch, old)]
-        t_new = [time_ms(torch, new), time_ms(torch, new)]
-        t_old.append(time_ms(torch, old))
-        old_walk_times[tag] = min(t_old)
-        log(f"  sgm_rows {tag} A/B: ring {t_new} ms, one-step walk {t_old} "
-            f"ms, design floor {bounds[tag]['sgm_rows'][2]!r} ms [{card}]")
-        del out_old
-
         t_wta = time_ms(torch, lambda: pipe.disparity_reduce(vol))
         log(f"  wta (torch.argmin) {tag}: {t_wta!r} ms [{card}]")
         t_census = time_ms(torch, lambda: cost_ops.census_hamming_cost_volume(
@@ -812,6 +775,7 @@ def main() -> int:
     log("[profile] torch.profiler, 10 frames after one warm-up, "
         "device-resident images")
     profile_path(torch, lambda: torch.ones(1, device=dev) + 1, frames=1)
+    chunk_device = {}
     for tag in ("teddy", "hd"):
         left, right, _, d, k = shapes[tag]
         for label, make in paths(tag):
@@ -824,6 +788,18 @@ def main() -> int:
                 f"{busy!r} ms/frame, idle share {1.0 - busy / wall!r}, "
                 f"{ops!r} device operations/frame [{card}]")
             log(f"    stage spans (device timeline) ms/frame: {spans}")
+            if label == "sharded ssd+sgm+wta":
+                # The chunk kernel's device time against its CUDA-event
+                # time (phase 5), which also holds the host's issue of
+                # its launches.
+                chunk_device[tag] = sum(ms for name, ms in by_name.items()
+                                        if "sgm_chunk_kernel" in name)
+                require(chunk_device[tag] > 0,
+                        f"the profiler saw no sgm_chunk_kernel in {label}")
+                log(f"    sgm_chunk {tag}: device {chunk_device[tag]!r} "
+                    f"ms/frame (profiler), CUDA events "
+                    f"{times[('sgm_chunk', tag)][0]!r} ms (its launches "
+                    f"alone, host issue included) [{card}]")
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
             for name, ms in top:
                 log(f"    {ms!r} ms/frame  {name[:90]}")
@@ -863,10 +839,6 @@ def main() -> int:
             "hd_plain_ms": times[(name, "hd")][1],
             "hd_bound_ms": bounds["hd"][name][0],
         }
-        if name == "sgm_rows":
-            # The one-step walk (the chunk kernel's) on the same launches.
-            entry["old_walk_ms"] = old_walk_times["teddy"]
-            entry["hd_old_walk_ms"] = old_walk_times["hd"]
         if name == "cvf":
             # K10, the W-chunked form of the same TPU kernel, at HD.
             entry["also_replaces"] = "stereomatch_tpu/ops/cvf_pallas.py:679"
@@ -880,6 +852,9 @@ def main() -> int:
             # tiles; HD, 4 tiles).
             entry["also_replaces"] = "stereomatch_tpu/ops/sgm_pallas.py:627"
             entry["hd_launches"] = hd_chunk_launches
+            # Device time a frame in the sharded path (profiler).
+            entry["device_ms"] = chunk_device["teddy"]
+            entry["hd_device_ms"] = chunk_device["hd"]
         kernels.append(entry)
     e2e = {label: {tag: times[(label, tag)] for tag in ("teddy", "hd")}
            for label, _ in paths("teddy")}

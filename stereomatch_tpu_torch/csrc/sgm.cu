@@ -13,12 +13,12 @@
 // All three kernels walk straight pixel paths, the design of the reference's
 // semiglobal_gpu.cu: one warp per path, the [D] carry in registers (lane l
 // holds d = l*VPL .. l*VPL+VPL-1), min over D by warp shuffles, and out (+)= L
-// in place.  They share the recurrence step (warp_min, p2_of, advance) and
-// differ in how the operands reach the registers: the two whole-image kernels
-// through a ring of asynchronous copies (ring_path), the chunk kernel by plain
-// loads one step ahead (chunk_path).  The TPU kernels' W-on-grid layouts,
-// zero-row padding and transposed P2 maps were VMEM workarounds and have no
-// counterpart here.
+// in place.  They share one walk (ring_path): a ring of asynchronous copies
+// that brings each step's operands into shared memory ahead of the
+// recurrence (warp_min, p2_of, advance); the chunk kernel adds the carry
+// hand-off at a path's first and last step.  The TPU kernels' W-on-grid
+// layouts, zero-row padding and transposed P2 maps were VMEM workarounds and
+// have no counterpart here.
 //
 // Semantics (plain version: stereomatch_tpu_torch/ops/aggregation.py, the
 // XLA scan's association, stereomatch_tpu/ops/aggregation.py:107-138):
@@ -53,18 +53,18 @@
 // (PERF.md), and a traversal has only W, H or W+H-1 paths (375-824 warps at
 // teddy, about one per scheduler), so nothing else hides that latency.  A
 // step's cost and out rows come from device memory, about a microsecond away
-// under load; fetched one step ahead, as the chunk kernel still does, that
-// round trip adds to every step.  The whole-image kernels therefore keep a
-// ring of kRingStages (8) steps per warp in shared memory (ring_path): at
-// step s the warp takes stage s, issues cp.async copies of step s + 7 and
-// runs the recurrence, so the loads of 7 steps are in flight behind it,
-// and P2' (a division) is computed 32 steps at a time off the chain.  At
-// teddy what is left is the step chain of the longest path; at HD (1280-2303
-// warps of D = 256) the bytes of the launch structure, three volumes a
-// traversal.  One-warp blocks spread teddy's paths over all 132 SMs.  The
-// chunk kernel's W or W+Hc-1 warps walk paths of at most Hc steps (75 at
-// teddy in 5 row tiles): the same latency bound over fewer steps, paid once
-// per chunk in launch and ramp-up.
+// under load; fetched one step ahead, that round trip would add to every
+// step.  So each warp keeps a ring of kRingStages (8) steps in shared memory
+// (ring_path): at step s the warp takes stage s, issues cp.async copies of
+// step s + 7 and runs the recurrence, so the loads of 7 steps are in flight
+// behind it, and P2' (a division) is computed 32 steps at a time off the
+// chain.  At teddy what is left is the step chain of the longest path; at
+// HD (1280-2303 warps of D = 256) the bytes of the launch structure, three
+// volumes a traversal.  One-warp blocks spread teddy's paths over all 132
+// SMs.  The chunk kernel's W or W+Hc-1 warps walk paths of at most Hc steps
+// (75 at teddy in 5 row tiles): the same latency bound over fewer steps,
+// paid once per chunk in launch and ramp-up; a chunk shorter than the ring
+// only fetches fewer live steps.
 
 #include <cuda_runtime.h>
 
@@ -72,7 +72,6 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;       // the chunk kernel's blocks
 constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
@@ -169,101 +168,6 @@ __device__ __forceinline__ void advance(float (&L)[VPL],
   }
 }
 
-// Hand-off buffers of the chunk kernel: the carry [W, D] and intensities
-// [W] of the row before the chunk in scan order (unread when seed is
-// set), and the carry [W, D] of the chunk's last row.
-struct Carry {
-  const float* in;
-  const float* image;
-  float* out;
-  bool seed;
-};
-
-// The chunk kernel's walk: plain loads of the next pixel, one step ahead.
-template <int VPL>
-__device__ void chunk_path(const float* __restrict__ cost,
-                           const float* __restrict__ image,
-                           float* __restrict__ out, int H, int W, int D,
-                           int dy, int dx, float p1, float p2,
-                           bool accumulate, int path, Carry carry) {
-  const int lane = threadIdx.x & 31;
-  const int d0 = lane * VPL;
-  const Path p = path_of(path, H, W, dy, dx);
-  const long step = static_cast<long>(dy) * W + dx;  // in pixels
-  long pix = static_cast<long>(p.y) * W + p.x;
-
-  float c[VPL], o[VPL], prev[VPL];
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const bool ok = d0 + j < D;
-    c[j] = ok ? cost[pix * D + d0 + j] : inf_f();
-    o[j] = (ok && accumulate) ? out[pix * D + d0 + j] : 0.0f;
-  }
-  float intensity = image[pix];
-  float prev_int = 0.0f;
-
-  // A path entering through the chunk's first row (the first W paths,
-  // path_of) continues from the carry unless it seeds.
-  bool from_carry = false;
-  const int xp = p.x - dx;
-  if (!carry.seed && path < W && xp >= 0 && xp < W) {
-    from_carry = true;
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      prev[j] = d0 + j < D ? carry.in[static_cast<long>(xp) * D + d0 + j]
-                           : inf_f();
-    }
-    prev_int = carry.image[xp];
-  }
-
-  for (int s = 0; s < p.len; ++s) {
-    // Loads of the next pixel: independent of this step's recurrence.
-    const long next = pix + step;
-    const bool more = s + 1 < p.len;
-    float cn[VPL], on[VPL];
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const bool ok = more && d0 + j < D;
-      cn[j] = ok ? cost[next * D + d0 + j] : inf_f();
-      on[j] = (ok && accumulate) ? out[next * D + d0 + j] : 0.0f;
-    }
-    const float int_next = more ? image[next] : 0.0f;
-
-    float L[VPL];
-    if (s == 0 && !from_carry) {
-#pragma unroll
-      for (int j = 0; j < VPL; ++j) L[j] = c[j];
-    } else {
-      const float m = warp_min<VPL>(prev);
-      advance<VPL>(L, c, prev, m, p2_of(intensity, prev_int, p1, p2), lane,
-                   D, p1);
-    }
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const int d = d0 + j;
-      if (d < D) {
-        out[pix * D + d] = accumulate ? __fadd_rn(o[j], L[j]) : L[j];
-      }
-      prev[j] = d < D ? L[j] : inf_f();
-      c[j] = cn[j];
-      o[j] = on[j];
-    }
-    prev_int = intensity;
-    intensity = int_next;
-    pix = next;
-  }
-
-  // prev holds L at the path's last pixel.
-  const int y_end = p.y + dy * (p.len - 1);
-  if (y_end == (dy > 0 ? H - 1 : 0)) {
-    const long x_end = p.x + dx * (p.len - 1);
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      if (d0 + j < D) carry.out[x_end * D + d0 + j] = prev[j];
-    }
-  }
-}
-
 // cp.async: an asynchronous copy from device to shared memory that the
 // issuing thread waits for by commit group.  16-byte copies skip L1 (.cg,
 // the volume is streamed); 4-byte copies go through it (.ca, the only
@@ -300,6 +204,18 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Hand-off buffers of the chunk kernel: the carry [W, D] and intensities
+// [W] of the row before the chunk in scan order (unread when seed is
+// set), and the carry [W, D] of the chunk's last row (none when null).
+// The whole-image kernels take kNoCarry.
+struct Carry {
+  const float* in;
+  const float* image;
+  float* out;
+  bool seed;
+};
+constexpr Carry kNoCarry{nullptr, nullptr, nullptr, true};
+
 // The ring's depth and the warps of a block.  Of 4, 8 and 16 stages and
 // 1, 2 and 4 warps, measured at teddy (VPL 4) and HD (VPL 8) on an H100
 // (PERF.md), 8 stages and one warp were the best or within noise of it at
@@ -313,7 +229,7 @@ constexpr int kRingWarpsPerBlock = 1;
 template <int VPL, bool ACC>
 constexpr int kRingFloats = kRingStages * (ACC ? 2 : 1) * 32 * VPL;
 
-// The whole-image kernels' walk: a ring of S = kRingStages steps in shared
+// The walk of all three kernels: a ring of S = kRingStages steps in shared
 // memory, filled by cp.async S - 1 steps ahead of the recurrence.
 //
 // The warp copies a step's cost row (and out row) in coalesced pieces,
@@ -333,9 +249,19 @@ constexpr int kRingFloats = kRingStages * (ACC ? 2 : 1) * 32 * VPL;
 // shuffle chain.
 //
 // Fetching out S - 1 steps early is safe because each pixel lies on
-// exactly one path of a traversal: within one launch no path writes a
-// pixel that another path reads, and a path writes a pixel only at the
-// step that reads it.  Without ACC, out is not fetched at all.
+// exactly one path of a launch: a launch is one traversal of the image or
+// of one chunk of rows (path_of over the chunk's H rows), so no path
+// writes a pixel that another path reads, and a path writes a pixel only
+// at the step that reads it.  The carry a chunk reads and the one it
+// writes are other buffers than cost and out.  Without ACC, out is not
+// fetched at all.
+//
+// Carry: the chunk kernel's hand-off (at the top of this file).  Step 0
+// of a path that continues the carry runs the recurrence from carry.in,
+// with carry.image as the intensity before it (lane 0's `before` in the
+// first block of P2'); a path that ends on the chunk's last row in scan
+// order writes its L into carry.out.  The whole-image kernels pass
+// kNoCarry.
 //
 // P2' leaves the step chain: lane k computes it for step t0 + k of each
 // block of 32 steps from intensities loaded a block ahead, and step t
@@ -350,7 +276,7 @@ __device__ void ring_path(const float* __restrict__ cost,
                           const float* __restrict__ image,
                           float* __restrict__ out, int H, int W, int D,
                           int dy, int dx, float p1, float p2, int path,
-                          float* ring) {
+                          const Carry& carry, float* ring) {
   static_assert(kRingStages >= 4 && (kRingStages & (kRingStages - 1)) == 0,
                 "kRingStages is a power of two of at least 4");
   static_assert(!VEC || VPL % 4 == 0, "16-byte pieces need VPL % 4 == 0");
@@ -458,6 +384,19 @@ __device__ void ring_path(const float* __restrict__ cost,
   float block_int = intensities(0);
   float next_int = intensities(32);
   float last_int = 0.0f;  // the intensity before the block
+
+  // Step 0 continues the carry or starts the path.
+  float c[VPL], o[VPL], prev[VPL];
+  const int xp = p.x - dx;
+  const bool from_carry = !carry.seed && path < W && xp >= 0 && xp < W;
+  if (from_carry) {
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      prev[j] = d0 + j < D ? carry.in[static_cast<long>(xp) * D + d0 + j]
+                           : inf_f();
+    }
+    last_int = carry.image[xp];
+  }
   auto block_p2 = [&]() {
     float before = __shfl_up_sync(kFullMask, block_int, 1);
     if (lane == 0) before = last_int;
@@ -467,11 +406,16 @@ __device__ void ring_path(const float* __restrict__ cost,
   };
   float p2s = block_p2();
 
-  // Step 0 starts the path: L = C.
-  float c[VPL], o[VPL], prev[VPL];
   take(0, c, o);
   fetch();
-  store(first, o, c, prev);
+  if (from_carry) {
+    float L[VPL];
+    advance<VPL>(L, c, prev, warp_min<VPL>(prev),
+                 __shfl_sync(kFullMask, p2s, 0), lane, D, p1);
+    store(first, o, L, prev);
+  } else {
+    store(first, o, c, prev);  // L = C
+  }
   long at = first + step;
   for (int s = 1; s < p.len; ++s) {
     if ((s & 31) == 0) {
@@ -487,57 +431,58 @@ __device__ void ring_path(const float* __restrict__ cost,
     store(at, o, L, prev);
     at += step;
   }
+
+  // prev holds L at the path's last pixel.
+  const int y_end = p.y + dy * (p.len - 1);
+  if (carry.out != nullptr && y_end == (dy > 0 ? H - 1 : 0)) {
+    const long x_end = p.x + dx * (p.len - 1);
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      if (d0 + j < D) carry.out[x_end * D + d0 + j] = prev[j];
+    }
+  }
 }
+
+// The three kernels: one walk, one signature; the two whole-image kernels
+// are launched with kNoCarry.  Separate names keep their launches apart in
+// a profile.
+#define STM_SGM_KERNEL(name)                                                \
+  template <int VPL, bool VEC, bool ACC>                                    \
+  __global__ void name(const float* __restrict__ cost,                      \
+                       const float* __restrict__ image,                     \
+                       float* __restrict__ out, int H, int W, int D,        \
+                       int dy, int dx, float p1, float p2, Carry carry) {   \
+    extern __shared__ __align__(16) float ring[];                          \
+    const int warp = threadIdx.x >> 5;                                      \
+    const int path = blockIdx.x * kRingWarpsPerBlock + warp;                \
+    if (path >= path_count(H, W, dy, dx)) return; /* whole warp leaves */  \
+    ring_path<VPL, VEC, ACC>(cost, image, out, H, W, D, dy, dx, p1, p2,     \
+                             path, carry,                                   \
+                             ring + warp * kRingFloats<VPL, ACC>);          \
+  }
+STM_SGM_KERNEL(sgm_rows_kernel)        // dy = +-1, the whole image
+STM_SGM_KERNEL(sgm_horizontal_kernel)  // dy = 0
+STM_SGM_KERNEL(sgm_chunk_kernel)       // dy = +-1, a chunk of rows
+#undef STM_SGM_KERNEL
+
+enum class Kind { kRows, kHorizontal, kChunk };
+
+// One launch: the shape and penalties of the traversal, and its carry.
+struct Launch {
+  const float* cost;
+  const float* image;
+  float* out;
+  int H, W, D, dy, dx;
+  float p1, p2;
+  Carry carry;
+};
 
 template <int VPL, bool VEC, bool ACC>
-__global__ void sgm_rows_kernel(const float* __restrict__ cost,
-                                const float* __restrict__ image,
-                                float* __restrict__ out, int H, int W, int D,
-                                int dy, int dx, float p1, float p2) {
-  extern __shared__ __align__(16) float ring[];
-  const int warp = threadIdx.x >> 5;
-  const int path = blockIdx.x * kRingWarpsPerBlock + warp;
-  if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
-  ring_path<VPL, VEC, ACC>(cost, image, out, H, W, D, dy, dx, p1, p2, path,
-                           ring + warp * kRingFloats<VPL, ACC>);
-}
-
-// dy is 0; it is a parameter so that the two kernels share a launcher.
-template <int VPL, bool VEC, bool ACC>
-__global__ void sgm_horizontal_kernel(const float* __restrict__ cost,
-                                      const float* __restrict__ image,
-                                      float* __restrict__ out, int H, int W,
-                                      int D, int dy, int dx, float p1,
-                                      float p2) {
-  extern __shared__ __align__(16) float ring[];
-  const int warp = threadIdx.x >> 5;
-  const int path = blockIdx.x * kRingWarpsPerBlock + warp;
-  if (path >= H) return;
-  ring_path<VPL, VEC, ACC>(cost, image, out, H, W, D, 0, dx, p1, p2, path,
-                           ring + warp * kRingFloats<VPL, ACC>);
-}
-
-template <int VPL>
-__global__ void sgm_chunk_kernel(const float* __restrict__ cost,
-                                 const float* __restrict__ image,
-                                 float* __restrict__ out, int H, int W, int D,
-                                 int dy, int dx, float p1, float p2,
-                                 bool accumulate, Carry carry) {
-  const int path = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
-  chunk_path<VPL>(cost, image, out, H, W, D, dy, dx, p1, p2, accumulate,
-                  path, carry);
-}
-
-enum class Kind { kRows, kHorizontal };
-
-template <int VPL, bool VEC, bool ACC>
-int launch_kernel(Kind kind, const float* cost, const float* image,
-                  float* out, int H, int W, int D, int dy, int dx, float p1,
-                  float p2, cudaStream_t stream) {
+int launch_kernel(Kind kind, const Launch& a, cudaStream_t stream) {
   decltype(&sgm_rows_kernel<VPL, VEC, ACC>) kernel =
-      kind == Kind::kRows ? &sgm_rows_kernel<VPL, VEC, ACC>
-                          : &sgm_horizontal_kernel<VPL, VEC, ACC>;
+      kind == Kind::kRows         ? &sgm_rows_kernel<VPL, VEC, ACC>
+      : kind == Kind::kHorizontal ? &sgm_horizontal_kernel<VPL, VEC, ACC>
+                                  : &sgm_chunk_kernel<VPL, VEC, ACC>;
   constexpr size_t kSmem =
       static_cast<size_t>(kRingWarpsPerBlock) * kRingFloats<VPL, ACC> *
       sizeof(float);
@@ -547,75 +492,56 @@ int launch_kernel(Kind kind, const float* cost, const float* image,
         static_cast<int>(kSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int paths = path_count(H, W, dy, dx);
+  const int paths = path_count(a.H, a.W, a.dy, a.dx);
   const int blocks = (paths + kRingWarpsPerBlock - 1) / kRingWarpsPerBlock;
   kernel<<<blocks, 32 * kRingWarpsPerBlock, kSmem, stream>>>(
-      cost, image, out, H, W, D, dy, dx, p1, p2);
+      a.cost, a.image, a.out, a.H, a.W, a.D, a.dy, a.dx, a.p1, a.p2,
+      a.carry);
   return static_cast<int>(cudaGetLastError());
 }
 
 // 16-byte pieces where the shape and the pointers allow them.
 template <int VPL, bool ACC>
-int launch_vec(Kind kind, const float* cost, const float* image, float* out,
-               int H, int W, int D, int dy, int dx, float p1, float p2,
-               cudaStream_t stream) {
+int launch_vec(Kind kind, const Launch& a, cudaStream_t stream) {
   if constexpr (VPL % 4 == 0) {
-    if (D % 4 == 0 && reinterpret_cast<std::uintptr_t>(cost) % 16 == 0 &&
-        reinterpret_cast<std::uintptr_t>(out) % 16 == 0) {
-      return launch_kernel<VPL, true, ACC>(kind, cost, image, out, H, W, D,
-                                           dy, dx, p1, p2, stream);
+    if (a.D % 4 == 0 &&
+        reinterpret_cast<std::uintptr_t>(a.cost) % 16 == 0 &&
+        reinterpret_cast<std::uintptr_t>(a.out) % 16 == 0) {
+      return launch_kernel<VPL, true, ACC>(kind, a, stream);
     }
   }
-  return launch_kernel<VPL, false, ACC>(kind, cost, image, out, H, W, D, dy,
-                                        dx, p1, p2, stream);
+  return launch_kernel<VPL, false, ACC>(kind, a, stream);
 }
 
 template <int VPL>
-int launch_ring(Kind kind, const float* cost, const float* image, float* out,
-                int H, int W, int D, int dy, int dx, float p1, float p2,
-                bool accumulate, cudaStream_t stream) {
-  return accumulate ? launch_vec<VPL, true>(kind, cost, image, out, H, W, D,
-                                            dy, dx, p1, p2, stream)
-                    : launch_vec<VPL, false>(kind, cost, image, out, H, W, D,
-                                             dy, dx, p1, p2, stream);
+int launch_ring(Kind kind, const Launch& a, bool accumulate,
+                cudaStream_t stream) {
+  return accumulate ? launch_vec<VPL, true>(kind, a, stream)
+                    : launch_vec<VPL, false>(kind, a, stream);
 }
 
-// The whole-image traversals: rows (dy = +-1, dx in {-1, 0, 1}) or
-// horizontal (dy == 0, |dx| == 1).
-int dispatch_ring(Kind kind, const void* cost, const void* image, void* out,
-                  int H, int W, int D, int dy, int dx, float p1, float p2,
-                  int accumulate, void* stream) {
+// Rows and chunks: dy = +-1, dx in {-1, 0, 1}; horizontal: dy == 0,
+// |dx| == 1.
+int dispatch(Kind kind, const void* cost, const void* image, void* out,
+             int H, int W, int D, int dy, int dx, float p1, float p2,
+             int accumulate, Carry carry, void* stream) {
   const bool ok = kind == Kind::kHorizontal
                       ? dy == 0 && (dx == 1 || dx == -1)
                       : (dy == 1 || dy == -1) && dx >= -1 && dx <= 1;
   if (!ok || D < 1 || D > 32 * 16 || H < 1 || W < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* c = static_cast<const float*>(cost);
-  const auto* im = static_cast<const float*>(image);
-  auto* o = static_cast<float*>(out);
+  const Launch a{static_cast<const float*>(cost),
+                 static_cast<const float*>(image),
+                 static_cast<float*>(out),
+                 H, W, D, dy, dx, p1, p2, carry};
   const auto s = static_cast<cudaStream_t>(stream);
   const bool acc = accumulate != 0;
-  if (D <= 32) {
-    return launch_ring<1>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
-  } else if (D <= 64) {
-    return launch_ring<2>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
-  } else if (D <= 128) {
-    return launch_ring<4>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
-  } else if (D <= 256) {
-    return launch_ring<8>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
-  }
-  return launch_ring<16>(kind, c, im, o, H, W, D, dy, dx, p1, p2, acc, s);
-}
-
-template <int VPL>
-void launch_chunk(const float* cost, const float* image, float* out, int H,
-                  int W, int D, int dy, int dx, float p1, float p2,
-                  bool accumulate, Carry carry, cudaStream_t stream) {
-  const int paths = path_count(H, W, dy, dx);
-  const int blocks = (paths + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sgm_chunk_kernel<VPL><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
-      cost, image, out, H, W, D, dy, dx, p1, p2, accumulate, carry);
+  if (D <= 32) return launch_ring<1>(kind, a, acc, s);
+  if (D <= 64) return launch_ring<2>(kind, a, acc, s);
+  if (D <= 128) return launch_ring<4>(kind, a, acc, s);
+  if (D <= 256) return launch_ring<8>(kind, a, acc, s);
+  return launch_ring<16>(kind, a, acc, s);
 }
 
 }  // namespace
@@ -625,8 +551,8 @@ extern "C" int stm_sgm_rows_f32(const void* cost, const void* image,
                                 void* out, int H, int W, int D, int dy,
                                 int dx, float p1, float p2, int accumulate,
                                 void* stream) {
-  return dispatch_ring(Kind::kRows, cost, image, out, H, W, D, dy, dx, p1,
-                       p2, accumulate, stream);
+  return dispatch(Kind::kRows, cost, image, out, H, W, D, dy, dx, p1, p2,
+                  accumulate, kNoCarry, stream);
 }
 
 // One traversal of the horizontal family (step dy = 0, dx = +-1).
@@ -634,8 +560,8 @@ extern "C" int stm_sgm_horizontal_f32(const void* cost, const void* image,
                                       void* out, int H, int W, int D, int dy,
                                       int dx, float p1, float p2,
                                       int accumulate, void* stream) {
-  return dispatch_ring(Kind::kHorizontal, cost, image, out, H, W, D, dy, dx,
-                       p1, p2, accumulate, stream);
+  return dispatch(Kind::kHorizontal, cost, image, out, H, W, D, dy, dx, p1,
+                  p2, accumulate, kNoCarry, stream);
 }
 
 // One row traversal (dy = +-1) over a chunk of H rows with carry hand-off:
@@ -647,32 +573,14 @@ extern "C" int stm_sgm_chunk_f32(const void* cost, const void* image,
                                  void* out, void* carry_out, int H, int W,
                                  int D, int dy, int dx, float p1, float p2,
                                  int seed, int accumulate, void* stream) {
-  // dy in {-1, 1}, dx in {-1, 0, 1}; a chunk that does not seed needs the
-  // incoming carry.
-  const bool ok = (dy == 1 || dy == -1) && dx >= -1 && dx <= 1 &&
-                  carry_out != nullptr &&
-                  (seed != 0 || (carry != nullptr && carry_image != nullptr));
-  if (!ok || D < 1 || D > 32 * 16 || H < 1 || W < 1) {
+  // A chunk that does not seed needs the incoming carry.
+  if (carry_out == nullptr ||
+      (seed == 0 && (carry == nullptr || carry_image == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Carry hand_off{static_cast<const float*>(carry),
                        static_cast<const float*>(carry_image),
                        static_cast<float*>(carry_out), seed != 0};
-  const auto* c = static_cast<const float*>(cost);
-  const auto* im = static_cast<const float*>(image);
-  auto* o = static_cast<float*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bool acc = accumulate != 0;
-  if (D <= 32) {
-    launch_chunk<1>(c, im, o, H, W, D, dy, dx, p1, p2, acc, hand_off, s);
-  } else if (D <= 64) {
-    launch_chunk<2>(c, im, o, H, W, D, dy, dx, p1, p2, acc, hand_off, s);
-  } else if (D <= 128) {
-    launch_chunk<4>(c, im, o, H, W, D, dy, dx, p1, p2, acc, hand_off, s);
-  } else if (D <= 256) {
-    launch_chunk<8>(c, im, o, H, W, D, dy, dx, p1, p2, acc, hand_off, s);
-  } else {
-    launch_chunk<16>(c, im, o, H, W, D, dy, dx, p1, p2, acc, hand_off, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(Kind::kChunk, cost, image, out, H, W, D, dy, dx, p1, p2,
+                  accumulate, hand_off, stream);
 }

@@ -12,9 +12,10 @@ plain version bit for bit: the recurrence is only IEEE-rounded
 sub/add/div and exact min/max, and the traversals accumulate in the
 plain version's order, one launch each.
 
-The rows and horizontal kernels fetch their operands through a ring of
-asynchronous copies eight steps deep, one path per one-warp block; the
-chunk kernel keeps its one-step walk.
+All three kernels walk their paths the same way: operands come through a
+ring of asynchronous copies eight steps deep, one path per one-warp
+block; the chunk kernel adds the carry hand-off at a path's first and
+last step.
 
 ``ROW_LAUNCHES``, ``HORIZONTAL_LAUNCHES`` and ``CHUNK_LAUNCHES`` count
 the launches of the three kernels, so a run can show that it went

@@ -7,7 +7,9 @@ plain version's summation order and rounds every operation on its own).
 
 The launcher takes CUDA tensors only: it checks device, dtype and shape,
 allocates the output with ``torch.empty``, launches on the current
-stream and raises if the launch failed.  ``LAUNCHES`` counts its
+stream and raises if the launch failed.  A ``kernel_size`` whose tile
+fits no block's shared memory is refused with a ``ValueError`` before any
+launch.  ``LAUNCHES`` counts its
 launches, so a run can show that it went through the kernel.
 """
 
@@ -19,6 +21,8 @@ from . import _build
 from .cost import compute_dtype
 
 LAUNCHES = 0
+
+_REFUSED = -1               # csrc/ssd.cu: no tile of the k fits shared memory
 
 _MAX_GRID_Y = 65535         # the block grid's y extent carries the rows
 
@@ -61,6 +65,10 @@ def diff_cost_volume_cuda(left: torch.Tensor, right: torch.Tensor, *,
         status = fn(left_c.data_ptr(), right_c.data_ptr(), out.data_ptr(),
                     height, width, max_disparity, kernel_size,
                     int(absolute), stream)
+    if status == _REFUSED:
+        raise ValueError(f"stm_ssd: kernel_size {kernel_size} needs more "
+                         "shared memory than one block has, even at the "
+                         "smallest tile")
     _build.check_launch("stm_ssd", status)
     LAUNCHES += 1
     return out

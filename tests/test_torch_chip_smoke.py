@@ -83,3 +83,21 @@ def test_cvf_tile_reads_count_the_halos(tag):
         assert h * w < pixels < 2.56 * h * w
     # One chunk, one tile: the image exactly.
     assert chip_smoke.cvf_tile_reads(20, 30, 4, 8, 16, 1, sms=1) == 20 * 30
+
+
+@pytest.mark.parametrize("tag,name,bound_ms,bound_by,floor_ms", [
+    ("teddy", "ssd", 0.0262, "bytes", 0.0262),
+    ("hd", "ssd", 0.4038, "bytes", 0.4038),
+    ("teddy", "sgm_chunk", 0.0551, "bytes", 0.4687),
+    ("hd", "sgm_chunk", 0.8170, "bytes", 7.2352)])
+def test_ssd_and_chunk_bounds_and_floors(tag, name, bound_ms, bound_by,
+                                         floor_ms):
+    """The SSD kernel's bound is its function's bytes (its design moves
+    no more than them), and the chunk kernel's floor is sgm_rows' plus
+    the carries: the figures PERF.md's kernel table records, which the
+    redesigns of the two kernels leave as they were."""
+    got_ms, got_by, got_floor = chip_smoke.kernel_bounds(
+        *GEOMETRIES[tag])[name]
+    assert got_ms == pytest.approx(bound_ms, abs=1e-4)
+    assert got_by == bound_by
+    assert got_floor == pytest.approx(floor_ms, abs=1e-4)

@@ -22,6 +22,8 @@ from stereomatch_tpu_torch import cost as port_cost_api
 from stereomatch_tpu_torch.ops import cost as port_cost
 from stereomatch_tpu_torch.utils import validation
 
+from .torch_shapes import SSD_EDGE_SHAPES, SSD_INT_SHAPE
+
 REL_TOL = 2e-6   # Pallas ring vs reduce_window order (test_ssd_pallas.py)
 ABS_TOL = 2e-6
 
@@ -81,6 +83,36 @@ def test_integer_chain_exact(in_dtype, absolute):
     assert out.dtype == np.int32
     np.testing.assert_array_equal(out, ref)
     assert (out == np.iinfo(np.int32).max).any()     # the d > w wedge
+
+
+@pytest.mark.parametrize("absolute", [False, True], ids=["ssd", "sad"])
+@pytest.mark.parametrize("shape", SSD_EDGE_SHAPES, ids=str)
+def test_float_volume_bit_equal_to_xla_at_kernel_tile_edges(shape, absolute):
+    """The plain volumes at the card tests' SSD shapes (the edges of
+    csrc/ssd.cu's tile, k up to 150), so that the kernel, held there
+    against the plain version, is held against the JAX package too."""
+    h, w, d, k = shape
+    left, right = _pair(shape, h * 7 + w)
+    jfn = jax_cost.sad_cost_volume if absolute else jax_cost.ssd_cost_volume
+    ref = np.asarray(jfn(left, right, max_disparity=d, kernel_size=k))
+    out = _port(port_cost._diff_cost_volume, left, right, max_disparity=d,
+                kernel_size=k, cost_dtype=torch.float32, absolute=absolute)
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("absolute", [False, True], ids=["ssd", "sad"])
+def test_integer_chain_exact_over_several_tiles(absolute):
+    """The int32 chain at the card tests' int32 shape (uint8 images)."""
+    h, w, d, k = SSD_INT_SHAPE
+    rng = np.random.default_rng(8)
+    left = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    right = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    jfn = jax_cost.sad_cost_volume if absolute else jax_cost.ssd_cost_volume
+    ref = np.asarray(jfn(left, right, max_disparity=d, kernel_size=k,
+                         cost_dtype=jnp.int32))
+    out = _port(port_cost._diff_cost_volume, left, right, max_disparity=d,
+                kernel_size=k, cost_dtype=torch.int32, absolute=absolute)
+    np.testing.assert_array_equal(out, ref)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)

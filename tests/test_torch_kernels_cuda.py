@@ -6,10 +6,12 @@ its reason, where there is none.  On the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
-The SSD, SGM (the ring's tails and short paths, and the chunk kernel's
-carries included) and DP kernels keep their plain versions' association
-and round every operation on its own, so those comparisons are
-bit-equality.  The CVF kernels keep the plain version's association too
+The SSD (at the edges of its tile: short and ragged H and W, odd D, k
+from 1 to 150, streamed rows, the int32 chain, SAD, a refused k), SGM
+(the ring's tails and short paths, the chunk kernel's carries, chunks
+shorter than the ring and out views included) and DP kernels keep their
+plain versions' association and round every operation on its own, so
+those comparisons are bit-equality.  The CVF kernels keep the plain version's association too
 and are held equal to it, +inf placement included, at the edges of their
 tile (narrow and ragged W, H shorter than the window or than a row
 chunk, odd D, radii 0 to 32, a wedge offset, a misaligned volume).  This
@@ -30,6 +32,9 @@ from stereomatch_tpu_torch.ops import cvf as cvf_ops
 from stereomatch_tpu_torch.ops import disparity as disp_ops
 from stereomatch_tpu_torch.ops import cvf_cuda, dp_cuda, sgm_cuda, ssd_cuda
 from stereomatch_tpu_torch.parallel import ShardedPipeline, make_mesh
+
+from .torch_shapes import (CHUNK_SHORT_CASES, SSD_EDGE_SHAPES,
+                           SSD_INT_SHAPE, SSD_REFUSED_K)
 
 pytestmark = pytest.mark.cuda
 
@@ -52,7 +57,7 @@ SHAPES = [(37, 53, 24, 3), (5, 12, 16, 7), (1, 10, 4, 2), (64, 96, 40, 5),
 
 
 @pytest.mark.parametrize("absolute", [False, True], ids=["ssd", "sad"])
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + SSD_EDGE_SHAPES, ids=str)
 def test_ssd_kernel_bit_equal(device, shape, absolute):
     h, w, d, k = shape
     left, right = _images(h, w, h + w, device)
@@ -65,16 +70,30 @@ def test_ssd_kernel_bit_equal(device, shape, absolute):
     assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.int16])
-def test_ssd_kernel_int32_chain_exact(device, in_dtype):
-    left, right = _images(21, 33, 3, device)
+@pytest.mark.parametrize("absolute", [False, True], ids=["ssd", "sad"])
+@pytest.mark.parametrize("in_dtype,shape", [
+    (torch.uint8, (21, 33, 16, 5)), (torch.int16, (21, 33, 16, 5)),
+    (torch.uint8, SSD_INT_SHAPE)], ids=str)
+def test_ssd_kernel_int32_chain_exact(device, in_dtype, shape, absolute):
+    h, w, d, k = shape
+    left, right = _images(h, w, 3, device)
     scale = 255 if in_dtype == torch.uint8 else 30000
     left8, right8 = (left * scale).to(in_dtype), (right * scale).to(in_dtype)
-    kw = dict(max_disparity=16, kernel_size=5, cost_dtype=torch.int32)
-    ref = cost_ops.ssd_cost_volume(left8, right8, **kw)
-    out = ssd_cuda.diff_cost_volume_cuda(left8, right8, absolute=False,
+    kw = dict(max_disparity=d, kernel_size=k, cost_dtype=torch.int32)
+    ref = cost_ops._diff_cost_volume(left8, right8, absolute=absolute, **kw)
+    out = ssd_cuda.diff_cost_volume_cuda(left8, right8, absolute=absolute,
                                          **kw)
     assert torch.equal(out, ref)
+
+
+def test_ssd_kernel_refuses_a_k_past_shared_memory(device, monkeypatch):
+    monkeypatch.setattr(ssd_cuda, "LAUNCHES", 0)
+    left, right = _images(4, 8, 1, device)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_cuda.diff_cost_volume_cuda(
+            left, right, max_disparity=4, kernel_size=SSD_REFUSED_K,
+            cost_dtype=torch.float32, absolute=False)
+    assert ssd_cuda.LAUNCHES == 0
 
 
 # The SGM ring's edges beside SHAPES: D % 4 != 0 with lanes past D
@@ -326,8 +345,9 @@ def _chunks_against_plain(vol, image, step, cuts):
 @pytest.mark.parametrize("shape,cuts", [
     ((375, 450, 128, 7), (75, 150, 225, 300)),      # teddy, 5 tiles
     ((37, 53, 24, 3), (12,)),                        # ragged, 12 + 25
-    ((1024, 1280, 256, 7), (256, 512, 768))],        # HD, 4 tiles (K6)
-    ids=["teddy", "ragged", "hd"])
+    ((1024, 1280, 256, 7), (256, 512, 768)),         # HD, 4 tiles (K6)
+    *CHUNK_SHORT_CASES],                             # 1, 3, 7, 1 rows
+    ids=["teddy", "ragged", "hd", "short-d1", "short-d37", "short-d129"])
 def test_sgm_chunk_kernel_bit_equal_with_carry(device, shape, cuts):
     h, w, d, k = shape
     left, right = _images(h, w, h + 2 * w, device)
@@ -357,6 +377,35 @@ def test_sgm_chunk_kernel_accumulates_and_refuses(device):
     with pytest.raises(ValueError, match="row traversal"):
         sgm_cuda.sweep_chunk_with_carry_cuda(vol, left, (0, 1), penalty1=0.1,
                                              penalty2=0.2, seed=True)
+
+
+@pytest.mark.parametrize("misaligned", [False, True],
+                         ids=["aligned", "misaligned"])
+def test_sgm_chunk_kernel_accumulates_into_out_views(device, misaligned):
+    """A ring-length (8-row) chunk added into a row slice of a larger
+    out volume, as the sharded path adds it; with ``misaligned`` that
+    volume starts 4 bytes past a 16-byte boundary, so D % 4 == 0 does not
+    buy 16-byte copies and stores."""
+    h, w, d = 20, 33, 96
+    left, right = _images(h, w, 6, device)
+    vol = cost_ops.ssd_cost_volume(left, right, max_disparity=d,
+                                   kernel_size=3)
+    ref, carry = agg_ops.sweep_chunk_with_carry(
+        vol[:5], left[:5], (1, -1), penalty1=0.1, penalty2=0.2, seed=True)
+    part, ref_carry = agg_ops.sweep_chunk_with_carry(
+        vol[5:13], left[5:13], (1, -1), *carry, penalty1=0.1, penalty2=0.2,
+        seed=False)
+    buf = torch.empty(vol.numel() + int(misaligned), device=device)
+    out = buf[int(misaligned):].view(h, w, d)
+    out.fill_(0.5)
+    assert (out[5:13].data_ptr() % 16 == 0) != misaligned
+    _, out_carry = sgm_cuda.sweep_chunk_with_carry_cuda(
+        vol[5:13], left[5:13], (1, -1), *carry, penalty1=0.1, penalty2=0.2,
+        seed=False, out=out[5:13], accumulate=True)
+    assert torch.equal(out[5:13], torch.full_like(part, 0.5) + part)
+    assert torch.equal(out[:5], torch.full_like(out[:5], 0.5))
+    assert torch.equal(out[13:], torch.full_like(out[13:], 0.5))
+    assert torch.equal(out_carry[0], ref_carry[0])
 
 
 @pytest.mark.parametrize("reducer,key", [("wta", "wta"),

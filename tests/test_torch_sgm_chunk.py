@@ -29,6 +29,7 @@ from stereomatch_tpu_torch.io.synthetic import stereo_pair
 from stereomatch_tpu_torch.ops import aggregation as port_agg
 from stereomatch_tpu_torch.parallel import ShardedPipeline, make_mesh
 
+from .torch_shapes import CHUNK_SHORT_CASES
 from .torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-6, 1e-5     # Pallas family-sum order vs per-traversal sums
@@ -104,6 +105,36 @@ def test_chunks_bit_equal_to_jax_scan_with_handoff_flips(step):
     joined = (np.concatenate([out1, out2]) if step[0] > 0
               else np.concatenate([out2, out1]))
     np.testing.assert_array_equal(joined, whole)
+
+
+@pytest.mark.parametrize("step", ROW_STEPS, ids=str)
+@pytest.mark.parametrize("case", CHUNK_SHORT_CASES,
+                         ids=lambda case: f"d{case[0][2]}")
+def test_short_chunks_bit_equal_to_jax_scan(case, step):
+    """Chunks of 1, 3, 7 and 1 rows in scan order (the card tests' short
+    chunks, shorter than the chunk kernel's ring), each from the carry of
+    the chunk before it: contributions and carries bit-equal to JAX."""
+    (h, w, d, _), cuts = case
+    cost, image = _chunks(h, w, d, seed=3 * d + 2 * step[1] + step[0] + 3)
+    edges = [0, *cuts, h]
+    spans = list(zip(edges[:-1], edges[1:]))
+    carry_j = (np.full((w, d), np.inf, np.float32),
+               np.zeros((w,), np.float32))
+    carry_p = (None, None)
+    parts = {}
+    for rank, (a, b) in enumerate(spans if step[0] > 0 else spans[::-1]):
+        ref, carry_j = _jax_chunk(cost[a:b], image[a:b], step, carry_j,
+                                  seed=rank == 0)
+        out, carry_p = _port_chunk(cost[a:b], image[a:b], step, carry_p,
+                                   seed=rank == 0)
+        for got, want in ((out, ref), (carry_p[0], carry_j[0]),
+                          (carry_p[1], carry_j[1])):
+            np.testing.assert_array_equal(got, want)
+        parts[a] = out
+    whole = port_agg.sweep(torch.from_numpy(cost), torch.from_numpy(image),
+                           P1, P2, step).numpy()
+    np.testing.assert_array_equal(
+        np.concatenate([parts[a] for a, _ in spans]), whole)
 
 
 def test_chunk_refuses_what_it_does_not_take():
