@@ -34,9 +34,9 @@
 // * A block owns G output rows x kTX (32) columns x TD disparities.  It
 //   stages the rows [h0 - k, h0 + G + k - 1) of the left image over its
 //   span of kTX + 2k - 1 columns, and of the right image over that span
-//   shifted by its disparities, into shared memory (plain coalesced loads:
-//   the images, about 5 MB each at HD, stay in L2); rows and columns
-//   outside the image are stored as zeros.
+//   shifted by its disparities, into shared memory: coalesced cp.async
+//   copies, all in flight at once (the images, about 5 MB each at HD,
+//   stay in L2); rows and columns outside the image are zero-filled.
 // * Vertical sums: one thread per (span column, four disparities) forms
 //   the terms of its column for each of the G + 2k - 1 rows once and adds
 //   each into every one of the G vertical sums it belongs to (window_sums:
@@ -111,6 +111,23 @@ struct Chain<int> {
   }
   static __device__ __forceinline__ int fill() { return INT_MAX; }
 };
+
+// cp.async of 4 bytes from device to shared memory, or of 4 zero bytes
+// where `in` is false (src is then not read); the issuing thread waits for
+// its copies with wait_copies.
+__device__ __forceinline__ void copy4(void* dst, const void* src, bool in) {
+  asm volatile(
+      "cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+          static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+      "l"(src), "r"(in ? 4 : 0)
+      : "memory");
+}
+__device__ __forceinline__ void wait_copies() {
+  asm volatile(
+      "cp.async.commit_group;\n"
+      "cp.async.wait_group 0;\n" ::
+          : "memory");
+}
 
 template <typename T>
 __device__ __forceinline__ void load4(const T* p, T (&v)[4]) {
@@ -209,7 +226,8 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(const Args a) {
   T* const ls = vsum + static_cast<size_t>(G) * S * TD;
   T* const rs = ls + static_cast<size_t>(a.RC) * S;
 
-  // Window rows [t0, t0 + rows) into staged rows 0 .. rows - 1.
+  // Window rows [t0, t0 + rows) into staged rows 0 .. rows - 1, every
+  // copy in flight at once; zeros outside the image.
   auto stage = [&](int t0, int rows) {
     const int per_row = S + SR;
     for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
@@ -219,17 +237,12 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(const Args a) {
       const bool left_col = col < S;
       const int x =
           left_col ? w0 - k + col : w0 - k - dz - (TD - 1) + (col - S);
-      T v = T(0);
-      if (y >= 0 && y < a.H && x >= 0 && x < a.W) {
-        const size_t at = static_cast<size_t>(y) * a.W + x;
-        v = left_col ? left[at] : right[at];
-      }
-      if (left_col) {
-        ls[row * S + col] = v;
-      } else {
-        rs[row * SR + col - S] = v;
-      }
+      const bool in = y >= 0 && y < a.H && x >= 0 && x < a.W;
+      const T* const src = left_col ? left : right;
+      copy4(left_col ? ls + row * S + col : rs + row * SR + (col - S),
+            in ? src + static_cast<size_t>(y) * a.W + x : src, in);
     }
+    wait_copies();
   };
 
   // Vertical sums: item (span column c, disparities dz + 4q .. + 3).
