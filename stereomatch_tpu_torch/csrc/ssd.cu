@@ -50,8 +50,11 @@
 //   consecutive disparities.
 //
 // The tile follows from (k, D) in one function (tile_of): G and XB obey
-// the ramp rule (<= 2k + 1); the block's shared memory aims at three
-// blocks an SM, shrinking G, then TD.  Where even G = 1, TD = 4 cannot hold
+// the ramp rule (<= 2k + 1); the block's shared memory aims at three or
+// more blocks an SM, shrinking G, then TD.  Of 128, 256 and 384 threads,
+// G = 4 or 8 and TD = 16 or 32, measured on an H100 (PERF.md §6), 128
+// threads, G = 8 and TD = 32 were the fastest or within noise of it at
+// teddy and HD.  Where even G = 1, TD = 4 cannot hold
 // all 2k rows (k above about 40), the block streams its rows through RC
 // staged rows, refilled between barriers, and forms the same sums.  A k
 // for which not one staged row fits the card's 227 KB is refused before
@@ -64,7 +67,7 @@
 namespace {
 
 constexpr int kTX = 32;                 // output columns of a block
-constexpr int kThreads = 256;           // threads of a block
+constexpr int kThreads = 128;           // threads of a block
 constexpr int kSmemTarget = 74 * 1024;  // three blocks on an SM
 constexpr int kSmemMax = 227 * 1024;
 constexpr int kRefused = -1;            // returned for a k that cannot fit
