@@ -342,6 +342,9 @@ constexpr int kShapes[][3] = {{8, 8, 0}, {4, 8, 0}, {2, 8, 0}, {1, 8, 0},
                               {4, 4, 0}, {2, 4, 0}, {1, 4, 0}, {2, 2, 0},
                               {1, 2, 0}, {1, 8, 1}};
 constexpr int kNumShapes = sizeof(kShapes) / sizeof(kShapes[0]);
+constexpr int kStreamShape = kNumShapes - 1;
+static_assert(kShapes[kStreamShape][0] == 1 && kShapes[kStreamShape][2],
+              "the last shape streams its rows at G = 1");
 
 struct Tile {
   int shape;     // index into kShapes
@@ -350,41 +353,37 @@ struct Tile {
 };
 
 // The tile of (k, D): the largest G (then TD) whose block holds all its
-// rows within kSmemTarget, else within the card's kSmemMax; failing both,
-// G = 1 and TD = 4 with as many staged rows as fit.  False if not one row
-// fits.
+// rows within kSmemTarget; failing that, G = 1 and TD = 4 with as many
+// streamed rows as fit kSmemTarget, or failing one row, the card's
+// kSmemMax.  False if not one row fits.
 bool tile_of(int k, int D, size_t elem, Tile* t) {
   const int ramp = 2 * k + 1;
   const int XB = ramp >= 8 ? 8 : ramp >= 4 ? 4 : 2;
   const int td_max = D >= 32 ? 32 : (D + 3) / 4 * 4;
-  const size_t limits[] = {kSmemTarget, kSmemMax};
-  for (const size_t limit : limits) {
-    for (int step = 0; step < 4; ++step) {   // TD: td_max, then 16, 8, 4
-      const int TD = step == 0 ? td_max : 32 >> step;
-      if (step > 0 && TD >= td_max) continue;
-      for (int i = 0; i < kNumShapes; ++i) {
-        const int G = kShapes[i][0];
-        if (kShapes[i][1] != XB || kShapes[i][2] || G > ramp ||
-            (TD < td_max && G > 1)) {
-          continue;
-        }
-        const size_t bytes = smem_elems(k, G, TD, G + 2 * k - 1) * elem;
-        if (bytes <= limit) {
-          *t = {i, TD, G + 2 * k - 1, bytes};
-          return true;
-        }
+  for (int step = 0; step < 4; ++step) {   // TD: td_max, then 16, 8, 4
+    const int TD = step == 0 ? td_max : 32 >> step;
+    if (step > 0 && TD >= td_max) continue;
+    for (int i = 0; i < kStreamShape; ++i) {
+      const int G = kShapes[i][0];
+      if (kShapes[i][1] != XB || G > ramp || (TD < td_max && G > 1)) {
+        continue;
       }
-    }
-    // Stream the rows: G = 1, TD = 4.
-    for (int i = 0; i < kNumShapes; ++i) {
-      if (!kShapes[i][2] || kShapes[i][1] != XB) continue;
-      const size_t fixed = smem_elems(k, 1, 4, 0);
-      const size_t per_row = smem_elems(k, 0, 4, 1);
-      if (limit / elem >= fixed + per_row) {
-        const int rc = static_cast<int>((limit / elem - fixed) / per_row);
-        *t = {i, 4, rc, smem_elems(k, 1, 4, rc) * elem};
+      const size_t bytes = smem_elems(k, G, TD, G + 2 * k - 1) * elem;
+      if (bytes <= kSmemTarget) {
+        *t = {i, TD, G + 2 * k - 1, bytes};
         return true;
       }
+    }
+  }
+  if (XB != kShapes[kStreamShape][1]) return false;
+  const size_t fixed = smem_elems(k, 1, 4, 0);
+  const size_t per_row = smem_elems(k, 0, 4, 1);
+  const size_t limits[] = {kSmemTarget, kSmemMax};
+  for (const size_t limit : limits) {
+    if (limit / elem >= fixed + per_row) {
+      const int rc = static_cast<int>((limit / elem - fixed) / per_row);
+      *t = {kStreamShape, 4, rc, smem_elems(k, 1, 4, rc) * elem};
+      return true;
     }
   }
   return false;
