@@ -790,8 +790,8 @@ def main() -> int:
             log(f"    stage spans (device timeline) ms/frame: {spans}")
             if label == "sharded ssd+sgm+wta":
                 # The chunk kernel's device time against its CUDA-event
-                # time (phase 5), which also holds the host's issue of
-                # its launches.
+                # time (phase 5), which also holds the host's time to
+                # enqueue its launches.
                 chunk_device[tag] = sum(ms for name, ms in by_name.items()
                                         if "sgm_chunk_kernel" in name)
                 require(chunk_device[tag] > 0,
@@ -799,7 +799,7 @@ def main() -> int:
                 log(f"    sgm_chunk {tag}: device {chunk_device[tag]!r} "
                     f"ms/frame (profiler), CUDA events "
                     f"{times[('sgm_chunk', tag)][0]!r} ms (its launches "
-                    f"alone, host issue included) [{card}]")
+                    f"alone, host enqueueing included) [{card}]")
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
             for name, ms in top:
                 log(f"    {ms!r} ms/frame  {name[:90]}")

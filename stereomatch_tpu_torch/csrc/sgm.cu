@@ -55,7 +55,7 @@
 // step's cost and out rows come from device memory, about a microsecond away
 // under load; fetched one step ahead, that round trip would add to every
 // step.  So each warp keeps a ring of kRingStages (8) steps in shared memory
-// (ring_path): at step s the warp takes stage s, issues cp.async copies of
+// (ring_path): at step s the warp takes stage s, starts cp.async copies of
 // step s + 7 and runs the recurrence, so the loads of 7 steps are in flight
 // behind it, and P2' (a division) is computed 32 steps at a time off the
 // chain.  At teddy what is left is the step chain of the longest path; at

@@ -24,7 +24,7 @@
 // What bounds it on an H100: the function's bound is its output write,
 // H*W*D*4 bytes (86.4 MB at teddy 375x450 D=128, 1.34 GB at HD 1024x1280
 // D=256, 0.40 ms at 3.35 TB/s); exact window sums cost 2k adds for each
-// vertical sum and 2k for each output, about 0.3 ms of float32 issue at
+// vertical sum and 2k for each output, about 0.3 ms of float32 work at
 // HD, k = 7.  A design of one output row, 32 columns and 64 disparities
 // a block forms each term once for each of the 2k output rows whose window
 // holds it, with two loads and the wedge test each time: its load
