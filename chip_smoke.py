@@ -115,7 +115,8 @@ def kernel_work(h, w, d, k, r, tiles):
     bytes: each input read once, each output written once (float32 4
     bytes, pointers 1 byte); operations: those of the separable
     algorithm.  dp_backward reads the one pointer per pixel that its walk
-    needs; sgm_chunk (the six row traversals over ``tiles`` row chunks)
+    needs (and its design, :func:`dp_window_bytes` a walked column);
+    sgm_chunk (the six row traversals over ``tiles`` row chunks)
     also writes and reads the [W, D] carry at each of the
     6 * (tiles - 1) hand-offs.
 
@@ -128,8 +129,9 @@ def kernel_work(h, w, d, k, r, tiles):
     stats kernel reads its tiles of the volume and the guide with their
     halos (:func:`cvf_tile_reads`) and the guide planes and writes a0 and
     b0, the filter kernel reads its tiles of a0 and b0 and the guide and
-    writes the result.  The single-pass kernels move their function's
-    bytes."""
+    writes the result; dp_backward reads the final costs, writes the
+    disparities and copies each walked column's window.  The other
+    single-pass kernels move their function's bytes."""
     vol, img, f = h * w * d, h * w, 4        # elements; float32 bytes
     hd = h * d * f
     carries = 6 * (tiles - 1) * 2 * w * d * f
@@ -141,6 +143,8 @@ def kernel_work(h, w, d, k, r, tiles):
     }
     work = {name: (nbytes, ops, nbytes)
             for name, (nbytes, ops) in single.items()}
+    work["dp_backward"] = (*single["dp_backward"],
+                           hd + img * f + h * (w - 1) * dp_window_bytes(d))
     work.update({
         "sgm_rows": ((2 * vol + img) * f, vol * 9 * 6, rows),
         "sgm_chunk": ((2 * vol + img) * f + carries, vol * 9 * 6,
@@ -153,6 +157,17 @@ def kernel_work(h, w, d, k, r, tiles):
                  + 3 * vol + 5 * img) * f + 2 * hd),
     })
     return work
+
+
+def dp_window_bytes(d, reach=64, sector=32):
+    """Bytes of device memory that one walked column's window touches in
+    ``csrc/dp.cu``'s walk: the 2 * reach + 1 disparities around a batch's
+    centre, clipped to the band, in 32-byte sectors: at most 5 sectors
+    (129 bytes from any alignment), at most the column's own sectors
+    (counted for columns on 32-byte boundaries, D % 32 == 0, as at both
+    timed geometries)."""
+    return sector * min(-(-(2 * reach + 1 + sector - 1) // sector),
+                        -(-d // sector))
 
 
 def cvf_tile_reads(h, w, d, r, td, blocks_per_sm, sms=132, tx=32,
@@ -240,6 +255,18 @@ def compare(name, ref, out, rtol, atol, exact=False, quiet=False) -> float:
     if not quiet:
         log(f"  {name}: max_abs_err={max_err!r} bit_equal={bit_equal}")
     return max_err
+
+
+def hand_made_pointers(torch, shape, dev, seed=9):
+    """(kind, int8 pointer volume on ``dev``) for the walk's card check:
+    all -1, all +1, a random mix of {-1, 0, +1}, and any int8 value."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    yield "all -1", torch.full(shape, -1, dtype=torch.int8, device=dev)
+    yield "all +1", torch.ones(shape, dtype=torch.int8, device=dev)
+    yield "mixed", torch.randint(-1, 2, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+    yield "any int8", torch.randint(-128, 128, shape, generator=gen,
+                                    device=dev, dtype=torch.int8)
 
 
 def chunk_spans(height, cuts, step):
@@ -417,6 +444,16 @@ def main() -> int:
             disp_ops.dp_backward(ptr_ref,
                                  disp_ops.dp_end_disparities(final_ref)),
             dp_cuda.dp_backward_cuda(ptr_ref, final_ref), 0, 0, exact=True)
+        # The walk on hand-made pointers of the same shape: all -1 and all
+        # +1 (both clips), a mix of {-1, 0, +1}, and any int8 (steps off
+        # the kernel's window, read from device memory).
+        for kind, ptr_made in hand_made_pointers(torch, ptr_ref.shape, dev):
+            compare(f"dp_backward {tag} {kind} pointers",
+                    disp_ops.dp_backward(
+                        ptr_made, disp_ops.dp_end_disparities(final_ref)),
+                    dp_cuda.dp_backward_cuda(ptr_made, final_ref), 0, 0,
+                    exact=True)
+            del ptr_made
         del ref, ptr_ref, final_ref, ptr, final
         # Census on the card equals census on the CPU; CVF on its volume.
         census_kw = dict(max_disparity=d, window_size=5, kernel_size=1)

@@ -13,27 +13,58 @@
 //   acc[w, d] = C[w, d] + min3, with c1 = acc[w-1, d-1], c2 = acc[w-1, d],
 //     c3 = acc[w-1, d+1] (+inf beyond the band) and the reference's chain
 //     ptr = -1 if c1 < c2 && c1 < c3, else 0 if c2 < c3, else +1
-//   d[W-1] = argmin_d acc[W-1, d] (ties to the lowest d)
+//   d[W-1] = argmin_d acc[W-1, d] (torch.argmin: the first NaN, else the
+//     first minimum; -0 and +0 are equal)
 //   d[w]   = clip(d[w+1] + ptr[w, d[w+1]], 0, D-1)
-// One __fadd_rn per step after exact comparisons: equal to the plain
-// version bit for bit.
+// One __fadd_rn per step after exact comparisons, and integer arithmetic
+// in the walk: equal to the plain version bit for bit, whatever the lane
+// mapping, staging or walk order.
 //
 // Layout: the cost volume [H, W, D] as it comes, pointers int8 [H, W, D]
 // (no transpose), final costs [H, D], disparities int32 [H, W].
 //
-// What bounds it on an H100: by bytes, one read of the float32 volume and
-// one write of the int8 pointers (108 MB at teddy 375x450 D=128: 0.032 ms
-// at 3.35 TB/s); in fact the W-long dependency chain of each row.
-// Forward design: one warp per row, its [D] accumulator in registers
-// (lane l holds d = l + 32 j, j < J), the d +- 1 neighbours exchanged by
-// shuffles, and the next column's costs loaded before the current
-// column's step so the loads overlap the chain.  Backward: one thread per
-// row does the argmin and the walk; its loads are W dependent bytes.
+// What bounds it on an H100: by bytes, the forward pass reads the float32
+// volume once and writes the int8 pointers once (0.032 ms at teddy
+// 375x450 D=128, 0.50 ms at HD 1024x1280 D=256, at 3.35 TB/s); the walk
+// needs one pointer a pixel.  In fact both are W-long dependency chains,
+// one a row, with only H rows (375-1024 warps) to hide a step's latency.
+//
+// Forward (dp_forward_kernel): one warp a row.  Lane l holds the J
+// consecutive disparities d = J*l + j, so a step's d +- 1 neighbours are
+// in the lane's own registers except at its two ends: two shuffles a
+// step.  The step's J pointers are contiguous bytes, one J-byte store a
+// lane.  The costs come through a ring of kFwdStages<J> columns in shared
+// memory that cp.async fills that many columns ahead of the step (the
+// scheme of sgm.cu's ring_path), so the loads of the next columns are in
+// flight behind the chain.
+//
+// Backward (dp_backward_kernel): one warp a row.  The argmin is a warp
+// reduction over (value, index).  The walk goes in batches of kBatch = 32
+// steps.  A pointer is -1, 0 or +1, so from the disparity at a batch's
+// start its 32 steps stay within 32 of it, and that start lies within 32
+// of the previous batch's start: a window of +-kReach = 64 disparities
+// around the previous batch's start holds every pointer a batch reads.
+// Lane i copies the window of the batch's column i into shared memory by
+// cp.async (9 pieces of 16 bytes), one batch ahead of the walk, and all
+// lanes then walk the same 32 steps from broadcast shared-memory reads;
+// lane i keeps step i's disparity, and the batch leaves as one coalesced
+// store.  HD takes 40 memory round trips a row, overlapped with the walk,
+// instead of 1279 dependent loads.  A step whose disparity leaves the
+// window (possible only for pointers outside {-1, 0, +1}, which
+// dp_backward_cuda accepts as the plain version does) reads its pointer
+// from device memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using stm::commit_copies;
+using stm::copy16;
+using stm::copy4;
+using stm::wait_copies;
 
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -41,104 +72,330 @@ __device__ __forceinline__ float pos_inf() {
   return __int_as_float(0x7f800000);
 }
 
+// ---------------------------------------------------------------- forward
+
+// The ring's depth in columns: about 8 KB a warp (16 columns up to
+// D = 128, 8 above), so that at teddy's 3 warps an SM and HD's 8 some
+// 20-60 KB of costs are in flight on every SM.  One-warp blocks spread
+// the rows over all SMs.
 template <int J>
+constexpr int kFwdStages = J <= 4 ? 16 : 8;
+constexpr int kFwdWarpsPerBlock = 1;
+
+template <int J>
+constexpr int kFwdRingFloats = kFwdStages<J> * 32 * J;
+
+// The J pointers of a lane, packed little-endian and stored at once.
+template <int J>
+__device__ __forceinline__ void store_pointers(int8_t* dst,
+                                               const int8_t (&p)[J]) {
+  if constexpr (J == 1) {
+    *dst = p[0];
+  } else if constexpr (J == 2) {
+    *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(
+        static_cast<uint8_t>(p[0]) | (static_cast<uint8_t>(p[1]) << 8));
+  } else {
+    uint32_t word[J / 4];
+#pragma unroll
+    for (int k = 0; k < J / 4; ++k) {
+      word[k] = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        word[k] |= static_cast<uint32_t>(static_cast<uint8_t>(p[4 * k + i]))
+                   << (8 * i);
+      }
+    }
+    if constexpr (J == 4) {
+      *reinterpret_cast<uint32_t*>(dst) = word[0];
+    } else if constexpr (J == 8) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(word[0], word[1]);
+    } else {
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(word[0], word[1], word[2], word[3]);
+    }
+  }
+}
+
+// VEC: D % 16 == 0 and 16-byte-aligned cost and pointers, so a lane's J
+// pointers are one aligned J-byte store and (J % 4 == 0) the costs come in
+// 16-byte pieces, each wholly inside D; otherwise byte stores and 4-byte
+// pieces.
+template <int J, bool VEC>
 __global__ void dp_forward_kernel(const float* __restrict__ cost,
                                   int8_t* __restrict__ ptr,
                                   float* __restrict__ final_costs, int H,
                                   int W, int D) {
-  const int h = blockIdx.x;
-  const int lane = threadIdx.x;
+  constexpr int S = kFwdStages<J>;
+  static_assert(S >= 4 && (S & (S - 1)) == 0, "S is a power of two >= 4");
+  constexpr int kRow = 32 * J;                      // floats a stage
+  constexpr int kPiece = VEC && J % 4 == 0 ? 4 : 1;  // floats a copy
+  constexpr int kPieces = J / kPiece;               // copies a lane
+  extern __shared__ __align__(16) float fwd_ring[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.x * kFwdWarpsPerBlock + warp;
+  if (h >= H) return;  // the whole warp leaves
+  float* const ring = fwd_ring + warp * kFwdRingFloats<J>;
   const size_t row = static_cast<size_t>(h) * W * D;
+  const float* const row_cost = cost + row;
+  int8_t* const row_ptr = ptr + row;
+  const int d0 = J * lane;
   const float inf = pos_inf();
 
+  // Piece i of a column starts at float e[i]; in[i]: it lies inside D.
+  int e[kPieces];
+  bool in[kPieces];
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    e[i] = i * 32 * kPiece + kPiece * lane;
+    in[i] = e[i] < D;
+  }
+  // Columns 0, 1, ... in turn into their stages; one commit group each,
+  // so at column w exactly S - 1 + w groups are committed, and waiting
+  // until at most S - 2 are pending means column w's group has landed.
+  // The copies of column w + S - 1, issued at column w after its wait, go
+  // to the stage of column w - 1, which every lane finished reading
+  // before the __syncwarp of column w.
+  int fetched = 0;
+  auto fetch = [&]() {
+    const bool live = fetched < W;
+    const float* const src = row_cost + static_cast<size_t>(fetched) * D;
+    float* const dst = ring + (fetched & (S - 1)) * kRow;
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      if constexpr (kPiece == 4) {
+        copy16(dst + e[i], src + e[i], live && in[i]);
+      } else {
+        copy4(dst + e[i], src + e[i], live && in[i]);
+      }
+    }
+    commit_copies();
+    ++fetched;
+  };
+  // Column w's costs from its stage (entries past D are never read).
+  auto take = [&](int w, float (&c)[J]) {
+    wait_copies<S - 2>();
+    __syncwarp();
+    const float* const src = ring + (w & (S - 1)) * kRow + d0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) c[j] = src[j];
+  };
+  auto store = [&](int w, const int8_t (&p)[J]) {
+    int8_t* const dst = row_ptr + static_cast<size_t>(w) * D + d0;
+    if constexpr (VEC) {
+      if (d0 < D) store_pointers<J>(dst, p);
+    } else {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (d0 + j < D) dst[j] = p[j];
+      }
+    }
+  };
+
+#pragma unroll 1
+  for (int t = 0; t < S - 1; ++t) fetch();
+
   float acc[J];
-  float next[J];
+  int8_t p[J];
+  take(0, acc);
+  fetch();
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    const int d = lane + 32 * j;
-    acc[j] = d < D ? cost[row + d] : inf;
-    if (d < D) ptr[row + d] = 0;
-    next[j] = (d < D && W > 1) ? cost[row + D + d] : inf;
+    if (d0 + j >= D) acc[j] = inf;  // padding: +inf above D - 1
+    p[j] = 0;
   }
+  store(0, p);
 
   for (int w = 1; w < W; ++w) {
     float cur[J];
-#pragma unroll
-    for (int j = 0; j < J; ++j) cur[j] = next[j];
-    if (w + 1 < W) {
-      const float* c = cost + row + static_cast<size_t>(w + 1) * D;
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int d = lane + 32 * j;
-        next[j] = d < D ? c[d] : inf;
-      }
-    }
-    int8_t* p = ptr + row + static_cast<size_t>(w) * D;
+    take(w, cur);
+    fetch();
+    // acc[d0 - 1] and acc[d0 + J]: the neighbouring lanes' end registers.
+    float up = __shfl_up_sync(kFull, acc[J - 1], 1);
+    float dn = __shfl_down_sync(kFull, acc[0], 1);
+    if (lane == 0) up = inf;
+    if (lane == 31) dn = inf;
     float out[J];
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      const int d = lane + 32 * j;
-      // acc[d-1]: the lane below, or lane 31 of the register below.
-      const float up = __shfl_up_sync(kFull, acc[j], 1);
-      const float wrap_up = __shfl_sync(kFull, acc[j > 0 ? j - 1 : 0], 31);
-      // acc[d+1]: the lane above, or lane 0 of the register above.
-      const float dn = __shfl_down_sync(kFull, acc[j], 1);
-      const float wrap_dn = __shfl_sync(kFull, acc[j + 1 < J ? j + 1 : j], 0);
-      const float c1 = lane > 0 ? up : (j > 0 ? wrap_up : inf);
+      const float c1 = j > 0 ? acc[j - 1] : up;
       const float c2 = acc[j];
-      // Padding lanes (d >= D) hold +inf, so d = D-1 sees +inf above.
-      const float c3 = lane < 31 ? dn : (j + 1 < J ? wrap_dn : inf);
+      const float c3 = j + 1 < J ? acc[j + 1] : dn;
       const bool take1 = c1 < c2 && c1 < c3;
       const bool take2 = c2 < c3;
       const float m = take1 ? c1 : (take2 ? c2 : c3);
-      out[j] = d < D ? __fadd_rn(cur[j], m) : inf;
-      if (d < D) p[d] = take1 ? int8_t(-1) : (take2 ? int8_t(0) : int8_t(1));
+      out[j] = d0 + j < D ? __fadd_rn(cur[j], m) : inf;
+      p[j] = take1 ? int8_t(-1) : (take2 ? int8_t(0) : int8_t(1));
     }
+    store(w, p);
 #pragma unroll
     for (int j = 0; j < J; ++j) acc[j] = out[j];
   }
 
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    const int d = lane + 32 * j;
-    if (d < D) final_costs[static_cast<size_t>(h) * D + d] = acc[j];
+    if (d0 + j < D) final_costs[static_cast<size_t>(h) * D + d0 + j] = acc[j];
   }
+}
+
+// --------------------------------------------------------------- backward
+
+constexpr int kBatch = 32;          // steps a batch, one a lane
+constexpr int kReach = 2 * kBatch;  // a window's half-width
+// 16-byte pieces that cover 2 * kReach + 1 bytes from any alignment.
+constexpr int kWindowPieces = (2 * kReach + 1 + 15 + 15) / 16;
+constexpr int kSlot = 16 * kWindowPieces;  // bytes of one column's window
+constexpr int kBuffer = kBatch * kSlot;    // a batch's windows
+// Bytes of shared memory before and after a warp's two buffers: a step
+// reads slot byte d - lo + (0..15) unchecked, within 512 of its slot.
+constexpr int kGuard = 512;
+constexpr int kBackWarpBytes = kGuard + 2 * kBuffer + kGuard;
+constexpr int kBackWarpsPerBlock = 1;
+static_assert(kBatch == 32, "a batch has one step a lane");
+static_assert(kWindowPieces == 9, "129 bytes from any alignment: 9 pieces");
+
+// torch.argmin's order over (value, index): a NaN before any number (the
+// first NaN), else the smaller value, else (equal values, -0 == +0) the
+// lower index.  A total order, so every lane of a butterfly agrees.
+__device__ __forceinline__ bool argmin_before(float v, int i, float u,
+                                              int k) {
+  const bool v_nan = v != v;
+  const bool u_nan = u != u;
+  if (v_nan || u_nan) return v_nan && (!u_nan || i < k);
+  return v < u || (v == u && i < k);
 }
 
 __global__ void dp_backward_kernel(const int8_t* __restrict__ ptr,
                                    const float* __restrict__ final_costs,
                                    int* __restrict__ disp, int H, int W,
                                    int D) {
-  const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h >= H) return;
-  // argmin with torch.argmin's order: the first minimum, a NaN first.
-  const float* f = final_costs + static_cast<size_t>(h) * D;
-  int best = 0;
-  float best_v = f[0];
-  for (int d = 1; d < D; ++d) {
+  __shared__ __align__(16) int8_t windows[kBackWarpsPerBlock][kBackWarpBytes];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.x * kBackWarpsPerBlock + warp;
+  if (h >= H) return;  // the whole warp leaves
+
+  // The final column's argmin: each lane over d = lane + 32 i in order,
+  // then a butterfly.  A lane past D holds (+inf, D), after every d.
+  const float* const f = final_costs + static_cast<size_t>(h) * D;
+  float best_v = pos_inf();
+  int best = D;
+  for (int d = lane; d < D; d += 32) {
     const float v = f[d];
-    if (best_v == best_v && (v < best_v || v != v)) {
+    if (argmin_before(v, d, best_v, best)) {
       best_v = v;
       best = d;
     }
   }
-  int* out = disp + static_cast<size_t>(h) * W;
-  const int8_t* p = ptr + static_cast<size_t>(h) * W * D;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float v = __shfl_xor_sync(kFull, best_v, off);
+    const int i = __shfl_xor_sync(kFull, best, off);
+    if (argmin_before(v, i, best_v, best)) {
+      best_v = v;
+      best = i;
+    }
+  }
+
+  const int8_t* const row = ptr + static_cast<size_t>(h) * W * D;
+  const uintptr_t row_addr = reinterpret_cast<uintptr_t>(row);
+  int* const out = disp + static_cast<size_t>(h) * W;
   int cur = best;
-  out[W - 1] = cur;
-  for (int w = W - 2; w >= 0; --w) {
-    cur += p[static_cast<size_t>(w) * D + cur];
-    cur = min(max(cur, 0), D - 1);
-    out[w] = cur;
+  if (lane == 0) out[W - 1] = cur;
+
+  // Batch b walks columns top(b) - 1 down to top(b) - kBatch (those >= 0),
+  // top(b) = W - 1 - kBatch * b; its window is [lo, hi] around `center`,
+  // the disparity at the previous batch's start.  Lane i copies the
+  // window of column top(b) - 1 - i: the 16-byte-aligned pieces that hold
+  // a byte of it, so every piece lies inside the volume's pages.  One
+  // commit group a batch.
+  auto buffer = [&](int b) {
+    return windows[warp] + kGuard + (b & 1) * kBuffer;
+  };
+  auto fetch = [&](int b, int center) {
+    const int col = W - 2 - kBatch * b - lane;
+    const int lo = max(center - kReach, 0);
+    const int hi = min(center + kReach, D - 1);
+    const uintptr_t at = row_addr + static_cast<size_t>(max(col, 0)) * D;
+    const uintptr_t first = (at + lo) & ~uintptr_t(15);
+    int8_t* const slot = buffer(b) + lane * kSlot;
+#pragma unroll
+    for (int i = 0; i < kWindowPieces; ++i) {
+      const uintptr_t src = first + 16 * i;
+      copy16(slot + 16 * i, reinterpret_cast<const void*>(src),
+             col >= 0 && src <= at + hi);
+    }
+    commit_copies();
+  };
+
+  fetch(0, cur);
+  fetch(1, cur);
+  int center = cur;  // batch b's window centre
+  for (int b = 0; W - 1 - kBatch * b > 0; ++b) {
+    const int top = W - 1 - kBatch * b;
+    const int n = min(kBatch, top);
+    const int lo = max(center - kReach, 0);
+    const int hi = min(center + kReach, D - 1);
+    wait_copies<1>();
+    __syncwarp();
+    const int8_t* const slots = buffer(b);
+    const int start = cur;
+    int mine = 0;
+    // The steps read their windows unchecked, so that a step is one
+    // shared load, an add and the clip; whether a step's disparity lay
+    // outside [lo, hi] is noted beside the chain.
+    bool left = false;
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (k < n) {
+        const uintptr_t at = row_addr + static_cast<size_t>(top - 1 - k) * D;
+        // Byte d of the column sits at slot byte d - lo + (at + lo) % 16.
+        const int base = k * kSlot + static_cast<int>((at + lo) & 15) - lo;
+        left |= static_cast<unsigned>(cur - lo) > static_cast<unsigned>(hi - lo);
+        cur = min(max(cur + slots[base + cur], 0), D - 1);
+        if (lane == k) mine = cur;
+      }
+    }
+    if (left) {
+      // A pointer outside {-1, 0, +1} took the walk off its window (the
+      // same chain in every lane, so the whole warp): the batch again from
+      // its start, every pointer from device memory.
+      cur = start;
+      for (int k = 0; k < n; ++k) {
+        cur += row[static_cast<size_t>(top - 1 - k) * D + cur];
+        cur = min(max(cur, 0), D - 1);
+        if (lane == k) mine = cur;
+      }
+    }
+    if (lane < n) out[top - 1 - lane] = mine;
+    __syncwarp();  // every lane is done with this batch's windows
+    fetch(b + 2, cur);
+    center = start;
   }
 }
 
-template <int J>
-void launch_forward(const void* cost, void* ptr, void* final_costs, int H,
-                    int W, int D, cudaStream_t stream) {
-  dp_forward_kernel<J><<<H, 32, 0, stream>>>(
+template <int J, bool VEC>
+int launch_forward(const void* cost, void* ptr, void* final_costs, int H,
+                   int W, int D, cudaStream_t stream) {
+  constexpr size_t kSmem = static_cast<size_t>(kFwdWarpsPerBlock) *
+                           kFwdRingFloats<J> * sizeof(float);
+  static_assert(kSmem <= 48 * 1024, "the ring fits static-size limits");
+  const int blocks = (H + kFwdWarpsPerBlock - 1) / kFwdWarpsPerBlock;
+  dp_forward_kernel<J, VEC><<<blocks, 32 * kFwdWarpsPerBlock, kSmem,
+                              stream>>>(
       static_cast<const float*>(cost), static_cast<int8_t*>(ptr),
       static_cast<float*>(final_costs), H, W, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int J>
+int launch_forward_vec(const void* cost, void* ptr, void* final_costs, int H,
+                       int W, int D, cudaStream_t stream) {
+  if (D % 16 == 0 && reinterpret_cast<std::uintptr_t>(cost) % 16 == 0 &&
+      reinterpret_cast<std::uintptr_t>(ptr) % 16 == 0) {
+    return launch_forward<J, true>(cost, ptr, final_costs, H, W, D, stream);
+  }
+  return launch_forward<J, false>(cost, ptr, final_costs, H, W, D, stream);
 }
 
 }  // namespace
@@ -148,27 +405,27 @@ extern "C" int stm_dp_forward_f32(const void* cost, void* ptr,
                                   void* final_costs, int H, int W, int D,
                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) {
-    launch_forward<1>(cost, ptr, final_costs, H, W, D, s);
-  } else if (D <= 64) {
-    launch_forward<2>(cost, ptr, final_costs, H, W, D, s);
-  } else if (D <= 128) {
-    launch_forward<4>(cost, ptr, final_costs, H, W, D, s);
-  } else if (D <= 256) {
-    launch_forward<8>(cost, ptr, final_costs, H, W, D, s);
-  } else if (D <= 512) {
-    launch_forward<16>(cost, ptr, final_costs, H, W, D, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (H < 1 || W < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 32) return launch_forward_vec<1>(cost, ptr, final_costs, H, W, D, s);
+  if (D <= 64) return launch_forward_vec<2>(cost, ptr, final_costs, H, W, D, s);
+  if (D <= 128) {
+    return launch_forward_vec<4>(cost, ptr, final_costs, H, W, D, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (D <= 256) {
+    return launch_forward_vec<8>(cost, ptr, final_costs, H, W, D, s);
+  }
+  if (D <= 512) {
+    return launch_forward_vec<16>(cost, ptr, final_costs, H, W, D, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int stm_dp_backward(const void* ptr, const void* final_costs,
                                void* disp, int H, int W, int D,
                                void* stream) {
-  const int threads = 128;
-  dp_backward_kernel<<<(H + threads - 1) / threads, threads, 0,
+  if (H < 1 || W < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (H + kBackWarpsPerBlock - 1) / kBackWarpsPerBlock;
+  dp_backward_kernel<<<blocks, 32 * kBackWarpsPerBlock, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(ptr), static_cast<const float*>(final_costs),
       static_cast<int*>(disp), H, W, D);

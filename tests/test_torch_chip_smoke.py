@@ -101,3 +101,29 @@ def test_ssd_and_chunk_bounds_and_floors(tag, name, bound_ms, bound_by,
     assert got_ms == pytest.approx(bound_ms, abs=1e-4)
     assert got_by == bound_by
     assert got_floor == pytest.approx(floor_ms, abs=1e-4)
+
+
+@pytest.mark.parametrize("tag,floor_ms", [("teddy", 0.0067), ("hd", 0.0644)])
+def test_dp_backward_design_floor_ms(tag, floor_ms):
+    """The windowed walk's design floor: the final costs read, the
+    disparities written and, for each of a row's W - 1 walked columns, the
+    32-byte sectors its +-64-disparity window touches (4 at D = 128, where
+    the window spans the column, 5 at D = 256); its function bound stays
+    the one pointer a pixel."""
+    h, w, d, *_ = GEOMETRIES[tag]
+    work = chip_smoke.kernel_work(*GEOMETRIES[tag])["dp_backward"]
+    assert work[2] == h * d * 4 + h * w * 4 + h * (w - 1) * {128: 128,
+                                                             256: 160}[d]
+    bound_ms, bound_by, got_floor = chip_smoke.kernel_bounds(
+        *GEOMETRIES[tag])["dp_backward"]
+    assert bound_by == "bytes"
+    assert got_floor == pytest.approx(floor_ms, abs=1e-4)
+    assert got_floor > bound_ms
+
+
+@pytest.mark.parametrize("d,sectors", [(1, 1), (24, 1), (64, 2), (65, 3),
+                                       (128, 4), (129, 5), (256, 5),
+                                       (512, 5)])
+def test_dp_window_bytes(d, sectors):
+    """A window is 129 bytes: at most 5 sectors, at most the column's."""
+    assert chip_smoke.dp_window_bytes(d) == 32 * sectors

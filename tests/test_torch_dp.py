@@ -22,6 +22,7 @@ from stereomatch_tpu_torch.disparity_reduce import DynamicProgramming
 from stereomatch_tpu_torch.ops import disparity as port
 
 from .conftest import STM_MAX_DISPARITY, synthetic_stereo_pair
+from .torch_shapes import DP_RAMP_CASES, ramp_cost_volume
 
 D = STM_MAX_DISPARITY
 
@@ -107,3 +108,37 @@ def test_reducer_class_on_cpu_and_its_backends():
         DynamicProgramming(backend="cuda")(vol)
     assert torch.equal(DynamicProgramming()(vol.to(torch.int32)),
                        port.dynamic_programming(vol.to(torch.int32)))
+
+
+def _longest_run(disp):
+    """The longest run of equal non-zero steps along W in any row."""
+    best = 0
+    for steps in np.diff(disp.astype(np.int64), axis=1):
+        run = 0
+        for i, step in enumerate(steps):
+            run = run + 1 if step != 0 and i and step == steps[i - 1] else (
+                int(step != 0))
+            best = max(best, run)
+    return best
+
+
+@pytest.mark.parametrize("case", DP_RAMP_CASES, ids=str)
+def test_dp_on_ramp_volumes_equals_xla_and_pallas(case):
+    """The ramp volumes that push the card's windowed walk to its window's
+    edge: the plain DP (the kernels' oracle on the card) equals JAX's XLA
+    scan and its Pallas kernels, pointers and final costs included, and
+    the walk does move one step a column for runs past a 32-step batch
+    (or across the whole band when D < 33) and saturates at a band edge."""
+    vol = ramp_cost_volume(*case)
+    ref_disp, ref_path, ref_final = dynamic_programming_with_paths(vol)
+    pallas = np.asarray(dynamic_programming_pallas(vol, interpret=True))
+    disp, path, final = port.dynamic_programming_with_paths(
+        torch.from_numpy(vol))
+    np.testing.assert_array_equal(path.numpy(), np.asarray(ref_path))
+    np.testing.assert_array_equal(final.numpy(), np.asarray(ref_final))
+    np.testing.assert_array_equal(disp.numpy(), np.asarray(ref_disp))
+    np.testing.assert_array_equal(disp.numpy(), pallas)
+    max_disp = case[2]
+    out = disp.numpy()
+    assert _longest_run(out) >= min(33, max_disp - 1)
+    assert out.min() == 0 or out.max() == max_disp - 1

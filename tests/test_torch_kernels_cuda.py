@@ -33,8 +33,8 @@ from stereomatch_tpu_torch.ops import disparity as disp_ops
 from stereomatch_tpu_torch.ops import cvf_cuda, dp_cuda, sgm_cuda, ssd_cuda
 from stereomatch_tpu_torch.parallel import ShardedPipeline, make_mesh
 
-from .torch_shapes import (CHUNK_SHORT_CASES, SSD_EDGE_SHAPES,
-                           SSD_INT_SHAPE, SSD_REFUSED_K)
+from .torch_shapes import (CHUNK_SHORT_CASES, DP_RAMP_CASES, SSD_EDGE_SHAPES,
+                           SSD_INT_SHAPE, SSD_REFUSED_K, ramp_cost_volume)
 
 pytestmark = pytest.mark.cuda
 
@@ -211,8 +211,15 @@ def test_sgm_horizontal_kernel_bit_equal_at_hd(device):
     assert torch.equal(out, ref)
 
 
+# csrc/dp.cu: the forward pass holds J = 1..16 disparities a lane (16-byte
+# pieces and J-byte pointer stores only for D % 16 == 0), the walk takes
+# batches of 32 columns with windows of +-64 disparities.  W around and
+# off a batch, W = 1, D around 64 (the window covers the whole band below
+# it), D = 1 and D = 300 (J = 16 with padding lanes).
 DP_SHAPES = [(37, 53, 24), (5, 1, 7), (6, 9, 1), (64, 96, 40), (20, 31, 300),
-             (9, 70, 128)]
+             (9, 70, 128), (7, 31, 48), (7, 32, 48), (7, 33, 48),
+             (5, 97, 96), (6, 80, 63), (6, 80, 64), (6, 80, 65),
+             (4, 200, 1)]
 
 
 @pytest.mark.parametrize("shape", DP_SHAPES, ids=str)
@@ -225,6 +232,100 @@ def test_dp_kernels_bit_equal(device, shape):
     assert torch.equal(ptr, ref_ptr) and torch.equal(final, ref_final)
     ref = disp_ops.dp_backward(ref_ptr, disp_ops.dp_end_disparities(
         ref_final))
+    assert torch.equal(dp_cuda.dp_backward_cuda(ptr, final), ref)
+
+
+def _dp_both_equal(vol):
+    """Both kernels against the plain steps: pointers, final costs and
+    disparities bit-equal."""
+    ref_ptr, ref_final = disp_ops.dp_forward(vol)
+    ptr, final = dp_cuda.dp_forward_cuda(vol)
+    assert torch.equal(ptr, ref_ptr) and torch.equal(final, ref_final)
+    ref = disp_ops.dp_backward(ref_ptr, disp_ops.dp_end_disparities(
+        ref_final))
+    assert torch.equal(dp_cuda.dp_backward_cuda(ptr, final), ref)
+
+
+def test_dp_kernels_bit_equal_at_hd(device):
+    """HD 1024x1280 D=256 on an SSD volume: 40 batches of the walk a row,
+    the forward pass's 8-byte pointer stores."""
+    left, right = _images(1024, 1280, 13, device)
+    _dp_both_equal(cost_ops.ssd_cost_volume(left, right, max_disparity=256,
+                                            kernel_size=7))
+
+
+@pytest.mark.parametrize("case", DP_RAMP_CASES, ids=str)
+def test_dp_kernels_on_ramp_volumes(device, case):
+    """Minima that ramp by +-1 a column and saturate at the band's edges
+    (held against JAX on the CPU by tests/test_torch_dp.py): the walk runs
+    to its window's edge."""
+    _dp_both_equal(torch.from_numpy(ramp_cost_volume(*case)).to(device))
+
+
+def test_dp_forward_on_a_misaligned_volume(device):
+    """D % 16 == 0 but the cost volume 4 bytes past a 16-byte boundary:
+    4-byte pieces and byte stores."""
+    h, w, d = 9, 45, 64
+    rng = np.random.default_rng(21)
+    vol = torch.from_numpy(rng.random((h, w, d), np.float32)).to(device)
+    buf = torch.empty(vol.numel() + 1, device=device)
+    buf[1:] = vol.reshape(-1)
+    shifted = buf[1:].view(h, w, d)
+    assert shifted.data_ptr() % 16 == 4
+    _dp_both_equal(shifted)
+
+
+def _pointer_volume(kind, shape, rng):
+    if kind == "all_minus":
+        return np.full(shape, -1, np.int8)
+    if kind == "all_plus":
+        return np.ones(shape, np.int8)
+    if kind == "mix":
+        return rng.integers(-1, 2, shape).astype(np.int8)
+    return rng.integers(-128, 128, shape).astype(np.int8)     # wild
+
+
+@pytest.mark.parametrize("shape", [(5, 97, 65), (4, 300, 256), (3, 64, 1),
+                                   (6, 33, 300), (3, 1, 20)], ids=str)
+@pytest.mark.parametrize("kind", ["all_minus", "all_plus", "mix", "wild"])
+def test_dp_backward_on_hand_made_pointers(device, kind, shape):
+    """The walk on any int8 pointers, as the plain walk takes them: all
+    -1 and all +1 drive it into both clips, a mix of {-1, 0, +1} stays in
+    its windows, and values outside {-1, 0, +1} leave them, where the
+    kernel reads the pointer from device memory.  End disparities at
+    both edges of the band and inside it."""
+    rng = np.random.default_rng(shape[1] * shape[2])
+    ptr = torch.from_numpy(_pointer_volume(kind, shape, rng)).to(device)
+    h, _, d = shape
+    final = torch.from_numpy(rng.random((h, d), np.float32))
+    final[0, 0] = -1.0
+    if h > 1:
+        final[1, d - 1] = -1.0
+    final = final.to(device)
+    ref = disp_ops.dp_backward(ptr, disp_ops.dp_end_disparities(final))
+    assert torch.equal(dp_cuda.dp_backward_cuda(ptr, final), ref)
+
+
+def test_dp_backward_argmin_nan_and_signed_zero(device):
+    """The final column's argmin follows torch.argmin: the first NaN wins,
+    else the smallest value with the lowest d on ties, -0 equal to +0."""
+    d = 100
+    rows = [np.full(d, 3.0, np.float32) for _ in range(8)]
+    rows[0][[40, 70]] = np.nan                  # first NaN: 40
+    rows[1][[5, 90]] = [-1.0, np.nan]           # a NaN beats a smaller value
+    rows[2][[33, 64]] = [-0.0, 0.0]             # -0 first: 33
+    rows[3][[10, 75]] = [0.0, -0.0]             # +0 first: 10
+    rows[4][[31, 32, 95]] = 1.0                 # ties across lanes: 31
+    rows[5][:] = np.inf                         # all +inf: 0
+    rows[6][[63, 99]] = np.nan                  # first NaN past a lane: 63
+    rows[7][[1, 97]] = -np.inf                  # -inf ties: 1
+    final = torch.from_numpy(np.stack(rows)).to(device)
+    rng = np.random.default_rng(6)
+    ptr = torch.from_numpy(rng.integers(-1, 2, (8, 50, d)).astype(
+        np.int8)).to(device)
+    ends = disp_ops.dp_end_disparities(final)
+    assert ends.cpu().tolist() == [40, 90, 33, 10, 31, 0, 63, 1]
+    ref = disp_ops.dp_backward(ptr, ends)
     assert torch.equal(dp_cuda.dp_backward_cuda(ptr, final), ref)
 
 

@@ -33,3 +33,32 @@ SSD_REFUSED_K = 5000
 CHUNK_SHORT_CASES = [((12, 30, 1, 2), (1, 4, 11)),
                      ((12, 25, 37, 2), (1, 4, 11)),
                      ((12, 19, 129, 3), (1, 4, 11))]
+
+# (H, W, D, seed) of the DP cost volumes whose minima ramp by +-1 a column
+# and saturate at 0 and D - 1 (:func:`ramp_cost_volume`): the disparities
+# move one step a column for runs longer than the walk's 32-step batch,
+# so csrc/dp.cu's windowed walk reaches its window's edge and the band's.
+# W not a multiple of 32, D on both sides of 64 and one at J = 8 without
+# 16-byte pieces (D = 130).
+DP_RAMP_CASES = [(4, 97, 65, 1), (3, 200, 64, 2), (4, 150, 24, 3),
+                 (2, 260, 130, 4)]
+
+
+def ramp_cost_volume(height, width, max_disp, seed):
+    """float32 [H, W, D]: |d - m(w)| plus noise below 0.25, where each
+    row's minimum m starts at a random disparity, moves +1 or -1 a column,
+    turns every 40-120 columns and is clipped to [0, D - 1]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    minima = np.empty((height, width), np.int64)
+    for h in range(height):
+        m, s = int(rng.integers(0, max_disp)), int(rng.choice([-1, 1]))
+        turn = int(rng.integers(40, 121))
+        for w in range(width):
+            if w and w % turn == 0:
+                s = -s
+            minima[h, w] = m
+            m = min(max(m + s, 0), max_disp - 1)
+    d = np.arange(max_disp)
+    vol = np.abs(d[None, None, :] - minima[:, :, None]).astype(np.float32)
+    return vol + 0.25 * rng.random(vol.shape, np.float32)
