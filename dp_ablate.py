@@ -41,25 +41,22 @@ TAKE_WAIT = """    wait_copies<S - 2>();
     __syncwarp();
     const float* const src = ring"""
 
+STORE_VEC = "      if (d0 < D) store_pointers<J>(dst, p);"
+STORE_SHARED = ("      if (d0 < D) store_pointers<J>(reinterpret_cast<int8_t*>(ring)"
+                " + (w & 1) * 32 * J + d0, p);")
+
 VARIANTS = {
     "base": [],
-    # K8
-    "bwd: window check in the chain": [(STEP_V2, STEP_CHECKED)],
-    "bwd: walk only (no copies)": [
-        ("col >= 0 && src <= at + hi", "false"), ("if (left) {", "if (false) {")],
-    "bwd: copies only (no walk)": [
-        (STEP_V2, "        mine += slots[base + lane];\n"),
-        ("if (left) {", "if (false) {")],
-    "bwd: 4 warps a block": [("constexpr int kBackWarpsPerBlock = 1;",
-                              "constexpr int kBackWarpsPerBlock = 4;")],
-    # K7
-    "fwd: ring x2": [("J <= 4 ? 16 : 8;", "J <= 4 ? 32 : 16;")],
-    "fwd: ring /2": [("J <= 4 ? 16 : 8;", "J <= 4 ? 8 : 4;")],
-    "fwd: no wait": [(TAKE_WAIT, "    const float* const src = ring")],
-    "fwd: no copies": [("live && in[i]", "false")],
-    "fwd: no pointer stores": [("    store(w, p);\n", "")],
-    "fwd: 2 warps a block": [("constexpr int kFwdWarpsPerBlock = 1;",
-                              "constexpr int kFwdWarpsPerBlock = 2;")],
+    "fwd: unroll 4": [("  for (int w = 1; w < W; ++w) {",
+                       "#pragma unroll 4\n  for (int w = 1; w < W; ++w) {")],
+    "fwd: pointers to shared (no flush)": [(STORE_VEC, STORE_SHARED)],
+    "fwd: pointers to shared, no copies": [(STORE_VEC, STORE_SHARED),
+                                           ("live && in[i]", "false")],
+    "fwd: no stores, no copies": [("    store(w, p);\n", ""),
+                                  ("live && in[i]", "false")],
+    "fwd: no stores, no copies, no wait": [
+        ("    store(w, p);\n", ""), ("live && in[i]", "false"),
+        (TAKE_WAIT, "    const float* const src = ring")],
 }
 
 
