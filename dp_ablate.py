@@ -47,16 +47,19 @@ STORE_SHARED = ("      if (d0 < D) store_pointers<J>(reinterpret_cast<int8_t*>(r
 
 VARIANTS = {
     "base": [],
-    "fwd: unroll 4": [("  for (int w = 1; w < W; ++w) {",
-                       "#pragma unroll 4\n  for (int w = 1; w < W; ++w) {")],
-    "fwd: pointers to shared (no flush)": [(STORE_VEC, STORE_SHARED)],
-    "fwd: pointers to shared, no copies": [(STORE_VEC, STORE_SHARED),
-                                           ("live && in[i]", "false")],
+    "fwd: unroll 2": [("#pragma unroll 4\n  for (int w = 1;",
+                       "#pragma unroll 2\n  for (int w = 1;")],
+    "fwd: unroll 8": [("#pragma unroll 4\n  for (int w = 1;",
+                       "#pragma unroll 8\n  for (int w = 1;")],
+    "fwd: no unroll": [("#pragma unroll 4\n  for (int w = 1;",
+                        "#pragma unroll 1\n  for (int w = 1;")],
+    "fwd: one padding test a lane": [
+        ("      out[j] = d0 + j < D ? __fadd_rn(cur[j], m) : inf;",
+         "      out[j] = (VEC ? d0 < D : d0 + j < D) ? __fadd_rn(cur[j], m)"
+         " : inf;")],
+    "fwd: no stores": [("    store(w, p);\n", "")],
     "fwd: no stores, no copies": [("    store(w, p);\n", ""),
                                   ("live && in[i]", "false")],
-    "fwd: no stores, no copies, no wait": [
-        ("    store(w, p);\n", ""), ("live && in[i]", "false"),
-        (TAKE_WAIT, "    const float* const src = ring")],
 }
 
 
