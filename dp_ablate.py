@@ -41,10 +41,6 @@ TAKE_WAIT = """    wait_copies<S - 2>();
     __syncwarp();
     const float* const src = ring"""
 
-STORE_VEC = "      if (d0 < D) store_pointers<J>(dst, p);"
-STORE_SHARED = ("      if (d0 < D) store_pointers<J>(reinterpret_cast<int8_t*>(ring)"
-                " + (w & 1) * 32 * J + d0, p);")
-
 VARIANTS = {
     "base": [],
     "fwd: unroll 2": [("#pragma unroll 4\n  for (int w = 1;",
@@ -53,13 +49,13 @@ VARIANTS = {
                        "#pragma unroll 8\n  for (int w = 1;")],
     "fwd: no unroll": [("#pragma unroll 4\n  for (int w = 1;",
                         "#pragma unroll 1\n  for (int w = 1;")],
-    "fwd: one padding test a lane": [
-        ("      out[j] = d0 + j < D ? __fadd_rn(cur[j], m) : inf;",
-         "      out[j] = (VEC ? d0 < D : d0 + j < D) ? __fadd_rn(cur[j], m)"
-         " : inf;")],
-    "fwd: no stores": [("    store(w, p);\n", "")],
-    "fwd: no stores, no copies": [("    store(w, p);\n", ""),
-                                  ("live && in[i]", "false")],
+    "fwd: ring x2": [("J <= 4 ? 16 : 8;", "J <= 4 ? 32 : 16;")],
+    "fwd: no stores": [("    store(p);\n#pragma unroll\n    for (int j = 0; j < J; ++j) acc[j]",
+                        "#pragma unroll\n    for (int j = 0; j < J; ++j) acc[j]")],
+    "fwd: no stores, no copies": [
+        ("    store(p);\n#pragma unroll\n    for (int j = 0; j < J; ++j) acc[j]",
+         "#pragma unroll\n    for (int j = 0; j < J; ++j) acc[j]"),
+        ("go && in[i]", "false")],
 }
 
 

@@ -85,41 +85,49 @@ constexpr int kFwdWarpsPerBlock = 1;
 template <int J>
 constexpr int kFwdRingFloats = kFwdStages<J> * 32 * J;
 
-// The J pointers of a lane, packed little-endian and stored at once.
+// A lane's J pointers as little-endian bytes of 32-bit words, packed
+// outside the store's predicate so that the store is one instruction.
 template <int J>
-__device__ __forceinline__ void store_pointers(int8_t* dst,
-                                               const int8_t (&p)[J]) {
-  if constexpr (J == 1) {
-    *dst = p[0];
-  } else if constexpr (J == 2) {
-    *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(
-        static_cast<uint8_t>(p[0]) | (static_cast<uint8_t>(p[1]) << 8));
-  } else {
-    uint32_t word[J / 4];
+struct Packed {
+  uint32_t word[(J + 3) / 4];
+};
+
+template <int J>
+__device__ __forceinline__ Packed<J> pack(const int8_t (&p)[J]) {
+  Packed<J> v;
 #pragma unroll
-    for (int k = 0; k < J / 4; ++k) {
-      word[k] = 0;
+  for (int k = 0; k < (J + 3) / 4; ++k) {
+    v.word[k] = 0;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        word[k] |= static_cast<uint32_t>(static_cast<uint8_t>(p[4 * k + i]))
+    for (int i = 0; i < 4 && 4 * k + i < J; ++i) {
+      v.word[k] |= static_cast<uint32_t>(static_cast<uint8_t>(p[4 * k + i]))
                    << (8 * i);
-      }
     }
-    if constexpr (J == 4) {
-      *reinterpret_cast<uint32_t*>(dst) = word[0];
-    } else if constexpr (J == 8) {
-      *reinterpret_cast<uint2*>(dst) = make_uint2(word[0], word[1]);
-    } else {
-      *reinterpret_cast<uint4*>(dst) =
-          make_uint4(word[0], word[1], word[2], word[3]);
-    }
+  }
+  return v;
+}
+
+// One aligned J-byte store.
+template <int J>
+__device__ __forceinline__ void write(int8_t* dst, const Packed<J>& v) {
+  if constexpr (J == 1) {
+    *dst = static_cast<int8_t>(v.word[0]);
+  } else if constexpr (J == 2) {
+    *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(v.word[0]);
+  } else if constexpr (J == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = v.word[0];
+  } else if constexpr (J == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(v.word[0], v.word[1]);
+  } else {
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(v.word[0], v.word[1], v.word[2], v.word[3]);
   }
 }
 
 // VEC: D % 16 == 0 and 16-byte-aligned cost and pointers, so a lane's J
-// pointers are one aligned J-byte store and (J % 4 == 0) the costs come in
-// 16-byte pieces, each wholly inside D; otherwise byte stores and 4-byte
-// pieces.
+// disparities lie wholly inside D or wholly past it, its J pointers are
+// one aligned J-byte store and (J % 4 == 0) the costs come in 16-byte
+// pieces; otherwise byte stores and 4-byte pieces.
 template <int J, bool VEC>
 __global__ void dp_forward_kernel(const float* __restrict__ cost,
                                   int8_t* __restrict__ ptr,
@@ -137,10 +145,12 @@ __global__ void dp_forward_kernel(const float* __restrict__ cost,
   if (h >= H) return;  // the whole warp leaves
   float* const ring = fwd_ring + warp * kFwdRingFloats<J>;
   const size_t row = static_cast<size_t>(h) * W * D;
-  const float* const row_cost = cost + row;
-  int8_t* const row_ptr = ptr + row;
   const int d0 = J * lane;
   const float inf = pos_inf();
+  // live[j]: d0 + j < D (with VEC one test a lane).
+  bool live[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) live[j] = VEC ? d0 < D : d0 + j < D;
 
   // Piece i of a column starts at float e[i]; in[i]: it lies inside D.
   int e[kPieces];
@@ -157,22 +167,23 @@ __global__ void dp_forward_kernel(const float* __restrict__ cost,
   // to the stage of column w - 1, which every lane finished reading
   // before the __syncwarp of column w.
   int fetched = 0;
+  const float* ahead = cost + row;  // column `fetched`
   auto fetch = [&]() {
-    const bool live = fetched < W;
-    const float* const src = row_cost + static_cast<size_t>(fetched) * D;
+    const bool go = fetched < W;
     float* const dst = ring + (fetched & (S - 1)) * kRow;
 #pragma unroll
     for (int i = 0; i < kPieces; ++i) {
       if constexpr (kPiece == 4) {
-        copy16(dst + e[i], src + e[i], live && in[i]);
+        copy16(dst + e[i], ahead + e[i], go && in[i]);
       } else {
-        copy4(dst + e[i], src + e[i], live && in[i]);
+        copy4(dst + e[i], ahead + e[i], go && in[i]);
       }
     }
     commit_copies();
     ++fetched;
+    ahead += D;
   };
-  // Column w's costs from its stage (entries past D are never read).
+  // Column w's costs from its stage (entries past D are never used).
   auto take = [&](int w, float (&c)[J]) {
     wait_copies<S - 2>();
     __syncwarp();
@@ -180,16 +191,18 @@ __global__ void dp_forward_kernel(const float* __restrict__ cost,
 #pragma unroll
     for (int j = 0; j < J; ++j) c[j] = src[j];
   };
-  auto store = [&](int w, const int8_t (&p)[J]) {
-    int8_t* const dst = row_ptr + static_cast<size_t>(w) * D + d0;
+  int8_t* at = ptr + row + d0;  // this lane's pointers of the next column
+  auto store = [&](const int8_t (&p)[J]) {
     if constexpr (VEC) {
-      if (d0 < D) store_pointers<J>(dst, p);
+      const Packed<J> v = pack<J>(p);
+      if (live[0]) write<J>(at, v);
     } else {
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        if (d0 + j < D) dst[j] = p[j];
+        if (live[j]) at[j] = p[j];
       }
     }
+    at += D;
   };
 
 #pragma unroll 1
@@ -201,10 +214,10 @@ __global__ void dp_forward_kernel(const float* __restrict__ cost,
   fetch();
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    if (d0 + j >= D) acc[j] = inf;  // padding: +inf above D - 1
+    if (!live[j]) acc[j] = inf;  // padding: +inf above D - 1
     p[j] = 0;
   }
-  store(0, p);
+  store(p);
 
   // Unrolled by 4: a sixth off teddy's time (PERF.md, PR 9 ablations).
 #pragma unroll 4
@@ -226,17 +239,17 @@ __global__ void dp_forward_kernel(const float* __restrict__ cost,
       const bool take1 = c1 < c2 && c1 < c3;
       const bool take2 = c2 < c3;
       const float m = take1 ? c1 : (take2 ? c2 : c3);
-      out[j] = d0 + j < D ? __fadd_rn(cur[j], m) : inf;
+      out[j] = live[j] ? __fadd_rn(cur[j], m) : inf;
       p[j] = take1 ? int8_t(-1) : (take2 ? int8_t(0) : int8_t(1));
     }
-    store(w, p);
+    store(p);
 #pragma unroll
     for (int j = 0; j < J; ++j) acc[j] = out[j];
   }
 
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    if (d0 + j < D) final_costs[static_cast<size_t>(h) * D + d0 + j] = acc[j];
+    if (live[j]) final_costs[static_cast<size_t>(h) * D + d0 + j] = acc[j];
   }
 }
 
