@@ -41,21 +41,22 @@ TAKE_WAIT = """    wait_copies<S - 2>();
     __syncwarp();
     const float* const src = ring"""
 
+NO_STORES = ("    store(p);\n#pragma unroll\n    for (int j = 0; j < J; ++j) acc[j]",
+             "#pragma unroll\n    for (int j = 0; j < J; ++j) acc[j]")
+
 VARIANTS = {
     "base": [],
-    "fwd: unroll 2": [("#pragma unroll 4\n  for (int w = 1;",
-                       "#pragma unroll 2\n  for (int w = 1;")],
-    "fwd: unroll 8": [("#pragma unroll 4\n  for (int w = 1;",
-                       "#pragma unroll 8\n  for (int w = 1;")],
-    "fwd: no unroll": [("#pragma unroll 4\n  for (int w = 1;",
-                        "#pragma unroll 1\n  for (int w = 1;")],
-    "fwd: ring x2": [("J <= 4 ? 16 : 8;", "J <= 4 ? 32 : 16;")],
-    "fwd: no stores": [("    store(p);\n#pragma unroll\n    for (int j = 0; j < J; ++j) acc[j]",
-                        "#pragma unroll\n    for (int j = 0; j < J; ++j) acc[j]")],
-    "fwd: no stores, no copies": [
-        ("    store(p);\n#pragma unroll\n    for (int j = 0; j < J; ++j) acc[j]",
-         "#pragma unroll\n    for (int j = 0; j < J; ++j) acc[j]"),
-        ("go && in[i]", "false")],
+    "fwd: unroll 4 at J = 4": [("J <= 4 ? 1 : 4;", "J <= 4 ? 4 : 4;")],
+    "fwd: no unroll at J = 8": [("J <= 4 ? 1 : 4;", "J <= 4 ? 1 : 1;")],
+    "fwd: ring 8": [("constexpr int kFwdStages = 16;",
+                     "constexpr int kFwdStages = 8;")],
+    "fwd: no stores": [NO_STORES],
+    "fwd: no stores, no copies": [NO_STORES, ("go && in[i]", "false")],
+    "bwd: walk only (no copies)": [
+        ("col >= 0 && src <= at + hi", "false"), ("if (left) {", "if (false) {")],
+    "bwd: copies only (no walk)": [
+        (STEP_V2, "        mine += slots[base + lane];\n"),
+        ("if (left) {", "if (false) {")],
 }
 
 

@@ -33,7 +33,7 @@
 // consecutive disparities d = J*l + j, so a step's d +- 1 neighbours are
 // in the lane's own registers except at its two ends: two shuffles a
 // step.  The step's J pointers are contiguous bytes, one J-byte store a
-// lane.  The costs come through a ring of kFwdStages<J> columns in shared
+// lane.  The costs come through a ring of kFwdStages = 16 columns in shared
 // memory that cp.async fills that many columns ahead of the step (the
 // scheme of sgm.cu's ring_path), so the loads of the next columns are in
 // flight behind the chain.
@@ -74,16 +74,18 @@ __device__ __forceinline__ float pos_inf() {
 
 // ---------------------------------------------------------------- forward
 
-// The ring's depth in columns: about 8 KB a warp (16 columns up to
-// D = 128, 8 above), so that at teddy's 3 warps an SM and HD's 8 some
-// 20-60 KB of costs are in flight on every SM.  One-warp blocks spread
-// the rows over all SMs.
+// The ring's depth in columns, the step loop's unroll and the warps of a
+// block, from the ablations of PERF.md (PR 9): 16 columns keep 15 in
+// flight, 8-16 KB a warp (32 gained nothing at teddy, 8 lost at HD);
+// unrolled by 4 the step runs faster at J = 8 (HD) and slower at J = 4
+// (teddy); one-warp blocks spread the rows over all SMs.
+constexpr int kFwdStages = 16;
 template <int J>
-constexpr int kFwdStages = J <= 4 ? 16 : 8;
+constexpr int kFwdUnroll = J <= 4 ? 1 : 4;
 constexpr int kFwdWarpsPerBlock = 1;
 
 template <int J>
-constexpr int kFwdRingFloats = kFwdStages<J> * 32 * J;
+constexpr int kFwdRingFloats = kFwdStages * 32 * J;
 
 // A lane's J pointers as little-endian bytes of 32-bit words, packed
 // outside the store's predicate so that the store is one instruction.
@@ -133,7 +135,7 @@ __global__ void dp_forward_kernel(const float* __restrict__ cost,
                                   int8_t* __restrict__ ptr,
                                   float* __restrict__ final_costs, int H,
                                   int W, int D) {
-  constexpr int S = kFwdStages<J>;
+  constexpr int S = kFwdStages;
   static_assert(S >= 4 && (S & (S - 1)) == 0, "S is a power of two >= 4");
   constexpr int kRow = 32 * J;                      // floats a stage
   constexpr int kPiece = VEC && J % 4 == 0 ? 4 : 1;  // floats a copy
@@ -219,9 +221,7 @@ __global__ void dp_forward_kernel(const float* __restrict__ cost,
   }
   store(p);
 
-  // Unrolled by 4: a sixth off teddy's time (PERF.md, PR 9 ablations).
-#pragma unroll 4
-  for (int w = 1; w < W; ++w) {
+  auto step = [&](int w) {
     float cur[J];
     take(w, cur);
     fetch();
@@ -245,6 +245,14 @@ __global__ void dp_forward_kernel(const float* __restrict__ cost,
     store(p);
 #pragma unroll
     for (int j = 0; j < J; ++j) acc[j] = out[j];
+  };
+  if constexpr (kFwdUnroll<J> == 4) {
+#pragma unroll 4
+    for (int w = 1; w < W; ++w) step(w);
+  } else {
+    static_assert(kFwdUnroll<J> == 1, "an unroll of 1 or 4");
+#pragma unroll 1
+    for (int w = 1; w < W; ++w) step(w);
   }
 
 #pragma unroll
