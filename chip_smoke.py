@@ -7,7 +7,8 @@ NVIDIA GPU.
 Builds the hand-written CUDA kernels from ``stereomatch_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card (teddy 375x450
 D=128, 37x53 D=24 and HD 1024x1280 D=256; the SGM chunk kernel on the
-row chunks of 5, 2 and 4 tiles, carries included), drives the paths
+row chunks of 5, 2 and 4 tiles, carries included; the DP walk also on
+hand-made pointer volumes of those shapes), drives the paths
 through the entry points a user calls at the golden teddy scene, each
 with the launch counts set to 0 just before it and read just after:
 

@@ -28,6 +28,10 @@
 // 375x450 D=128, 0.50 ms at HD 1024x1280 D=256, at 3.35 TB/s); the walk
 // needs one pointer a pixel.  In fact both are W-long dependency chains,
 // one a row, with only H rows (375-1024 warps) to hide a step's latency.
+// Measured (PERF.md, PR 9): the forward pass runs at 79% of its bytes at
+// HD and is held by its step chain and pointer stores at teddy; the walk
+// is held by its step chain at teddy and by the round trips of its window
+// copies at HD.
 //
 // Forward (dp_forward_kernel): one warp a row.  Lane l holds the J
 // consecutive disparities d = J*l + j, so a step's d +- 1 neighbours are
@@ -49,10 +53,12 @@
 // lanes then walk the same 32 steps from broadcast shared-memory reads;
 // lane i keeps step i's disparity, and the batch leaves as one coalesced
 // store.  HD takes 40 memory round trips a row, overlapped with the walk,
-// instead of 1279 dependent loads.  A step whose disparity leaves the
-// window (possible only for pointers outside {-1, 0, +1}, which
-// dp_backward_cuda accepts as the plain version does) reads its pointer
-// from device memory.
+// instead of 1279 dependent loads.  A step reads its window unchecked (a
+// shared load, an add and the clip), and notes beside the chain whether
+// its disparity lay outside the window; if one did (possible only for
+// pointers outside {-1, 0, +1}, which dp_backward_cuda accepts as the
+// plain version does), the warp walks the batch again from its start with
+// every pointer read from device memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,7 +82,8 @@ __device__ __forceinline__ float pos_inf() {
 
 // The ring's depth in columns, the step loop's unroll and the warps of a
 // block, from the ablations of PERF.md (PR 9): 16 columns keep 15 in
-// flight, 8-16 KB a warp (32 gained nothing at teddy, 8 lost at HD);
+// flight, 8 KB a warp at teddy and 16 KB at HD (32 gained nothing at
+// teddy, 8 lost at both);
 // unrolled by 4 the step runs faster at J = 8 (HD) and slower at J = 4
 // (teddy); one-warp blocks spread the rows over all SMs.
 constexpr int kFwdStages = 16;

@@ -1,8 +1,10 @@
 """Shapes shared by the card tests of the port's kernels
 (``test_torch_kernels_cuda.py``) and the CPU tests that hold the plain
 versions of those kernels against the JAX package at the same shapes
-(``test_torch_cost.py``, ``test_torch_sgm_chunk.py``).
+(``test_torch_cost.py``, ``test_torch_sgm_chunk.py``, ``test_torch_dp.py``).
 """
+
+import numpy as np
 
 # (H, W, D, k) at the edges of csrc/ssd.cu's tile: G output rows (8 at
 # k >= 4) x 32 columns x TD disparities (32, or D rounded up to 4 below
@@ -48,7 +50,6 @@ def ramp_cost_volume(height, width, max_disp, seed):
     """float32 [H, W, D]: |d - m(w)| plus noise below 0.25, where each
     row's minimum m starts at a random disparity, moves +1 or -1 a column,
     turns every 40-120 columns and is clipped to [0, D - 1]."""
-    import numpy as np
     rng = np.random.default_rng(seed)
     minima = np.empty((height, width), np.int64)
     for h in range(height):
