@@ -28,7 +28,7 @@
 // 375x450 D=128, 0.50 ms at HD 1024x1280 D=256, at 3.35 TB/s); the walk
 // needs one pointer a pixel.  In fact both are W-long dependency chains,
 // one a row, with only H rows (375-1024 warps) to hide a step's latency.
-// Measured (PERF.md, PR 9): the forward pass runs at 79% of its bytes at
+// Measured (PERF.md §6): the forward pass runs at 79% of its bytes at
 // HD and is held by its step chain and pointer stores at teddy; the walk
 // is held by its step chain at teddy and by the round trips of its window
 // copies at HD.
@@ -81,11 +81,11 @@ __device__ __forceinline__ float pos_inf() {
 // ---------------------------------------------------------------- forward
 
 // The ring's depth in columns, the step loop's unroll and the warps of a
-// block, from the ablations of PERF.md (PR 9): 16 columns keep 15 in
+// block, from the ablations in PERF.md §6: 16 columns keep 15 in
 // flight, 8 KB a warp at teddy and 16 KB at HD (32 gained nothing at
-// teddy, 8 lost at both);
-// unrolled by 4 the step runs faster at J = 8 (HD) and slower at J = 4
-// (teddy); one-warp blocks spread the rows over all SMs.
+// teddy, 8 lost at both); unrolled by 4 the step runs faster at J = 8
+// (HD) and slower at J = 4 (teddy); one-warp blocks spread the rows over
+// all SMs.
 constexpr int kFwdStages = 16;
 template <int J>
 constexpr int kFwdUnroll = J <= 4 ? 1 : 4;
@@ -277,8 +277,14 @@ constexpr int kWindowPieces = (2 * kReach + 1 + 15 + 15) / 16;
 constexpr int kSlot = 16 * kWindowPieces;  // bytes of one column's window
 constexpr int kBuffer = kBatch * kSlot;    // a batch's windows
 // Bytes of shared memory before and after a warp's two buffers: a step
-// reads slot byte d - lo + (0..15) unchecked, within 512 of its slot.
+// reads byte d - lo + (0..15) of its slot unchecked, which for any
+// d, lo < D <= kMaxDisparity lies at most 511 bytes before its buffer or
+// 383 past it.
+constexpr int kMaxDisparity = 512;
 constexpr int kGuard = 512;
+static_assert(kGuard >= kMaxDisparity - 1 &&
+                  kGuard >= (kBatch - 1) * kSlot + kMaxDisparity + 15 - kBuffer,
+              "the guard bands hold every unchecked read");
 constexpr int kBackWarpBytes = kGuard + 2 * kBuffer + kGuard;
 constexpr int kBackWarpsPerBlock = 1;
 static_assert(kBatch == 32, "a batch has one step a lane");
@@ -430,7 +436,7 @@ int launch_forward_vec(const void* cost, void* ptr, void* final_costs, int H,
 
 }  // namespace
 
-// D <= 512 (16 registers per lane); the wrapper checks.
+// D <= kMaxDisparity (16 registers a lane); the wrapper checks too.
 extern "C" int stm_dp_forward_f32(const void* cost, void* ptr,
                                   void* final_costs, int H, int W, int D,
                                   void* stream) {
@@ -444,7 +450,7 @@ extern "C" int stm_dp_forward_f32(const void* cost, void* ptr,
   if (D <= 256) {
     return launch_forward_vec<8>(cost, ptr, final_costs, H, W, D, s);
   }
-  if (D <= 512) {
+  if (D <= kMaxDisparity) {
     return launch_forward_vec<16>(cost, ptr, final_costs, H, W, D, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -453,7 +459,9 @@ extern "C" int stm_dp_forward_f32(const void* cost, void* ptr,
 extern "C" int stm_dp_backward(const void* ptr, const void* final_costs,
                                void* disp, int H, int W, int D,
                                void* stream) {
-  if (H < 1 || W < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (H < 1 || W < 1 || D < 1 || D > kMaxDisparity) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int blocks = (H + kBackWarpsPerBlock - 1) / kBackWarpsPerBlock;
   dp_backward_kernel<<<blocks, 32 * kBackWarpsPerBlock, 0,
                        static_cast<cudaStream_t>(stream)>>>(
