@@ -130,7 +130,7 @@ def test_build_key_follows_sources_and_flags():
     key = _build._key()
     assert key == _build._key() and len(key) == 16
     names = {p.name for p in _build._sources()}
-    assert {"ssd.cu", "sgm.cu", "dp.cu", "cvf.cu"} <= names
+    assert {"ssd.cu", "sgm.cu", "dp.cu", "cvf.cu", "cp_async.cuh"} <= names
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
