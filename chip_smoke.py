@@ -46,14 +46,19 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "golden_teddy_disparity.npz"
 GOLDEN_CVF = ROOT / "tests" / "data" / "golden_torch_cvf_teddy.npz"
+GOLDEN_BF16 = ROOT / "tests" / "data" / "golden_torch_bf16_teddy.npz"
 
 GOLDEN_MAX_DIFF = 16        # pixels of 168,750 (0.01%); 0 expected
 CVF_GOLDEN_MAX_DIFF = 169   # pixels of 168,750 (0.1%); 0 expected
 WARMUP, REPS = 3, 20
 # The plain versions are Python loops of small launches, hundreds of ms
-# a call at HD: fewer repetitions keep the run inside its time budget.
-PLAIN_WARMUP, PLAIN_REPS = 1, 3
+# a call at HD: timed once in each of their two turns (phase 3 has run
+# them at the same shapes), which keeps the run inside its time budget.
+PLAIN_WARMUP, PLAIN_REPS = 0, 1
 TEDDY_CUTS = (75, 150, 225, 300)     # 5 row tiles, as the sharded path
+# Frames between teddy (0.17 MP) and HD (1.31 MP) and past it, timed in
+# both volume dtypes: VGA, 720p and 1080p.
+CROSSOVER_SIZES = ((480, 640, 64), (720, 1280, 128), (1080, 1920, 256))
 CHUNK_CUTS = {"teddy": TEDDY_CUTS, "ragged": (12,),
               "hd": (256, 512, 768)}
 
@@ -109,12 +114,14 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_work(h, w, d, k, r, tiles):
+def kernel_work(h, w, d, k, r, tiles, volume_bytes=4):
     """Work of each kernel's function at [h, w, d], as {name: (bytes,
     operations, design_bytes)}.
 
     bytes: each input read once, each output written once (float32 4
-    bytes, pointers 1 byte); operations: those of the separable
+    bytes, pointers 1 byte; a stored cost or aggregated volume
+    ``volume_bytes``, 2 for bf16, whose partial sums, carries, a0 and b0
+    stay float32); operations: those of the separable
     algorithm.  dp_backward reads the one pointer per pixel that its walk
     needs (and its design, :func:`dp_window_bytes` a walked column);
     sgm_chunk (the six row traversals over ``tiles`` row chunks)
@@ -124,7 +131,8 @@ def kernel_work(h, w, d, k, r, tiles):
     design_bytes: what the kernels' launch structure moves, one launch
     per traversal as the path runs it.  sgm_rows: six traversals, each
     reading the cost volume, the image and the out volume it accumulates
-    onto and writing out back (18 volumes, 6 images); sgm_horizontal: the
+    onto and writing out back (18 volumes, 6 images; a bf16 volume's
+    last traversal writes its bf16 result instead); sgm_horizontal: the
     family's first launch writes out without reading it (5 volumes, 2
     images); sgm_chunk: sgm_rows' traffic plus the carries; cvf: the
     stats kernel reads its tiles of the volume and the guide with their
@@ -134,12 +142,13 @@ def kernel_work(h, w, d, k, r, tiles):
     disparities and copies each walked column's window.  The other
     single-pass kernels move their function's bytes."""
     vol, img, f = h * w * d, h * w, 4        # elements; float32 bytes
+    v = volume_bytes
     hd = h * d * f
     carries = 6 * (tiles - 1) * 2 * w * d * f
-    rows = (18 * vol + 6 * img) * f
+    rows = (6 * (v + 2 * f) - (f - v)) * vol + 6 * img * f
     single = {
-        "ssd": ((2 * img + vol) * f, vol * (2 + 4 * k)),
-        "dp_forward": (vol * f + vol + hd, vol * 4),
+        "ssd": (2 * img * f + vol * v, vol * (2 + 4 * k)),
+        "dp_forward": (vol * v + vol + hd, vol * 4),
         "dp_backward": (hd + img + img * f, h * d + 2 * img),
     }
     work = {name: (nbytes, ops, nbytes)
@@ -147,15 +156,15 @@ def kernel_work(h, w, d, k, r, tiles):
     work["dp_backward"] = (*single["dp_backward"],
                            hd + img * f + h * (w - 1) * dp_window_bytes(d))
     work.update({
-        "sgm_rows": ((2 * vol + img) * f, vol * 9 * 6, rows),
-        "sgm_chunk": ((2 * vol + img) * f + carries, vol * 9 * 6,
+        "sgm_rows": (2 * vol * v + img * f, vol * 9 * 6, rows),
+        "sgm_chunk": (2 * vol * v + img * f + carries, vol * 9 * 6,
                       rows + carries),
-        "sgm_horizontal": ((2 * vol + img) * f, vol * 9 * 2,
-                           (5 * vol + 2 * img) * f),
-        "cvf": ((2 * vol + 5 * img) * f + 2 * hd, vol * (16 * r + 25),
-                (cvf_tile_reads(h, w, d, r, 16, 2) * (d + 1)
-                 + 2 * cvf_tile_reads(h, w, d, r, 8, 3) * d
-                 + 3 * vol + 5 * img) * f + 2 * hd),
+        "sgm_horizontal": (vol * (v + f) + img * f, vol * 9 * 2,
+                           (2 * v + 3 * f) * vol + 2 * img * f),
+        "cvf": (2 * vol * v + 5 * img * f + 2 * hd, vol * (16 * r + 25),
+                cvf_tile_reads(h, w, d, r, 16, 2) * (d * v + f)
+                + (2 * cvf_tile_reads(h, w, d, r, 8, 3) * d + 2 * vol
+                   + 5 * img) * f + vol * v + 2 * hd),
     })
     return work
 
@@ -191,13 +200,13 @@ def cvf_tile_reads(h, w, d, r, td, blocks_per_sm, sms=132, tx=32,
     return rows * cols
 
 
-def kernel_bounds(h, w, d, k, r, tiles):
+def kernel_bounds(h, w, d, k, r, tiles, volume_bytes=4):
     """{name: (bound_ms, bound_by, design_floor_ms)}: the least time of
     each kernel's function (:func:`bound`) and its design bytes over the
     card's memory rate."""
     return {name: (*bound(nbytes, ops), design / HBM_BYTES_PER_S * 1e3)
             for name, (nbytes, ops, design)
-            in kernel_work(h, w, d, k, r, tiles).items()}
+            in kernel_work(h, w, d, k, r, tiles, volume_bytes).items()}
 
 
 def profile_path(torch, fn, frames: int = 10):
@@ -280,11 +289,16 @@ def chunk_spans(height, cuts, step):
 def check_chunks(tag, vol, image, p1, p2) -> float:
     """The chunk kernel against its plain version for the six row
     traversals, each chunk from the plain version's carry of the chunk
-    before it in scan order: contributions and carries bit-equal.
-    Returns the max abs error (0)."""
+    before it in scan order: contributions and carries bit-equal.  On a
+    bf16 volume each chunk of the last traversal also adds onto a float32
+    partial (its own contributions) and rounds the sum into a bf16
+    result, as the sharded path's last launches do.  Returns the max abs
+    error (0)."""
+    import torch
     from stereomatch_tpu_torch.ops import aggregation as agg_ops
     from stereomatch_tpu_torch.ops import sgm_cuda
     max_err, n_chunks = 0.0, 0
+    bf16 = vol.dtype == torch.bfloat16
     for step in agg_ops.TRAVERSALS[2:]:
         carry = (None, None)
         for rank, (a, b) in enumerate(chunk_spans(vol.shape[0],
@@ -294,39 +308,55 @@ def check_chunks(tag, vol, image, p1, p2) -> float:
                 vol[a:b], image[a:b], step, *carry, **kw)
             out, out_carry = sgm_cuda.sweep_chunk_with_carry_cuda(
                 vol[a:b], image[a:b], step, *carry, **kw)
-            name = f"sgm_chunk {tag} step {step} rows {a}:{b}"
+            name = (f"sgm_chunk{' bf16' if bf16 else ''} {tag} step {step} "
+                    f"rows {a}:{b}")
             max_err = max(max_err, compare(name, ref, out, 0, 0, exact=True,
                                            quiet=True))
             for i in range(2):
                 compare(f"{name} carry", ref_carry[i], out_carry[i], 0, 0,
                         exact=True, quiet=True)
+            if bf16 and step == agg_ops.TRAVERSALS[-1]:
+                result = torch.empty_like(vol[a:b])
+                sgm_cuda.sweep_chunk_with_carry_cuda(
+                    vol[a:b], image[a:b], step, *carry, out=ref.clone(),
+                    accumulate=True, result=result, **kw)
+                compare(f"{name} rounded result", (ref + ref).to(vol.dtype),
+                        result, 0, 0, exact=True, quiet=True)
             n_chunks += 1
             carry = ref_carry
-    log(f"  sgm_chunk {tag}, chunks {CHUNK_CUTS[tag]}: {n_chunks} chunk "
-        f"launches, contributions and carries bit-equal")
+    log(f"  sgm_chunk{' bf16' if bf16 else ''} {tag}, chunks "
+        f"{CHUNK_CUTS[tag]}: {n_chunks} chunk launches, contributions and "
+        f"carries bit-equal{', the last rounded into bf16' if bf16 else ''}")
     return max_err
 
 
-def chunked_rows(vol, image, out, p1, p2, cuts, kernel):
+def chunked_rows(vol, image, out, p1, p2, cuts, kernel, result=None):
     """The six row traversals of ``vol`` over the row chunks cut at
     ``cuts`` with carry hand-off, through the chunk kernel (``kernel``)
     or its plain version, each added onto ``out``: the sharded exact
-    path's SGM rows, which add onto the horizontal family's volume."""
+    path's SGM rows, which add onto the horizontal family's volume.  With
+    ``result`` (a bf16 volume), the last traversal rounds its sums into
+    it instead, as the sharded path does."""
     from stereomatch_tpu_torch.ops import aggregation as agg_ops
     from stereomatch_tpu_torch.ops import sgm_cuda
     for step in agg_ops.TRAVERSALS[2:]:
         carry = (None, None)
+        final = result is not None and step == agg_ops.TRAVERSALS[-1]
         for rank, (a, b) in enumerate(chunk_spans(vol.shape[0], cuts,
                                                   step)):
             kw = dict(penalty1=p1, penalty2=p2, seed=rank == 0)
             if kernel:
                 _, carry = sgm_cuda.sweep_chunk_with_carry_cuda(
                     vol[a:b], image[a:b], step, *carry, out=out[a:b],
-                    accumulate=True, **kw)
+                    accumulate=True, result=result[a:b] if final else None,
+                    **kw)
             else:
                 part, carry = agg_ops.sweep_chunk_with_carry(
                     vol[a:b], image[a:b], step, *carry, **kw)
-                out[a:b] += part
+                if final:
+                    result[a:b] = (out[a:b] + part).to(result.dtype)
+                else:
+                    out[a:b] += part
 
 
 def main() -> int:
@@ -336,7 +366,7 @@ def main() -> int:
     # Phase 1: device.
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     require((ROOT / "stereomatch_tpu_torch").is_dir() and GOLDEN.is_file()
-            and GOLDEN_CVF.is_file(),
+            and GOLDEN_CVF.is_file() and GOLDEN_BF16.is_file(),
             f"{ROOT} is not a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     card = card_line()
@@ -346,6 +376,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    BF16 = torch.bfloat16
 
     from stereomatch_tpu_torch import cli_common, parallel
     from stereomatch_tpu_torch.io.synthetic import stereo_pair
@@ -472,25 +503,89 @@ def main() -> int:
         del census
         torch.cuda.empty_cache()
 
+        # bf16 volumes: the SSD kernel storing bf16, the SGM kernels, the
+        # chunk kernel, DP's forward pass and the CVF kernels reading it,
+        # each bit-equal to its plain version (partial sums, carries, a0,
+        # b0 and the DP's outputs stay float32).
+        for label, absolute in (("ssd bf16", False), ("sad bf16", True)):
+            err = compare(
+                f"{label} {tag}",
+                cost_ops._diff_cost_volume(left, right, cost_dtype=BF16,
+                                           absolute=absolute, **kw),
+                ssd_cuda.diff_cost_volume_cuda(left, right, cost_dtype=BF16,
+                                               absolute=absolute, **kw),
+                0, 0, exact=True)
+            errors.setdefault(f"ssd_bf16_{tag}", err)
+        ref16 = cost_ops.ssd_cost_volume(left, right, cost_dtype=BF16, **kw)
+        horiz = agg_ops.TRAVERSALS[:2]
+        plain = agg_ops.sweep(ref16, left, p1, p2, horiz[0])
+        plain += agg_ops.sweep(ref16, left, p1, p2, horiz[1])
+        kern = torch.empty(ref16.shape, device=dev)
+        for i, step in enumerate(horiz):
+            sgm_cuda.traverse_cuda(ref16, left, kern, step, p1, p2,
+                                   accumulate=i > 0)
+        errors[f"sgm_horizontal_bf16_{tag}"] = compare(
+            f"sgm_horizontal family bf16 {tag}", plain, kern, 0, 0,
+            exact=True)
+        del plain, kern
+        errors[f"sgm_rows_bf16_{tag}"] = compare(
+            f"semiglobal_aggregate bf16 {tag} (the row family rounding the "
+            f"sum once)",
+            agg_ops.semiglobal_aggregate(ref16, left, penalty1=p1,
+                                         penalty2=p2),
+            sgm_cuda.semiglobal_aggregate_cuda(ref16, left, penalty1=p1,
+                                               penalty2=p2),
+            0, 0, exact=True)
+        errors[f"sgm_chunk_bf16_{tag}"] = check_chunks(tag, ref16, left, p1,
+                                                       p2)
+        ptr_ref, final_ref = disp_ops.dp_forward(ref16)
+        ptr, final = dp_cuda.dp_forward_cuda(ref16)
+        errors[f"dp_forward_bf16_{tag}"] = max(
+            compare(f"dp_forward bf16 pointers {tag}", ptr_ref, ptr, 0, 0,
+                    exact=True),
+            compare(f"dp_forward bf16 final costs {tag}", final_ref, final,
+                    0, 0, exact=True))
+        del ref16, ptr_ref, final_ref, ptr, final
+        census16 = cost_ops.census_hamming_cost_volume(
+            left, right, cost_dtype=BF16, **census_kw)
+        errors[f"cvf_bf16_{tag}"] = compare(
+            f"cvf bf16 {tag}",
+            cvf_ops.guided_filter_aggregate(census16, left, **cvf_kw),
+            cvf_cuda.guided_filter_aggregate_cuda(census16, left, **cvf_kw),
+            0, 0, exact=True)
+        del census16
+        torch.cuda.empty_cache()
+
     # Phase 4: the paths, through the entry points a user calls; the
     # launch counts are set to 0 just before each and read just after.
-    counters = {"ssd": (ssd_cuda, "LAUNCHES"),
-                "sgm_rows": (sgm_cuda, "ROW_LAUNCHES"),
-                "sgm_chunk": (sgm_cuda, "CHUNK_LAUNCHES"),
-                "sgm_horizontal": (sgm_cuda, "HORIZONTAL_LAUNCHES"),
-                "dp_forward": (dp_cuda, "FORWARD_LAUNCHES"),
-                "dp_backward": (dp_cuda, "BACKWARD_LAUNCHES"),
-                "cvf": (cvf_cuda, "STATS_LAUNCHES"),
-                "cvf_filter": (cvf_cuda, "FILTER_LAUNCHES")}
+    # Each kernel's C entry points, whose launches _build.LAUNCHES counts.
+    counters = {"ssd": ("stm_ssd_f32", "stm_ssd_i32"),
+                "sgm_rows": ("stm_sgm_rows_f32",),
+                "sgm_chunk": ("stm_sgm_chunk_f32",),
+                "sgm_horizontal": ("stm_sgm_horizontal_f32",),
+                "dp_forward": ("stm_dp_forward_f32",),
+                "dp_backward": ("stm_dp_backward",),
+                "cvf": ("stm_cvf_stats_f32",),
+                "cvf_filter": ("stm_cvf_filter_f32",),
+                "ssd_bf16": ("stm_ssd_bf16",),
+                "sgm_rows_bf16": ("stm_sgm_rows_bf16",),
+                "sgm_chunk_bf16": ("stm_sgm_chunk_bf16",),
+                "sgm_horizontal_bf16": ("stm_sgm_horizontal_bf16",),
+                "dp_forward_bf16": ("stm_dp_forward_bf16",),
+                "cvf_bf16": ("stm_cvf_stats_bf16",),
+                "cvf_filter_bf16": ("stm_cvf_filter_bf16",)}
+    # The float32 kernels a bf16 path must not launch: no cast of a bf16
+    # volume to float32 in front of them.
+    f32_only = ("ssd", "sgm_rows", "sgm_chunk", "sgm_horizontal",
+                "dp_forward", "cvf", "cvf_filter")
 
     def run_path(label, run, kernels, shape=(375, 450), d=128):
         torch.cuda.synchronize()
-        for module, attr in counters.values():
-            setattr(module, attr, 0)
+        _build.LAUNCHES.clear()
         disp = run()
         torch.cuda.synchronize()
-        counts = {name: getattr(module, attr)
-                  for name, (module, attr) in counters.items()}
+        counts = {name: sum(_build.LAUNCHES[e] for e in entries)
+                  for name, entries in counters.items()}
         log(f"  launches: {counts}")
         for name in kernels:
             require(counts[name] > 0, f"{label} launched {name} no time")
@@ -564,8 +659,43 @@ def main() -> int:
                  d, CVF_GOLDEN_MAX_DIFF,
                  float(golden_cvf["bad_pixel_vs_gt"]), 1e-3)
     launches["cvf"] = cvf_counts["cvf"]
+    launches["cvf_filter"] = cvf_counts["cvf_filter"]
     require(cvf_counts["cvf"] == cvf_counts["cvf_filter"],
             "the two CVF kernels launched a different number of times")
+
+    # The three teddy paths on bf16 volumes (volume_dtype="bfloat16")
+    # against the bf16 golden, made by JAX's XLA ops, which the plain
+    # versions and the kernels equal bit for bit: 0 pixels may differ.
+    golden16 = np.load(GOLDEN_BF16)
+    for name, (cost, reducer, aggr), kernels in (
+            ("ssd_sgm_wta", ("ssd", "wta", "sgm"),
+             ("ssd_bf16", "sgm_rows_bf16", "sgm_horizontal_bf16")),
+            ("ssd_sgm_dyn", ("ssd", "dyn", "sgm"),
+             ("ssd_bf16", "sgm_rows_bf16", "sgm_horizontal_bf16",
+              "dp_forward_bf16", "dp_backward")),
+            ("census_cvf_wta", ("census", "wta", "cvf"),
+             ("cvf_bf16", "cvf_filter_bf16"))):
+        log(f"[bf16 path] {cost} -> {aggr} -> {reducer}, teddy 375x450 "
+            f"D=128, volume_dtype=bfloat16")
+        pipe16 = cli_common.create_pipeline(
+            cost, reducer, aggr, max_disparity=d, penalty1=p1, penalty2=p2,
+            cvf_radius=int(golden16["cvf_radius"]),
+            cvf_eps=float(golden16["cvf_eps"]),
+            census_window=int(golden16["census_window"]),
+            volume_dtype="bfloat16")
+        if cost == "ssd":
+            pipe16.cost.kernel_size = k
+        disp_np, counts = run_path(
+            f"bf16 {name}", lambda: pipe16.estimate(left_np, right_np),
+            kernels)
+        require(all(counts[n] == 0 for n in f32_only),
+                f"bf16 {name} launched a float32 kernel: {counts}")
+        require(pipe16._aggregation_volume.dtype == BF16,
+                f"bf16 {name} aggregated into "
+                f"{pipe16._aggregation_volume.dtype}")
+        check_golden(f"bf16 {name}", disp_np, golden16[name], gt, d, 0,
+                     float(golden16[f"bad_pixel_{name}"]), 0.0)
+        launches.update((n, counts[n]) for n in kernels if n.endswith("bf16"))
 
     # The row-sharded pipeline: 5 row tiles of 75 rows on one card.
     mesh5 = parallel.make_mesh([dev] * 5, n_batch=1)
@@ -602,6 +732,27 @@ def main() -> int:
                 ("ssd", "sgm_rows", "sgm_horizontal"),
                 dict(sgm_chunk=0, sgm_rows=30), sgm_mode="overlap",
                 overlap=300)
+    # bf16 tiles: each tile's sum rounded once, so every pixel equals the
+    # single-card bf16 path (golden16, which that path met above).
+    counts = sharded_run(
+        "exact bf16 ssd -> sgm -> wta", golden16["ssd_sgm_wta"], 0,
+        float(golden16["bad_pixel_ssd_sgm_wta"]),
+        ("ssd_bf16", "sgm_chunk_bf16", "sgm_horizontal_bf16"),
+        dict(ssd=0, sgm_chunk=0, sgm_horizontal=0, ssd_bf16=5,
+             sgm_chunk_bf16=30, sgm_horizontal_bf16=10),
+        cost_dtype="bfloat16")
+    launches["sgm_chunk_bf16"] = counts["sgm_chunk_bf16"]
+    sharded_run("exact bf16 ssd -> sgm -> dyn", golden16["ssd_sgm_dyn"], 0,
+                float(golden16["bad_pixel_ssd_sgm_dyn"]),
+                ("sgm_chunk_bf16", "dp_forward_bf16", "dp_backward"),
+                dict(sgm_chunk_bf16=30, dp_forward=0, dp_forward_bf16=5),
+                cost_dtype="bfloat16", reducer="dynamic_programming")
+    sharded_run("overlap=300 bf16 ssd -> sgm -> wta",
+                golden16["ssd_sgm_wta"], 0,
+                float(golden16["bad_pixel_ssd_sgm_wta"]),
+                ("ssd_bf16", "sgm_rows_bf16", "sgm_horizontal_bf16"),
+                dict(sgm_rows=0, sgm_chunk_bf16=0, sgm_rows_bf16=30),
+                cost_dtype="bfloat16", sgm_mode="overlap", overlap=300)
 
     log(f"[sharded path] exact ssd -> sgm -> wta, hd over 4 row tiles on "
         f"{dev}, against the single-card path")
@@ -626,6 +777,31 @@ def main() -> int:
     require(n_diff == 0, f"sharded hd differs from the single-card path at "
             f"{n_diff} pixels")
     del pipe_hd, pipe_sh
+    torch.cuda.empty_cache()
+
+    log(f"[sharded path] exact bf16 ssd -> sgm -> wta, hd over 4 row tiles "
+        f"on {dev}, against the single-card bf16 path")
+    pipe_hd16 = cli_common.create_pipeline(
+        "ssd", "wta", "sgm", max_disparity=hd_d, penalty1=p1, penalty2=p2,
+        volume_dtype="bfloat16")
+    pipe_hd16.cost.kernel_size = hd_k
+    single_hd16 = pipe_hd16.estimate(hd_left, hd_right).cpu().numpy()
+    pipe_sh16 = parallel.ShardedPipeline(
+        parallel.make_mesh([dev] * 4, n_batch=1), hd_d, kernel_size=hd_k,
+        penalty1=p1, penalty2=p2, cost_dtype="bfloat16")
+    disp_np, counts = run_path(
+        "sharded hd bf16", lambda: pipe_sh16.estimate(hd_left, hd_right),
+        ("ssd_bf16", "sgm_chunk_bf16", "sgm_horizontal_bf16"),
+        shape=(1024, 1280), d=hd_d)
+    require(counts["sgm_chunk_bf16"] == 24 and counts["sgm_chunk"] == 0,
+            f"sharded hd bf16 launches {counts}")
+    hd_chunk_launches_bf16 = counts["sgm_chunk_bf16"]
+    n_diff = int((disp_np != single_hd16).sum())
+    log(f"  pixels differing from the single-card bf16 path: {n_diff} of "
+        f"{disp_np.size}")
+    require(n_diff == 0, f"sharded hd bf16 differs from the single-card "
+            f"bf16 path at {n_diff} pixels")
+    del pipe_hd16, pipe_sh16, single_hd16
     torch.cuda.empty_cache()
 
     # With several cards, one tile per card (teddy: 375 rows in 3 or 5
@@ -672,33 +848,39 @@ def main() -> int:
 
     def paths(tag):
         """(label, pipeline factory) of each timed path at one geometry:
-        the three single-card paths and the sharded exact paths over
-        sharded_tiles[tag] row tiles on cuda:0."""
+        the three single-card paths, each on float32 and then on bf16
+        volumes, and the sharded exact paths over sharded_tiles[tag] row
+        tiles on cuda:0."""
         _, _, _, d, k = shapes[tag]
         found = []
         for label, (cost, reducer, aggr) in (
                 ("ssd+sgm+wta", ("ssd", "wta", "sgm")),
                 ("ssd+sgm+dyn", ("ssd", "dyn", "sgm")),
                 ("census+cvf+wta", ("census", "wta", "cvf"))):
-            def make(cost=cost, reducer=reducer, aggr=aggr):
-                pipe_tag = cli_common.create_pipeline(
-                    cost, reducer, aggr, max_disparity=d, penalty1=p1,
-                    penalty2=p2)
-                if cost == "ssd":
-                    pipe_tag.cost.kernel_size = k
-                return pipe_tag
-            found.append((label, make))
+            for dtype in ("float32", "bfloat16"):
+                def make(cost=cost, reducer=reducer, aggr=aggr, dtype=dtype):
+                    pipe_tag = cli_common.create_pipeline(
+                        cost, reducer, aggr, max_disparity=d, penalty1=p1,
+                        penalty2=p2, volume_dtype=dtype)
+                    if cost == "ssd":
+                        pipe_tag.cost.kernel_size = k
+                    return pipe_tag
+                found.append((label + (" bf16" if dtype != "float32"
+                                       else ""), make))
         mesh = parallel.make_mesh([dev] * sharded_tiles[tag], n_batch=1)
-        for label, reducer in (("sharded ssd+sgm+wta", "wta"),
-                               ("sharded ssd+sgm+dyn", "dynamic_programming")):
-            found.append((label, lambda reducer=reducer:
+        for label, reducer, dtype in (
+                ("sharded ssd+sgm+wta", "wta", "float32"),
+                ("sharded ssd+sgm+dyn", "dynamic_programming", "float32"),
+                ("sharded ssd+sgm+wta bf16", "wta", "bfloat16")):
+            found.append((label, lambda reducer=reducer, dtype=dtype:
                           parallel.ShardedPipeline(
                               mesh, d, kernel_size=k, reducer=reducer,
-                              penalty1=p1, penalty2=p2)))
+                              penalty1=p1, penalty2=p2, cost_dtype=dtype)))
         return found
 
     # Phase 5: timings (CUDA events, median of REPS after WARMUP; plain
-    # versions median of PLAIN_REPS after PLAIN_WARMUP).
+    # versions median of PLAIN_REPS after PLAIN_WARMUP); float32 and bf16
+    # side by side.
     log(f"[timings] kernels and paths median of {REPS} after {WARMUP} "
         f"warm-ups, plain versions median of {PLAIN_REPS} after "
         f"{PLAIN_WARMUP}; card: {card}")
@@ -708,51 +890,62 @@ def main() -> int:
         left, right, _, d, k = shapes[tag]
         h, w = left.shape
         bounds[tag] = kernel_bounds(h, w, d, k, 8, sharded_tiles[tag])
+        bounds[tag].update(
+            (f"{name}_bf16", b) for name, b in kernel_bounds(
+                h, w, d, k, 8, sharded_tiles[tag], volume_bytes=2).items())
         kw = dict(max_disparity=d, kernel_size=k)
         vol = cost_ops.ssd_cost_volume(left, right, **kw)
+        vol16 = cost_ops.ssd_cost_volume(left, right, cost_dtype=BF16, **kw)
         image = left.contiguous()
         out = torch.zeros_like(vol)
+        result16 = torch.empty_like(vol16)
         ptr, final = dp_cuda.dp_forward_cuda(vol)
         census = cost_ops.census_hamming_cost_volume(left, right,
                                                      max_disparity=d)
+        census16 = census.to(BF16)      # Hamming distances: exact in bf16
         cvf_kw = dict(radius=8, eps=1e-4, wedge_offset=0)
 
-        def ssd_kernel():
-            ssd_cuda.diff_cost_volume_cuda(left, right,
-                                           cost_dtype=torch.float32,
-                                           absolute=False, **kw)
+        def ssd_kernel(dtype):
+            return lambda: ssd_cuda.diff_cost_volume_cuda(
+                left, right, cost_dtype=dtype, absolute=False, **kw)
 
-        def family_kernel(steps):
+        def family_kernel(steps, volume, result=None):
             """One family's traversals as the main path launches them:
             the horizontal family writes out first, the row family adds
-            onto it."""
+            onto it (a bf16 volume's last traversal rounding into
+            ``result``)."""
             onto = steps[0][0] != 0
 
             def run():
                 for i, step in enumerate(steps):
-                    sgm_cuda.traverse_cuda(vol, image, out, step, p1, p2,
-                                           accumulate=onto or i > 0)
+                    last = result is not None and i == len(steps) - 1
+                    sgm_cuda.traverse_cuda(volume, image, out, step, p1, p2,
+                                           accumulate=onto or i > 0,
+                                           result=result if last else None)
             return run
 
-        def family_plain(steps):
+        def family_plain(steps, volume):
             def run():
                 acc = None
                 for step in steps:
-                    c = agg_ops.sweep(vol, image, p1, p2, step)
+                    c = agg_ops.sweep(volume, image, p1, p2, step)
                     acc = c if acc is None else acc + c
+                return acc.to(volume.dtype)
             return run
+
+        def chunks(volume, kernel, result=None):
+            return lambda: chunked_rows(volume, image, out, p1, p2,
+                                        CHUNK_CUTS[tag], kernel=kernel,
+                                        result=result)
 
         rows, horiz = agg_ops.TRAVERSALS[2:], agg_ops.TRAVERSALS[:2]
         pairs = {
-            "ssd": (ssd_kernel,
+            "ssd": (ssd_kernel(torch.float32),
                     lambda: cost_ops.ssd_cost_volume(left, right, **kw)),
-            "sgm_rows": (family_kernel(rows), family_plain(rows)),
-            "sgm_horizontal": (family_kernel(horiz), family_plain(horiz)),
-            "sgm_chunk": (
-                lambda: chunked_rows(vol, image, out, p1, p2,
-                                     CHUNK_CUTS[tag], kernel=True),
-                lambda: chunked_rows(vol, image, out, p1, p2,
-                                     CHUNK_CUTS[tag], kernel=False)),
+            "sgm_rows": (family_kernel(rows, vol), family_plain(rows, vol)),
+            "sgm_horizontal": (family_kernel(horiz, vol),
+                               family_plain(horiz, vol)),
+            "sgm_chunk": (chunks(vol, True), chunks(vol, False)),
             "dp_forward": (lambda: dp_cuda.dp_forward_cuda(vol),
                            lambda: disp_ops.dp_forward(vol)),
             "dp_backward": (
@@ -763,6 +956,20 @@ def main() -> int:
                         census, image, **cvf_kw),
                     lambda: cvf_ops.guided_filter_aggregate(
                         census, image, **cvf_kw)),
+            "ssd_bf16": (ssd_kernel(BF16), lambda: cost_ops.ssd_cost_volume(
+                left, right, cost_dtype=BF16, **kw)),
+            "sgm_rows_bf16": (family_kernel(rows, vol16, result16),
+                              family_plain(rows, vol16)),
+            "sgm_horizontal_bf16": (family_kernel(horiz, vol16),
+                                    family_plain(horiz, vol16)),
+            "sgm_chunk_bf16": (chunks(vol16, True, result16),
+                               chunks(vol16, False, result16)),
+            "dp_forward_bf16": (lambda: dp_cuda.dp_forward_cuda(vol16),
+                                lambda: disp_ops.dp_forward(vol16)),
+            "cvf_bf16": (lambda: cvf_cuda.guided_filter_aggregate_cuda(
+                             census16, image, **cvf_kw),
+                         lambda: cvf_ops.guided_filter_aggregate(
+                             census16, image, **cvf_kw)),
         }
         for name, (kern, plain) in pairs.items():
             # Plain, kernel, kernel, plain: the two orders cancel drift.
@@ -776,34 +983,62 @@ def main() -> int:
                 f"bound {b_ms!r} ms ({b_by}), design floor {floor_ms!r} ms "
                 f"[{card}]")
 
-        t_wta = time_ms(torch, lambda: pipe.disparity_reduce(vol))
-        log(f"  wta (torch.argmin) {tag}: {t_wta!r} ms [{card}]")
+        for label, volume in (("float32", vol), ("bf16", vol16)):
+            t_wta = time_ms(torch, lambda: pipe.disparity_reduce(volume))
+            log(f"  wta (torch.argmin) {label} {tag}: {t_wta!r} ms "
+                f"[{card}]")
         t_census = time_ms(torch, lambda: cost_ops.census_hamming_cost_volume(
             left, right, max_disparity=d))
         log(f"  census plain {tag}: {t_census!r} ms [{card}]")
         # The whole CVF call (pairs["cvf"]) is the guide planes in PyTorch
         # plus the two launches; each timed alone here.
         planes = cvf_ops.guide_planes(image, 8, 0, d)
-        t_cvf = [time_ms(torch, lambda: cvf_cuda._launch_kernels(
-            census, planes, 8, 1e-4, 0)) for _ in range(2)]
-        times[("cvf_kernels", tag)] = min(t_cvf)
+        for name, volume in (("cvf", census), ("cvf_bf16", census16)):
+            t_cvf = [time_ms(torch, lambda: cvf_cuda._launch_kernels(
+                volume, planes, 8, 1e-4, 0)) for _ in range(2)]
+            times[(f"{name}_kernels", tag)] = min(t_cvf)
+            log(f"  {name} {tag}: stats + filter launches alone {t_cvf} ms, "
+                f"whole call {times[(name, tag)][0]!r} ms [{card}]")
         t_planes = time_ms(torch, lambda: cvf_ops.guide_planes(image, 8, 0, d))
-        log(f"  cvf {tag}: stats + filter launches alone {t_cvf} ms, guide "
-            f"planes {t_planes!r} ms, whole call {times[('cvf', tag)][0]!r} "
-            f"ms [{card}]")
+        log(f"  cvf guide planes {tag}: {t_planes!r} ms [{card}]")
         del planes
-        del vol, out, ptr, final, census
+        del vol, vol16, out, result16, ptr, final, census, census16
         torch.cuda.empty_cache()
 
-        for label, make in paths(tag):
+        # Each path twice, in order and then in reverse, so that float32
+        # and bf16 take both places; the lower median of the two is kept.
+        order = paths(tag)
+        for label, make in order + order[::-1]:
             pipe_tag = make()
             e2e = time_ms(torch, lambda: pipe_tag.estimate(left, right))
-            times[(label, tag)] = e2e
+            times[(label, tag)] = min(e2e, times.get((label, tag), e2e))
             log(f"  end-to-end {label} {tag} {tuple(left.shape)} D={d}: "
                 f"{e2e!r} ms/frame = {1000.0 / e2e!r} frames/s "
                 f"(device-resident images) [{card}]")
             del pipe_tag
             torch.cuda.empty_cache()
+
+    # Where bf16 storage starts to pay for SGM: ssd+sgm+wta on float32
+    # and on bf16 volumes, in turns, at frame sizes between teddy and HD
+    # (cli_common.recommended_dtype takes its threshold from these).
+    log(f"[dtype crossover] ssd+sgm+wta, float32 against bf16, median of "
+        f"{REPS}, turns f32, bf16, bf16, f32; card: {card}")
+    for h, w, d in CROSSOVER_SIZES:
+        c_left, c_right, _ = stereo_pair(h, w, d, seed=3)
+        c_left = torch.from_numpy(c_left).to(dev)
+        c_right = torch.from_numpy(c_right).to(dev)
+        ms = {"float32": [], "bfloat16": []}
+        for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+            pipe_c = cli_common.create_pipeline(
+                "ssd", "wta", "sgm", max_disparity=d, penalty1=p1,
+                penalty2=p2, volume_dtype=dtype)
+            ms[dtype].append(time_ms(
+                torch, lambda: pipe_c.estimate(c_left, c_right)))
+            del pipe_c
+        log(f"  {h}x{w} D={d} ({h * w / 1e6:.2f} MP): float32 "
+            f"{ms['float32']} ms, bf16 {ms['bfloat16']} ms [{card}]")
+        del c_left, c_right
+        torch.cuda.empty_cache()
 
     # Phase 6: where the time goes, per path and geometry, from a
     # torch.profiler capture (device kernel time against host wall time).
@@ -826,18 +1061,20 @@ def main() -> int:
                 f"{busy!r} ms/frame, idle share {1.0 - busy / wall!r}, "
                 f"{ops!r} device operations/frame [{card}]")
             log(f"    stage spans (device timeline) ms/frame: {spans}")
-            if label == "sharded ssd+sgm+wta":
+            if label.startswith("sharded ssd+sgm+wta"):
                 # The chunk kernel's device time against its CUDA-event
                 # time (phase 5), which also holds the host's time to
                 # enqueue its launches.
-                chunk_device[tag] = sum(ms for name, ms in by_name.items()
-                                        if "sgm_chunk_kernel" in name)
-                require(chunk_device[tag] > 0,
+                key = "sgm_chunk" + ("_bf16" if "bf16" in label else "")
+                chunk_device[(key, tag)] = sum(
+                    ms for name, ms in by_name.items()
+                    if "sgm_chunk_kernel" in name)
+                require(chunk_device[(key, tag)] > 0,
                         f"the profiler saw no sgm_chunk_kernel in {label}")
-                log(f"    sgm_chunk {tag}: device {chunk_device[tag]!r} "
+                log(f"    {key} {tag}: device {chunk_device[(key, tag)]!r} "
                     f"ms/frame (profiler), CUDA events "
-                    f"{times[('sgm_chunk', tag)][0]!r} ms (its launches "
-                    f"alone, host enqueueing included) [{card}]")
+                    f"{times[(key, tag)][0]!r} ms (its launches alone, host "
+                    f"enqueueing included) [{card}]")
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
             for name, ms in top:
                 log(f"    {ms!r} ms/frame  {name[:90]}")
@@ -863,6 +1100,11 @@ def main() -> int:
                        "stereomatch_tpu/ops/cvf_pallas.py:105"),
                "sgm_chunk": ("stereomatch_tpu_torch/csrc/sgm.cu",
                              "stereomatch_tpu/ops/sgm_pallas.py:552")}
+    # The bf16 instantiations of the same kernels, in the same sources;
+    # the DP walk reads no costs and has none.
+    for name in ("ssd", "sgm_rows", "sgm_horizontal", "dp_forward", "cvf",
+                 "sgm_chunk"):
+        sources[f"{name}_bf16"] = sources[name]
     kernels = []
     for name, (source, replaces) in sources.items():
         b_ms, b_by, _ = bounds["teddy"][name]
@@ -877,22 +1119,25 @@ def main() -> int:
             "hd_plain_ms": times[(name, "hd")][1],
             "hd_bound_ms": bounds["hd"][name][0],
         }
-        if name == "cvf":
+        if name.startswith("cvf"):
             # K10, the W-chunked form of the same TPU kernel, at HD.
             entry["also_replaces"] = "stereomatch_tpu/ops/cvf_pallas.py:679"
-            entry["launches_filter_kernel"] = cvf_counts["cvf_filter"]
+            entry["launches_filter_kernel"] = launches[
+                name.replace("cvf", "cvf_filter")]
             # The two launches alone, on precomputed guide planes.
-            entry["kernel_ms"] = times[("cvf_kernels", "teddy")]
-            entry["hd_kernel_ms"] = times[("cvf_kernels", "hd")]
-        if name == "sgm_chunk":
+            entry["kernel_ms"] = times[(f"{name}_kernels", "teddy")]
+            entry["hd_kernel_ms"] = times[(f"{name}_kernels", "hd")]
+        if name.startswith("sgm_chunk"):
             # K6, the W-on-grid form of the same TPU kernel, at HD; the
             # launches are those of the sharded exact path (teddy, 5
             # tiles; HD, 4 tiles).
             entry["also_replaces"] = "stereomatch_tpu/ops/sgm_pallas.py:627"
-            entry["hd_launches"] = hd_chunk_launches
+            entry["hd_launches"] = (hd_chunk_launches_bf16
+                                    if name.endswith("bf16")
+                                    else hd_chunk_launches)
             # Device time a frame in the sharded path (profiler).
-            entry["device_ms"] = chunk_device["teddy"]
-            entry["hd_device_ms"] = chunk_device["hd"]
+            entry["device_ms"] = chunk_device[(name, "teddy")]
+            entry["hd_device_ms"] = chunk_device[(name, "hd")]
         kernels.append(entry)
     e2e = {label: {tag: times[(label, tag)] for tag in ("teddy", "hd")}
            for label, _ in paths("teddy")}

@@ -20,9 +20,10 @@ class Semiglobal:
     (reference: stereomatch/aggregation.py:12-57).
 
     ``sga_volume=`` is accepted for source compatibility and ignored.
-    The cost volume must be float32: the adaptive P2 is a float quantity,
-    and ``cli_common.create_pipeline`` refuses int32 volumes with
-    aggregation, as the JAX package does.
+    The cost volume must be float32 or bfloat16 (the result has its
+    dtype; a bf16 volume is aggregated in float32 and rounded once): the
+    adaptive P2 is a float quantity, and ``cli_common.create_pipeline``
+    refuses int32 volumes with aggregation, as the JAX package does.
     """
 
     def __init__(self, penalty1: float = 0.1, penalty2: float = 0.2,
@@ -68,7 +69,9 @@ class CostFilter:
     image as the guide (see ``ops/cvf.py``).  This slice ports the wedge
     path: ``wedge_offset`` declares that the volume's +inf cells are
     exactly ``x < d + wedge_offset``, which every registry cost family
-    writes (``cli_common.create_pipeline`` passes 0).  ``wedge_offset=None``
+    writes (``cli_common.create_pipeline`` passes 0).  A float32 or bf16
+    volume gives a result of its dtype (bf16: float32 statistics, q
+    rounded once).  ``wedge_offset=None``
     and ``subsample > 1`` raise ``NotImplementedError`` (ROADMAP A.9).
 
     ``penalty1``/``penalty2`` are accepted for registry compatibility with

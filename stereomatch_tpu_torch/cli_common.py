@@ -19,14 +19,14 @@ from .pipeline import Device, Pipeline
 COST_METHODS = {"ssd": SSD, "sad": SAD, "census": Census}
 AGGREGATION_METHODS = {"sgm": Semiglobal, "cvf": CostFilter}
 DISPARITY_METHODS = {"wta": WinnerTakesAll, "dyn": DynamicProgramming}
-VOLUME_DTYPES = {"float32": torch.float32, "int32": torch.int32}
+VOLUME_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "int32": torch.int32}
 
 # Known to the JAX package, not ported yet: name -> ROADMAP item.
 NOT_PORTED = {
     "ssd-texture": "A.8 (other cost families)",
     "birchfield": "A.8 (other cost families)",
     "ncc": "A.8 (other cost families)",
-    "bfloat16": "A.7 (bf16 volume storage)",
 }
 
 
@@ -39,6 +39,49 @@ def _lookup(kind: str, name, registry: dict):
             f"(ROADMAP {NOT_PORTED[name]})")
     raise ValueError(f"unknown {kind} {name!r}; expected one of "
                      f"{sorted(registry)}")
+
+
+# The smallest frame (pixels) at which bf16 volumes measured faster than
+# float32 for SGM on the H100: 1280x720 (see recommended_dtype).
+BF16_SGM_MIN_PIXELS = 1280 * 720
+
+
+def recommended_dtype(height: int, width: int,
+                      aggregation: str = "sgm") -> str:
+    """The volume dtype ("float32" or "bfloat16") that runs a frame of
+    ``height`` x ``width`` faster on the card, with float32 where the two
+    measured level (its volumes are exact).
+
+    Measured by ``chip_smoke.py`` (phase 5: CUDA events, median of 20
+    frames, float32 and bf16 in turns, device-resident images) on an
+    NVIDIA H100 80GB HBM3 at a 700.00 W power limit; ms/frame, float32
+    against bf16:
+
+    * SSD + SGM + WTA: 640x480, D=64: 1.34-1.44 against 1.34-1.46 and
+      450x375, D=128: 1.35-1.38 against 1.21-1.33 (level: the SGM step
+      chain bounds both); 1280x720, D=128: 5.27-5.30 against 4.64-4.66;
+      1280x1024, D=256: 13.72-13.76 against 12.02-12.05; 1920x1080,
+      D=256: 21.73-21.80 against 18.45-18.49.  With DP at 1280x1024:
+      13.67-13.71 against 11.72-11.74.  bf16 halves the SGM kernels'
+      cost-volume reads, which bound them from 720p up.
+    * census + CVF + WTA: level at 450x375 (4.5-5.3, host launches) and
+      at 1280x1024 (38.03-38.74 against 38.29-38.30): the plain PyTorch
+      census takes about 27 ms there in either dtype, and the CVF
+      kernels are bound by instruction issue, not bytes.
+    * no aggregation: neither the SSD kernel (1.15-1.18 ms against
+      1.17-1.23 at 1280x1024 over three runs: it is bound by issue) nor
+      torch.argmin (0.80-0.83 against 0.81-0.85) gains.
+
+    So bf16 for SGM from ``BF16_SGM_MIN_PIXELS`` (1280x720) up, float32
+    otherwise.  The rule is by pixels, as JAX's is, but what bf16 saves
+    is volume bytes (H x W x D): each size above was measured only at the
+    D beside it, so the threshold holds for those pairs (D = 64 or 128
+    below 720p, 128 at 720p, 256 above); a small frame at a large D is
+    not covered.
+    """
+    if aggregation == "sgm" and height * width >= BF16_SGM_MIN_PIXELS:
+        return "bfloat16"
+    return "float32"
 
 
 def create_pipeline(cost_method: str, disp_method: str,
@@ -57,9 +100,12 @@ def create_pipeline(cost_method: str, disp_method: str,
     ``cvf_subsample`` the guided filter, and ``census_window`` the census
     code window (each ignored by the other methods); ``backend`` ("auto",
     "cuda" or "torch") selects kernels or plain versions for the stages
-    that have both; ``volume_dtype`` is the cost volume's dtype ("int32"
-    is the reference's integer cost path, without aggregation).  The
-    pipeline runs on ``device``: the card unless ``"cpu"`` is asked for.
+    that have both; ``volume_dtype`` is the cost volume's dtype
+    ("float32"; "bfloat16", volumes stored in half the bytes with float32
+    arithmetic, each stage rounding once, see :func:`recommended_dtype`;
+    "int32", the reference's integer cost path, without aggregation).
+    The pipeline runs on ``device``: the card unless ``"cpu"`` is asked
+    for.
     """
     dtype = _lookup("volume dtype", volume_dtype, VOLUME_DTYPES)
     if dtype == torch.int32 and aggr_method is not None:

@@ -2,27 +2,31 @@
 
 The stereo engine has no weights: the state that carries across is each
 stage's configuration (the cost's ``max_disparity``, ``kernel_size``,
-``cost_volume_dtype`` and census ``window_size``, the SGM penalties, the
-guided filter's radius, eps, subsample and wedge offset, the reducer)
-and, for the row-sharded pipeline, the mesh layout (its configuration
-is taken under the same keywords on both sides).  It is read from the
-JAX objects by attribute and class name, so this module never imports
-JAX and works on any object of that shape.
+``cost_volume_dtype`` (float32, bfloat16 or int32) and census
+``window_size``, the SGM penalties, the guided filter's radius, eps,
+subsample and wedge offset, the reducer) and, for the row-sharded
+pipeline, the mesh layout (its configuration is taken under the same
+keywords on both sides).  It is read from the JAX objects by attribute
+and class name, so this module never imports JAX and works on any object
+of that shape.  :func:`tensor_from_jax` carries an array (an image, a
+volume), bf16 included.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .aggregation import CostFilter, Semiglobal
 from .cost import SAD, SSD, Census
 from .disparity_reduce import DynamicProgramming, WinnerTakesAll
 from .parallel.mesh import BATCH_AXIS, TILE_AXIS, Mesh, make_mesh
-from .pipeline import Device, Pipeline
+from .pipeline import Device, Pipeline, tensor_from_numpy
 from .utils import validation
 
 _COSTS = {"SSD": SSD, "SAD": SAD, "Census": Census}
-_DTYPES = {"float32": torch.float32, "int32": torch.int32}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int32": torch.int32}
 
 
 def _kind(stage) -> str:
@@ -44,6 +48,13 @@ def _dtype(jax_dtype) -> torch.dtype:
     if name not in _DTYPES:
         raise _not_ported(f"cost volume dtype {name}")
     return _DTYPES[name]
+
+
+def tensor_from_jax(array, device: Device = "cuda") -> torch.Tensor:
+    """A JAX (or numpy) array as a tensor on ``device`` (the card unless
+    ``"cpu"`` is asked for), bit for bit: a bf16 array crosses as its
+    16-bit patterns (``pipeline.tensor_from_numpy``)."""
+    return tensor_from_numpy(np.asarray(array)).to(device)
 
 
 def pipeline_from_jax(jax_pipeline, device: Device = "cuda") -> Pipeline:

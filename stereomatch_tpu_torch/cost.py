@@ -69,8 +69,10 @@ class SSD(_DiffCost):
     Attributes:
         max_disparity: number of disparity hypotheses (the D axis).
         kernel_size: window half-extent k; the window is [i-k, i+k).
-        cost_volume_dtype: torch.float32 or torch.int32 (the reference's
-            integer chain, for integer images).
+        cost_volume_dtype: torch.float32, torch.bfloat16 (the float
+            chain, each cost rounded once to bf16 as it is stored) or
+            torch.int32 (the reference's integer chain, for integer
+            images).
         backend: "auto" | "cuda" | "torch" (see the module docstring).
     """
 
@@ -98,7 +100,9 @@ class Census:
             larger windows pack several int32 words).
         kernel_size: optional clipped box-sum window over the Hamming
             costs (1 = pixelwise, the usual choice before aggregation).
-        cost_volume_dtype: torch.float32 or torch.int32.
+        cost_volume_dtype: torch.float32, torch.bfloat16 (integers up to
+            256, every pixelwise census distance, are exact in bf16) or
+            torch.int32.
     """
 
     def __init__(self, max_disparity: int, window_size: int = 5,

@@ -1,7 +1,8 @@
 // cp.async: an asynchronous copy from device to shared memory that the
 // issuing thread waits for by commit group.  16-byte copies skip L1 (.cg,
 // the volumes are streamed); 4-byte copies go through it (.ca, the only
-// form for that size).  Shared by the rings of sgm.cu and dp.cu.
+// form for that size).  Shared by the rings of sgm.cu and dp.cu (and
+// bf16.cuh's row staging).
 #pragma once
 
 #include <cuda_runtime.h>

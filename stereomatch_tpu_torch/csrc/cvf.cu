@@ -73,10 +73,24 @@
 // 73 KB, three).  A radius that fits no tile (r above 34 for the filter)
 // is refused.  CH is cut from the image height so that the grid fills
 // the card about four times over, never below 4r rows.
+//
+// bfloat16 storage (the _bf16 entry points): the stats kernel reads a bf16
+// volume and the filter kernel writes q as bf16; a0, b0, the guide and
+// every statistic stay float32, as in the plain version and XLA, which
+// widen the volume and round q once at the end (ops/cvf.py:157,304).  The
+// ring holds the bf16 values as they come, in half the bytes, and the
+// vertical sums widen each as they load it; q is rounded to nearest even
+// as it is stored, +inf staying +inf on the wedge.  16-byte copies of a
+// bf16 volume need D % 8 == 0, TD % 8 == 0 and a 16-byte-aligned volume;
+// otherwise (odd D, a view at an odd element offset) the block loads its
+// ring values one by one, synchronously: cp.async copies no fewer than 4
+// bytes, which could straddle a row.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -86,6 +100,21 @@ constexpr int kSmemMax = 227 * 1024;
 constexpr int kRefused = -1;     // returned for a radius that cannot fit
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// A volume element of type T as float32 and back (bf16: widened exactly,
+// narrowed to nearest even).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T narrow(float v) {
+  if constexpr (std::is_same<T, float>::value) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
 
 // torch.clamp_min / jnp.maximum against a constant: NaN propagates.
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -162,21 +191,24 @@ __device__ __forceinline__ void window_sums(int r, Load load, float (&s1)[B],
 }
 
 // Shared-memory layout of a block, in floats.  Ring row: the span's
-// volume values (one volume for stats, a0 then b0 for the filter), S x TD
-// each in (column, disparity) order, then the stats kernel's S guide
-// values, padded to 4 floats.  The vertical-sum buffer: two statistics x
+// volume values (one volume of `in_bytes` elements for stats, float32 a0
+// then b0 for the filter), S x TD each in (column, disparity) order,
+// padded to 4 floats (vol), then the stats kernel's S guide values, padded
+// to 4 floats.  The vertical-sum buffer: two statistics x
 // G rows x SP columns x TD, SP = S rounded up to odd so that the rows a
 // warp reads fall into different banks.  The epilogue's operands of a
 // group's G output rows, in two buffers (groups k and k + 1): stats, hi1,
 // lo1, hi2 and lo2 over the kTX columns and pd1 and pd2 over the TD
 // disparities; filter, the guide.
 struct Layout {
-  int S, R, SP, row, ring, vbuf, plane, pd;
-  __host__ __device__ Layout(int r, int G, int TD, bool stats) {
+  int S, R, SP, vol, row, ring, vbuf, plane, pd;
+  __host__ __device__ Layout(int r, int G, int TD, bool stats,
+                             int in_bytes) {
     S = kTX + 2 * r;
     R = G + 2 * r;
     SP = S | 1;
-    row = S * TD * (stats ? 1 : 2) + (stats ? (S + 3) / 4 * 4 : 0);
+    vol = (S * TD * (stats ? 1 : 2) * in_bytes + 15) / 16 * 4;
+    row = vol + (stats ? (S + 3) / 4 * 4 : 0);
     ring = R * row;
     vbuf = 2 * G * SP * TD;
     pd = (stats ? 4 : 1) * G * kTX;          // offset of pd1 in a buffer
@@ -193,27 +225,36 @@ template <int G, int XB, int TD>
 constexpr int kBlock = G * (kTX / XB) * TD;
 
 struct Args {
-  const float* in1;    // stats: the volume; filter: a0
+  const void* in1;     // stats: the volume (T); filter: a0
   const float* in2;    // filter: b0
   const float* guide;
   const float *hi1, *lo1, *hi2, *lo2, *pd1, *pd2;
-  float* out1;         // stats: a0; filter: q
+  void* out1;          // stats: a0; filter: q (T)
   float* out2;         // stats: b0
   int H, W, D, r, off, CH;
   float eps;
   int vec;             // 16-byte pieces
 };
 
+// The element type a kernel stages (stats: the volume's T; filter: a0 and
+// b0, float32) and the one it stores into out1 (stats: a0, float32;
+// filter: q, T).
+template <bool kStats, typename T>
+using In = std::conditional_t<kStats, T, float>;
+template <bool kStats, typename T>
+using Out1 = std::conditional_t<kStats, float, T>;
+
 // Ring rows n in [n0, n1): image row y0 - r + n into slot n % R; and the
 // epilogue's operands of group `g` into buffer g % 2.  One commit group.
-template <int NT, int G, int TD, bool kStats>
+template <int NT, int G, int TD, bool kStats, typename T>
 __device__ __forceinline__ void stage(const Args& a, const Layout& L,
                                       float* ring, float* planes, int n0,
                                       int n1, int g, int y0, int x0, int dz,
                                       int y_last) {
+  using E = In<kStats, T>;
   const int tid = threadIdx.x;
   const int nvol = kStats ? 1 : 2;
-  const int piece = a.vec ? 4 : 1;
+  const int piece = a.vec ? 16 / static_cast<int>(sizeof(E)) : 1;
   // Pieces a column: TD / piece, a power of two.
   const int shift = __ffs(TD / piece) - 1;
   const int per_row = L.S << shift;
@@ -229,21 +270,27 @@ __device__ __forceinline__ void stage(const Args& a, const Layout& L,
       const bool in = row_in && x >= 0 && x < a.W;
       const size_t src = (static_cast<size_t>(y) * a.W + x) * a.D + dz + d;
       for (int v = 0; v < nvol; ++v) {
-        float* const dst = dst_row + v * L.S * TD + c * TD + d;
-        const float* const base = v == 0 ? a.in1 : a.in2;
+        E* const dst =
+            reinterpret_cast<E*>(dst_row) + v * L.S * TD + c * TD + d;
+        const E* const base =
+            v == 0 ? static_cast<const E*>(a.in1)
+                   : reinterpret_cast<const E*>(a.in2);
         if (!in) {
-          for (int k = 0; k < piece; ++k) dst[k] = 0.0f;
+          for (int k = 0; k < piece; ++k) dst[k] = narrow<E>(0.0f);
         } else if (dz + d < a.D) {
           if (a.vec) {
-            copy16(dst, base + src);
-          } else {
+            copy16(reinterpret_cast<float*>(dst),
+                   reinterpret_cast<const float*>(base + src));
+          } else if constexpr (std::is_same<E, float>::value) {
             copy4(dst, base + src);
+          } else {
+            dst[0] = base[src];   // 2 bytes: loaded synchronously
           }
         }
       }
     }
     if (kStats) {
-      float* const gr = dst_row + L.S * TD;
+      float* const gr = dst_row + L.vol;
       for (int c = tid; c < L.S; c += NT) {
         const int x = x0 - a.r + c;
         if (row_in && x >= 0 && x < a.W) {
@@ -285,13 +332,15 @@ __device__ __forceinline__ void stage(const Args& a, const Layout& L,
   commit_copies();
 }
 
-template <int G, int XB, int TD, bool kStats>
+template <int G, int XB, int TD, bool kStats, typename T>
 __global__ void __launch_bounds__(kBlock<G, XB, TD>)
     cvf_kernel(const Args a) {
   static_assert(kTX % XB == 0 && 32 % TD == 0, "tile shape");
+  using E = In<kStats, T>;
   constexpr int NT = kBlock<G, XB, TD>;
   extern __shared__ __align__(16) float smem[];
-  const Layout L(a.r, G, TD, kStats);
+  const Layout L(a.r, G, TD, kStats, sizeof(E));
+  Out1<kStats, T>* const out1 = static_cast<Out1<kStats, T>*>(a.out1);
   float* const ring = smem;
   float* const ring_end = smem + L.ring;
   float* const vbuf = ring_end;
@@ -306,8 +355,8 @@ __global__ void __launch_bounds__(kBlock<G, XB, TD>)
   const int groups = (y1 - y0 + G - 1) / G;
   const int vstat = G * L.SP * TD;   // floats of one statistic's sums
 
-  stage<NT, G, TD, kStats>(a, L, ring, planes, 0, G + 2 * r, 0, y0, x0, dz,
-                           y_last);
+  stage<NT, G, TD, kStats, T>(a, L, ring, planes, 0, G + 2 * r, 0, y0, x0,
+                              dz, y_last);
   // This thread's horizontal item: row j, columns xb * XB + [0, XB),
   // disparity d of the tile.
   const int hd = tid % TD;
@@ -322,17 +371,17 @@ __global__ void __launch_bounds__(kBlock<G, XB, TD>)
     for (int i = tid; i < L.S * TD; i += NT) {
       const int c = i / TD;
       const int d = i % TD;
-      // The column's next row (rows 0, 1, ... of the group in turn), and
-      // the offset of its guide value from it.
-      const float* p = ring + (k * G) % L.R * L.row + c * TD + d;
-      const int to_guide = L.S * TD + c - (c * TD + d);
+      // The column's next ring row (rows 0, 1, ... of the group in
+      // turn); its value at element `at`, and its guide value.
+      const float* p = ring + (k * G) % L.R * L.row;
+      const int at = c * TD + d;
       auto load = [&](int, float& v1, float& v2) {
+        const E* const vol = reinterpret_cast<const E*>(p);
+        v1 = widen(vol[at]);
         if constexpr (kStats) {
-          v1 = p[0];
-          v2 = __fmul_rn(p[to_guide], v1);
+          v2 = __fmul_rn(p[L.vol + c], v1);
         } else {
-          v1 = p[0];
-          v2 = p[L.S * TD];
+          v2 = vol[L.S * TD + at];
         }
         p += L.row;
         if (p >= ring_end) p -= L.ring;
@@ -358,9 +407,9 @@ __global__ void __launch_bounds__(kBlock<G, XB, TD>)
     // while this group's horizontal sums run.  After the last group none
     // is requested, so no copy is in flight when the block exits.
     if (k + 1 < groups) {
-      stage<NT, G, TD, kStats>(a, L, ring, planes, (k + 1) * G + 2 * r,
-                               (k + 2) * G + 2 * r, k + 1, y0, x0, dz,
-                               y_last);
+      stage<NT, G, TD, kStats, T>(a, L, ring, planes, (k + 1) * G + 2 * r,
+                                  (k + 2) * G + 2 * r, k + 1, y0, x0, dz,
+                                  y_last);
     }
     // Horizontal sums and the epilogue of this thread's outputs.
     const float* const vrow = vbuf + (hj * L.SP + hxb * XB) * TD + hd;
@@ -388,7 +437,7 @@ __global__ void __launch_bounds__(kBlock<G, XB, TD>)
       const float count = max_nan(__fmul_rn(ch, cw), 1.0f);
       if constexpr (kStats) {
         if (x < dlo) {
-          a.out1[out] = 0.0f;
+          out1[out] = 0.0f;
           a.out2[out] = 0.0f;
           continue;
         }
@@ -407,12 +456,13 @@ __global__ void __launch_bounds__(kBlock<G, XB, TD>)
             max_nan(__fmaf_rn(-mean_i, mean_i, corr_ii), 0.0f);
         const float cov_ip = __fmaf_rn(-mean_i, mean_p, corr_ip);
         const float av = __fdiv_rn(cov_ip, __fadd_rn(var_i, a.eps));
-        a.out1[out] = av;
+        out1[out] = av;
         a.out2[out] = __fmaf_rn(-av, mean_i, mean_p);
       } else {
-        a.out1[out] = x < dlo ? inf_f()
-                              : __fmaf_rn(__fdiv_rn(s1[u], count), buf[u],
-                                          __fdiv_rn(s2[u], count));
+        out1[out] = narrow<T>(
+            x < dlo ? inf_f()
+                    : __fmaf_rn(__fdiv_rn(s1[u], count), buf[u],
+                                __fdiv_rn(s2[u], count)));
       }
     }
   }
@@ -430,7 +480,7 @@ struct Tile {
 constexpr int kTiles[6][3] = {{4, 8, 16}, {4, 8, 8}, {4, 8, 4},
                               {2, 8, 4},  {4, 4, 16}, {2, 2, 16}};
 
-bool tile_of(int r, bool stats, Tile* t) {
+bool tile_of(int r, bool stats, int in_bytes, Tile* t) {
   const int limits[2] = {kSmemTarget, kSmemMax};
   for (int limit : limits) {
     for (int i = 0; i < 6; ++i) {
@@ -438,7 +488,7 @@ bool tile_of(int r, bool stats, Tile* t) {
       t->XB = kTiles[i][1];
       t->TD = kTiles[i][2];
       t->index = i;
-      t->smem = Layout(r, t->G, t->TD, stats).bytes();
+      t->smem = Layout(r, t->G, t->TD, stats, in_bytes).bytes();
       if (t->G <= 2 * r + 2 && t->XB <= 2 * r + 2 &&
           t->smem <= static_cast<size_t>(limit)) {
         return true;
@@ -448,9 +498,9 @@ bool tile_of(int r, bool stats, Tile* t) {
   return false;
 }
 
-template <int G, int XB, int TD, bool kStats>
+template <int G, int XB, int TD, bool kStats, typename T>
 int launch(const Args& a, size_t smem, cudaStream_t stream) {
-  auto kernel = cvf_kernel<G, XB, TD, kStats>;
+  auto kernel = cvf_kernel<G, XB, TD, kStats, T>;
   int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
@@ -474,25 +524,30 @@ int launch(const Args& a, size_t smem, cudaStream_t stream) {
   chunks = std::min(chunks, std::max(1, a.H / std::max(4 * a.r, 4 * G)));
   Args b = a;
   b.CH = ((a.H + chunks - 1) / chunks + G - 1) / G * G;
+  // 16-byte pieces of a column's TD values.
+  b.vec = a.vec && TD * sizeof(In<kStats, T>) % 16 == 0;
   // Disparity tiles first: the blocks that share each 128-byte line of a
   // row run together.
   const dim3 grid((a.D + TD - 1) / TD, (a.W + kTX - 1) / kTX,
                   (a.H + b.CH - 1) / b.CH);
-  cvf_kernel<G, XB, TD, kStats><<<grid, kBlock<G, XB, TD>, smem, stream>>>(b);
+  cvf_kernel<G, XB, TD, kStats, T>
+      <<<grid, kBlock<G, XB, TD>, smem, stream>>>(b);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kStats>
+template <bool kStats, typename T>
 int dispatch(const Args& a, cudaStream_t stream) {
   // A radius either kernel refuses is refused by both, before any launch.
-  Tile t, filter;
-  if (!tile_of(a.r, kStats, &t) || !tile_of(a.r, false, &filter)) {
+  Tile t, stats_tile, filter_tile;
+  if (!tile_of(a.r, true, sizeof(T), &stats_tile) ||
+      !tile_of(a.r, false, sizeof(float), &filter_tile)) {
     return kRefused;
   }
+  t = kStats ? stats_tile : filter_tile;
   const size_t m = t.smem;
 #define STM_TILE(i)                                               \
   case i:                                                         \
-    return launch<kTiles[i][0], kTiles[i][1], kTiles[i][2], kStats>( \
+    return launch<kTiles[i][0], kTiles[i][1], kTiles[i][2], kStats, T>( \
         a, m, stream)
   switch (t.index) {
     STM_TILE(0);
@@ -510,16 +565,13 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
 
-}  // namespace
-
-extern "C" int stm_cvf_stats_f32(const void* vol, const void* guide,
-                                 const void* hi1, const void* lo1,
-                                 const void* hi2, const void* lo2,
-                                 const void* pd1, const void* pd2, void* a0,
-                                 void* b0, int H, int W, int D, int r,
-                                 int off, float eps, void* stream) {
+template <typename T>
+int stats(const void* vol, const void* guide, const void* hi1,
+          const void* lo1, const void* hi2, const void* lo2, const void* pd1,
+          const void* pd2, void* a0, void* b0, int H, int W, int D, int r,
+          int off, float eps, void* stream) {
   Args a{};
-  a.in1 = static_cast<const float*>(vol);
+  a.in1 = vol;
   a.guide = static_cast<const float*>(guide);
   a.hi1 = static_cast<const float*>(hi1);
   a.lo1 = static_cast<const float*>(lo1);
@@ -527,7 +579,7 @@ extern "C" int stm_cvf_stats_f32(const void* vol, const void* guide,
   a.lo2 = static_cast<const float*>(lo2);
   a.pd1 = static_cast<const float*>(pd1);
   a.pd2 = static_cast<const float*>(pd2);
-  a.out1 = static_cast<float*>(a0);
+  a.out1 = a0;
   a.out2 = static_cast<float*>(b0);
   a.H = H;
   a.W = W;
@@ -535,23 +587,61 @@ extern "C" int stm_cvf_stats_f32(const void* vol, const void* guide,
   a.r = r;
   a.off = off;
   a.eps = eps;
-  a.vec = D % 4 == 0 && aligned16(vol);
-  return dispatch<true>(a, static_cast<cudaStream_t>(stream));
+  a.vec = D % (16 / sizeof(T)) == 0 && aligned16(vol);
+  return dispatch<true, T>(a, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int stm_cvf_filter_f32(const void* a0, const void* b0,
-                                  const void* guide, void* q, int H, int W,
-                                  int D, int r, int off, void* stream) {
+template <typename T>
+int filter(const void* a0, const void* b0, const void* guide, void* q, int H,
+           int W, int D, int r, int off, void* stream) {
   Args a{};
-  a.in1 = static_cast<const float*>(a0);
+  a.in1 = a0;
   a.in2 = static_cast<const float*>(b0);
   a.guide = static_cast<const float*>(guide);
-  a.out1 = static_cast<float*>(q);
+  a.out1 = q;
   a.H = H;
   a.W = W;
   a.D = D;
   a.r = r;
   a.off = off;
   a.vec = D % 4 == 0 && aligned16(a0) && aligned16(b0);
-  return dispatch<false>(a, static_cast<cudaStream_t>(stream));
+  return dispatch<false, T>(a, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// Stage 1: a float32 volume -> a0, b0 (float32).
+extern "C" int stm_cvf_stats_f32(const void* vol, const void* guide,
+                                 const void* hi1, const void* lo1,
+                                 const void* hi2, const void* lo2,
+                                 const void* pd1, const void* pd2, void* a0,
+                                 void* b0, int H, int W, int D, int r,
+                                 int off, float eps, void* stream) {
+  return stats<float>(vol, guide, hi1, lo1, hi2, lo2, pd1, pd2, a0, b0, H, W,
+                      D, r, off, eps, stream);
+}
+
+// Stage 1 of a bf16 volume; a0 and b0 float32.
+extern "C" int stm_cvf_stats_bf16(const void* vol, const void* guide,
+                                  const void* hi1, const void* lo1,
+                                  const void* hi2, const void* lo2,
+                                  const void* pd1, const void* pd2, void* a0,
+                                  void* b0, int H, int W, int D, int r,
+                                  int off, float eps, void* stream) {
+  return stats<__nv_bfloat16>(vol, guide, hi1, lo1, hi2, lo2, pd1, pd2, a0,
+                              b0, H, W, D, r, off, eps, stream);
+}
+
+// Stage 2: a0, b0 -> q (float32).
+extern "C" int stm_cvf_filter_f32(const void* a0, const void* b0,
+                                  const void* guide, void* q, int H, int W,
+                                  int D, int r, int off, void* stream) {
+  return filter<float>(a0, b0, guide, q, H, W, D, r, off, stream);
+}
+
+// Stage 2 with q rounded to bf16.
+extern "C" int stm_cvf_filter_bf16(const void* a0, const void* b0,
+                                   const void* guide, void* q, int H, int W,
+                                   int D, int r, int off, void* stream) {
+  return filter<__nv_bfloat16>(a0, b0, guide, q, H, W, D, r, off, stream);
 }

@@ -59,10 +59,24 @@
 // pointers outside {-1, 0, +1}, which dp_backward_cuda accepts as the
 // plain version does), the warp walks the batch again from its start with
 // every pointer read from device memory.
+//
+// bfloat16 storage (stm_dp_forward_bf16): the forward pass reads a bf16
+// cost volume and widens each value as a lane takes it from the ring (the
+// plain version and XLA widen the volume to float32 first, ops/disparity.py
+// :157); the accumulator, the final costs and the pointers are unchanged,
+// and the walk does not read costs.  A bf16 column may start at any 2-byte
+// boundary and cp.async copies no fewer than 4 bytes, so the warp copies
+// the aligned 16-byte pieces that hold the column and reads it at its
+// offset into the first piece (bf16.cuh's copy_row_pieces).  The
+// function's bytes fall from 5 to 3 a cell: 0.30 ms at HD.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "bf16.cuh"
 #include "cp_async.cuh"
 
 namespace {
@@ -91,8 +105,13 @@ template <int J>
 constexpr int kFwdUnroll = J <= 4 ? 1 : 4;
 constexpr int kFwdWarpsPerBlock = 1;
 
-template <int J>
-constexpr int kFwdRingFloats = kFwdStages * 32 * J;
+// Bytes of a column's ring slot: float32, the 32 * J costs as the lanes
+// read them; bf16, the 16-byte pieces that hold 32 * J values (bf16.cuh;
+// with VEC every column starts a piece).
+template <typename T, int J, bool VEC>
+constexpr int kFwdSlotBytes = std::is_same<T, float>::value
+                                  ? 4 * 32 * J
+                                  : stm::kRowSlotBytes<32 * J, VEC>;
 
 // A lane's J pointers as little-endian bytes of 32-bit words, packed
 // outside the store's predicate so that the store is one instruction.
@@ -133,26 +152,32 @@ __device__ __forceinline__ void write(int8_t* dst, const Packed<J>& v) {
   }
 }
 
-// VEC: D % 16 == 0 and 16-byte-aligned cost and pointers, so a lane's J
+// VEC: D % 16 == 0 and 16-byte-aligned pointers and cost, so a lane's J
 // disparities lie wholly inside D or wholly past it, its J pointers are
-// one aligned J-byte store and (J % 4 == 0) the costs come in 16-byte
-// pieces; otherwise byte stores and 4-byte pieces.
-template <int J, bool VEC>
-__global__ void dp_forward_kernel(const float* __restrict__ cost,
+// one aligned J-byte store, (J % 4 == 0) float32 costs come in 16-byte
+// pieces and every bf16 column starts a 16-byte piece, its J values one
+// load a lane; otherwise byte stores, 4-byte pieces of float32 and bf16
+// columns read at their offset into the aligned pieces that hold them.
+template <typename T, int J, bool VEC>
+__global__ void dp_forward_kernel(const T* __restrict__ cost,
                                   int8_t* __restrict__ ptr,
                                   float* __restrict__ final_costs, int H,
                                   int W, int D) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int S = kFwdStages;
   static_assert(S >= 4 && (S & (S - 1)) == 0, "S is a power of two >= 4");
   constexpr int kRow = 32 * J;                      // floats a stage
   constexpr int kPiece = VEC && J % 4 == 0 ? 4 : 1;  // floats a copy
   constexpr int kPieces = J / kPiece;               // copies a lane
+  constexpr int kSlot = kFwdSlotBytes<T, J, VEC>;
   extern __shared__ __align__(16) float fwd_ring[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int h = blockIdx.x * kFwdWarpsPerBlock + warp;
   if (h >= H) return;  // the whole warp leaves
-  float* const ring = fwd_ring + warp * kFwdRingFloats<J>;
+  unsigned char* const ring_bytes =
+      reinterpret_cast<unsigned char*>(fwd_ring) + warp * S * kSlot;
+  float* const ring = reinterpret_cast<float*>(ring_bytes);
   const size_t row = static_cast<size_t>(h) * W * D;
   const int d0 = J * lane;
   const float inf = pos_inf();
@@ -176,17 +201,22 @@ __global__ void dp_forward_kernel(const float* __restrict__ cost,
   // to the stage of column w - 1, which every lane finished reading
   // before the __syncwarp of column w.
   int fetched = 0;
-  const float* ahead = cost + row;  // column `fetched`
+  const T* ahead = cost + row;  // column `fetched`
   auto fetch = [&]() {
     const bool go = fetched < W;
-    float* const dst = ring + (fetched & (S - 1)) * kRow;
+    if constexpr (kF32) {
+      float* const dst = ring + (fetched & (S - 1)) * kRow;
 #pragma unroll
-    for (int i = 0; i < kPieces; ++i) {
-      if constexpr (kPiece == 4) {
-        copy16(dst + e[i], ahead + e[i], go && in[i]);
-      } else {
-        copy4(dst + e[i], ahead + e[i], go && in[i]);
+      for (int i = 0; i < kPieces; ++i) {
+        if constexpr (kPiece == 4) {
+          copy16(dst + e[i], ahead + e[i], go && in[i]);
+        } else {
+          copy4(dst + e[i], ahead + e[i], go && in[i]);
+        }
       }
+    } else {
+      stm::copy_row_pieces<kSlot>(ring_bytes + (fetched & (S - 1)) * kSlot,
+                                  ahead, D, go, lane);
     }
     commit_copies();
     ++fetched;
@@ -196,9 +226,23 @@ __global__ void dp_forward_kernel(const float* __restrict__ cost,
   auto take = [&](int w, float (&c)[J]) {
     wait_copies<S - 2>();
     __syncwarp();
-    const float* const src = ring + (w & (S - 1)) * kRow + d0;
+    if constexpr (kF32) {
+      const float* const src = ring + (w & (S - 1)) * kRow + d0;
 #pragma unroll
-    for (int j = 0; j < J; ++j) c[j] = src[j];
+      for (int j = 0; j < J; ++j) c[j] = src[j];
+    } else if constexpr (VEC) {
+      stm::widen_aligned<J>(reinterpret_cast<const __nv_bfloat16*>(
+                                ring_bytes + (w & (S - 1)) * kSlot) + d0,
+                            c);
+    } else {
+      const int lead =
+          stm::row_lead(cost + row + static_cast<size_t>(w) * D);
+      const __nv_bfloat16* const src =
+          reinterpret_cast<const __nv_bfloat16*>(
+              ring_bytes + (w & (S - 1)) * kSlot + lead) + d0;
+#pragma unroll
+      for (int j = 0; j < J; ++j) c[j] = __bfloat162float(src[j]);
+    }
   };
   int8_t* at = ptr + row + d0;  // this lane's pointers of the next column
   auto store = [&](const int8_t (&p)[J]) {
@@ -410,50 +454,70 @@ __global__ void dp_backward_kernel(const int8_t* __restrict__ ptr,
   }
 }
 
-template <int J, bool VEC>
+template <typename T, int J, bool VEC>
 int launch_forward(const void* cost, void* ptr, void* final_costs, int H,
                    int W, int D, cudaStream_t stream) {
-  constexpr size_t kSmem = static_cast<size_t>(kFwdWarpsPerBlock) *
-                           kFwdRingFloats<J> * sizeof(float);
+  constexpr size_t kSmem =
+      static_cast<size_t>(kFwdWarpsPerBlock) * kFwdStages *
+      kFwdSlotBytes<T, J, VEC>;
   static_assert(kSmem <= 48 * 1024, "the ring fits static-size limits");
   const int blocks = (H + kFwdWarpsPerBlock - 1) / kFwdWarpsPerBlock;
-  dp_forward_kernel<J, VEC><<<blocks, 32 * kFwdWarpsPerBlock, kSmem,
-                              stream>>>(
-      static_cast<const float*>(cost), static_cast<int8_t*>(ptr),
+  dp_forward_kernel<T, J, VEC><<<blocks, 32 * kFwdWarpsPerBlock, kSmem,
+                                 stream>>>(
+      static_cast<const T*>(cost), static_cast<int8_t*>(ptr),
       static_cast<float*>(final_costs), H, W, D);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int J>
+template <typename T, int J>
 int launch_forward_vec(const void* cost, void* ptr, void* final_costs, int H,
                        int W, int D, cudaStream_t stream) {
   if (D % 16 == 0 && reinterpret_cast<std::uintptr_t>(cost) % 16 == 0 &&
       reinterpret_cast<std::uintptr_t>(ptr) % 16 == 0) {
-    return launch_forward<J, true>(cost, ptr, final_costs, H, W, D, stream);
+    return launch_forward<T, J, true>(cost, ptr, final_costs, H, W, D,
+                                      stream);
   }
-  return launch_forward<J, false>(cost, ptr, final_costs, H, W, D, stream);
+  return launch_forward<T, J, false>(cost, ptr, final_costs, H, W, D,
+                                     stream);
+}
+
+// D <= kMaxDisparity (16 registers a lane); the wrapper checks too.
+template <typename T>
+int forward(const void* cost, void* ptr, void* final_costs, int H, int W,
+            int D, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H < 1 || W < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 32) {
+    return launch_forward_vec<T, 1>(cost, ptr, final_costs, H, W, D, s);
+  }
+  if (D <= 64) {
+    return launch_forward_vec<T, 2>(cost, ptr, final_costs, H, W, D, s);
+  }
+  if (D <= 128) {
+    return launch_forward_vec<T, 4>(cost, ptr, final_costs, H, W, D, s);
+  }
+  if (D <= 256) {
+    return launch_forward_vec<T, 8>(cost, ptr, final_costs, H, W, D, s);
+  }
+  if (D <= kMaxDisparity) {
+    return launch_forward_vec<T, 16>(cost, ptr, final_costs, H, W, D, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// D <= kMaxDisparity (16 registers a lane); the wrapper checks too.
 extern "C" int stm_dp_forward_f32(const void* cost, void* ptr,
                                   void* final_costs, int H, int W, int D,
                                   void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H < 1 || W < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 32) return launch_forward_vec<1>(cost, ptr, final_costs, H, W, D, s);
-  if (D <= 64) return launch_forward_vec<2>(cost, ptr, final_costs, H, W, D, s);
-  if (D <= 128) {
-    return launch_forward_vec<4>(cost, ptr, final_costs, H, W, D, s);
-  }
-  if (D <= 256) {
-    return launch_forward_vec<8>(cost, ptr, final_costs, H, W, D, s);
-  }
-  if (D <= kMaxDisparity) {
-    return launch_forward_vec<16>(cost, ptr, final_costs, H, W, D, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return forward<float>(cost, ptr, final_costs, H, W, D, stream);
+}
+
+// A bf16 cost volume; pointers and final costs as stm_dp_forward_f32's.
+extern "C" int stm_dp_forward_bf16(const void* cost, void* ptr,
+                                   void* final_costs, int H, int W, int D,
+                                   void* stream) {
+  return forward<__nv_bfloat16>(cost, ptr, final_costs, H, W, D, stream);
 }
 
 extern "C" int stm_dp_backward(const void* ptr, const void* final_costs,

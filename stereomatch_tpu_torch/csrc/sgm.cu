@@ -65,11 +65,30 @@
 // (75 at teddy in 5 row tiles): the same latency bound over fewer steps,
 // paid once per chunk in launch and ramp-up; a chunk shorter than the ring
 // only fetches fewer live steps.
+//
+// bfloat16 storage (the JAX package's bf16 volumes; its XLA scan widens the
+// cost to float32 once, sums the eight traversals in float32 and rounds the
+// sum to bf16 once, ops/aggregation.py:211,226): the same kernels read a
+// bf16 cost volume (T = __nv_bfloat16) and widen each value as the warp
+// takes it from the ring; the recurrence, the carries and the partial sum
+// `out` stay float32.  The launch of the last traversal (FINAL) adds its L
+// onto `out` as every accumulating launch does and stores that sum rounded
+// to nearest even into the bf16 `result` instead of writing it back, so
+// the sum is rounded once and no extra pass casts it.  A bf16 row may
+// start at any 2-byte boundary (odd D, a view at an odd element offset),
+// and cp.async copies no fewer than 4 bytes: the warp copies the aligned
+// 16-byte pieces that hold the row's D values and reads them at the row's
+// offset into its first piece (bf16.cuh's copy_row_pieces).  The ring's
+// bf16 cost slots take half the float32 ones' bytes plus one piece; out is
+// read and written as before.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "bf16.cuh"
 #include "cp_async.cuh"
 
 namespace {
@@ -195,10 +214,21 @@ constexpr Carry kNoCarry{nullptr, nullptr, nullptr, true};
 constexpr int kRingStages = 8;
 constexpr int kRingWarpsPerBlock = 1;
 
-// Floats of one warp's ring: per stage the cost row, then (when
-// accumulating) the out row, 32 * VPL floats each in d order.
-template <int VPL, bool ACC>
-constexpr int kRingFloats = kRingStages * (ACC ? 2 : 1) * 32 * VPL;
+template <typename T>
+constexpr bool kIsF32 = std::is_same<T, float>::value;
+
+// Bytes of one step's cost slot: float32, the row as the warp reads it,
+// 32 * VPL floats in d order; bf16, the 16-byte pieces that hold a row of
+// 32 * VPL values (bf16.cuh; with VEC every row starts a piece).
+template <typename T, int VPL, bool VEC>
+constexpr int kCostSlotBytes =
+    kIsF32<T> ? 4 * 32 * VPL : stm::kRowSlotBytes<32 * VPL, VEC>;
+
+// Bytes of one warp's ring: per stage the cost slot, then (when
+// accumulating) the float32 out row, 32 * VPL floats in d order.
+template <typename T, int VPL, bool VEC, bool ACC>
+constexpr int kRingBytes =
+    kRingStages * (kCostSlotBytes<T, VPL, VEC> + (ACC ? 4 * 32 * VPL : 0));
 
 // The walk of all three kernels: a ring of S = kRingStages steps in shared
 // memory, filled by cp.async S - 1 steps ahead of the recurrence.
@@ -219,13 +249,21 @@ constexpr int kRingFloats = kRingStages * (ACC ? 2 : 1) * 32 * VPL;
 // basic block with it, lets the compiler place them in the stalls of its
 // shuffle chain.
 //
+// A bf16 cost row (T = __nv_bfloat16) is copied as the aligned 16-byte
+// pieces that hold it, whatever its alignment, and read at its offset into
+// the first piece (bf16.cuh's copy_row_pieces and row_lead); with VEC
+// every row starts a piece, and a lane reads its
+// VPL values in one load of 8 or 16 bytes.  A lane past D takes +inf in
+// place of what it reads.
+//
 // Fetching out S - 1 steps early is safe because each pixel lies on
 // exactly one path of a launch: a launch is one traversal of the image or
 // of one chunk of rows (path_of over the chunk's H rows), so no path
 // writes a pixel that another path reads, and a path writes a pixel only
 // at the step that reads it.  The carry a chunk reads and the one it
 // writes are other buffers than cost and out.  Without ACC, out is not
-// fetched at all.
+// fetched at all.  With FINAL (bf16, ACC), out is read but not written:
+// the sums go to `result`, rounded to bf16.
 //
 // Carry: the chunk kernel's hand-off (at the top of this file).  Step 0
 // of a path that continues the carry runs the recurrence from carry.in,
@@ -240,30 +278,36 @@ constexpr int kRingFloats = kRingStages * (ACC ? 2 : 1) * 32 * VPL;
 // operations and their operands are those of p2_of.
 //
 // VEC: 16-byte copies and stores, for VPL % 4 == 0, D % 4 == 0 and
-// 16-byte-aligned cost and out (four floats lie wholly inside or past D);
-// otherwise 4-byte copies and stores.
-template <int VPL, bool VEC, bool ACC>
-__device__ void ring_path(const float* __restrict__ cost,
+// 16-byte-aligned out and cost (four floats lie wholly inside or past D;
+// bf16 also needs D % 8 == 0, so that every row starts on a 16-byte
+// boundary), and 8-byte stores of four bf16 sums into an 8-byte-aligned
+// result; otherwise 4-byte copies and element stores.
+template <typename T, int VPL, bool VEC, bool ACC, bool FINAL>
+__device__ void ring_path(const T* __restrict__ cost,
                           const float* __restrict__ image,
-                          float* __restrict__ out, int H, int W, int D,
-                          int dy, int dx, float p1, float p2, int path,
-                          const Carry& carry, float* ring) {
+                          float* __restrict__ out,
+                          __nv_bfloat16* __restrict__ result, int H, int W,
+                          int D, int dy, int dx, float p1, float p2,
+                          int path, const Carry& carry, unsigned char* ring) {
   static_assert(kRingStages >= 4 && (kRingStages & (kRingStages - 1)) == 0,
                 "kRingStages is a power of two of at least 4");
   static_assert(!VEC || VPL % 4 == 0, "16-byte pieces need VPL % 4 == 0");
+  static_assert(!FINAL || (ACC && !kIsF32<T>),
+                "a final launch rounds a bf16 volume's accumulated sum");
   constexpr int kRow = 32 * VPL;
   constexpr int kPiece = VEC ? 4 : 1;           // floats a copy moves
   constexpr int kPieces = VPL / kPiece;         // copies a lane a row
+  constexpr int kSlot = kCostSlotBytes<T, VPL, VEC>;
   const int lane = threadIdx.x & 31;
   const int d0 = lane * VPL;
   const Path p = path_of(path, H, W, dy, dx);
   const long step_pix = static_cast<long>(dy) * W + dx;
   const long first_pix = static_cast<long>(p.y) * W + p.x;
-  const long step = step_pix * D;  // in floats
+  const long step = step_pix * D;  // in elements
   const long first = first_pix * D;
-  float* const cost_ring = ring;
-  float* const out_ring = ring + kRingStages * kRow;
-
+  float* const cost_ring = reinterpret_cast<float*>(ring);
+  float* const out_ring =
+      reinterpret_cast<float*>(ring + kRingStages * kSlot);
   // Piece i of a row starts at float e[i]; in[i]: it lies inside D.
   int e[kPieces];
   bool in[kPieces];
@@ -278,30 +322,43 @@ __device__ void ring_path(const float* __restrict__ cost,
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
       if (d0 + j >= D) {
-        cost_ring[slot * kRow + d0 + j] = inf_f();
+        if constexpr (kIsF32<T>) cost_ring[slot * kRow + d0 + j] = inf_f();
         if constexpr (ACC) out_ring[slot * kRow + d0 + j] = 0.0f;
       }
     }
   }
   // The copies of steps t = 0, 1, ... in turn into their stages; `ahead`
-  // is the next step's first float.
+  // is the next step's first element.
   int fetched = 0;
   long ahead = first;
   auto fetch = [&]() {
     const bool live = fetched < p.len;
     const int slot = fetched & (kRingStages - 1);
-    const float* const src = cost + ahead;
     const float* const osrc = out + ahead;
+    if constexpr (kIsF32<T>) {
+      const float* const src = cost + ahead;
 #pragma unroll
-    for (int i = 0; i < kPieces; ++i) {
-      float* const dst = cost_ring + slot * kRow + e[i];
-      float* const odst = dst + kRingStages * kRow;
-      if constexpr (VEC) {
-        copy16(dst, src + e[i], live && in[i]);
-        if constexpr (ACC) copy16(odst, osrc + e[i], live && in[i]);
-      } else {
-        copy4(dst, src + e[i], live && in[i]);
-        if constexpr (ACC) copy4(odst, osrc + e[i], live && in[i]);
+      for (int i = 0; i < kPieces; ++i) {
+        float* const dst = cost_ring + slot * kRow + e[i];
+        if constexpr (VEC) {
+          copy16(dst, src + e[i], live && in[i]);
+        } else {
+          copy4(dst, src + e[i], live && in[i]);
+        }
+      }
+    } else {
+      stm::copy_row_pieces<kSlot>(ring + slot * kSlot, cost + ahead, D, live,
+                                  lane);
+    }
+    if constexpr (ACC) {
+#pragma unroll
+      for (int i = 0; i < kPieces; ++i) {
+        float* const odst = out_ring + slot * kRow + e[i];
+        if constexpr (VEC) {
+          copy16(odst, osrc + e[i], live && in[i]);
+        } else {
+          copy4(odst, osrc + e[i], live && in[i]);
+        }
       }
     }
     commit_copies();
@@ -318,13 +375,33 @@ __device__ void ring_path(const float* __restrict__ cost,
     wait_copies<kRingStages - 2>();
     __syncwarp();
     const int slot = t & (kRingStages - 1);
+    if constexpr (kIsF32<T>) {
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) c[j] = cost_ring[slot * kRow + d0 + j];
+    } else if constexpr (VEC) {
+      float v[VPL];
+      stm::widen_aligned<VPL>(
+          reinterpret_cast<const __nv_bfloat16*>(ring + slot * kSlot) + d0,
+          v);
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) c[j] = d0 + j < D ? v[j] : inf_f();
+    } else {
+      const int lead = stm::row_lead(cost + first + t * step);
+      const __nv_bfloat16* const src =
+          reinterpret_cast<const __nv_bfloat16*>(ring + slot * kSlot +
+                                                 lead) + d0;
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        c[j] = d0 + j < D ? __bfloat162float(src[j]) : inf_f();
+      }
+    }
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
-      c[j] = cost_ring[slot * kRow + d0 + j];
       o[j] = ACC ? out_ring[slot * kRow + d0 + j] : 0.0f;
     }
   };
-  // out (+)= L at the pixel `at`; prev takes L (+inf past D).
+  // out (+)= L at the pixel `at` (FINAL: result = bf16(out + L)); prev
+  // takes L (+inf past D).
   auto store = [&](long at, const float (&o)[VPL], const float (&L)[VPL],
                    float (&prev)[VPL]) {
     float v[VPL];
@@ -333,15 +410,30 @@ __device__ void ring_path(const float* __restrict__ cost,
       v[j] = ACC ? __fadd_rn(o[j], L[j]) : L[j];
       prev[j] = d0 + j < D ? L[j] : inf_f();
     }
-    float* const dst = out + at + d0;
+    if constexpr (FINAL) {
+      __nv_bfloat16* const dst = result + at + d0;
 #pragma unroll
-    for (int q = 0; q < VPL; q += kPiece) {
-      if (d0 + q < D) {
-        if constexpr (VEC) {
-          *reinterpret_cast<float4*>(dst + q) =
-              make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
-        } else {
-          dst[q] = v[q];
+      for (int q = 0; q < VPL; q += kPiece) {
+        if (d0 + q < D) {
+          if constexpr (VEC) {
+            *reinterpret_cast<uint2*>(dst + q) =
+                stm::narrow4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+          } else {
+            dst[q] = __float2bfloat16_rn(v[q]);
+          }
+        }
+      }
+    } else {
+      float* const dst = out + at + d0;
+#pragma unroll
+      for (int q = 0; q < VPL; q += kPiece) {
+        if (d0 + q < D) {
+          if constexpr (VEC) {
+            *reinterpret_cast<float4*>(dst + q) =
+                make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+          } else {
+            dst[q] = v[q];
+          }
         }
       }
     }
@@ -418,18 +510,21 @@ __device__ void ring_path(const float* __restrict__ cost,
 // are launched with kNoCarry.  Separate names keep their launches apart in
 // a profile.
 #define STM_SGM_KERNEL(name)                                                \
-  template <int VPL, bool VEC, bool ACC>                                    \
-  __global__ void name(const float* __restrict__ cost,                      \
+  template <typename T, int VPL, bool VEC, bool ACC, bool FINAL>            \
+  __global__ void name(const T* __restrict__ cost,                          \
                        const float* __restrict__ image,                     \
-                       float* __restrict__ out, int H, int W, int D,        \
-                       int dy, int dx, float p1, float p2, Carry carry) {   \
+                       float* __restrict__ out,                             \
+                       __nv_bfloat16* __restrict__ result, int H, int W,    \
+                       int D, int dy, int dx, float p1, float p2,           \
+                       Carry carry) {                                       \
     extern __shared__ __align__(16) float ring[];                          \
     const int warp = threadIdx.x >> 5;                                      \
     const int path = blockIdx.x * kRingWarpsPerBlock + warp;                \
     if (path >= path_count(H, W, dy, dx)) return; /* whole warp leaves */  \
-    ring_path<VPL, VEC, ACC>(cost, image, out, H, W, D, dy, dx, p1, p2,     \
-                             path, carry,                                   \
-                             ring + warp * kRingFloats<VPL, ACC>);          \
+    ring_path<T, VPL, VEC, ACC, FINAL>(                                     \
+        cost, image, out, result, H, W, D, dy, dx, p1, p2, path, carry,     \
+        reinterpret_cast<unsigned char*>(ring) +                            \
+            warp * kRingBytes<T, VPL, VEC, ACC>);                           \
   }
 STM_SGM_KERNEL(sgm_rows_kernel)        // dy = +-1, the whole image
 STM_SGM_KERNEL(sgm_horizontal_kernel)  // dy = 0
@@ -438,25 +533,34 @@ STM_SGM_KERNEL(sgm_chunk_kernel)       // dy = +-1, a chunk of rows
 
 enum class Kind { kRows, kHorizontal, kChunk };
 
-// One launch: the shape and penalties of the traversal, and its carry.
+// One launch: the shape and penalties of the traversal, its carry, and
+// (a bf16 volume's last traversal) the result it rounds into.
 struct Launch {
-  const float* cost;
+  const void* cost;
   const float* image;
   float* out;
+  __nv_bfloat16* result;
   int H, W, D, dy, dx;
   float p1, p2;
   Carry carry;
 };
 
-template <int VPL, bool VEC, bool ACC>
+template <typename T, int VPL, bool VEC, bool ACC, bool FINAL>
 int launch_kernel(Kind kind, const Launch& a, cudaStream_t stream) {
-  decltype(&sgm_rows_kernel<VPL, VEC, ACC>) kernel =
-      kind == Kind::kRows         ? &sgm_rows_kernel<VPL, VEC, ACC>
-      : kind == Kind::kHorizontal ? &sgm_horizontal_kernel<VPL, VEC, ACC>
-                                  : &sgm_chunk_kernel<VPL, VEC, ACC>;
-  constexpr size_t kSmem =
-      static_cast<size_t>(kRingWarpsPerBlock) * kRingFloats<VPL, ACC> *
-      sizeof(float);
+  using Kernel = decltype(&sgm_rows_kernel<T, VPL, VEC, ACC, FINAL>);
+  Kernel kernel;
+  if constexpr (FINAL) {  // a horizontal traversal is never the last
+    kernel = kind == Kind::kRows ? &sgm_rows_kernel<T, VPL, VEC, ACC, FINAL>
+                                 : &sgm_chunk_kernel<T, VPL, VEC, ACC, FINAL>;
+  } else {
+    kernel = kind == Kind::kRows
+                 ? &sgm_rows_kernel<T, VPL, VEC, ACC, FINAL>
+             : kind == Kind::kHorizontal
+                 ? &sgm_horizontal_kernel<T, VPL, VEC, ACC, FINAL>
+                 : &sgm_chunk_kernel<T, VPL, VEC, ACC, FINAL>;
+  }
+  constexpr size_t kSmem = static_cast<size_t>(kRingWarpsPerBlock) *
+                           kRingBytes<T, VPL, VEC, ACC>;
   if constexpr (kSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -466,84 +570,79 @@ int launch_kernel(Kind kind, const Launch& a, cudaStream_t stream) {
   const int paths = path_count(a.H, a.W, a.dy, a.dx);
   const int blocks = (paths + kRingWarpsPerBlock - 1) / kRingWarpsPerBlock;
   kernel<<<blocks, 32 * kRingWarpsPerBlock, kSmem, stream>>>(
-      a.cost, a.image, a.out, a.H, a.W, a.D, a.dy, a.dx, a.p1, a.p2,
-      a.carry);
+      static_cast<const T*>(a.cost), a.image, a.out, a.result, a.H, a.W, a.D,
+      a.dy, a.dx, a.p1, a.p2, a.carry);
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-byte pieces where the shape and the pointers allow them.
-template <int VPL, bool ACC>
-int launch_vec(Kind kind, const Launch& a, cudaStream_t stream) {
-  if constexpr (VPL % 4 == 0) {
-    if (a.D % 4 == 0 &&
-        reinterpret_cast<std::uintptr_t>(a.cost) % 16 == 0 &&
-        reinterpret_cast<std::uintptr_t>(a.out) % 16 == 0) {
-      return launch_kernel<VPL, true, ACC>(kind, a, stream);
-    }
-  }
-  return launch_kernel<VPL, false, ACC>(kind, a, stream);
+bool aligned(const void* p, std::uintptr_t bytes) {
+  return reinterpret_cast<std::uintptr_t>(p) % bytes == 0;
 }
 
-template <int VPL>
+// 16-byte pieces where the shape and the pointers allow them.
+template <typename T, int VPL, bool ACC, bool FINAL>
+int launch_vec(Kind kind, const Launch& a, cudaStream_t stream) {
+  if constexpr (VPL % 4 == 0) {
+    if (a.D % (kIsF32<T> ? 4 : 8) == 0 && aligned(a.out, 16) &&
+        aligned(a.cost, 16) && (!FINAL || aligned(a.result, 8))) {
+      return launch_kernel<T, VPL, true, ACC, FINAL>(kind, a, stream);
+    }
+  }
+  return launch_kernel<T, VPL, false, ACC, FINAL>(kind, a, stream);
+}
+
+template <typename T, int VPL>
 int launch_ring(Kind kind, const Launch& a, bool accumulate,
                 cudaStream_t stream) {
-  return accumulate ? launch_vec<VPL, true>(kind, a, stream)
-                    : launch_vec<VPL, false>(kind, a, stream);
+  if constexpr (!kIsF32<T>) {
+    if (a.result != nullptr) {
+      return launch_vec<T, VPL, true, true>(kind, a, stream);
+    }
+  }
+  return accumulate ? launch_vec<T, VPL, true, false>(kind, a, stream)
+                    : launch_vec<T, VPL, false, false>(kind, a, stream);
 }
 
 // Rows and chunks: dy = +-1, dx in {-1, 0, 1}; horizontal: dy == 0,
-// |dx| == 1.
+// |dx| == 1.  A result (bf16 volumes only) needs an accumulating rows or
+// chunk launch.
+template <typename T>
 int dispatch(Kind kind, const void* cost, const void* image, void* out,
-             int H, int W, int D, int dy, int dx, float p1, float p2,
-             int accumulate, Carry carry, void* stream) {
+             void* result, int H, int W, int D, int dy, int dx, float p1,
+             float p2, int accumulate, Carry carry, void* stream) {
   const bool ok = kind == Kind::kHorizontal
                       ? dy == 0 && (dx == 1 || dx == -1)
                       : (dy == 1 || dy == -1) && dx >= -1 && dx <= 1;
-  if (!ok || D < 1 || D > 32 * 16 || H < 1 || W < 1) {
+  const bool final_ok =
+      result == nullptr ||
+      (!kIsF32<T> && accumulate != 0 && kind != Kind::kHorizontal);
+  if (!ok || !final_ok || D < 1 || D > 32 * 16 || H < 1 || W < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Launch a{static_cast<const float*>(cost),
+  const Launch a{cost,
                  static_cast<const float*>(image),
                  static_cast<float*>(out),
+                 static_cast<__nv_bfloat16*>(result),
                  H, W, D, dy, dx, p1, p2, carry};
   const auto s = static_cast<cudaStream_t>(stream);
   const bool acc = accumulate != 0;
-  if (D <= 32) return launch_ring<1>(kind, a, acc, s);
-  if (D <= 64) return launch_ring<2>(kind, a, acc, s);
-  if (D <= 128) return launch_ring<4>(kind, a, acc, s);
-  if (D <= 256) return launch_ring<8>(kind, a, acc, s);
-  return launch_ring<16>(kind, a, acc, s);
-}
-
-}  // namespace
-
-// One traversal of the vertical or a diagonal family (step dy = +-1).
-extern "C" int stm_sgm_rows_f32(const void* cost, const void* image,
-                                void* out, int H, int W, int D, int dy,
-                                int dx, float p1, float p2, int accumulate,
-                                void* stream) {
-  return dispatch(Kind::kRows, cost, image, out, H, W, D, dy, dx, p1, p2,
-                  accumulate, kNoCarry, stream);
-}
-
-// One traversal of the horizontal family (step dy = 0, dx = +-1).
-extern "C" int stm_sgm_horizontal_f32(const void* cost, const void* image,
-                                      void* out, int H, int W, int D, int dy,
-                                      int dx, float p1, float p2,
-                                      int accumulate, void* stream) {
-  return dispatch(Kind::kHorizontal, cost, image, out, H, W, D, dy, dx, p1,
-                  p2, accumulate, kNoCarry, stream);
+  if (D <= 32) return launch_ring<T, 1>(kind, a, acc, s);
+  if (D <= 64) return launch_ring<T, 2>(kind, a, acc, s);
+  if (D <= 128) return launch_ring<T, 4>(kind, a, acc, s);
+  if (D <= 256) return launch_ring<T, 8>(kind, a, acc, s);
+  return launch_ring<T, 16>(kind, a, acc, s);
 }
 
 // One row traversal (dy = +-1) over a chunk of H rows with carry hand-off:
 // carry [W, D] and carry_image [W] belong to the row before the chunk in
 // scan order (ignored, and may be null, when seed is set); carry_out
 // [W, D] receives the path costs of the chunk's last row in scan order.
-extern "C" int stm_sgm_chunk_f32(const void* cost, const void* image,
-                                 const void* carry, const void* carry_image,
-                                 void* out, void* carry_out, int H, int W,
-                                 int D, int dy, int dx, float p1, float p2,
-                                 int seed, int accumulate, void* stream) {
+template <typename T>
+int dispatch_chunk(const void* cost, const void* image, const void* carry,
+                   const void* carry_image, void* out, void* result,
+                   void* carry_out, int H, int W, int D, int dy, int dx,
+                   float p1, float p2, int seed, int accumulate,
+                   void* stream) {
   // A chunk that does not seed needs the incoming carry.
   if (carry_out == nullptr ||
       (seed == 0 && (carry == nullptr || carry_image == nullptr))) {
@@ -552,6 +651,78 @@ extern "C" int stm_sgm_chunk_f32(const void* cost, const void* image,
   const Carry hand_off{static_cast<const float*>(carry),
                        static_cast<const float*>(carry_image),
                        static_cast<float*>(carry_out), seed != 0};
-  return dispatch(Kind::kChunk, cost, image, out, H, W, D, dy, dx, p1, p2,
-                  accumulate, hand_off, stream);
+  return dispatch<T>(Kind::kChunk, cost, image, out, result, H, W, D, dy, dx,
+                     p1, p2, accumulate, hand_off, stream);
+}
+
+}  // namespace
+
+// The float32 entry points: cost, out and carries float32.
+
+// One traversal of the vertical or a diagonal family (step dy = +-1).
+extern "C" int stm_sgm_rows_f32(const void* cost, const void* image,
+                                void* out, int H, int W, int D, int dy,
+                                int dx, float p1, float p2, int accumulate,
+                                void* stream) {
+  return dispatch<float>(Kind::kRows, cost, image, out, nullptr, H, W, D, dy,
+                         dx, p1, p2, accumulate, kNoCarry, stream);
+}
+
+// One traversal of the horizontal family (step dy = 0, dx = +-1).
+extern "C" int stm_sgm_horizontal_f32(const void* cost, const void* image,
+                                      void* out, int H, int W, int D, int dy,
+                                      int dx, float p1, float p2,
+                                      int accumulate, void* stream) {
+  return dispatch<float>(Kind::kHorizontal, cost, image, out, nullptr, H, W,
+                         D, dy, dx, p1, p2, accumulate, kNoCarry, stream);
+}
+
+// One row traversal over a chunk of rows with carry hand-off
+// (dispatch_chunk).
+extern "C" int stm_sgm_chunk_f32(const void* cost, const void* image,
+                                 const void* carry, const void* carry_image,
+                                 void* out, void* carry_out, int H, int W,
+                                 int D, int dy, int dx, float p1, float p2,
+                                 int seed, int accumulate, void* stream) {
+  return dispatch_chunk<float>(cost, image, carry, carry_image, out, nullptr,
+                               carry_out, H, W, D, dy, dx, p1, p2, seed,
+                               accumulate, stream);
+}
+
+// The bf16-volume entry points: the cost volume bf16, out (the partial
+// sum) and the carries float32.  A launch given a result (the last
+// traversal) reads out, adds its path costs and stores the sums rounded to
+// bf16 into result instead of out; it must accumulate, and a horizontal
+// traversal takes none.  result may be null.
+// One traversal of the vertical or a diagonal family (step dy = +-1).
+extern "C" int stm_sgm_rows_bf16(const void* cost, const void* image,
+                                 void* out, void* result, int H, int W,
+                                 int D, int dy, int dx, float p1, float p2,
+                                 int accumulate, void* stream) {
+  return dispatch<__nv_bfloat16>(Kind::kRows, cost, image, out, result, H, W,
+                                 D, dy, dx, p1, p2, accumulate, kNoCarry,
+                                 stream);
+}
+
+// One traversal of the horizontal family (step dy = 0, dx = +-1).
+extern "C" int stm_sgm_horizontal_bf16(const void* cost, const void* image,
+                                       void* out, int H, int W, int D,
+                                       int dy, int dx, float p1, float p2,
+                                       int accumulate, void* stream) {
+  return dispatch<__nv_bfloat16>(Kind::kHorizontal, cost, image, out,
+                                 nullptr, H, W, D, dy, dx, p1, p2,
+                                 accumulate, kNoCarry, stream);
+}
+
+// One row traversal over a chunk of rows with carry hand-off
+// (dispatch_chunk); the carries stay float32.
+extern "C" int stm_sgm_chunk_bf16(const void* cost, const void* image,
+                                  const void* carry, const void* carry_image,
+                                  void* out, void* result, void* carry_out,
+                                  int H, int W, int D, int dy, int dx,
+                                  float p1, float p2, int seed,
+                                  int accumulate, void* stream) {
+  return dispatch_chunk<__nv_bfloat16>(cost, image, carry, carry_image, out,
+                                       result, carry_out, H, W, D, dy, dx,
+                                       p1, p2, seed, accumulate, stream);
 }

@@ -23,6 +23,7 @@ division).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -46,30 +47,49 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+_SSD = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+_SGM = (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P)
+_DP_FORWARD = (_P, _P, _P, _I, _I, _I, _P)
+_CVF_STATS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+              _P)
+_CVF_FILTER = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+
 # C entry points of csrc/*.cu and their argument types.  Every one
-# returns the cudaError_t of its launch (0 = success).
+# returns the cudaError_t of its launch (0 = success).  The _bf16 entries
+# take bf16 cost volumes (SSD and the CVF filter: store one).
 _SIGNATURES = {
     # (left, right, out, H, W, D, k, absolute, stream)
-    "stm_ssd_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "stm_ssd_i32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "stm_ssd_f32": _SSD,
+    "stm_ssd_i32": _SSD,
+    "stm_ssd_bf16": _SSD,
     # (cost, image, out, H, W, D, dy, dx, p1, p2, accumulate, stream)
-    "stm_sgm_rows_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P),
-    "stm_sgm_horizontal_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
-                               _P),
+    "stm_sgm_rows_f32": _SGM,
+    "stm_sgm_horizontal_f32": _SGM,
+    "stm_sgm_horizontal_bf16": _SGM,
+    # (cost, image, out, result, H, W, D, dy, dx, p1, p2, accumulate,
+    #  stream)
+    "stm_sgm_rows_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+                          _P),
     # (cost, image, carry, carry_image, out, carry_out, H, W, D, dy, dx,
     #  p1, p2, seed, accumulate, stream)
     "stm_sgm_chunk_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                           _I, _I, _P),
+    # (cost, image, carry, carry_image, out, result, carry_out, H, W, D,
+    #  dy, dx, p1, p2, seed, accumulate, stream)
+    "stm_sgm_chunk_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _F, _F, _I, _I, _P),
     # (cost, ptr, final_costs, H, W, D, stream)
-    "stm_dp_forward_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "stm_dp_forward_f32": _DP_FORWARD,
+    "stm_dp_forward_bf16": _DP_FORWARD,
     # (ptr, final_costs, disp, H, W, D, stream)
     "stm_dp_backward": (_P, _P, _P, _I, _I, _I, _P),
     # (vol, guide, hi1, lo1, hi2, lo2, pd1, pd2, a0, b0, H, W, D, r, off,
     #  eps, stream)
-    "stm_cvf_stats_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _F, _P),
+    "stm_cvf_stats_f32": _CVF_STATS,
+    "stm_cvf_stats_bf16": _CVF_STATS,
     # (a0, b0, guide, q, H, W, D, r, off, stream)
-    "stm_cvf_filter_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "stm_cvf_filter_f32": _CVF_FILTER,
+    "stm_cvf_filter_bf16": _CVF_FILTER,
 }
 
 
@@ -80,6 +100,11 @@ class BuildResult(NamedTuple):
 
 
 _LIB: Optional[ctypes.CDLL] = None
+
+# Launches of each C entry point (keyed by its name, e.g.
+# "stm_sgm_rows_bf16"), counted by check_launch: a run can show which
+# kernels, and which dtype's instantiations, it went through.
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def _sources():
@@ -162,7 +187,9 @@ def library() -> ctypes.CDLL:
 
 
 def check_launch(name: str, status: int) -> None:
-    """Raise if a C entry point reported a CUDA error for its launch."""
+    """Raise if a C entry point reported a CUDA error for its launch, else
+    count the launch in ``LAUNCHES[name]``."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{status}")
+    LAUNCHES[name] += 1

@@ -23,6 +23,12 @@ XLA's ``reduce_window`` takes on the CPU, so these volumes equal the JAX
 oracle's bit for bit; the CUDA kernel keeps the same order.  No
 cumulative sum (its cancellation changes the values) and no
 convolution (cuDNN's default TF32 truncates the mantissa).
+
+A bfloat16 volume takes the float32 chain and rounds each cost once to
+nearest even as it is cast (``+inf`` stays ``+inf``), where XLA's
+``astype`` rounds it (``stereomatch_tpu/ops/cost.py:189,269``); images of
+any accepted dtype, bf16 included, are widened to the compute dtype
+first.
 """
 
 from __future__ import annotations
@@ -208,11 +214,14 @@ def census_hamming_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
     w_idx = torch.arange(left.shape[1], device=left.device)[:, None]
     d_idx = torch.arange(max_disparity, device=left.device)[None, :]
     valid = (w_idx >= d_idx)[None]
-    cdt = compute_dtype(cost_dtype)
     cost = torch.where(valid, ham, torch.zeros((), dtype=ham.dtype,
-                                               device=left.device)).to(cdt)
+                                               device=left.device))
     if kernel_size > 1:
-        cost = _box_sum(cost, kernel_size, axes=(0, 1))
+        cost = _box_sum(cost.to(compute_dtype(cost_dtype)), kernel_size,
+                        axes=(0, 1))
+    # Pixelwise distances go to the cost dtype in one cast: they are
+    # integers of at most 32 bits a word, exact in float32, so rounding
+    # them straight to bf16 equals XLA's cast through float32.
     return torch.where(valid, cost.to(cost_dtype),
                        torch.tensor(_inf_value(cost_dtype), dtype=cost_dtype,
                                     device=left.device))

@@ -9,8 +9,11 @@ kernels keep the plain version's association (window-order box sums, H
 then W, and fused multiply-adds where it fuses), so ``chip_smoke.py`` and
 the card tests hold the two equal bit for bit, +inf placement included.
 
-``STATS_LAUNCHES`` and ``FILTER_LAUNCHES`` count the launches of the two
-kernels (stage 1 -> a0, b0; stage 2 -> q).
+A bf16 volume goes through the kernels' bf16 instantiations: the stats
+kernel reads it as it is and the filter kernel rounds q once to bf16 as
+it stores it; a0 and b0 stay float32.  ``_build.LAUNCHES`` counts the
+launches of each entry point of the two kernels (stage 1 -> a0, b0:
+``stm_cvf_stats_*``; stage 2 -> q: ``stm_cvf_filter_*``).
 """
 
 from __future__ import annotations
@@ -21,8 +24,7 @@ from . import _build
 from .cvf import (GuidePlanes, check_filter_args, check_volume_and_guide,
                   guide_planes)
 
-STATS_LAUNCHES = 0
-FILTER_LAUNCHES = 0
+VOLUME_DTYPES = (torch.float32, torch.bfloat16)
 
 _REFUSED = -1       # csrc/cvf.cu: no tile of the radius fits shared memory
 
@@ -31,8 +33,8 @@ def guided_filter_aggregate_cuda(cost_volume: torch.Tensor,
                                  guide: torch.Tensor, *, radius: int = 8,
                                  eps: float = 1e-4,
                                  wedge_offset: int = 0) -> torch.Tensor:
-    """Wedge guided filter of a float32 [H, W, D] CUDA volume: [H, W, D]
-    float32 with +inf on the wedge ``x < d + wedge_offset``."""
+    """Wedge guided filter of a float32 or bf16 [H, W, D] CUDA volume:
+    [H, W, D] in its dtype with +inf on the wedge ``x < d + wedge_offset``."""
     check_volume_and_guide(cost_volume, guide)
     check_filter_args(int(radius), float(eps), wedge_offset=wedge_offset)
     r, off = int(radius), int(wedge_offset)
@@ -47,9 +49,9 @@ def _check_cuda(cost_volume: torch.Tensor, guide: torch.Tensor) -> None:
     if cost_volume.device != guide.device:
         raise ValueError(f"tensors on two devices: {cost_volume.device}, "
                          f"{guide.device}")
-    if cost_volume.dtype != torch.float32:
-        raise TypeError("the CVF kernels take float32 volumes, got "
-                        f"{cost_volume.dtype}")
+    if cost_volume.dtype not in VOLUME_DTYPES:
+        raise TypeError("the CVF kernels take float32 or bfloat16 volumes, "
+                        f"got {cost_volume.dtype}")
 
 
 def _launch_kernels(cost_volume: torch.Tensor, planes: GuidePlanes,
@@ -57,32 +59,32 @@ def _launch_kernels(cost_volume: torch.Tensor, planes: GuidePlanes,
                     wedge_offset: int) -> torch.Tensor:
     """The stats and filter launches on precomputed guide planes
     (``guide_planes(guide, radius, wedge_offset, D)``)."""
-    global STATS_LAUNCHES, FILTER_LAUNCHES
     _check_cuda(cost_volume, planes.guide)
     height, width, max_disp = cost_volume.shape
     vol = cost_volume.contiguous()
-    a0 = torch.empty_like(vol)
-    b0 = torch.empty_like(vol)
+    a0 = torch.empty(vol.shape, dtype=torch.float32, device=vol.device)
+    b0 = torch.empty_like(a0)
     out = torch.empty_like(vol)
     if vol.numel() == 0:
         return out
+    bf16 = vol.dtype == torch.bfloat16
+    stats, filt = (f"stm_cvf_{stage}_{'bf16' if bf16 else 'f32'}"
+                   for stage in ("stats", "filter"))
     lib = _build.library()
     with torch.cuda.device(vol.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.stm_cvf_stats_f32(
+        status = getattr(lib, stats)(
             vol.data_ptr(), planes.guide.data_ptr(), planes.hi1.data_ptr(),
             planes.lo1.data_ptr(), planes.hi2.data_ptr(),
             planes.lo2.data_ptr(), planes.pd1.data_ptr(),
             planes.pd2.data_ptr(), a0.data_ptr(), b0.data_ptr(), height,
             width, max_disp, radius, wedge_offset, eps, stream)
-        _check_status("stm_cvf_stats_f32", status, radius)
-        STATS_LAUNCHES += 1
-        status = lib.stm_cvf_filter_f32(
+        _check_status(stats, status, radius)
+        status = getattr(lib, filt)(
             a0.data_ptr(), b0.data_ptr(), planes.guide.data_ptr(),
             out.data_ptr(), height, width, max_disp, radius, wedge_offset,
             stream)
-        _check_status("stm_cvf_filter_f32", status, radius)
-        FILTER_LAUNCHES += 1
+        _check_status(filt, status, radius)
     return out
 
 

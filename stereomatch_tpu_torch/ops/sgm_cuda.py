@@ -17,9 +17,15 @@ ring of asynchronous copies eight steps deep, one path per one-warp
 block; the chunk kernel adds the carry hand-off at a path's first and
 last step.
 
-``ROW_LAUNCHES``, ``HORIZONTAL_LAUNCHES`` and ``CHUNK_LAUNCHES`` count
-the launches of the three kernels, so a run can show that it went
-through them.
+A bf16 cost volume goes through the same kernels' bf16 instantiations
+(in ``csrc/sgm.cu``): they read bf16 costs, keep the recurrence, the
+carries and the partial sum ``out`` in float32, and the launch of the
+last traversal stores ``out + L`` rounded once to bf16 into a separate
+``result``, as the plain version (and XLA) round the float32 sum once.
+
+``_build.LAUNCHES`` counts the launches of each entry point
+(``stm_sgm_{rows,horizontal,chunk}_{f32,bf16}``), so a run can show that
+it went through them.
 """
 
 from __future__ import annotations
@@ -29,18 +35,28 @@ import torch
 from . import _build
 from .aggregation import TRAVERSALS
 
-ROW_LAUNCHES = 0
-HORIZONTAL_LAUNCHES = 0
-CHUNK_LAUNCHES = 0
+VOLUME_DTYPES = (torch.float32, torch.bfloat16)
 
 MAX_DISPARITY = 512         # 32 lanes x 16 registers per lane
 
 
-def _check_out(out: torch.Tensor, like: torch.Tensor, name: str) -> None:
-    if out.shape != like.shape or out.dtype != torch.float32 \
+def _check_out(out: torch.Tensor, like: torch.Tensor, name: str,
+               dtype: torch.dtype = torch.float32) -> None:
+    if out.shape != like.shape or out.dtype != dtype \
             or out.device != like.device or not out.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 tensor "
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor "
                          f"shaped {tuple(like.shape)} on {like.device}")
+
+
+def _check_result(result, out, cost, accumulate) -> None:
+    """A result (the last traversal of a bf16 volume) is a bf16 tensor
+    beside ``out``, which the launch adds onto and does not write."""
+    if result is None:
+        return
+    if cost.dtype != torch.bfloat16 or not accumulate:
+        raise ValueError("a result takes the accumulated sum of a bf16 "
+                         "volume's traversals: accumulate=True on bf16 costs")
+    _check_out(result, out, "result", torch.bfloat16)
 
 
 def _check(cost: torch.Tensor, image: torch.Tensor) -> None:
@@ -50,9 +66,9 @@ def _check(cost: torch.Tensor, image: torch.Tensor) -> None:
     if cost.device != image.device:
         raise ValueError(f"tensors on two devices: {cost.device}, "
                          f"{image.device}")
-    if cost.dtype != torch.float32 or image.dtype != torch.float32:
-        raise TypeError(f"SGM kernels take float32 tensors, got "
-                        f"{cost.dtype} and {image.dtype}")
+    if cost.dtype not in VOLUME_DTYPES or image.dtype != torch.float32:
+        raise TypeError(f"SGM kernels take float32 or bfloat16 costs and a "
+                        f"float32 image, got {cost.dtype} and {image.dtype}")
     if cost.ndim != 3 or tuple(cost.shape[:2]) != tuple(image.shape):
         raise ValueError(f"cost volume {tuple(cost.shape)} does not match "
                          f"image {tuple(image.shape)}")
@@ -65,65 +81,78 @@ def _check(cost: torch.Tensor, image: torch.Tensor) -> None:
 
 def traverse_cuda(cost: torch.Tensor, image: torch.Tensor,
                   out: torch.Tensor, step: tuple, penalty1: float,
-                  penalty2: float, accumulate: bool) -> None:
+                  penalty2: float, accumulate: bool,
+                  result: torch.Tensor = None) -> None:
     """One traversal with pixel step ``step`` = (dy, dx): writes its path
-    costs into ``out`` (``accumulate=False``) or adds them in place."""
-    global ROW_LAUNCHES, HORIZONTAL_LAUNCHES
+    costs into ``out`` (float32; ``accumulate=False``) or adds them in
+    place.  For a bf16 ``cost``, ``result`` (bf16) takes the accumulated
+    sum rounded to bf16 instead of ``out``, which is then only read: the
+    last traversal of a row family."""
     _check(cost, image)
     _check_out(out, cost, "out")
+    _check_result(result, out, cost, accumulate)
     if cost.numel() == 0:
         return
     dy, dx = step
+    bf16 = cost.dtype == torch.bfloat16
+    if dy == 0 and result is not None:
+        raise ValueError("the last traversal is a row traversal; a "
+                         "horizontal one takes no result")
     lib = _build.library()
-    if dy == 0:
-        name, fn = "stm_sgm_horizontal", lib.stm_sgm_horizontal_f32
-    else:
-        name, fn = "stm_sgm_rows", lib.stm_sgm_rows_f32
+    family = "horizontal" if dy == 0 else "rows"
+    name = f"stm_sgm_{family}_{'bf16' if bf16 else 'f32'}"
+    fn = getattr(lib, name)
+    args = [cost.data_ptr(), image.data_ptr(), out.data_ptr()]
+    if bf16 and dy != 0:
+        args.append(0 if result is None else result.data_ptr())
     height, width, max_disp = cost.shape
     with torch.cuda.device(cost.device):
-        status = fn(cost.data_ptr(), image.data_ptr(), out.data_ptr(),
-                    height, width, max_disp, dy, dx, float(penalty1),
+        status = fn(*args, height, width, max_disp, dy, dx, float(penalty1),
                     float(penalty2), int(accumulate),
                     torch.cuda.current_stream().cuda_stream)
     _build.check_launch(name, status)
-    if dy == 0:
-        HORIZONTAL_LAUNCHES += 1
-    else:
-        ROW_LAUNCHES += 1
 
 
 def semiglobal_aggregate_cuda(cost_volume: torch.Tensor,
                               left_image: torch.Tensor, *,
                               penalty1: float = 0.1,
                               penalty2: float = 0.2) -> torch.Tensor:
-    """8-direction SGM aggregation [H, W, D] float32 on the card: the
-    traversals of ``TRAVERSALS`` in order, accumulated in place."""
+    """8-direction SGM aggregation [H, W, D] on the card, in the cost's
+    dtype: the traversals of ``TRAVERSALS`` in order, accumulated in place
+    into a float32 volume; for a bf16 cost the last traversal rounds the
+    sum into the bf16 result."""
     cost = cost_volume.contiguous()
     image = left_image.to(torch.float32).contiguous()
     _check(cost, image)
-    out = torch.empty_like(cost)
+    out = torch.empty(cost.shape, dtype=torch.float32, device=cost.device)
+    result = None
+    if cost.dtype == torch.bfloat16:
+        result = torch.empty_like(cost)
+    last = len(TRAVERSALS) - 1
     for i, step in enumerate(TRAVERSALS):
         traverse_cuda(cost, image, out, step, penalty1, penalty2,
-                      accumulate=i > 0)
-    return out
+                      accumulate=i > 0, result=result if i == last else None)
+    return out if result is None else result
 
 
 def sweep_chunk_with_carry_cuda(cost: torch.Tensor, image: torch.Tensor,
                                 step: tuple, carry=None, carry_image=None, *,
                                 penalty1: float, penalty2: float, seed: bool,
                                 out: torch.Tensor = None,
-                                accumulate: bool = False):
+                                accumulate: bool = False,
+                                result: torch.Tensor = None):
     """One row traversal over a chunk of rows with carry hand-off, on the
     card: the counterpart of ``ops/aggregation.py::sweep_chunk_with_carry``
-    (same arguments and results), plus ``out``/``accumulate`` as
-    :func:`traverse_cuda` takes them: the contributions are written into
-    ``out`` (allocated when None) or added to it in place.
+    (same arguments and results), plus ``out``/``accumulate``/``result``
+    as :func:`traverse_cuda` takes them: the contributions are written
+    into ``out`` (float32, allocated when None) or added to it in place,
+    or, with ``result`` (a bf16 cost's last traversal), added to it and
+    stored rounded into ``result``.  The carries are float32.
 
-    Returns (out [Hc, W, D], (carry [W, D], intensities [W]) of the
-    chunk's last row in scan order); the intensities are a view of that
-    row of ``image``.
+    Returns (out, or result when given, [Hc, W, D], (carry [W, D],
+    intensities [W]) of the chunk's last row in scan order); the
+    intensities are a view of that row of ``image``.
     """
-    global CHUNK_LAUNCHES
     _check(cost, image)
     dy, dx = step
     if dy not in (1, -1) or dx not in (-1, 0, 1):
@@ -135,28 +164,36 @@ def sweep_chunk_with_carry_cuda(cost: torch.Tensor, image: torch.Tensor,
                              "intensities of the row before it")
         _check(carry[None], carry_image[None])
         if tuple(carry.shape) != (width, max_disp) \
-                or carry.device != cost.device:
-            raise ValueError(f"carry {tuple(carry.shape)} on {carry.device} "
-                             f"does not match the chunk's [W, D] = "
-                             f"{(width, max_disp)} on {cost.device}")
+                or carry.device != cost.device \
+                or carry.dtype != torch.float32:
+            raise ValueError(f"carry {carry.dtype} {tuple(carry.shape)} on "
+                             f"{carry.device} is not the chunk's float32 "
+                             f"[W, D] = {(width, max_disp)} on {cost.device}")
     if out is None:
         if accumulate:
             raise ValueError("accumulate=True needs an out to add to")
-        out = torch.empty_like(cost)
+        out = torch.empty(cost.shape, dtype=torch.float32,
+                          device=cost.device)
     _check_out(out, cost, "out")
+    _check_result(result, out, cost, accumulate)
     carry_out = torch.empty((width, max_disp), dtype=torch.float32,
                             device=cost.device)
     last = image[height - 1 if dy > 0 else 0]
+    done = out if result is None else result
     if cost.numel() == 0:
-        return out, (carry_out, last)
+        return done, (carry_out, last)
+    bf16 = cost.dtype == torch.bfloat16
+    name = f"stm_sgm_chunk_{'bf16' if bf16 else 'f32'}"
+    args = [out.data_ptr()]
+    if bf16:
+        args.append(0 if result is None else result.data_ptr())
     carry_ptr = 0 if seed else carry.data_ptr()
     image_ptr = 0 if seed else carry_image.data_ptr()
     with torch.cuda.device(cost.device):
-        status = _build.library().stm_sgm_chunk_f32(
-            cost.data_ptr(), image.data_ptr(), carry_ptr, image_ptr,
-            out.data_ptr(), carry_out.data_ptr(), height, width, max_disp,
-            dy, dx, float(penalty1), float(penalty2), int(seed),
-            int(accumulate), torch.cuda.current_stream().cuda_stream)
-    _build.check_launch("stm_sgm_chunk", status)
-    CHUNK_LAUNCHES += 1
-    return out, (carry_out, last)
+        status = getattr(_build.library(), name)(
+            cost.data_ptr(), image.data_ptr(), carry_ptr, image_ptr, *args,
+            carry_out.data_ptr(), height, width, max_disp, dy, dx,
+            float(penalty1), float(penalty2), int(seed), int(accumulate),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(name, status)
+    return done, (carry_out, last)

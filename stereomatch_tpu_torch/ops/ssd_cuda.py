@@ -9,8 +9,10 @@ The launcher takes CUDA tensors only: it checks device, dtype and shape,
 allocates the output with ``torch.empty``, launches on the current
 stream and raises if the launch failed.  A ``kernel_size`` whose tile
 fits no block's shared memory is refused with a ``ValueError`` before any
-launch.  ``LAUNCHES`` counts its
-launches, so a run can show that it went through the kernel.
+launch.  A bf16 volume is the float32 chain with each output rounded once
+as it is stored (``stm_ssd_bf16``), as the plain version rounds it.
+``_build.LAUNCHES`` counts the launches of each entry point, so a run can
+show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 from . import _build
 from .cost import compute_dtype
 
-LAUNCHES = 0
+_ENTRIES = {torch.float32: "stm_ssd_f32", torch.int32: "stm_ssd_i32",
+            torch.bfloat16: "stm_ssd_bf16"}
 
 _REFUSED = -1               # csrc/ssd.cu: no tile of the k fits shared memory
 
@@ -32,7 +35,6 @@ def diff_cost_volume_cuda(left: torch.Tensor, right: torch.Tensor, *,
                           cost_dtype: torch.dtype,
                           absolute: bool) -> torch.Tensor:
     """SSD (``absolute=False``) or SAD cost volume [H, W, D] on the card."""
-    global LAUNCHES
     if not (left.is_cuda and right.is_cuda):
         raise ValueError("diff_cost_volume_cuda needs CUDA tensors, got "
                          f"{left.device} and {right.device}")
@@ -42,9 +44,9 @@ def diff_cost_volume_cuda(left: torch.Tensor, right: torch.Tensor, *,
     if left.ndim != 2 or left.shape != right.shape:
         raise ValueError("images must be two [H, W] tensors of one shape, "
                          f"got {tuple(left.shape)} and {tuple(right.shape)}")
-    if cost_dtype not in (torch.float32, torch.int32):
-        raise TypeError(f"cost_dtype must be float32 or int32, got "
-                        f"{cost_dtype}")
+    if cost_dtype not in _ENTRIES:
+        raise TypeError(f"cost_dtype must be float32, bfloat16 or int32, "
+                        f"got {cost_dtype}")
     if max_disparity < 1 or kernel_size < 1:
         raise ValueError("max_disparity and kernel_size must be positive")
     height, width = left.shape
@@ -58,17 +60,16 @@ def diff_cost_volume_cuda(left: torch.Tensor, right: torch.Tensor, *,
                       device=left.device)
     if out.numel() == 0:
         return out
-    lib = _build.library()
-    fn = lib.stm_ssd_f32 if cdt == torch.float32 else lib.stm_ssd_i32
+    name = _ENTRIES[cost_dtype]
+    fn = getattr(_build.library(), name)
     with torch.cuda.device(left.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(left_c.data_ptr(), right_c.data_ptr(), out.data_ptr(),
                     height, width, max_disparity, kernel_size,
                     int(absolute), stream)
     if status == _REFUSED:
-        raise ValueError(f"stm_ssd: kernel_size {kernel_size} needs more "
+        raise ValueError(f"{name}: kernel_size {kernel_size} needs more "
                          "shared memory than one block has, even at the "
                          "smallest tile")
-    _build.check_launch("stm_ssd", status)
-    LAUNCHES += 1
+    _build.check_launch(name, status)
     return out

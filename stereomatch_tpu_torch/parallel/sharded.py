@@ -44,8 +44,14 @@ JAX package asserts the two give identical outputs.
 Refused with ``NotImplementedError`` naming the ROADMAP item, never
 substituted: ``sgm_mode="auto"`` (it resolves from the TPU's ICI model),
 ``aggregation="cvf"`` (A.9), the costs "birchfield", "ncc" and
-"ssd-texture" (A.8), bf16 volumes (A.7) and every post-processing flag
-(A.10).
+"ssd-texture" (A.8) and every post-processing flag (A.10).
+
+bf16 volumes (``cost_dtype="bfloat16"``): each tile's cost volume is
+bf16, the image halos float32; the kernels read the bf16 tiles, the
+partial sums and the carries stay float32, and each tile's sum is
+rounded to bf16 once, after its last traversal (exact mode: inside the
+chunk kernel's last launch; overlap mode: as the partial sum is cast),
+so the result equals the single-device bf16 aggregation bit for bit.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from ..disparity_reduce import DynamicProgramming
 from ..ops import sgm_cuda
 from ..ops.aggregation import TRAVERSALS, sweep, sweep_chunk_with_carry
 from ..ops.disparity import winner_takes_all
+from ..pipeline import tensor_from_numpy
 from ..utils import profiling, validation
 from ..utils.backend import resolve_backend
 from . import halo
@@ -67,7 +74,8 @@ from .mesh import BATCH_AXIS, TILE_AXIS, Mesh
 
 _COSTS = ("ssd", "sad", "census")
 _REDUCERS = ("wta", "dynamic_programming")
-_DTYPES = {"float32": torch.float32, "int32": torch.int32}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int32": torch.int32}
 _NOT_PORTED_COSTS = ("birchfield", "ncc", "ssd-texture")
 
 
@@ -78,13 +86,12 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _cost_dtype(dtype) -> torch.dtype:
-    """A torch, numpy or JAX dtype (or its name) -> torch.float32 / int32."""
+    """A torch, numpy or JAX dtype (or its name) -> torch.float32 /
+    bfloat16 / int32."""
     name = validation.dtype_name(dtype)
-    if name == "bfloat16":
-        raise _not_ported("bfloat16 volume storage", "A.7")
     if name not in _DTYPES:
-        raise ValueError(f"unknown cost dtype {dtype!r}; expected float32 or "
-                         "int32")
+        raise ValueError(f"unknown cost dtype {dtype!r}; expected float32, "
+                         "bfloat16 or int32")
     return _DTYPES[name]
 
 
@@ -120,19 +127,21 @@ def _accumulate(out: Optional[torch.Tensor],
 
 
 def _whole_traversal(vol, img, out, step, p1, p2, on_card):
-    """One traversal of a whole block, added to ``out`` (None: the
-    first)."""
+    """One traversal of a whole block, added to ``out`` (float32; None:
+    the first)."""
     if not on_card:
         return _accumulate(out, sweep(vol, img, p1, p2, step))
     first = out is None
-    out = torch.empty_like(vol) if first else out
+    if first:
+        out = torch.empty(vol.shape, dtype=torch.float32, device=vol.device)
     sgm_cuda.traverse_cuda(vol, img, out, step, p1, p2, accumulate=not first)
     return out
 
 
-def _exact_traversal(vols, imgs, outs, step, p1, p2, on_card):
+def _exact_traversal(vols, imgs, outs, step, p1, p2, on_card, last):
     """One row traversal over every tile in scan order, each continuing
-    from its predecessor's carry."""
+    from its predecessor's carry.  ``last``: the final traversal, whose
+    chunk launches round a bf16 tile's sum into its bf16 result."""
     order = range(len(vols)) if step[0] > 0 else range(len(vols) - 1, -1, -1)
     carry = (None, None)
     for rank, t in enumerate(order):
@@ -140,9 +149,12 @@ def _exact_traversal(vols, imgs, outs, step, p1, p2, on_card):
         carry = tuple(c if c is None else c.to(device) for c in carry)
         kw = dict(penalty1=p1, penalty2=p2, seed=rank == 0)
         if on_card:
+            result = None
+            if last and vols[t].dtype == torch.bfloat16:
+                result = torch.empty_like(vols[t])
             outs[t], carry = sgm_cuda.sweep_chunk_with_carry_cuda(
                 vols[t], imgs[t], step, *carry, out=outs[t],
-                accumulate=outs[t] is not None, **kw)
+                accumulate=outs[t] is not None, result=result, **kw)
         else:
             part, carry = sweep_chunk_with_carry(vols[t], imgs[t], step,
                                                  *carry, **kw)
@@ -166,7 +178,8 @@ def _overlap_traversal(vols, imgs, outs, step, p1, p2, on_card, overlap):
         vol_x, img_x = torch.cat(vol_parts), torch.cat(img_parts)
         rows = slice(start, start + vols[t].shape[0])
         if on_card:
-            ext = torch.empty_like(vol_x)
+            ext = torch.empty(vol_x.shape, dtype=torch.float32,
+                              device=vol_x.device)
             sgm_cuda.traverse_cuda(vol_x, img_x, ext, step, p1, p2,
                                    accumulate=False)
             part = ext[rows]
@@ -183,9 +196,10 @@ def sharded_semiglobal(vols: Sequence[torch.Tensor],
                        backend: str = "auto") -> List[torch.Tensor]:
     """8-direction SGM over one frame's row tiles.
 
-    ``vols``: float32 [Hl, W, D] blocks in tile order, each on its tile's
-    device; ``imgs``: the [Hl, W] left-image blocks beside them.  Returns
-    the aggregated blocks.  ``mode="exact"`` equals
+    ``vols``: float32 or bf16 [Hl, W, D] blocks in tile order, each on its
+    tile's device; ``imgs``: the [Hl, W] left-image blocks beside them.
+    Returns the aggregated blocks in the volumes' dtype (bf16: summed in
+    float32, rounded once per tile).  ``mode="exact"`` equals
     ``ops.aggregation.semiglobal_aggregate`` of the whole volume bit for
     bit; so does ``"overlap"`` when ``overlap`` covers every predecessor
     ((n_tiles - 1) * Hl rows).  ``backend`` as ``aggregation.Semiglobal``
@@ -196,21 +210,26 @@ def sharded_semiglobal(vols: Sequence[torch.Tensor],
         raise ValueError(f"unknown SGM sharding mode: {mode!r}")
     p1, p2 = float(penalty1), float(penalty2)
     on_card = resolve_backend(backend, vols[0]) == "cuda"
-    vols = [v.to(torch.float32).contiguous() for v in vols]
+    dtype = torch.bfloat16 if vols[0].dtype == torch.bfloat16 \
+        else torch.float32
+    vols = [v.to(dtype).contiguous() for v in vols]
     imgs = [i.to(torch.float32).contiguous() for i in imgs]
     overlap = _effective_overlap(overlap, vols[0].shape[0], len(vols))
     outs = [None] * len(vols)
-    for step in TRAVERSALS:
+    for i, step in enumerate(TRAVERSALS):
         if step[0] == 0:                         # horizontal: tile-local
             for t, (vol, img) in enumerate(zip(vols, imgs)):
                 outs[t] = _whole_traversal(vol, img, outs[t], step, p1, p2,
                                            on_card)
         elif mode == "exact":
-            _exact_traversal(vols, imgs, outs, step, p1, p2, on_card)
+            _exact_traversal(vols, imgs, outs, step, p1, p2, on_card,
+                             last=i == len(TRAVERSALS) - 1)
         else:
             _overlap_traversal(vols, imgs, outs, step, p1, p2, on_card,
                                overlap)
-    return outs
+    # The one rounding of a bf16 tile's float32 sum, where the chunk
+    # kernel did not already store it rounded (overlap mode, the CPU).
+    return [o.to(dtype) for o in outs]
 
 
 # --------------------------------------------------------------------------
@@ -218,8 +237,10 @@ def sharded_semiglobal(vols: Sequence[torch.Tensor],
 # --------------------------------------------------------------------------
 
 def _as_frames(images) -> torch.Tensor:
+    """Image stacks as float32 tensors: the halo rows cross as float32,
+    whatever the volumes' dtype."""
     if isinstance(images, np.ndarray):
-        images = torch.from_numpy(np.array(images, order="C"))
+        images = tensor_from_numpy(images)
     return images.to(torch.float32)
 
 

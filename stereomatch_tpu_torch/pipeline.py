@@ -21,13 +21,23 @@ Image = Union[torch.Tensor, np.ndarray]
 Device = Union[str, torch.device, None]
 
 
+def tensor_from_numpy(array: np.ndarray) -> torch.Tensor:
+    """A tensor holding a copy of ``array`` (it may be read-only, a
+    tensor never is).  A bfloat16 array (``ml_dtypes.bfloat16``, as JAX
+    gives it), which ``torch.from_numpy`` refuses, crosses as its 16-bit
+    patterns and is viewed as ``torch.bfloat16``: the same values."""
+    array = np.array(array, order="C")
+    if array.dtype.name == "bfloat16":
+        return torch.from_numpy(array.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(array)
+
+
 def _as_image_tensor(image: Image, device: Device) -> torch.Tensor:
-    """A tensor on ``device``, numpy array or tensor alike.  A numpy array
-    is copied: it may be read-only, a tensor never is.  ``"cuda"`` on a
-    machine without a GPU raises, as ``Tensor.to`` does: there is no
+    """A tensor on ``device``, numpy array or tensor alike.  ``"cuda"`` on
+    a machine without a GPU raises, as ``Tensor.to`` does: there is no
     fallback to the CPU."""
     if isinstance(image, np.ndarray):
-        image = torch.from_numpy(np.array(image, order="C"))
+        image = tensor_from_numpy(image)
     return image.to(device)
 
 

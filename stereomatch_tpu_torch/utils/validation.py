@@ -13,10 +13,12 @@ import numpy as np
 import torch
 
 # Input images: the reference's STM_DISPATCH_COSTFUNC_TYPES set
-# (uint8 / int16 / float32).  bfloat16 joins with bf16 volume storage.
-IMAGE_DTYPES = (torch.uint8, torch.int16, torch.float32)
-# Cost volumes (reference: int32 / float32).
-COST_DTYPES = (torch.int32, torch.float32)
+# (uint8 / int16 / float32) plus bfloat16, as the JAX package takes them;
+# every cost widens its images to its compute dtype first.
+IMAGE_DTYPES = (torch.uint8, torch.int16, torch.float32, torch.bfloat16)
+# Cost volumes (reference: int32 / float32; bfloat16 stores a float
+# volume in half the bytes, its arithmetic staying float32).
+COST_DTYPES = (torch.int32, torch.float32, torch.bfloat16)
 
 
 class ShapeError(ValueError):

@@ -127,3 +127,41 @@ def test_dp_backward_design_floor_ms(tag, floor_ms):
 def test_dp_window_bytes(d, sectors):
     """A window is 129 bytes: at most 5 sectors, at most the column's."""
     assert chip_smoke.dp_window_bytes(d) == 32 * sectors
+
+
+@pytest.mark.parametrize("tag", GEOMETRIES)
+def test_bf16_bytes_halve_the_stored_volumes(tag):
+    """bf16 storage (volume_bytes=2) halves each stored cost or aggregated
+    volume and keeps the float32 partial sums, carries, a0 and b0: the
+    function of sgm_rows reads a bf16 cost and writes a bf16 result, its
+    launches read cost, partial and write the partial five times and the
+    result once; the horizontal family writes the float32 partial."""
+    h, w, d, k, r, tiles = GEOMETRIES[tag]
+    vol, image = h * w * d, h * w * 4
+    work = chip_smoke.kernel_work(h, w, d, k, r, tiles, volume_bytes=2)
+    assert work["sgm_rows"][0] == 4 * vol + image
+    assert work["sgm_rows"][2] == 58 * vol + 6 * image
+    assert work["sgm_horizontal"][2] == 16 * vol + 2 * image
+    carries = 6 * (tiles - 1) * 2 * w * d * 4
+    assert work["sgm_chunk"][2] == work["sgm_rows"][2] + carries
+    assert work["ssd"][0] == 2 * image + 2 * vol
+    assert work["dp_forward"][0] == 3 * vol + h * d * 4
+    f32 = chip_smoke.kernel_work(h, w, d, k, r, tiles)
+    for name in ("ssd", "sgm_rows", "sgm_horizontal", "dp_forward", "cvf"):
+        assert work[name][0] < f32[name][0] and work[name][1] == \
+            f32[name][1], name
+    assert work["dp_backward"] == f32["dp_backward"]
+
+
+@pytest.mark.parametrize("name,bound_ms,floor_ms", [
+    ("ssd", 0.2035, 0.2035), ("dp_forward", 0.3008, 0.3008),
+    ("sgm_rows", 0.4022, 5.8188), ("sgm_horizontal", 0.6025, 1.6057),
+    ("sgm_chunk", 0.4163, 5.8329)])
+def test_bf16_bounds_and_floors_at_hd(name, bound_ms, floor_ms):
+    """The bf16 figures at HD 1024x1280 D=256 that PERF.md's kernel table
+    records beside the float32 ones."""
+    got_ms, got_by, got_floor = chip_smoke.kernel_bounds(
+        *GEOMETRIES["hd"], volume_bytes=2)[name]
+    assert got_by == "bytes"
+    assert got_ms == pytest.approx(bound_ms, abs=1e-4)
+    assert got_floor == pytest.approx(floor_ms, abs=1e-4)

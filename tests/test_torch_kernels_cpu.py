@@ -7,6 +7,7 @@ refuse CPU tensors, and importing the build module needs no nvcc until a
 build is asked for.
 """
 
+import collections
 import importlib
 
 import pytest
@@ -22,20 +23,14 @@ from stereomatch_tpu_torch.ops import (_build, cvf_cuda, dp_cuda, sgm_cuda,
 from stereomatch_tpu_torch.ops.aggregation import TRAVERSALS
 from stereomatch_tpu_torch.utils.backend import resolve_backend
 
-COUNTERS = ((ssd_cuda, "LAUNCHES"), (sgm_cuda, "ROW_LAUNCHES"),
-            (sgm_cuda, "HORIZONTAL_LAUNCHES"), (dp_cuda, "FORWARD_LAUNCHES"),
-            (dp_cuda, "BACKWARD_LAUNCHES"), (cvf_cuda, "STATS_LAUNCHES"),
-            (cvf_cuda, "FILTER_LAUNCHES"))
-
-
 @pytest.fixture
 def counters(monkeypatch):
-    for module, name in COUNTERS:
-        monkeypatch.setattr(module, name, 0)
+    monkeypatch.setattr(_build, "LAUNCHES", collections.Counter())
 
 
 def _all_zero():
-    return all(getattr(module, name) == 0 for module, name in COUNTERS)
+    """No entry point of any kernel, of either dtype, was launched."""
+    return sum(_build.LAUNCHES.values()) == 0
 
 
 def test_resolve_backend():
@@ -103,6 +98,28 @@ def test_launchers_refuse_cpu_tensors(counters):
     assert _all_zero()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32], ids=str)
+def test_dp_forward_takes_every_volume_dtype(counters, monkeypatch, dtype):
+    """The forward launcher hands float32 and bf16 volumes to its checks
+    as they are and widens the int32 chain's to float32, as the plain
+    version does; a CPU tensor then fails the device check, before any
+    launch."""
+    checked = []
+    check = dp_cuda._check_volume
+
+    def spy(name, t, dtypes):
+        checked.append(t.dtype)
+        check(name, t, dtypes)
+
+    monkeypatch.setattr(dp_cuda, "_check_volume", spy)
+    vol = torch.ones(6, 9, 4, dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dp_cuda.dp_forward_cuda(vol)
+    assert checked == [torch.float32 if dtype == torch.int32 else dtype]
+    assert _all_zero()
+
+
 def test_cvf_launch_function_refuses_cpu_tensors(counters):
     """The two CVF launches on precomputed guide planes (what chip_smoke.py
     times alone) refuse CPU tensors and count nothing."""
@@ -164,4 +181,4 @@ def test_sgm_launchers_refuse_cpu_tensors_for_every_traversal(counters,
             sgm_cuda.sweep_chunk_with_carry_cuda(vol, left, step,
                                                  penalty1=0.1, penalty2=0.2,
                                                  seed=True)
-    assert _all_zero() and sgm_cuda.CHUNK_LAUNCHES == 0
+    assert _all_zero()

@@ -18,6 +18,7 @@ chunk, odd D, radii 0 to 32, a wedge offset, a misaligned volume).  This
 file imports nothing of JAX, so it runs where JAX is not installed.
 """
 
+import collections
 from pathlib import Path
 
 import numpy as np
@@ -30,7 +31,8 @@ from stereomatch_tpu_torch.ops import aggregation as agg_ops
 from stereomatch_tpu_torch.ops import cost as cost_ops
 from stereomatch_tpu_torch.ops import cvf as cvf_ops
 from stereomatch_tpu_torch.ops import disparity as disp_ops
-from stereomatch_tpu_torch.ops import cvf_cuda, dp_cuda, sgm_cuda, ssd_cuda
+from stereomatch_tpu_torch.ops import (_build, cvf_cuda, dp_cuda, sgm_cuda,
+                                       ssd_cuda)
 from stereomatch_tpu_torch.parallel import ShardedPipeline, make_mesh
 
 from .torch_shapes import (CHUNK_SHORT_CASES, DP_RAMP_CASES, SSD_EDGE_SHAPES,
@@ -44,6 +46,14 @@ def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """The launch counts of every C entry point, from 0."""
+    counter = collections.Counter()
+    monkeypatch.setattr(_build, "LAUNCHES", counter)
+    return counter
 
 
 def _images(h, w, seed, device):
@@ -86,14 +96,13 @@ def test_ssd_kernel_int32_chain_exact(device, in_dtype, shape, absolute):
     assert torch.equal(out, ref)
 
 
-def test_ssd_kernel_refuses_a_k_past_shared_memory(device, monkeypatch):
-    monkeypatch.setattr(ssd_cuda, "LAUNCHES", 0)
+def test_ssd_kernel_refuses_a_k_past_shared_memory(device, launches):
     left, right = _images(4, 8, 1, device)
     with pytest.raises(ValueError, match="shared memory"):
         ssd_cuda.diff_cost_volume_cuda(
             left, right, max_disparity=4, kernel_size=SSD_REFUSED_K,
             cost_dtype=torch.float32, absolute=False)
-    assert ssd_cuda.LAUNCHES == 0
+    assert sum(launches.values()) == 0
 
 
 # The SGM ring's edges beside SHAPES: D % 4 != 0 with lanes past D
@@ -161,16 +170,14 @@ def test_sgm_kernel_nan_and_inf_like_plain(device):
     assert torch.equal(out[keep], ref[keep])
 
 
-def test_main_path_goes_through_kernels(device, monkeypatch):
-    monkeypatch.setattr(ssd_cuda, "LAUNCHES", 0)
-    monkeypatch.setattr(sgm_cuda, "ROW_LAUNCHES", 0)
-    monkeypatch.setattr(sgm_cuda, "HORIZONTAL_LAUNCHES", 0)
+def test_main_path_goes_through_kernels(device, launches):
     left, right, _ = stereo_pair(48, 80, 16, seed=7)
     pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=16)
     disp = pipe.estimate(left, right, device=device)
     assert disp.is_cuda
-    assert ssd_cuda.LAUNCHES == 1
-    assert sgm_cuda.ROW_LAUNCHES == 6 and sgm_cuda.HORIZONTAL_LAUNCHES == 2
+    assert launches["stm_ssd_f32"] == 1
+    assert launches["stm_sgm_rows_f32"] == 6
+    assert launches["stm_sgm_horizontal_f32"] == 2
     plain = pipe.estimate(left, right, device="cpu")
     assert torch.equal(disp.cpu(), plain)
 
@@ -406,21 +413,18 @@ def test_census_plain_on_card_equals_cpu(device):
 @pytest.mark.parametrize("cost,aggr,reducer", [("ssd", "sgm", "dyn"),
                                                ("census", "cvf", "wta"),
                                                ("census", "cvf", "dyn")])
-def test_new_paths_go_through_kernels(device, monkeypatch, cost, aggr,
+def test_new_paths_go_through_kernels(device, launches, cost, aggr,
                                       reducer):
-    for module, name in ((dp_cuda, "FORWARD_LAUNCHES"),
-                         (dp_cuda, "BACKWARD_LAUNCHES"),
-                         (cvf_cuda, "STATS_LAUNCHES"),
-                         (cvf_cuda, "FILTER_LAUNCHES")):
-        monkeypatch.setattr(module, name, 0)
     left, right, _ = stereo_pair(48, 80, 16, seed=7)
     pipe = cli_common.create_pipeline(cost, reducer, aggr, max_disparity=16)
     disp = pipe.estimate(left, right)             # the card by default
     assert disp.is_cuda
     dp_runs = 1 if reducer == "dyn" else 0
     cvf_runs = 1 if aggr == "cvf" else 0
-    assert dp_cuda.FORWARD_LAUNCHES == dp_cuda.BACKWARD_LAUNCHES == dp_runs
-    assert cvf_cuda.STATS_LAUNCHES == cvf_cuda.FILTER_LAUNCHES == cvf_runs
+    assert (launches["stm_dp_forward_f32"] == launches["stm_dp_backward"]
+            == dp_runs)
+    assert (launches["stm_cvf_stats_f32"] == launches["stm_cvf_filter_f32"]
+            == cvf_runs)
     plain = pipe.estimate(left, right, device="cpu")
     assert torch.equal(disp.cpu(), plain)
 
@@ -511,7 +515,7 @@ def test_sgm_chunk_kernel_accumulates_into_out_views(device, misaligned):
 
 @pytest.mark.parametrize("reducer,key", [("wta", "wta"),
                                          ("dynamic_programming", "dp")])
-def test_sharded_teddy_on_one_card_reproduces_golden(device, monkeypatch,
+def test_sharded_teddy_on_one_card_reproduces_golden(device, launches,
                                                      reducer, key):
     """5 row tiles on cuda:0: the exact hand-off through the chunk kernel,
     30 launches a frame and no whole-image row launch."""
@@ -519,13 +523,304 @@ def test_sharded_teddy_on_one_card_reproduces_golden(device, monkeypatch,
     d = int(g["max_disparity"])
     left, right, _ = stereo_pair(int(g["height"]), int(g["width"]), d,
                                  seed=int(g["seed"]))
-    monkeypatch.setattr(sgm_cuda, "CHUNK_LAUNCHES", 0)
-    monkeypatch.setattr(sgm_cuda, "ROW_LAUNCHES", 0)
     pipe = ShardedPipeline(make_mesh([device] * 5, n_batch=1), d,
                            kernel_size=int(g["kernel_size"]),
                            reducer=reducer, penalty1=float(g["penalty1"]),
                            penalty2=float(g["penalty2"]))
     out = pipe.estimate(left, right)
     assert out.device == device
-    assert sgm_cuda.CHUNK_LAUNCHES == 30 and sgm_cuda.ROW_LAUNCHES == 0
+    assert launches["stm_sgm_chunk_f32"] == 30
+    assert launches["stm_sgm_rows_f32"] == 0
     np.testing.assert_array_equal(out.cpu().numpy(), g[key])
+
+
+# bf16 volumes (ROADMAP A.7): every kernel's bf16 instantiation against
+# its plain version, bit for bit, at the edges above.  A bf16 volume may
+# start at any 2-byte boundary: the views below sit 1, 2 and 3 elements
+# past an allocation (2, 4 and 6 bytes off 16).
+
+BF16 = torch.bfloat16
+
+
+def _offset_view(vol, elements):
+    """A contiguous copy of ``vol`` that starts ``elements`` past its
+    buffer's (16-byte-aligned) start."""
+    buf = torch.empty(vol.numel() + elements, dtype=vol.dtype,
+                      device=vol.device)
+    view = buf[elements:].view(vol.shape)
+    view.copy_(vol)
+    assert view.is_contiguous()
+    assert view.data_ptr() % 16 == (elements * vol.element_size()) % 16
+    return view
+
+
+@pytest.mark.parametrize("absolute", [False, True], ids=["ssd", "sad"])
+@pytest.mark.parametrize("shape", SHAPES + SSD_EDGE_SHAPES, ids=str)
+def test_ssd_kernel_bf16_bit_equal(device, shape, absolute):
+    h, w, d, k = shape
+    left, right = _images(h, w, h + w, device)
+    kw = dict(max_disparity=d, kernel_size=k, cost_dtype=BF16,
+              absolute=absolute)
+    ref = cost_ops._diff_cost_volume(left, right, **kw)
+    out = ssd_cuda.diff_cost_volume_cuda(left, right, **kw)
+    assert out.dtype == BF16 and torch.equal(out, ref)
+
+
+def test_ssd_kernel_bf16_counts_its_launches_and_takes_bf16_images(
+        device, launches):
+    left, right = _images(21, 40, 5, device)
+    left, right = left.to(BF16), right.to(BF16)
+    kw = dict(max_disparity=24, kernel_size=3, cost_dtype=BF16,
+              absolute=False)
+    out = ssd_cuda.diff_cost_volume_cuda(left, right, **kw)
+    assert torch.equal(out, cost_ops._diff_cost_volume(left, right, **kw))
+    assert (launches["stm_ssd_f32"], launches["stm_ssd_bf16"]) == (0, 1)
+
+
+def _bf16_ssd(h, w, d, k, seed, device):
+    left, right = _images(h, w, seed, device)
+    return left, cost_ops.ssd_cost_volume(left, right, max_disparity=d,
+                                          kernel_size=k, cost_dtype=BF16)
+
+
+@pytest.mark.parametrize("shape", SGM_SHAPES, ids=str)
+def test_sgm_kernels_bf16_bit_equal(device, shape):
+    """Seven traversals into the float32 partial sum, the eighth rounding
+    it into the bf16 result: equal to the plain version's one rounding."""
+    h, w, d, k = shape
+    left, vol = _bf16_ssd(h, w, d, k, 2 * h + w, device)
+    ref = agg_ops.semiglobal_aggregate(vol, left, penalty1=0.2, penalty2=0.9)
+    out = sgm_cuda.semiglobal_aggregate_cuda(vol, left, penalty1=0.2,
+                                             penalty2=0.9)
+    assert out.dtype == BF16 and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("elements", [1, 2, 3])
+@pytest.mark.parametrize("d", [96, 37])
+def test_sgm_kernels_bf16_on_misaligned_views(device, elements, d):
+    """bf16 rows at every 2-byte offset: the ring copies the aligned
+    16-byte pieces that hold them."""
+    left, vol = _bf16_ssd(19, 27, d, 3, 8, device)
+    shifted = _offset_view(vol, elements)
+    ref = agg_ops.semiglobal_aggregate(vol, left)
+    assert torch.equal(sgm_cuda.semiglobal_aggregate_cuda(shifted, left), ref)
+
+
+def test_sgm_kernels_bf16_at_hd(device):
+    """Both families at 1024x1280 D=256 on a bf16 volume, the row family
+    ending in the rounded result."""
+    left, vol = _bf16_ssd(1024, 1280, 256, 7, 11, device)
+    ref = agg_ops.semiglobal_aggregate(vol, left, penalty1=0.1, penalty2=0.2)
+    out = sgm_cuda.semiglobal_aggregate_cuda(vol, left, penalty1=0.1,
+                                             penalty2=0.2)
+    assert torch.equal(out, ref)
+
+
+def test_sgm_kernels_bf16_refuse_a_misplaced_result(device):
+    left, vol = _bf16_ssd(6, 9, 8, 2, 1, device)
+    out = torch.zeros(vol.shape, device=device)
+    with pytest.raises(ValueError, match="accumulate"):
+        sgm_cuda.traverse_cuda(vol, left, out, (1, 0), 0.1, 0.2,
+                               accumulate=False,
+                               result=torch.empty_like(vol))
+    with pytest.raises(ValueError, match="horizontal"):
+        sgm_cuda.traverse_cuda(vol, left, out, (0, 1), 0.1, 0.2,
+                               accumulate=True, result=torch.empty_like(vol))
+
+
+def _bf16_chunks_against_plain(vol, image, step, cuts, final):
+    """As _chunks_against_plain on a bf16 volume; with ``final`` each
+    chunk also adds onto a float32 partial and rounds into a bf16 result,
+    as the sharded path's last traversal does."""
+    edges = [0, *cuts, vol.shape[0]]
+    spans = list(zip(edges[:-1], edges[1:]))
+    carry = (None, None)
+    for rank, (a, b) in enumerate(spans if step[0] > 0 else spans[::-1]):
+        kw = dict(penalty1=0.1, penalty2=0.2, seed=rank == 0)
+        ref, ref_carry = agg_ops.sweep_chunk_with_carry(
+            vol[a:b], image[a:b], step, *carry, **kw)
+        if final:
+            partial = torch.full(ref.shape, 0.75, device=vol.device)
+            result = torch.empty(ref.shape, dtype=BF16, device=vol.device)
+            out, out_carry = sgm_cuda.sweep_chunk_with_carry_cuda(
+                vol[a:b], image[a:b], step, *carry, out=partial,
+                accumulate=True, result=result, **kw)
+            assert out is result and torch.equal(partial, torch.full_like(
+                partial, 0.75))
+            ref = (ref + 0.75).to(BF16)
+        else:
+            out, out_carry = sgm_cuda.sweep_chunk_with_carry_cuda(
+                vol[a:b], image[a:b], step, *carry, **kw)
+            assert out.dtype == torch.float32
+        assert torch.equal(out, ref), (step, a, b)
+        assert torch.equal(out_carry[0], ref_carry[0]), (step, a, b)
+        assert torch.equal(out_carry[1], ref_carry[1]), (step, a, b)
+        carry = ref_carry
+
+
+@pytest.mark.parametrize("final", [False, True], ids=["partial", "final"])
+@pytest.mark.parametrize("shape,cuts", [
+    ((375, 450, 128, 7), (75, 150, 225, 300)),
+    ((37, 53, 24, 3), (12,)),
+    ((1024, 1280, 256, 7), (256, 512, 768)),
+    *CHUNK_SHORT_CASES],
+    ids=["teddy", "ragged", "hd", "short-d1", "short-d37", "short-d129"])
+def test_sgm_chunk_kernel_bf16_bit_equal_with_carry(device, shape, cuts,
+                                                    final):
+    h, w, d, k = shape
+    left, vol = _bf16_ssd(h, w, d, k, h + 2 * w, device)
+    steps = agg_ops.TRAVERSALS[2:] if not final or h < 1000 else \
+        agg_ops.TRAVERSALS[-1:]
+    for step in steps:
+        _bf16_chunks_against_plain(vol, left, step, cuts, final)
+
+
+@pytest.mark.parametrize("shape", DP_SHAPES, ids=str)
+def test_dp_forward_kernel_bf16_bit_equal(device, shape):
+    rng = np.random.default_rng(sum(shape))
+    vol = torch.from_numpy(rng.random(shape, np.float32)).to(device).to(BF16)
+    _dp_both_equal(vol)
+
+
+@pytest.mark.parametrize("case", DP_RAMP_CASES, ids=str)
+def test_dp_kernels_bf16_on_ramp_volumes(device, case):
+    _dp_both_equal(torch.from_numpy(ramp_cost_volume(*case)).to(device).to(
+        BF16))
+
+
+@pytest.mark.parametrize("elements", [1, 2, 3, 8])
+def test_dp_forward_bf16_on_misaligned_views(device, elements):
+    """D % 16 == 0 and odd D, each 2 to 16 bytes off a 16-byte boundary."""
+    rng = np.random.default_rng(elements)
+    for shape in ((9, 45, 64), (7, 33, 37)):
+        vol = torch.from_numpy(rng.random(shape, np.float32)).to(device)
+        _dp_both_equal(_offset_view(vol.to(BF16), elements))
+
+
+def test_dp_kernels_bf16_at_hd(device, launches):
+    _, vol = _bf16_ssd(1024, 1280, 256, 7, 13, device)
+    _dp_both_equal(vol)
+    assert (launches["stm_dp_forward_f32"],
+            launches["stm_dp_forward_bf16"]) == (0, 1)
+
+
+@pytest.mark.parametrize("shape", CVF_SHAPES, ids=str)
+def test_cvf_kernels_bf16_bit_equal(device, shape):
+    """bf16 volumes in, float32 a0/b0, q rounded once to bf16; the
+    misaligned cases start one element (2 bytes) past a 16-byte
+    boundary."""
+    h, w, d, r, off, misaligned = shape
+    rng = np.random.default_rng(h + w + 1)
+    vol = rng.random((h, w, d), np.float32)
+    x, dd = np.meshgrid(np.arange(w), np.arange(d), indexing="ij")
+    vol[:, x < dd + off] = np.inf
+    vol = torch.from_numpy(vol).to(device).to(BF16)
+    if misaligned:
+        vol = _offset_view(vol, 1)
+    guide = torch.from_numpy(rng.random((h, w), np.float32)).to(device)
+    kw = dict(radius=r, eps=1e-4, wedge_offset=off)
+    _cvf_equal(cvf_cuda.guided_filter_aggregate_cuda(vol, guide, **kw),
+               cvf_ops.guided_filter_aggregate(vol, guide, **kw))
+
+
+def test_wta_on_bf16_takes_the_first_minimum_and_nan(device):
+    """torch.argmin on a bf16 CUDA volume: ties (many after rounding) to
+    the lowest disparity, a NaN before any number, as on the CPU and as
+    jnp.argmin."""
+    rng = np.random.default_rng(3)
+    vol = torch.from_numpy(rng.integers(0, 3, (32, 48, 64)).astype(
+        np.float32)).to(BF16)
+    vol[3, 5, [7, 40]] = float("nan")
+    vol[4, 6, :] = float("inf")
+    vol[5, 7, [10, 30]] = -0.0
+    want = disp_ops.winner_takes_all(vol)
+    out = cli_common.DISPARITY_METHODS["wta"]()(vol.to(device))
+    assert torch.equal(out.cpu(), want)
+    assert want[3, 5] == 7 and want[4, 6] == 0
+
+
+@pytest.mark.parametrize("cost,aggr,reducer", [
+    ("ssd", "sgm", "wta"), ("ssd", "sgm", "dyn"), ("census", "cvf", "wta"),
+    ("sad", None, "dyn")])
+def test_bf16_paths_go_through_the_bf16_kernels(device, launches, cost,
+                                                aggr, reducer):
+    left, right, _ = stereo_pair(48, 80, 16, seed=7)
+    pipe = cli_common.create_pipeline(cost, reducer, aggr, max_disparity=16,
+                                      volume_dtype="bfloat16")
+    disp = pipe.estimate(left, right)
+    assert disp.is_cuda and disp.dtype == torch.int32
+    assert pipe._aggregation_volume.dtype == BF16
+    assert not any(name.endswith(("_f32", "_i32")) for name in launches
+                   if launches[name])
+    assert launches["stm_ssd_bf16"] == (cost != "census")
+    assert launches["stm_sgm_rows_bf16"] == (6 if aggr == "sgm" else 0)
+    assert launches["stm_sgm_horizontal_bf16"] == (2 if aggr == "sgm" else 0)
+    assert launches["stm_dp_forward_bf16"] == (reducer == "dyn")
+    assert launches["stm_cvf_stats_bf16"] == (aggr == "cvf")
+    assert launches["stm_cvf_filter_bf16"] == (aggr == "cvf")
+    plain = pipe.estimate(left, right, device="cpu")
+    assert torch.equal(disp.cpu(), plain)
+
+
+@pytest.mark.parametrize("mode", ["exact", "overlap"])
+def test_sharded_bf16_on_one_card_equals_single_card(device, launches,
+                                                     mode):
+    """5 row tiles of a bf16 teddy volume on cuda:0: each tile's sum
+    rounded once, so the disparities equal the single-card bf16 path."""
+    g = np.load(Path(__file__).parent / "data" / "golden_teddy_disparity.npz")
+    d = int(g["max_disparity"])
+    left, right, _ = stereo_pair(int(g["height"]), int(g["width"]), d,
+                                 seed=int(g["seed"]))
+    kw = dict(penalty1=float(g["penalty1"]), penalty2=float(g["penalty2"]))
+    single = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=d,
+                                        volume_dtype="bfloat16", **kw)
+    single.cost.kernel_size = int(g["kernel_size"])
+    want = single.estimate(left, right)
+    launches.clear()
+    pipe = ShardedPipeline(make_mesh([device] * 5, n_batch=1), d,
+                           kernel_size=int(g["kernel_size"]),
+                           cost_dtype="bfloat16", sgm_mode=mode,
+                           overlap=300, **kw)
+    assert torch.equal(pipe.estimate(left, right), want)
+    assert launches["stm_sgm_chunk_bf16"] == (30 if mode == "exact" else 0)
+
+
+def _uint8_pair(h, w, d, seed):
+    left, right, _ = stereo_pair(h, w, d, seed=seed)
+    return (left * 255).astype(np.uint8), (right * 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("cost", ["ssd", "sad"])
+def test_int32_volume_to_dyn_equals_plain(device, launches, cost):
+    """The int32 chain's volume reaches the DP reducer as int32; the
+    forward launcher widens it to float32, as the plain version does, and
+    the card path's disparities equal the plain path's."""
+    left, right = _uint8_pair(48, 80, 16, 7)
+    pipe = cli_common.create_pipeline(cost, "dyn", None, max_disparity=16,
+                                      volume_dtype="int32")
+    disp = pipe.estimate(left, right)
+    assert disp.is_cuda and disp.dtype == torch.int32
+    assert launches["stm_ssd_i32"] == 1
+    assert launches["stm_dp_forward_f32"] == launches["stm_dp_backward"] == 1
+    assert torch.equal(disp.cpu(), pipe.estimate(left, right, device="cpu"))
+
+
+def test_sharded_int32_volume_to_dyn_equals_single_card(device, launches):
+    """5 row tiles of an int32 volume with the DP reducer on cuda:0: each
+    tile's forward pass widens to float32, so the disparities equal the
+    single-card and the plain path's."""
+    d = 16
+    left, right = _uint8_pair(60, 96, d, 11)
+    single = cli_common.create_pipeline("ssd", "dyn", None, max_disparity=d,
+                                        volume_dtype="int32")
+    single.cost.kernel_size = 3
+    want = single.estimate(left, right)
+    assert torch.equal(want.cpu(), single.estimate(left, right,
+                                                   device="cpu"))
+    launches.clear()
+    pipe = ShardedPipeline(make_mesh([device] * 5, n_batch=1), d,
+                           kernel_size=3, cost_dtype="int32",
+                           aggregation=None, reducer="dynamic_programming")
+    out = pipe.estimate(left, right)
+    assert torch.equal(out.reshape(want.shape), want)
+    assert launches["stm_dp_forward_f32"] == 5

@@ -102,11 +102,26 @@ def test_pipeline_without_aggregation_reduces_the_cost_volume():
     dict(cost_method="ncc", disp_method="wta"),
     dict(cost_method="ssd-texture", disp_method="dyn"),
     dict(cost_method="ssd", disp_method="wta", aggr_method="cvf",
-         cvf_subsample=2),
-    dict(cost_method="ssd", disp_method="wta", volume_dtype="bfloat16")])
+         cvf_subsample=2)])
 def test_not_ported_names_refuse_with_roadmap_item(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli_common.create_pipeline(**kwargs)
+
+
+@pytest.mark.parametrize("cost,aggr,reducer", [
+    ("ssd", None, "wta"), ("ssd", "sgm", "dyn"), ("sad", "sgm", "wta"),
+    ("census", "cvf", "wta")])
+def test_bfloat16_volume_dtype_runs(cost, aggr, reducer):
+    """volume_dtype="bfloat16" (refused until bf16 storage was ported):
+    bf16 cost and aggregation volumes, int32 disparities."""
+    left, right, _ = stereo_pair(24, 40, 8, seed=4)
+    pipe = cli_common.create_pipeline(cost, reducer, aggr, max_disparity=8,
+                                      volume_dtype="bfloat16", device="cpu")
+    assert pipe.cost.cost_volume_dtype == torch.bfloat16
+    disp = pipe.estimate(left, right)
+    assert disp.dtype == torch.int32 and tuple(disp.shape) == (24, 40)
+    assert pipe._cost_volume.dtype == torch.bfloat16
+    assert pipe._aggregation_volume.dtype == torch.bfloat16
 
 
 def test_unknown_names_and_int32_aggregation_raise():

@@ -214,8 +214,6 @@ def test_divisibility_and_shape_errors(mesh, pair):
     (dict(cost="birchfield"), "A.8"),
     (dict(cost="ncc"), "A.8"),
     (dict(cost="ssd-texture"), "A.8"),
-    (dict(cost_dtype="bfloat16"), "A.7"),
-    (dict(cost_dtype=torch.bfloat16), "A.7"),
     (dict(median=True), "A.10"),
     (dict(subpixel=True), "A.10"),
     (dict(lr_check=True), "A.10"),
@@ -237,6 +235,30 @@ def test_refused_options_name_their_roadmap_item(mesh, kwargs, item):
 def test_invalid_options_raise_value_error(mesh, kwargs):
     with pytest.raises(ValueError):
         ShardedPipeline(mesh, D, **kwargs)
+
+
+@pytest.mark.parametrize("cost_dtype", ["bfloat16", torch.bfloat16],
+                         ids=["name", "torch"])
+@pytest.mark.parametrize("reducer", ["wta", "dynamic_programming"])
+def test_bf16_cost_dtype_runs(mesh, pair, cost_dtype, reducer):
+    """cost_dtype bfloat16 (refused until bf16 storage was ported): the
+    tiles' volumes and SGM blocks are bf16, the disparities int32."""
+    left, right = pair
+    pipe = ShardedPipeline(mesh, D, kernel_size=3, cost_dtype=cost_dtype,
+                           reducer=reducer)
+    out = pipe.estimate(left, right)
+    assert out.dtype == torch.int32 and tuple(out.shape) == left.shape
+    lefts = list(torch.from_numpy(left[0]).split(8))
+    rights = list(torch.from_numpy(right[0]).split(8))
+    vols = sharded.local_cost(
+        lefts, rights,
+        lambda lp, rp: port_cost.ssd_cost_volume(
+            lp, rp, max_disparity=D, kernel_size=3,
+            cost_dtype=torch.bfloat16), 3, 2)
+    assert all(v.dtype == torch.bfloat16 for v in vols)
+    aggs = sharded.sharded_semiglobal(vols, lefts, penalty1=0.1,
+                                      penalty2=0.2)
+    assert all(a.dtype == torch.bfloat16 for a in aggs)
 
 
 def test_int32_cost_only_path_and_backend_cuda_refuses_cpu(mesh, pair):
