@@ -20,8 +20,21 @@ with the launch counts set to 0 just before it and read just after:
   tiles on cuda:0: exact carry hand-off with WTA and with DP, and
   overlap mode, against the goldens; then HD over 4 tiles against the
   single-card path (and, with more than one card, one tile per card);
+* the post-processing: ``Pipeline.estimate_refined`` over the main path
+  (the default stages, the LR check in volume mode, the confidence
+  gate) against ``tests/data/golden_torch_refined_teddy.npz``; each
+  stage of ``ops/refine.py`` on the card against the same stage on the
+  CPU; the sharded median + sub-pixel + speckle path against the
+  single-card one;
+* ``backend="auto"`` past the kernels' limits (D = 600 through SSD ->
+  SGM -> DP: the SSD kernel, then the plain SGM and DP on the card),
+  against ``backend="torch"``, with an explicit ``"cuda"`` refused;
+* ``python -m stereomatch_tpu_torch.cli.evaluate --synthetic 2`` at
+  teddy size on the card, its first scene's metrics against the same
+  CLI's on the CPU;
 
-times kernels, plain versions and pipelines with CUDA events, and
+times kernels, plain versions, pipelines, each post-processing flag set
+and the float32/bf16 crossover with CUDA events, and
 profiles each path with ``torch.profiler`` (device time by kernel, idle
 share; the chunk kernel's device time beside its CUDA-event time).  Every
 kernel is held bit-equal to its plain version.  Any failure raises and exits non-zero; nothing falls back.  The
@@ -38,6 +51,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -47,6 +61,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "golden_teddy_disparity.npz"
 GOLDEN_CVF = ROOT / "tests" / "data" / "golden_torch_cvf_teddy.npz"
 GOLDEN_BF16 = ROOT / "tests" / "data" / "golden_torch_bf16_teddy.npz"
+GOLDEN_REFINED = ROOT / "tests" / "data" / "golden_torch_refined_teddy.npz"
 
 GOLDEN_MAX_DIFF = 16        # pixels of 168,750 (0.01%); 0 expected
 CVF_GOLDEN_MAX_DIFF = 169   # pixels of 168,750 (0.1%); 0 expected
@@ -57,8 +72,27 @@ WARMUP, REPS = 3, 20
 PLAIN_WARMUP, PLAIN_REPS = 0, 1
 TEDDY_CUTS = (75, 150, 225, 300)     # 5 row tiles, as the sharded path
 # Frames between teddy (0.17 MP) and HD (1.31 MP) and past it, timed in
-# both volume dtypes: VGA, 720p and 1080p.
-CROSSOVER_SIZES = ((480, 640, 64), (720, 1280, 128), (1080, 1920, 256))
+# both volume dtypes: VGA, 720p and 1080p, each at the D beside it, and
+# VGA at D=256 and 720p at D=64: fixed sizes at another D, which tell a
+# rule by pixels from a rule by volume (H x W x D).
+CROSSOVER_SIZES = ((480, 640, 64), (720, 1280, 128), (1080, 1920, 256),
+                   (480, 640, 256), (720, 1280, 64))
+# estimate_refined's flag sets: the golden's, then the timed ones.
+REFINED_GOLDEN = {"default": {},
+                  "lr_volume": dict(lr_check=True, lr_mode="volume"),
+                  "min_confidence": dict(min_confidence=0.1)}
+REFINED_TIMED = {"estimate": None, "default": {},
+                 "lr_mirror": dict(lr_check=True),
+                 "lr_volume": dict(lr_check=True, lr_mode="volume"),
+                 "wmf": dict(weighted_median=True, wmf_sigma=0.1),
+                 "min_confidence": dict(min_confidence=0.1),
+                 "fgs": dict(fgs_lambda=16.0, fgs_sigma=0.08)}
+# The smoother's Python loop of column steps takes hundreds of ms a
+# frame: timed at teddy only, median of FGS_REPS.
+FGS_REPS = 3
+EVAL_ARGS = ("--synthetic", "2", "--synthetic-size", "375x450x128",
+             "--configs", "ssd:wta:sgm+refine,ssd:dyn:sgm")
+FAR_D = 600                 # past the SGM and DP kernels' 512
 CHUNK_CUTS = {"teddy": TEDDY_CUTS, "ragged": (12,),
               "hd": (256, 512, 768)}
 
@@ -359,6 +393,195 @@ def chunked_rows(vol, image, out, p1, p2, cuts, kernel, result=None):
                     out[a:b] += part
 
 
+def refine_stages(vol, disp, guide, d):
+    """{name: zero-argument call} of each stage of ``ops/refine.py`` on
+    an aggregated volume, its WTA disparities and the left image, on
+    their device, with estimate_refined's parameters (the guide's
+    intensities are in [0, 1])."""
+    from stereomatch_tpu_torch.ops import refine
+    disp_r = refine.right_disparity_from_volume(vol)
+    mask = refine.left_right_consistency(disp, disp_r, 1, max_disparity=d)
+    return {
+        "subpixel_refine": lambda: refine.subpixel_refine(vol, disp),
+        "median_filter_3x3": lambda: refine.median_filter_3x3(disp),
+        "right_disparity_from_volume":
+            lambda: refine.right_disparity_from_volume(vol),
+        "left_right_consistency": lambda: refine.left_right_consistency(
+            disp, disp_r, 1, max_disparity=d),
+        "fill_inconsistent": lambda: refine.fill_inconsistent(disp, mask),
+        "confidence_pkrn": lambda: refine.confidence_pkrn(vol),
+        "weighted_median_filter": lambda: refine.weighted_median_filter(
+            disp, guide, window=5, sigma=0.1, n_bins=d),
+        "fgs_smooth": lambda: refine.fgs_smooth(
+            disp.to(vol.dtype), guide, lam=16.0, sigma_color=0.08,
+            confidence=mask.to(vol.dtype)),
+        "filter_speckles": lambda: refine.filter_speckles(
+            disp, fill="background"),
+    }
+
+
+def check_post_processing(torch, dev, shapes, run_path, mesh5, sharded_kw,
+                          p1, p2) -> None:
+    """Phase 4's post-processing checks (see the module docstring), each
+    path with the launch counts set to 0 just before it and read just
+    after."""
+    from stereomatch_tpu_torch import cli_common, parallel
+    from stereomatch_tpu_torch.io.synthetic import stereo_pair
+    from stereomatch_tpu_torch.ops import refine
+
+    left, right, _, d, k = shapes["teddy"]
+    left_np, right_np = left.cpu().numpy(), right.cpu().numpy()
+    golden = np.load(GOLDEN_REFINED)
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=d,
+                                      penalty1=p1, penalty2=p2)
+    pipe.cost.kernel_size = k
+    for name, flags in REFINED_GOLDEN.items():
+        log(f"[refined path] ssd -> sgm -> wta, estimate_refined {name} "
+            f"{flags}, teddy 375x450 D=128")
+        out, _ = run_path(
+            f"refined {name}",
+            lambda: pipe.estimate_refined(left_np, right_np, **flags),
+            ("ssd", "sgm_rows", "sgm_horizontal"), dtype=torch.float32)
+        n_diff = int((out != golden[name]).sum())
+        log(f"  pixels differing from golden refined {name}: {n_diff} of "
+            f"{out.size}")
+        require(n_diff == 0, f"refined {name} differs from its golden at "
+                f"{n_diff} pixels")
+
+    log("[refine stages] each stage of ops/refine.py on the card against "
+        "the same stage on the CPU, teddy inputs from the card's path")
+    pipe.estimate(left, right)
+    vol, disp = pipe._aggregation_volume, pipe._disparity_image
+    on_card = refine_stages(vol, disp, left, d)
+    on_cpu = refine_stages(vol.cpu(), disp.cpu(), left.cpu(), d)
+    for name, run in on_card.items():
+        out = run()
+        require(out.device == dev, f"{name} left {dev}")
+        compare(f"{name} card vs CPU", on_cpu[name]().to(dev), out, 0, 0,
+                exact=True)
+
+    log(f"[sharded refined] median + subpixel + speckle, teddy over 5 row "
+        f"tiles on {dev}, against the single-card path")
+    pipe_sh = parallel.ShardedPipeline(mesh5, d, **sharded_kw, median=True,
+                                       subpixel=True, speckle=True)
+    out, _ = run_path("sharded refined",
+                      lambda: pipe_sh.estimate(left_np, right_np),
+                      ("ssd", "sgm_chunk", "sgm_horizontal"),
+                      dtype=torch.float32)
+    want = refine.filter_speckles(pipe.estimate_refined(left, right))
+    n_diff = int((out != want.cpu().numpy()).sum())
+    log(f"  pixels differing from the single-card path: {n_diff} of "
+        f"{out.size}")
+    require(n_diff == 0, f"sharded refined differs at {n_diff} pixels")
+
+    log(f"[auto past the kernels] ssd -> sgm -> dyn, 64x704 D={FAR_D}: the "
+        f"SSD kernel, then the plain SGM and DP on the card")
+    far_left, far_right, _ = stereo_pair(64, 704, FAR_D, seed=4)
+    far = {backend: cli_common.create_pipeline(
+        "ssd", "dyn", "sgm", max_disparity=FAR_D, penalty1=p1, penalty2=p2,
+        backend=backend) for backend in ("auto", "torch", "cuda")}
+    out, counts = run_path(
+        "auto past the kernels",
+        lambda: far["auto"].estimate(far_left, far_right), ("ssd",),
+        shape=(64, 704), d=FAR_D)
+    require(all(counts[name] == 0 for name in
+                ("sgm_rows", "sgm_horizontal", "dp_forward", "dp_backward")),
+            f"D={FAR_D} launched a kernel past its limit: {counts}")
+    plain = far["torch"].estimate(far_left, far_right).cpu().numpy()
+    require(np.array_equal(out, plain), "auto past the kernels differs from "
+            "the plain path")
+    log("  equal to backend='torch' at every pixel")
+    try:
+        far["cuda"].estimate(far_left, far_right)
+    except ValueError as err:
+        log(f"  backend='cuda' refused: {err}")
+    else:
+        raise SmokeFailure(f"backend='cuda' ran D={FAR_D}")
+    del far
+
+    log(f"[stm-eval] python -m stereomatch_tpu_torch.cli.evaluate "
+        f"{' '.join(EVAL_ARGS)}, on the card and on the CPU")
+    from stereomatch_tpu_torch.cli import evaluate
+    with tempfile.TemporaryDirectory() as tmp:
+        card_json, cpu_json = Path(tmp) / "card.json", Path(tmp) / "cpu.json"
+        start = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "stereomatch_tpu_torch.cli.evaluate",
+             *EVAL_ARGS, "--json", str(card_json)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        log(f"  card run: exit {proc.returncode} in "
+            f"{time.perf_counter() - start:.1f} s")
+        for line in proc.stdout.strip().splitlines():
+            log(f"    {line}")
+        require(proc.returncode == 0, f"stm-eval failed: {proc.stderr}")
+        # The CPU runs the first scene only (its plain SGM is the slow
+        # part); its rows hold that scene's metrics.
+        cpu_args = list(EVAL_ARGS)
+        cpu_args[cpu_args.index("--synthetic") + 1] = "1"
+        require(evaluate.main([*cpu_args, "--device", "cpu", "--json",
+                               str(cpu_json)]) == 0, "stm-eval on the CPU")
+        card_rows = json.loads(card_json.read_text())
+        cpu_rows = json.loads(cpu_json.read_text())
+    require([r["name"] for r in card_rows] == ["ssd-wta-sgm-refine",
+                                               "ssd-dyn-sgm"],
+            f"stm-eval rows {[r['name'] for r in card_rows]}")
+    for row, want in zip(card_rows, cpu_rows):
+        got, want = row["scenes"][0], want["scenes"][0]
+        for key in ("rmse", "avg_abs_error", "bad_pixel_ratio"):
+            rel = abs(got[key] - want[key]) / max(abs(want[key]), 1e-12)
+            require(np.isfinite(row[key]) and rel <= 1e-6,
+                    f"stm-eval {row['name']} {key}: card {got[key]!r}, "
+                    f"CPU {want[key]!r}")
+        log(f"  {row['name']}: rmse {row['rmse']!r}, bad-pixel "
+            f"{row['bad_pixel_ratio']!r}; scene 0 within 1e-6 of the "
+            f"CPU's")
+
+
+def time_post_processing(torch, shapes, p1, p2, card) -> dict:
+    """Phase 5's post-processing times: estimate_refined per flag set at
+    teddy and (without the smoother) at HD, and each refine stage alone
+    at teddy, in ms, with CUDA events on device-resident images."""
+    from stereomatch_tpu_torch import cli_common
+    log(f"[refined timings] estimate_refined per flag set, ssd -> sgm -> "
+        f"wta, median of {REPS} after {WARMUP} ({FGS_REPS} after 1 for the "
+        f"smoother); card: {card}")
+    times = {}
+    for tag in ("teddy", "hd"):
+        left, right, _, d, k = shapes[tag]
+        pipe = cli_common.create_pipeline("ssd", "wta", "sgm",
+                                          max_disparity=d, penalty1=p1,
+                                          penalty2=p2)
+        pipe.cost.kernel_size = k
+        times[tag] = {}
+        for name, flags in REFINED_TIMED.items():
+            if name == "fgs" and tag == "hd":
+                continue
+            if flags is None:
+                def run():
+                    return pipe.estimate(left, right)
+            else:
+                def run(flags=flags):
+                    return pipe.estimate_refined(left, right, **flags)
+            reps = (dict(warmup=1, reps=FGS_REPS) if name == "fgs"
+                    else {})
+            times[tag][name] = time_ms(torch, run, **reps)
+            log(f"  {tag} {name}: {times[tag][name]!r} ms/frame [{card}]")
+        if tag == "teddy":
+            pipe.estimate(left, right)
+            stages = refine_stages(pipe._aggregation_volume,
+                                   pipe._disparity_image, left, d)
+            times["teddy_stages"] = {}
+            for name, run in stages.items():
+                reps = (dict(warmup=1, reps=FGS_REPS)
+                        if name == "fgs_smooth" else {})
+                times["teddy_stages"][name] = time_ms(torch, run, **reps)
+                log(f"  teddy stage {name}: "
+                    f"{times['teddy_stages'][name]!r} ms [{card}]")
+        del pipe
+        torch.cuda.empty_cache()
+    return times
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -366,7 +589,8 @@ def main() -> int:
     # Phase 1: device.
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     require((ROOT / "stereomatch_tpu_torch").is_dir() and GOLDEN.is_file()
-            and GOLDEN_CVF.is_file() and GOLDEN_BF16.is_file(),
+            and GOLDEN_CVF.is_file() and GOLDEN_BF16.is_file()
+            and GOLDEN_REFINED.is_file(),
             f"{ROOT} is not a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     card = card_line()
@@ -579,7 +803,8 @@ def main() -> int:
     f32_only = ("ssd", "sgm_rows", "sgm_chunk", "sgm_horizontal",
                 "dp_forward", "cvf", "cvf_filter")
 
-    def run_path(label, run, kernels, shape=(375, 450), d=128):
+    def run_path(label, run, kernels, shape=(375, 450), d=128,
+                 dtype=torch.int32):
         torch.cuda.synchronize()
         _build.LAUNCHES.clear()
         disp = run()
@@ -589,7 +814,7 @@ def main() -> int:
         log(f"  launches: {counts}")
         for name in kernels:
             require(counts[name] > 0, f"{label} launched {name} no time")
-        require(disp.is_cuda and disp.dtype == torch.int32
+        require(disp.is_cuda and disp.dtype == dtype
                 and tuple(disp.shape) == shape,
                 f"disparity {disp.device} {disp.dtype} {tuple(disp.shape)}")
         disp_np = disp.cpu().numpy()
@@ -846,6 +1071,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     del single_hd
 
+    check_post_processing(torch, dev, shapes, run_path, mesh5, sharded_kw,
+                          p1, p2)
+
     def paths(tag):
         """(label, pipeline factory) of each timed path at one geometry:
         the three single-card paths, each on float32 and then on bf16
@@ -1040,6 +1268,8 @@ def main() -> int:
         del c_left, c_right
         torch.cuda.empty_cache()
 
+    refined_ms = time_post_processing(torch, shapes, p1, p2, card)
+
     # Phase 6: where the time goes, per path and geometry, from a
     # torch.profiler capture (device kernel time against host wall time).
     # The first capture in a process pays the profiler's own start-up
@@ -1146,6 +1376,7 @@ def main() -> int:
     log(json.dumps({"design_floor_ms": {
         name: {tag: bounds[tag][name][2] for tag in ("teddy", "hd")}
         for name in sources}, "card": card}))
+    log(json.dumps({"refined_ms": refined_ms, "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {

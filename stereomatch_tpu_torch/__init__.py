@@ -7,11 +7,16 @@ the reference it is tested against, and this package never imports JAX.
 
 It runs SSD, SAD or census costs -> 8-path SGM with the adaptive P2 or
 guided-filter cost-volume filtering (the wedge path) -> winner-takes-all
-or scanline dynamic programming, on one device or row-sharded over a
-mesh of devices (``parallel``).  Pipelines run on the card unless the
-caller asks for the CPU.  Plain PyTorch versions run on CPU tensors and
-are the kernels' oracles; CUDA tensors go through the kernels, which are
-built with ``nvcc`` at first use.
+or scanline dynamic programming, then the post-processing of
+``Pipeline.estimate_refined`` (``ops/refine.py``), on one device or
+row-sharded over a mesh of devices (``parallel``); ``metrics``,
+``reconstruction``, ``io`` and the ``stm-eval`` CLI
+(``python -m stereomatch_tpu_torch.cli.evaluate``) surround it.
+Pipelines run on the card unless the caller asks for the CPU.  Plain
+PyTorch versions run on CPU tensors and are the kernels' oracles; CUDA
+tensors go through the kernels, which are built with ``nvcc`` at first
+use, except where a kernel does not serve the shape (``backend="auto"``
+then runs the plain version on the card).
 """
 
 from . import (aggregation, cli_common, convert, cost, disparity_reduce,

@@ -33,10 +33,12 @@ class Semiglobal:
             penalty1: cost penalty for changing disparity by one level.
             penalty2: base penalty for larger disparity jumps, scaled by the
               inverse image gradient (P2_adj = max(P1, P2 / |dI|)).
-            backend: "auto" (the CUDA kernels for CUDA tensors, the plain
-              version for CPU tensors), "cuda" (the kernels; raises on
-              CPU tensors) or "torch" (the plain version on the tensors'
-              own device).  Both give the same volume bit for bit.
+            backend: "auto" (the CUDA kernels for CUDA tensors of a D
+              they serve, ``sgm_cuda.fits``; the plain version for the
+              rest, on the tensors' own device), "cuda" (the kernels;
+              raises on CPU tensors and on a D past them) or "torch"
+              (the plain version on the tensors' own device).  Both give
+              the same volume bit for bit.
         """
         self.penalty1 = penalty1
         self.penalty2 = penalty2
@@ -52,7 +54,8 @@ class Semiglobal:
             raise validation.ShapeError(
                 f"cost_volume spatial dims {tuple(cost_volume.shape[:2])} do "
                 f"not match left_image {tuple(left_image.shape)}")
-        if resolve_backend(self.backend, cost_volume) == "cuda":
+        fits = sgm_cuda.fits(cost_volume.shape)
+        if resolve_backend(self.backend, cost_volume, fits) == "cuda":
             return sgm_cuda.semiglobal_aggregate_cuda(
                 cost_volume, left_image, penalty1=float(self.penalty1),
                 penalty2=float(self.penalty2))
@@ -89,10 +92,11 @@ class CostFilter:
             eps: edge-stop regulariser in image-intensity^2 units.
             subsample: 1 (the exact filter); > 1 is not ported yet.
             penalty1/penalty2: ignored (registry compatibility).
-            backend: "auto" (the CUDA kernels for CUDA tensors, the plain
-              version for CPU tensors), "cuda" (the kernels; raises on
-              CPU tensors) or "torch" (the plain version on the tensors'
-              own device).
+            backend: "auto" (the CUDA kernels for CUDA tensors at a
+              radius they serve, ``cvf_cuda.fits``; the plain version
+              for the rest, on the tensors' own device), "cuda" (the
+              kernels; raises on CPU tensors and on a radius past them)
+              or "torch" (the plain version on the tensors' own device).
             wedge_offset: the wedge of the volume's invalid cells.
         """
         del penalty1, penalty2
@@ -120,7 +124,8 @@ class CostFilter:
                 f"quantity; got cost volume dtype {cost_volume.dtype}")
         wedge = None if self.wedge_offset is None else int(self.wedge_offset)
         kw = dict(radius=int(self.radius), eps=float(self.eps))
-        if resolve_backend(self.backend, cost_volume) == "cuda":
+        fits = cvf_cuda.fits(int(self.radius))
+        if resolve_backend(self.backend, cost_volume, fits) == "cuda":
             return cvf_cuda.guided_filter_aggregate_cuda(
                 cost_volume, left_image, wedge_offset=wedge, **kw)
         return guided_filter_aggregate(cost_volume, left_image,

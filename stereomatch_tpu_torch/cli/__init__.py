@@ -1,0 +1,8 @@
+"""Command-line entry points of the port, run as modules:
+
+    python -m stereomatch_tpu_torch.cli.evaluate ...
+
+``stm-eval``'s counterpart (``evaluate``) is ported; ``stm-image`` and
+the other CLIs come with later slices (ROADMAP A.13).  The console
+scripts of ``pyproject.toml`` stay bound to the JAX package.
+"""

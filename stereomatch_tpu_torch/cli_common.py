@@ -41,45 +41,47 @@ def _lookup(kind: str, name, registry: dict):
                      f"{sorted(registry)}")
 
 
-# The smallest frame (pixels) at which bf16 volumes measured faster than
-# float32 for SGM on the H100: 1280x720 (see recommended_dtype).
-BF16_SGM_MIN_PIXELS = 1280 * 720
+# The smallest volume (H x W x D cells) at which bf16 volumes measured
+# faster than float32 for SGM on the H100: 1280x720 at D=64 (see
+# recommended_dtype).
+BF16_SGM_MIN_CELLS = 1280 * 720 * 64
 
 
-def recommended_dtype(height: int, width: int,
-                      aggregation: str = "sgm") -> str:
+def recommended_dtype(height: int, width: int, aggregation: str = "sgm", *,
+                      max_disparity: int) -> str:
     """The volume dtype ("float32" or "bfloat16") that runs a frame of
-    ``height`` x ``width`` faster on the card, with float32 where the two
-    measured level (its volumes are exact).
+    ``height`` x ``width`` at ``max_disparity`` faster on the card, with
+    float32 where the two measured level (its volumes are exact).
 
     Measured by ``chip_smoke.py`` (phase 5: CUDA events, median of 20
     frames, float32 and bf16 in turns, device-resident images) on an
-    NVIDIA H100 80GB HBM3 at a 700.00 W power limit; ms/frame, float32
-    against bf16:
+    NVIDIA H100 80GB HBM3 at a 700.00 W power limit; SSD + SGM + WTA,
+    ms/frame, float32 against bf16, by volume (cells = H x W x D):
 
-    * SSD + SGM + WTA: 640x480, D=64: 1.34-1.44 against 1.34-1.46 and
-      450x375, D=128: 1.35-1.38 against 1.21-1.33 (level: the SGM step
-      chain bounds both); 1280x720, D=128: 5.27-5.30 against 4.64-4.66;
-      1280x1024, D=256: 13.72-13.76 against 12.02-12.05; 1920x1080,
-      D=256: 21.73-21.80 against 18.45-18.49.  With DP at 1280x1024:
-      13.67-13.71 against 11.72-11.74.  bf16 halves the SGM kernels'
-      cost-volume reads, which bound them from 720p up.
-    * census + CVF + WTA: level at 450x375 (4.5-5.3, host launches) and
-      at 1280x1024 (38.03-38.74 against 38.29-38.30): the plain PyTorch
-      census takes about 27 ms there in either dtype, and the CVF
-      kernels are bound by instruction issue, not bytes.
-    * no aggregation: neither the SSD kernel (1.15-1.18 ms against
-      1.17-1.23 at 1280x1024 over three runs: it is bound by issue) nor
-      torch.argmin (0.80-0.83 against 0.81-0.85) gains.
+    * 640x480, D=64 (19.7M cells): 1.34-1.36 against 1.39-1.42, and
+      450x375, D=128 (21.6M): 1.35-1.38 against 1.21-1.33 (level: the
+      SGM step chain bounds both);
+    * 1280x720, D=64 (59.0M): 3.07-3.10 against 2.96-2.99;
+    * 640x480, D=256 (78.6M): 3.49-3.58 against 3.01-3.09;
+    * 1280x720, D=128 (118M): 5.28-5.31 against 4.61-4.64;
+    * 1280x1024, D=256 (336M): 13.72-13.76 against 12.02-12.05, and with
+      DP 13.67-13.71 against 11.72-11.74;
+    * 1920x1080, D=256 (531M): 21.69-21.80 against 18.36-18.49.
 
-    So bf16 for SGM from ``BF16_SGM_MIN_PIXELS`` (1280x720) up, float32
-    otherwise.  The rule is by pixels, as JAX's is, but what bf16 saves
-    is volume bytes (H x W x D): each size above was measured only at the
-    D beside it, so the threshold holds for those pairs (D = 64 or 128
-    below 720p, 128 at 720p, 256 above); a small frame at a large D is
-    not covered.
+    bf16 halves the SGM kernels' cost-volume reads, which bound them once
+    the volume is large, whatever the frame size: VGA at D=256 gains 15%
+    though it has a third of 720p's pixels.  The ranges span two or more
+    runs of the script.  So bf16 for SGM from ``BF16_SGM_MIN_CELLS``
+    (1280x720x64) up, float32 below (no size between 21.6M and 59.0M
+    cells was measured).  Elsewhere float32: census + CVF + WTA measured
+    level at 450x375 (host launches) and at 1280x1024 (38.03-38.74
+    against 38.29-38.30; plain PyTorch census takes about 27 ms there
+    and the CVF kernels are bound by their instruction rate), and
+    without aggregation neither the SSD kernel (bound the same way) nor
+    torch.argmin gains.
     """
-    if aggregation == "sgm" and height * width >= BF16_SGM_MIN_PIXELS:
+    if (aggregation == "sgm"
+            and height * width * max_disparity >= BF16_SGM_MIN_CELLS):
         return "bfloat16"
     return "float32"
 

@@ -6,9 +6,11 @@
   * ``cost_volume=`` is accepted for source compatibility with the
     reference and ignored: the caching allocator reuses the buffers.
   * ``backend``: "auto" launches the CUDA kernel (``ops/ssd_cuda.py``)
-    for CUDA tensors and runs the plain PyTorch version for CPU tensors;
-    "cuda" demands the kernel and raises on CPU tensors; "torch" runs the
-    plain version on the images' own device.
+    for CUDA tensors whose shape it serves (``ssd_cuda.fits``) and runs
+    the plain PyTorch version otherwise, on the images' own device;
+    "cuda" demands the kernel and raises on CPU tensors and on shapes it
+    does not serve; "torch" runs the plain version on the images' own
+    device.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ def _diff_cost_dispatch(left, right, *, max_disparity, kernel_size,
         raise validation.DTypeError(
             f"cost_volume_dtype must be one of "
             f"{[str(d) for d in validation.COST_DTYPES]}, got {cost_dtype}")
-    if resolve_backend(backend, left) == "cuda":
+    fits = ssd_cuda.fits(left.shape[0], kernel_size)
+    if resolve_backend(backend, left, fits) == "cuda":
         return ssd_cuda.diff_cost_volume_cuda(
             left, right, max_disparity=max_disparity,
             kernel_size=kernel_size, cost_dtype=cost_dtype,

@@ -34,9 +34,11 @@ class DynamicProgramming:
     stereomatch/disparity_reduce.py:49-90; see ``ops/disparity.py``).
 
     ``backend``: "auto" (the CUDA kernels of ``ops/dp_cuda.py`` for CUDA
-    tensors, the plain version for CPU tensors), "cuda" (the kernels;
-    raises on CPU tensors) or "torch" (the plain version on the volume's
-    own device).  Both give the same disparities bit for bit.
+    tensors of a D they serve, ``dp_cuda.fits``; the plain version for
+    the rest, on the volume's own device), "cuda" (the kernels; raises on
+    CPU tensors and on a D past them) or "torch" (the plain version on
+    the volume's own device).  Both give the same disparities bit for
+    bit.
     ``disparity_img=`` is accepted for source compatibility and ignored.
     """
 
@@ -47,6 +49,7 @@ class DynamicProgramming:
                  disparity_img: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
         validation.check_cost_volume(cost_volume)
-        if resolve_backend(self.backend, cost_volume) == "cuda":
+        fits = dp_cuda.fits(cost_volume.shape)
+        if resolve_backend(self.backend, cost_volume, fits) == "cuda":
             return dp_cuda.dynamic_programming_cuda(cost_volume)
         return dynamic_programming(cost_volume)

@@ -1,6 +1,8 @@
-"""Host-side I/O: numpy-only modules, copied from the JAX package so the
-port runs where JAX is not installed."""
+"""Host-side I/O and rectification.  ``data`` (PFM/PNM parsing, the
+Middlebury and KITTI datasets) and ``synthetic`` (the generated scenes)
+are numpy-only copies of the JAX package's modules, so the port runs
+where JAX is not installed; ``calibration`` warps images with PyTorch."""
 
-from . import synthetic
+from . import calibration, data, synthetic
 
-__all__ = ["synthetic"]
+__all__ = ["calibration", "data", "synthetic"]

@@ -1,5 +1,6 @@
 """Functional ops: plain PyTorch versions (``cost``, ``aggregation``,
-``cvf``, ``disparity``) and the launchers of the hand-written CUDA kernels
+``cvf``, ``disparity``, and ``refine``, the post-processing, which has no
+kernel) and the launchers of the hand-written CUDA kernels
 that replace the JAX package's Pallas kernels (``ssd_cuda``,
 ``sgm_cuda``, ``dp_cuda``, ``cvf_cuda``, built by ``_build``).  Importing
 them builds nothing."""

@@ -39,6 +39,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.numeric import fma
+
 # XLA's CPU compiler rewrites a cumulative reduce_window into a scan over
 # blocks of this many elements (the ReduceWindowRewriter's base length).
 _SCAN_BASE = 16
@@ -85,27 +87,13 @@ def _box_sum_sym(x: torch.Tensor, radius: int, axes=(0, 1)) -> torch.Tensor:
     return x
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a * b + c rounded once to float32, as a fused multiply-add.
-
-    XLA's CPU backend contracts a product feeding an add into one FMA,
-    and the CUDA kernels do the same with ``__fmaf_rn``; torch has no
-    FMA operator.  The product of two float32 values is exact in
-    float64, so only the sum rounds before the final cast (a double
-    rounding that differs from one rounding only when the float64 sum
-    lands exactly halfway between two float32 values).
-    """
-    return torch.addcmul(c.to(torch.float64), a.to(torch.float64),
-                         b.to(torch.float64)).to(torch.float32)
-
-
 def _linear_model(mean_p, mean_i, corr_ip, corr_ii, eps):
     """Per-window linear model from windowed means: q ~= a*I + b, with
     each product-and-difference fused as XLA fuses it."""
-    var_i = torch.clamp_min(_fma(-mean_i, mean_i, corr_ii), 0.0)
-    cov_ip = _fma(-mean_i, mean_p, corr_ip)
+    var_i = torch.clamp_min(fma(-mean_i, mean_i, corr_ii), 0.0)
+    cov_ip = fma(-mean_i, mean_p, corr_ip)
     a = cov_ip / (var_i + eps)
-    b = _fma(-a, mean_i, mean_p)
+    b = fma(-a, mean_i, mean_p)
     return a, b
 
 
@@ -199,7 +187,7 @@ def _filter_body_wedge(volume: torch.Tensor, planes: GuidePlanes,
                          s_gg / count, eps32)
     a0 = torch.where(valid, a, zero)
     b0 = torch.where(valid, b, zero)
-    q = _fma(box(a0) / count, g, box(b0) / count)
+    q = fma(box(a0) / count, g, box(b0) / count)
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
     return torch.where(valid, q, inf).to(volume.dtype)
 

@@ -28,6 +28,19 @@ VOLUME_DTYPES = (torch.float32, torch.bfloat16)
 
 _REFUSED = -1       # csrc/cvf.cu: no tile of the radius fits shared memory
 
+# The largest radius whose tiles fit one block's shared memory in both
+# kernels (csrc/cvf.cu:73, tile_of: the filter kernel's smallest tile
+# outgrows the card's 227 KB at r = 35; the stats kernel's, at r = 45).
+MAX_RADIUS = 34
+
+
+def fits(radius: int) -> bool:
+    """Whether the kernels serve a filter of ``radius`` (any volume
+    shape, either dtype).  The launcher raises ``ValueError`` exactly
+    where this is false, and ``backend="auto"`` sends such filters to the
+    plain version."""
+    return radius <= MAX_RADIUS
+
 
 def guided_filter_aggregate_cuda(cost_volume: torch.Tensor,
                                  guide: torch.Tensor, *, radius: int = 8,

@@ -27,6 +27,14 @@ from . import _build
 MAX_DISPARITY = 512         # 32 lanes x 16 registers per lane
 
 
+def fits(shape) -> bool:
+    """Whether the kernels serve an [H, W, D] cost volume: D within the
+    ``MAX_DISPARITY`` registers of a warp.  The launchers raise
+    ``ValueError`` exactly where this is false, and ``backend="auto"``
+    sends such volumes to the plain version."""
+    return shape[-1] <= MAX_DISPARITY
+
+
 def _check_volume(name: str, t: torch.Tensor, dtypes) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors, got {t.device}")

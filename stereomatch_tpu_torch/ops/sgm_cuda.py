@@ -40,6 +40,14 @@ VOLUME_DTYPES = (torch.float32, torch.bfloat16)
 MAX_DISPARITY = 512         # 32 lanes x 16 registers per lane
 
 
+def fits(shape) -> bool:
+    """Whether the kernels serve an [H, W, D] cost volume (or a chunk of
+    one): D within the ``MAX_DISPARITY`` registers of a warp.  The
+    launchers raise ``ValueError`` exactly where this is false, and
+    ``backend="auto"`` sends such volumes to the plain version."""
+    return shape[-1] <= MAX_DISPARITY
+
+
 def _check_out(out: torch.Tensor, like: torch.Tensor, name: str,
                dtype: torch.dtype = torch.float32) -> None:
     if out.shape != like.shape or out.dtype != dtype \

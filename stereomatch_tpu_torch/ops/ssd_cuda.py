@@ -9,7 +9,9 @@ The launcher takes CUDA tensors only: it checks device, dtype and shape,
 allocates the output with ``torch.empty``, launches on the current
 stream and raises if the launch failed.  A ``kernel_size`` whose tile
 fits no block's shared memory is refused with a ``ValueError`` before any
-launch.  A bf16 volume is the float32 chain with each output rounded once
+launch; :func:`fits` states those limits before any launch, and
+``backend="auto"`` sends the shapes it refuses to the plain version.  A
+bf16 volume is the float32 chain with each output rounded once
 as it is stored (``stm_ssd_bf16``), as the plain version rounds it.
 ``_build.LAUNCHES`` counts the launches of each entry point, so a run can
 show that it went through the kernel.
@@ -28,6 +30,23 @@ _ENTRIES = {torch.float32: "stm_ssd_f32", torch.int32: "stm_ssd_i32",
 _REFUSED = -1               # csrc/ssd.cu: no tile of the k fits shared memory
 
 _MAX_GRID_Y = 65535         # the block grid's y extent carries the rows
+_TX = 32                    # csrc/ssd.cu kTX: output columns of a block
+_SMEM_MAX = 227 * 1024      # csrc/ssd.cu kSmemMax: one block's shared memory
+
+
+def fits(height: int, kernel_size: int) -> bool:
+    """Whether the kernel serves an image of ``height`` rows at window
+    half-extent ``kernel_size`` (any width, any D): the rows fit the
+    block grid's y extent, and one staged row of the streamed tile fits
+    one block's shared memory (``csrc/ssd.cu`` ``tile_of``: the vertical
+    sums [1][S][4] and one row of the left span [S] and the right span
+    [S + 3], S = 32 + 2k - 1, 4-byte elements in every chain).  Below
+    k = 4 the unstreamed tiles always fit, and so does this bound.
+    :func:`diff_cost_volume_cuda` raises ``ValueError`` exactly where
+    this is false."""
+    span = _TX + 2 * kernel_size - 1
+    one_row = 4 * span + 2 * span + 3
+    return height <= _MAX_GRID_Y and one_row * 4 <= _SMEM_MAX
 
 
 def diff_cost_volume_cuda(left: torch.Tensor, right: torch.Tensor, *,

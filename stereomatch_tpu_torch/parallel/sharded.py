@@ -41,10 +41,25 @@ What crosses tile boundaries, and how:
 TPU the naive fill was only an A/B baseline of the wavefront, and the
 JAX package asserts the two give identical outputs.
 
+Post-processing, in ``Pipeline.estimate_refined``'s order (LR check and
+fill, weighted median, 3x3 median, sub-pixel, fast global smoother,
+confidence gate), then speckle suppression.  The LR check's mirrored run
+flips W, which the tiles never split, and its volume mode, the sub-pixel
+step and the confidence gate never leave a row: tile-local.  The medians
+and the speckle test read window//2 rows of each neighbour (halos), the
+rows beyond the image filled as the single-device filters pad them
+(edge rows for the 3x3 median, +inf guide rows for the weighted median,
+NaN for the speckle test).  The smoother's row solves are tile-local;
+its column solves chain the Thomas forward carry (cp, dp) down through
+the tiles and the back-substitution's first row up through them, from
+guide halo rows, so every step is the single-device step.  Each flag
+gives the single-device ``estimate_refined`` (then ``filter_speckles``)
+bit for bit.
+
 Refused with ``NotImplementedError`` naming the ROADMAP item, never
 substituted: ``sgm_mode="auto"`` (it resolves from the TPU's ICI model),
-``aggregation="cvf"`` (A.9), the costs "birchfield", "ncc" and
-"ssd-texture" (A.8) and every post-processing flag (A.10).
+``aggregation="cvf"`` (A.9) and the costs "birchfield", "ncc" and
+"ssd-texture" (A.8).
 
 bf16 volumes (``cost_dtype="bfloat16"``): each tile's cost volume is
 bf16, the image halos float32; the kernels read the bf16 tiles, the
@@ -60,13 +75,15 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..cost import SAD, SSD, Census
 from ..disparity_reduce import DynamicProgramming
-from ..ops import sgm_cuda
+from ..ops import refine, sgm_cuda
 from ..ops.aggregation import TRAVERSALS, sweep, sweep_chunk_with_carry
 from ..ops.disparity import winner_takes_all
-from ..pipeline import tensor_from_numpy
+from ..pipeline import disparity_bins, tensor_from_numpy
+from ..utils.numeric import exp_f32
 from ..utils import profiling, validation
 from ..utils.backend import resolve_backend
 from . import halo
@@ -209,7 +226,8 @@ def sharded_semiglobal(vols: Sequence[torch.Tensor],
     if mode not in ("exact", "overlap"):
         raise ValueError(f"unknown SGM sharding mode: {mode!r}")
     p1, p2 = float(penalty1), float(penalty2)
-    on_card = resolve_backend(backend, vols[0]) == "cuda"
+    fits = sgm_cuda.fits(vols[0].shape)
+    on_card = resolve_backend(backend, vols[0], fits) == "cuda"
     dtype = torch.bfloat16 if vols[0].dtype == torch.bfloat16 \
         else torch.float32
     vols = [v.to(dtype).contiguous() for v in vols]
@@ -230,6 +248,123 @@ def sharded_semiglobal(vols: Sequence[torch.Tensor],
     # The one rounding of a bf16 tile's float32 sum, where the chunk
     # kernel did not already store it rounded (overlap mode, the CPU).
     return [o.to(dtype) for o in outs]
+
+
+# --------------------------------------------------------------------------
+# Post-processing under row sharding
+# --------------------------------------------------------------------------
+
+def _halo_padded(blocks: Sequence[torch.Tensor], rows: int,
+                 beyond: float) -> List[torch.Tensor]:
+    """Each tile's block with ``rows`` rows of its neighbours above and
+    below, the rows beyond the image set to ``beyond``."""
+    n, h_loc = len(blocks), blocks[0].shape[0]
+    out = []
+    for t, padded in enumerate(halo.pad_with_halos(blocks, rows, rows)):
+        outside = halo.out_of_image_mask(t, n, h_loc, rows,
+                                         device=padded.device)
+        out.append(torch.where(outside[:, None], beyond, padded))
+    return out
+
+
+def _median3x3_rows(disps):
+    """3x3 median over row tiles: one halo row a side, the image's first
+    and last rows replicated beyond it, as ``refine.median_filter_3x3``
+    pads (edge mode)."""
+    x = [d.to(torch.float32) for d in disps]
+    padded = halo.pad_with_halos(x, 1, 1)
+    padded[0][0] = padded[0][1]
+    padded[-1][-1] = padded[-1][-2]
+    return [refine.median3x3_from_padded(
+                F.pad(p[None, None], (1, 1, 0, 0), mode="replicate")[0, 0]
+            ).to(d.dtype) for p, d in zip(padded, disps)]
+
+
+def _wmf_rows(disps, guides, *, window, sigma, n_bins):
+    """Guide-weighted median over row tiles: window//2 halo rows of the
+    bins and of the guide, the guide +inf beyond the image (no weight),
+    as ``refine.weighted_median_filter`` pads."""
+    r = window // 2
+    inf = float("inf")
+    bins = [d.to(torch.float32).round().clamp(0, n_bins - 1) for d in disps]
+    g = [i.to(torch.float32) for i in guides]
+    b_pad = [F.pad(b, (r, r)).to(torch.int32)
+             for b in _halo_padded(bins, r, 0.0)]
+    g_pad = [F.pad(x, (r, r), value=inf) for x in _halo_padded(g, r, inf)]
+    return [refine._wmf_from_padded(bp, gp, gl, window=window, sigma=sigma,
+                                    n_bins=n_bins).to(d.dtype)
+            for bp, gp, gl, d in zip(b_pad, g_pad, g, disps)]
+
+
+def _speckle_rows(disps, *, max_diff, window, min_frac, fill):
+    """Speckle suppression over row tiles: window//2 halo rows, NaN beyond
+    the image (no neighbour there), as ``refine.speckle_mask`` pads; the
+    background fill never leaves a row."""
+    r = window // 2
+    nan = float("nan")
+    d = [x.to(torch.float32) for x in disps]
+    padded = [F.pad(p, (r, r), value=nan) for p in _halo_padded(d, r, nan)]
+    masks = [refine._windowed_support(p, c, max_diff=max_diff,
+                                      window=window, min_frac=min_frac)
+             for p, c in zip(padded, d)]
+    return [refine._apply_speckle_fill(x, m, fill)
+            for x, m in zip(disps, masks)]
+
+
+def _fgs_rows(disps, guides, confidences, *, lam, sigma_color, iterations):
+    """The fast global smoother (``refine.fgs_smooth``) over row tiles.
+
+    Row solves never leave a row.  Column solves span the tiles: each
+    tile's system comes from its rows and one guide halo row a side (0
+    weight beyond the image, as at the single-device border); the Thomas
+    forward elimination runs down the tiles in order, each from the last
+    (cp, dp) of the one above it, and the back substitution up them,
+    each from the first solution row of the one below: the single-device
+    recurrence, step for step."""
+    n = len(disps)
+    u = [d.to(torch.float32) for d in disps]
+    g = [i.to(torch.float32) for i in guides]
+    c = [refine._fgs_confidence(ui, ci) for ui, ci in zip(u, confidences)]
+    inv_sigma = float(np.float32(-1.0) / np.float32(sigma_color))
+
+    def weights(x):
+        return exp_f32((x[..., 1:] - x[..., :-1]).abs() * inv_sigma)
+
+    a_h = [weights(x) for x in g]
+    # a_ext[i]: the weight between halo-extended rows i and i + 1, i.e.
+    # between local rows i - 1 and i; 0 across the image's top and bottom.
+    a_ext = [weights(x.T).T for x in halo.pad_with_halos(g, 1, 1)]
+    a_ext[0][0] = 0.0
+    a_ext[-1][-1] = 0.0
+    a_up = [a[:-1].T for a in a_ext]        # toward y - 1, [W, Hl]
+    a_down = [a[1:].T for a in a_ext]       # toward y + 1
+
+    def vertical(u, lam_t):
+        systems = [refine._fgs_system(ui.T, ci.T, up, down,
+                                      lam_t.to(ui.device))
+                   for ui, ci, up, down in zip(u, c, a_up, a_down)]
+        zero = torch.zeros(u[0].shape[1], dtype=torch.float32,
+                           device=u[0].device)
+        cp, dp, forward = zero, zero, []
+        for system in systems:
+            dev = system[0].device
+            cps, dps = refine._thomas_forward(*system, cp.to(dev), dp.to(dev))
+            forward.append((cps, dps))
+            cp, dp = cps[..., -1], dps[..., -1]
+        out, u_next = [None] * n, zero
+        for t in range(n - 1, -1, -1):
+            cps, dps = forward[t]
+            v = refine._thomas_backward(cps, dps, u_next.to(cps.device))
+            out[t], u_next = v.T, v[..., 0]
+        return out
+
+    lam = torch.tensor(lam, dtype=torch.float32, device=u[0].device)
+    for t in range(1, iterations + 1):
+        lam_t = refine._fgs_lambda_schedule(lam, iterations, t)
+        u = [refine._fgs_pass(ui, ci, ai, lam_t.to(ui.device))
+             for ui, ci, ai in zip(u, c, a_h)]
+        u = vertical(u, lam_t)
+    return u
 
 
 # --------------------------------------------------------------------------
@@ -280,14 +415,17 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     ``b * B/n_batch ..`` run on batch row ``b``; each tile's rows go to
     its device.  ``backend`` takes the port's names: "auto" (kernels on
     CUDA tiles, plain versions on CPU tiles), "cuda" or "torch".
-    ``cvf_radius``/``cvf_eps`` and the post-processing options'
-    parameters (``lr_mode``, ``lr_max_diff``, ``wmf_sigma``,
-    ``wmf_window``, ``fgs_sigma``, ``speckle_fill``) are accepted for the
-    keywords' sake; the options themselves raise (module docstring).
-    ``interpret`` exists on the JAX side only (Pallas interpret mode):
-    CPU tiles run the plain versions, so True raises.
+    ``cvf_radius``/``cvf_eps`` are accepted for the keywords' sake
+    (sharded CVF raises, ROADMAP A.9).  The post-processing options
+    follow ``Pipeline.estimate_refined`` (``lr_max_diff`` is its
+    ``max_diff``; the smoother runs 3 iterations), then ``speckle``
+    applies ``refine.filter_speckles`` with its defaults and
+    ``speckle_fill``; with ``subpixel``, ``lr_check`` (fill) or
+    ``fgs_lambda`` the output is float32.  ``interpret`` exists on the
+    JAX side only (Pallas interpret mode): CPU tiles run the plain
+    versions, so True raises.
     """
-    del cvf_radius, cvf_eps, lr_max_diff, wmf_sigma, wmf_window, fgs_sigma
+    del cvf_radius, cvf_eps
     if lr_mode not in ("mirror", "volume"):
         raise ValueError(f"unknown lr_mode: {lr_mode!r}")
     if speckle_fill not in ("zero", "background"):
@@ -320,14 +458,6 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     if cost in _NOT_PORTED_COSTS:
         raise _not_ported(f"the {cost!r} cost", "A.8")
     dtype = _cost_dtype(cost_dtype)
-    refused = [name for name, on in (
-        ("median", median), ("subpixel", subpixel), ("lr_check", lr_check),
-        ("weighted_median", weighted_median),
-        ("fgs_lambda", fgs_lambda is not None),
-        ("min_confidence", min_confidence is not None),
-        ("speckle", speckle)) if on]
-    if refused:
-        raise _not_ported(f"post-processing ({', '.join(refused)})", "A.10")
     if dtype == torch.int32 and aggregation is not None:
         raise ValueError("int32 cost volumes do not support aggregation "
                          "(SGM's adaptive P2 is a float quantity)")
@@ -351,11 +481,8 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     dp = DynamicProgramming(backend=backend)
     n_batch, n_tiles = mesh.shape[BATCH_AXIS], mesh.shape[TILE_AXIS]
 
-    def frame(left, right, devices):
-        h_loc = left.shape[0] // n_tiles
-        rows = [slice(t * h_loc, (t + 1) * h_loc) for t in range(n_tiles)]
-        lefts = [left[r].to(d) for r, d in zip(rows, devices)]
-        rights = [right[r].to(d) for r, d in zip(rows, devices)]
+    def core(lefts, rights):
+        """One frame's per-tile (aggregated volumes, disparities)."""
         with profiling.annotate("stm/cost"):
             vols = local_cost(lefts, rights, cost_fn, *halo_rows)
         if aggregation == "sgm":
@@ -365,8 +492,58 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                                           overlap=overlap, backend=backend)
         with profiling.annotate("stm/disparity_reduce"):
             if reducer == "wta":
-                return [winner_takes_all(v) for v in vols]
-            return [dp(v) for v in vols]
+                return vols, [winner_takes_all(v) for v in vols]
+            return vols, [dp(v) for v in vols]
+
+    def refined(vols, disps, lefts, disps_r):
+        """The post-processing stages, in estimate_refined's order."""
+        if lr_check:
+            if disps_r is None:
+                disps_r = [refine.right_disparity_from_volume(v)
+                           for v in vols]
+            masks = [refine.left_right_consistency(
+                         d, dr, lr_max_diff, max_disparity=max_disparity)
+                     for d, dr in zip(disps, disps_r)]
+            disps = [refine.fill_inconsistent(d, m)
+                     for d, m in zip(disps, masks)]
+        if weighted_median:
+            disps = _wmf_rows(disps, lefts, window=wmf_window,
+                              sigma=wmf_sigma, n_bins=max_disparity)
+        if median:
+            disps = _median3x3_rows(disps)
+        if subpixel:
+            disps = [refine.subpixel_refine(v, disparity_bins(d,
+                                                              max_disparity))
+                     for v, d in zip(vols, disps)]
+        if fgs_lambda is not None:
+            confs = ([m.to(torch.float32) for m in masks] if lr_check
+                     else [None] * len(disps))
+            disps = _fgs_rows(disps, lefts, confs, lam=fgs_lambda,
+                              sigma_color=fgs_sigma, iterations=3)
+        if min_confidence is not None:
+            disps = [torch.where(refine.confidence_pkrn(v) >= min_confidence,
+                                 d, torch.zeros((), dtype=d.dtype,
+                                                device=d.device))
+                     for v, d in zip(vols, disps)]
+        if speckle:
+            disps = _speckle_rows(disps, max_diff=1.0, window=9,
+                                  min_frac=0.25, fill=speckle_fill)
+        return disps
+
+    def frame(left, right, devices):
+        h_loc = left.shape[0] // n_tiles
+        rows = [slice(t * h_loc, (t + 1) * h_loc) for t in range(n_tiles)]
+        lefts = [left[r].to(d) for r, d in zip(rows, devices)]
+        rights = [right[r].to(d) for r, d in zip(rows, devices)]
+        disps_r = None
+        if lr_check and lr_mode == "mirror":
+            # Right-to-left matching is left-to-right matching on the
+            # mirrored pair (refine.right_disparity); W is never split.
+            mirrored = core([r.flip(-1) for r in rights],
+                            [x.flip(-1) for x in lefts])[1]
+            disps_r = [d.flip(-1) for d in mirrored]
+        vols, disps = core(lefts, rights)
+        return refined(vols, disps, lefts, disps_r)
 
     def fn(left, right) -> torch.Tensor:
         left, right = _as_frames(left), _as_frames(right)
@@ -401,8 +578,9 @@ class ShardedPipeline:
                                          **kwargs)
 
     def estimate(self, left, right) -> torch.Tensor:
-        """[B, H, W] (or [H, W], auto-batched) -> [B, H, W] int32 on the
-        mesh's first device."""
+        """[B, H, W] (or [H, W], auto-batched) -> [B, H, W] int32 (float32
+        after sub-pixel, LR fill or the smoother) on the mesh's first
+        device."""
         left, right = _as_frames(left), _as_frames(right)
         squeeze = left.ndim == 2
         if squeeze:

@@ -1,4 +1,5 @@
-"""Small numeric helpers.
+"""Small numeric helpers, and the float32 arithmetic of XLA's CPU backend
+(:func:`fma`, :func:`exp_f32`) that the plain versions reproduce.
 
 TPU-native counterpart of the reference's ``stereomatch/numeric.py``
 (reference: stereomatch/numeric.py:5-26).  The reference needs power-of-two
@@ -10,6 +11,8 @@ multiple keeps tiles dense.
 """
 
 from __future__ import annotations
+
+import torch
 
 
 def is_power_of_two(num: int) -> bool:
@@ -38,3 +41,55 @@ def round_up_to_multiple(n: int, multiple: int) -> int:
 def cdiv(a: int, b: int) -> int:
     """Ceiling division."""
     return -(-a // b)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to float32, as a fused multiply-add.
+
+    XLA's CPU backend contracts a product feeding an add into one FMA,
+    and the CUDA kernels do the same with ``__fmaf_rn``; torch has no
+    FMA operator.  The product of two float32 values is exact in
+    float64, so only the sum rounds before the final cast (a double
+    rounding that differs from one rounding only when the float64 sum
+    lands exactly halfway between two float32 values).
+    """
+    return torch.addcmul(c.to(torch.float64), a.to(torch.float64),
+                         b.to(torch.float64)).to(torch.float32)
+
+
+# Cephes' single-precision exp: the range limits, log2(e), ln(2) in two
+# parts, and the polynomial's coefficients, highest power first.
+_EXP_LIMITS = (-87.8, 88.8)
+_LOG2E = 1.44269504088896341
+_LN2 = (0.693359375, -2.12194440e-4)
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of a float32 tensor as XLA's CPU backend computes it.
+
+    XLA emits Cephes' polynomial for ``exp``, its products feeding sums
+    contracted into fused multiply-adds (:func:`fma`), and runs with
+    denormal results flushed to zero.  It differs from ``torch.exp`` in
+    the last place for about one argument in ten, so the plain versions
+    that weigh by an exponential (the weighted median, the fast global
+    smoother) take this one: the same values as the JAX package on the
+    CPU, and the same values on every device.  Arguments are clamped to
+    [-87.8, 88.8]; NaN stays NaN.
+    """
+    def const(value):
+        return torch.tensor(value, dtype=torch.float32, device=x.device)
+
+    x = x.to(torch.float32).clamp(*_EXP_LIMITS)
+    n = torch.floor(fma(x, const(_LOG2E), const(0.5))).clamp(-127, 127)
+    r = fma(n, const(-_LN2[0]), x)
+    r = fma(n, const(-_LN2[1]), r)
+    p = fma(r, const(_EXP_POLY[0]), const(_EXP_POLY[1]))
+    for coef in _EXP_POLY[2:]:
+        p = fma(p, r, const(coef))
+    y = 1.0 + fma(p, r * r, r)
+    # 2^n from its exponent bits (n = -127 gives 0, as XLA's does).
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = y * scale
+    return torch.where(out < torch.finfo(torch.float32).tiny, 0.0, out)

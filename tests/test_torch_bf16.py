@@ -284,17 +284,20 @@ def test_sharded_pipeline_from_jax_keywords_in_bf16(meshes):
     assert out.dtype == torch.int32 and tuple(out.shape) == (32, 48)
 
 
-@pytest.mark.parametrize("height,width,aggregation,want", [
-    (375, 450, "sgm", "float32"), (480, 640, "sgm", "float32"),
-    (720, 1280, "sgm", "bfloat16"), (1024, 1280, "sgm", "bfloat16"),
-    (1080, 1920, "sgm", "bfloat16"), (1024, 1280, "cvf", "float32"),
-    (375, 450, "cvf", "float32"), (1080, 1920, None, "float32")])
-def test_recommended_dtype_follows_the_card(height, width, aggregation,
+@pytest.mark.parametrize("height,width,d,aggregation,want", [
+    (375, 450, 128, "sgm", "float32"), (480, 640, 64, "sgm", "float32"),
+    (720, 1280, 64, "sgm", "bfloat16"), (480, 640, 256, "sgm", "bfloat16"),
+    (720, 1280, 128, "sgm", "bfloat16"), (1024, 1280, 256, "sgm", "bfloat16"),
+    (1080, 1920, 256, "sgm", "bfloat16"), (1024, 1280, 256, "cvf", "float32"),
+    (375, 450, 128, "cvf", "float32"), (1080, 1920, 256, None, "float32")])
+def test_recommended_dtype_follows_the_card(height, width, d, aggregation,
                                             want):
-    """bf16 for SGM from 1280x720 up, where it measured faster on the
-    H100; float32 where the two measured level (the JAX package's rule,
+    """bf16 for SGM from a volume of 1280x720x64 cells up, where it
+    measured faster on the H100 (VGA at D=256 too, 720p at D=64 too);
+    float32 where the two measured level (the JAX package's rule,
     measured on the TPU, is not carried over)."""
-    got = cli_common.recommended_dtype(height, width, aggregation)
+    got = cli_common.recommended_dtype(height, width, aggregation,
+                                       max_disparity=d)
     assert got == want and got in cli_common.VOLUME_DTYPES
     pipe = cli_common.create_pipeline("ssd", "wta", aggregation,
                                       max_disparity=8, volume_dtype=got,

@@ -31,6 +31,7 @@ from stereomatch_tpu.ops.cvf_pallas import (
 from stereomatch_tpu_torch.aggregation import CostFilter
 from stereomatch_tpu_torch.ops import cvf as port
 from stereomatch_tpu_torch.utils import validation
+from stereomatch_tpu_torch.utils.numeric import fma
 
 from .conftest import synthetic_stereo_pair
 from .oracles import guided_filter_oracle
@@ -122,13 +123,13 @@ def test_matches_float64_oracle():
 
 def test_xla_cpu_fuses_multiply_add_as_the_port_does():
     """XLA's CPU backend contracts a product feeding a difference into one
-    FMA; the port's ``_fma`` rounds the same way, where two roundings
-    would not."""
+    FMA; the port's ``utils.numeric.fma`` (which the plain CVF takes)
+    rounds the same way, where two roundings would not."""
     rng = np.random.default_rng(6)
     x, y, z = (rng.random(20_000, np.float32) for _ in range(3))
     ref = np.asarray(jax.jit(lambda a, b, c: a - b * c)(x, y, z))
-    fused = port._fma(-torch.from_numpy(y), torch.from_numpy(z),
-                      torch.from_numpy(x)).numpy()
+    fused = fma(-torch.from_numpy(y), torch.from_numpy(z),
+                torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(fused, ref)
     assert (x - y * z != ref).any()
 

@@ -1,10 +1,11 @@
 """The port runs where JAX is not installed.
 
-Importing ``stereomatch_tpu_torch`` (every module of it) must leave JAX
-out of ``sys.modules``, ``chip_smoke.py`` must import neither JAX nor
-the JAX package, and the numpy-only scene generator the port carries
-must stay byte-identical in behaviour to the JAX package's, which the
-golden anchors were generated from.
+Importing ``stereomatch_tpu_torch`` (every module of it, the CLI
+included) must leave JAX and the JAX package out of ``sys.modules``; no
+source file of the port and not ``chip_smoke.py`` may import either; and
+the numpy-only scene generator the port carries must stay byte-identical
+in behaviour to the JAX package's, which the golden anchors were
+generated from.
 """
 
 import ast
@@ -31,6 +32,14 @@ def test_import_leaves_jax_out():
         "import stereomatch_tpu_torch.ops.cvf_cuda\n"
         "import stereomatch_tpu_torch.ops.cvf, stereomatch_tpu_torch.ops.disparity\n"
         "import stereomatch_tpu_torch.io.synthetic\n"
+        "import stereomatch_tpu_torch.io.data\n"
+        "import stereomatch_tpu_torch.io.calibration\n"
+        "import stereomatch_tpu_torch.ops.refine\n"
+        "import stereomatch_tpu_torch.metrics\n"
+        "import stereomatch_tpu_torch.reconstruction\n"
+        "import stereomatch_tpu_torch.cli.evaluate\n"
+        "import stereomatch_tpu_torch.utils.backend\n"
+        "import stereomatch_tpu_torch.utils.numeric\n"
         "import stereomatch_tpu_torch.utils.profiling\n"
         "import stereomatch_tpu_torch.parallel\n"
         "import stereomatch_tpu_torch.parallel.mesh\n"
@@ -46,8 +55,37 @@ def test_import_leaves_jax_out():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+ROOT = Path(__file__).resolve().parent.parent
+PORT_SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in
+                      (ROOT / "stereomatch_tpu_torch").rglob("*.py"))
+
+
+def _imported_modules(source: Path) -> set:
+    """Every module an import statement of ``source`` names (relative
+    imports resolved against its package)."""
+    tree = ast.parse(source.read_text())
+    package = source.relative_to(ROOT).with_suffix("").parts[:-1]
+    modules = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            modules.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = list(package[:len(package) - node.level + 1]
+                        if node.level else [])
+            modules.add(".".join(base + ([node.module] if node.module
+                                         else [])))
+    return modules
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
+def test_no_port_module_imports_jax(path):
+    modules = _imported_modules(ROOT / path)
+    assert not [m for m in modules
+                if m.split(".")[0] in ("jax", "jaxlib", "stereomatch_tpu")]
+
+
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
-    source = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    source = ROOT / "chip_smoke.py"
     tree = ast.parse(source.read_text())
     modules = set()
     for node in ast.walk(tree):

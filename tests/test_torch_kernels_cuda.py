@@ -824,3 +824,122 @@ def test_sharded_int32_volume_to_dyn_equals_single_card(device, launches):
     out = pipe.estimate(left, right)
     assert torch.equal(out.reshape(want.shape), want)
     assert launches["stm_dp_forward_f32"] == 5
+
+
+# Fault C.1: under backend="auto" a shape that a kernel does not serve
+# runs the plain version on the card; an explicit "cuda" still raises.
+FAR_D = 600                 # past the SGM and DP kernels' 512
+
+
+def _far_pair(device):
+    """8 x 640 images, D = 600 fits in the width."""
+    left, right, _ = stereo_pair(8, 640, 64, seed=4)
+    return (torch.from_numpy(left).to(device),
+            torch.from_numpy(right).to(device))
+
+
+@pytest.mark.parametrize("reducer", ["wta", "dyn"])
+def test_auto_runs_sgm_and_dp_past_their_kernels_on_the_card(device,
+                                                             launches,
+                                                             reducer):
+    left, right = _far_pair(device)
+    auto = cli_common.create_pipeline("ssd", reducer, "sgm",
+                                      max_disparity=FAR_D)
+    plain = cli_common.create_pipeline("ssd", reducer, "sgm",
+                                       max_disparity=FAR_D, backend="torch")
+    disp = auto.estimate(left, right)
+    assert disp.is_cuda
+    assert launches["stm_ssd_f32"] == 1
+    assert launches["stm_sgm_rows_f32"] == launches["stm_dp_forward_f32"] == 0
+    assert torch.equal(disp, plain.estimate(left, right))
+    forced = cli_common.create_pipeline("ssd", reducer, "sgm",
+                                        max_disparity=FAR_D, backend="cuda")
+    with pytest.raises(ValueError, match="exceeds"):
+        forced.estimate(left, right)
+
+
+def test_auto_runs_the_sharded_path_past_the_chunk_kernel(device, launches):
+    left, right = _far_pair(device)
+    single = cli_common.create_pipeline("ssd", "dyn", "sgm",
+                                        max_disparity=FAR_D)
+    single.cost.kernel_size = 3
+    want = single.estimate(left, right)
+    launches.clear()
+    mesh = make_mesh([device] * 2, n_batch=1)
+    out = ShardedPipeline(mesh, FAR_D, kernel_size=3,
+                          reducer="dynamic_programming").estimate(left, right)
+    assert torch.equal(out.reshape(want.shape), want)
+    assert launches["stm_sgm_chunk_f32"] == launches["stm_dp_backward"] == 0
+    with pytest.raises(ValueError, match="exceeds"):
+        ShardedPipeline(mesh, FAR_D, kernel_size=3,
+                        backend="cuda").estimate(left, right)
+
+
+def test_auto_runs_cvf_past_its_radius_on_the_card(device, launches):
+    left, right = _images(40, 72, 6, device)
+    kw = dict(max_disparity=24, cvf_radius=40)
+    disp = cli_common.create_pipeline("census", "wta", "cvf",
+                                      **kw).estimate(left, right)
+    assert disp.is_cuda and launches["stm_cvf_stats_f32"] == 0
+    plain = cli_common.create_pipeline("census", "wta", "cvf",
+                                       backend="torch", **kw)
+    assert torch.equal(disp, plain.estimate(left, right))
+    with pytest.raises(ValueError, match="shared memory"):
+        cli_common.create_pipeline("census", "wta", "cvf", backend="cuda",
+                                   **kw).estimate(left, right)
+
+
+def test_auto_runs_ssd_past_its_window_on_the_card(device, launches):
+    from stereomatch_tpu_torch.cost import SSD
+    left, right = _images(4, 8, 1, device)
+    out = SSD(4, kernel_size=SSD_REFUSED_K)(left, right)
+    assert launches["stm_ssd_f32"] == 0
+    assert torch.equal(out, SSD(4, kernel_size=SSD_REFUSED_K,
+                                backend="torch")(left, right))
+    with pytest.raises(ValueError, match="shared memory"):
+        SSD(4, kernel_size=SSD_REFUSED_K, backend="cuda")(left, right)
+
+
+# Post-processing (ops/refine.py) is plain PyTorch on the device of its
+# input: each stage on the card equals the same stage on the CPU.
+REFINED_FLAGS = [dict(), dict(lr_check=True), dict(lr_check=True,
+                                                   lr_mode="volume"),
+                 dict(weighted_median=True, wmf_sigma=0.1),
+                 dict(fgs_lambda=16.0, fgs_sigma=0.08, lr_check=True),
+                 dict(min_confidence=0.1)]
+
+
+@pytest.mark.parametrize("flags", REFINED_FLAGS, ids=str)
+def test_refined_pipeline_on_card_equals_cpu(device, launches, flags):
+    left, right, _ = stereo_pair(48, 80, 24, seed=12)
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=24)
+    pipe.cost.kernel_size = 3
+    out = pipe.estimate_refined(left, right, **flags)
+    assert out.is_cuda and launches["stm_sgm_rows_f32"] > 0
+    conf = pipe.last_confidence()
+    ref = pipe.estimate_refined(left, right, device="cpu", **flags)
+    assert torch.equal(out.cpu(), ref)
+    assert conf.is_cuda and torch.equal(conf.cpu(), pipe.last_confidence())
+
+
+@pytest.mark.parametrize("flags", [dict(median=True, subpixel=True,
+                                        speckle=True),
+                                   dict(lr_check=True, weighted_median=True,
+                                        wmf_sigma=0.1, fgs_lambda=16.0,
+                                        fgs_sigma=0.08, min_confidence=0.05,
+                                        speckle=True,
+                                        speckle_fill="background")],
+                         ids=["median-subpixel-speckle", "the-rest"])
+def test_sharded_post_processing_on_card_equals_single_card(device, flags):
+    from stereomatch_tpu_torch.ops.refine import filter_speckles
+    left, right, _ = stereo_pair(48, 80, 24, seed=13)
+    single = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=24)
+    single.cost.kernel_size = 3
+    keys = {k: v for k, v in flags.items() if not k.startswith("speckle")}
+    keys.setdefault("median", False)
+    keys.setdefault("subpixel", False)
+    want = filter_speckles(single.estimate_refined(left, right, **keys),
+                           fill=flags.get("speckle_fill", "zero"))
+    pipe = ShardedPipeline(make_mesh([device] * 4, n_batch=1), 24,
+                           kernel_size=3, **flags)
+    assert torch.equal(pipe.estimate(left, right), want)

@@ -7,6 +7,16 @@ n_batch=2)`` (2 frames x 4 tiles), laid out by ``convert.mesh_from_jax``.
 Exact hand-off and an overlap that covers every predecessor must give
 the same disparities as JAX's ``ShardedPipeline(backend="xla")`` and the
 same SGM volume as the port's single-device aggregation, bit for bit.
+
+The post-processing flags run over the row tiles on two distinct frames
+and equal the port's single-device ``estimate_refined`` (then
+``filter_speckles``) at every pixel, which equals the JAX package's
+single-device result bit for bit.  Against JAX's sharded program they
+are equal too, except where that program itself departs from JAX's
+single-device pipeline: by a last-place rounding after the sub-pixel
+step (measured 1.9e-6) and after the smoother's cross-tile column solves
+(measured 7.0e-5; its docstring bounds it by 4e-4).  There the port is
+held to JAX's sharded output within that documented 4e-4.
 """
 
 import jax
@@ -14,11 +24,14 @@ import numpy as np
 import pytest
 import torch
 
+from stereomatch_tpu import cli_common as jax_cli_common
 from stereomatch_tpu import parallel as jax_parallel
+from stereomatch_tpu.ops import refine as jax_refine
 from stereomatch_tpu.parallel.mesh import batch_tile_axes as jax_axes
 from stereomatch_tpu_torch import cli_common, convert
 from stereomatch_tpu_torch.ops import aggregation as port_agg
 from stereomatch_tpu_torch.ops import cost as port_cost
+from stereomatch_tpu_torch.ops import refine as port_refine
 from stereomatch_tpu_torch.parallel import (ShardedPipeline, batch_tile_axes,
                                             halo, initialize_distributed,
                                             make_hybrid_mesh, make_mesh,
@@ -213,14 +226,7 @@ def test_divisibility_and_shape_errors(mesh, pair):
     (dict(aggregation="cvf"), "A.9"),
     (dict(cost="birchfield"), "A.8"),
     (dict(cost="ncc"), "A.8"),
-    (dict(cost="ssd-texture"), "A.8"),
-    (dict(median=True), "A.10"),
-    (dict(subpixel=True), "A.10"),
-    (dict(lr_check=True), "A.10"),
-    (dict(weighted_median=True), "A.10"),
-    (dict(fgs_lambda=1.0), "A.10"),
-    (dict(min_confidence=0.5), "A.10"),
-    (dict(speckle=True), "A.10")], ids=lambda v: str(v))
+    (dict(cost="ssd-texture"), "A.8")], ids=lambda v: str(v))
 def test_refused_options_name_their_roadmap_item(mesh, kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ShardedPipeline(mesh, D, **kwargs)
@@ -276,3 +282,93 @@ def test_int32_cost_only_path_and_backend_cuda_refuses_cpu(mesh, pair):
     with pytest.raises(ValueError, match="CUDA"):
         ShardedPipeline(mesh, D, kernel_size=3, backend="cuda").estimate(
             left, right)
+
+
+# The sharded post-processing keywords of each case.
+POST_PROCESSING = {
+    "median": dict(median=True),
+    "subpixel": dict(subpixel=True),
+    "lr_check": dict(lr_check=True),
+    "lr_check_volume": dict(lr_check=True, lr_mode="volume", lr_max_diff=0),
+    "weighted_median": dict(weighted_median=True, wmf_sigma=0.1),
+    "fgs_lambda": dict(fgs_lambda=16.0, fgs_sigma=0.08),
+    "fgs_lambda_lr": dict(fgs_lambda=16.0, fgs_sigma=0.08, lr_check=True),
+    "min_confidence": dict(min_confidence=0.1),
+    "speckle": dict(speckle=True),
+    "speckle_background": dict(speckle=True, speckle_fill="background"),
+    "all": dict(lr_check=True, weighted_median=True, wmf_sigma=0.1,
+                median=True, subpixel=True, min_confidence=0.05,
+                speckle=True),
+}
+# JAX's sharded program departs from its single-device pipeline after
+# these stages (see the module docstring); its documented bound.
+JAX_SHARDED_DEPARTS = ("subpixel", "fgs_lambda")
+JAX_SHARDED_BOUND = 4e-4
+
+
+@pytest.fixture(scope="module")
+def frames():
+    left, right, _ = synthetic_stereo_pair(32, 48, D, seed=3)
+    other_left, other_right, _ = synthetic_stereo_pair(32, 48, D, seed=8)
+    return np.stack([left, other_left]), np.stack([right, other_right])
+
+
+def _single_refined(create_pipeline, frames, kw, speckle_filter, to_numpy):
+    """Each frame through the single-device estimate_refined (then the
+    speckle filter) with the sharded keywords' meaning."""
+    flags = {k: v for k, v in kw.items() if not k.startswith("speckle")}
+    flags.setdefault("median", False)
+    flags.setdefault("subpixel", False)
+    if "lr_max_diff" in flags:
+        flags["max_diff"] = flags.pop("lr_max_diff")
+    pipe = create_pipeline()
+    pipe.cost.kernel_size = 3
+    out = []
+    for left, right in zip(*frames):
+        disp = pipe.estimate_refined(left, right, **flags)
+        if kw.get("speckle"):
+            disp = speckle_filter(disp, fill=kw.get("speckle_fill", "zero"))
+        out.append(to_numpy(disp))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("name", POST_PROCESSING)
+def test_post_processing_equals_single_device_and_jax(jax_mesh, mesh, frames,
+                                                      name):
+    kw = POST_PROCESSING[name]
+    out = ShardedPipeline(mesh, D, kernel_size=3, **kw).estimate(*frames)
+    single = _single_refined(
+        lambda: cli_common.create_pipeline("ssd", "wta", "sgm",
+                                           max_disparity=D, device="cpu"),
+        frames, kw, port_refine.filter_speckles, lambda t: t.numpy())
+    assert out.numpy().dtype == single.dtype
+    np.testing.assert_array_equal(out.numpy(), single)
+    jax_single = _single_refined(
+        lambda: jax_cli_common.create_pipeline("ssd", "wta", "sgm",
+                                               max_disparity=D),
+        frames, kw, jax_refine.filter_speckles, np.asarray)
+    np.testing.assert_array_equal(single, jax_single)
+    ref = np.asarray(jax_parallel.ShardedPipeline(
+        jax_mesh, D, kernel_size=3, backend="xla", **kw).estimate(*frames))
+    assert ref.dtype == single.dtype
+    if any(key in kw for key in JAX_SHARDED_DEPARTS):
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                                   atol=JAX_SHARDED_BOUND)
+    else:
+        np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("name", ["median", "weighted_median", "fgs_lambda_lr",
+                                  "speckle_background", "all"])
+def test_post_processing_halos_span_tiles(frames, name):
+    """8 tiles of 4 rows: the speckle window's 4-row halos reach across a
+    whole tile, the smoother chains through 8 tiles; every pixel equals
+    the single-device result."""
+    kw = POST_PROCESSING[name]
+    pipe = ShardedPipeline(make_mesh([CPU] * 8, n_tile=8), D, kernel_size=3,
+                           **kw)
+    single = _single_refined(
+        lambda: cli_common.create_pipeline("ssd", "wta", "sgm",
+                                           max_disparity=D, device="cpu"),
+        frames, kw, port_refine.filter_speckles, lambda t: t.numpy())
+    np.testing.assert_array_equal(pipe.estimate(*frames).numpy(), single)
