@@ -32,10 +32,22 @@ with the launch counts set to 0 just before it and read just after:
 * ``python -m stereomatch_tpu_torch.cli.evaluate --synthetic 2`` at
   teddy size on the card, its first scene's metrics against the same
   CLI's on the CPU;
+* the Birchfield, ZNCC and SSD-over-textures paths (``FAMILY_PATHS``:
+  birchfield|ncc|ssd-texture -> sgm -> wta, birchfield -> sgm -> dyn,
+  ncc -> cvf -> wta) at teddy and HD, each equal to ``backend="torch"``
+  on the card; at teddy each cost volume equal to the CPU's and each
+  path against ``tests/data/golden_torch_costs_teddy.npz``; sharded
+  birchfield and ncc -> sgm -> wta (5 tiles at teddy, 4 at HD) against
+  the single card; ssd-texture launching the SSD kernel;
+* ``python -m stereomatch_tpu_torch.cli.image`` on teddy PNGs written
+  by the port's encoder, on the card, its PNGs against the same command
+  run with ``--device cpu``; ``--pyramid`` and ``--cvf-subsample 2``
+  refused with exit status 2;
 
-times kernels, plain versions, pipelines, each post-processing flag set
-and the float32/bf16 crossover with CUDA events, and
-profiles each path with ``torch.profiler`` (device time by kernel, idle
+times kernels, plain versions, pipelines, each post-processing flag set,
+the cost-family paths and their cost stages and the float32/bf16
+crossover with CUDA events, ``stm-image``'s stages with the host clock,
+and profiles each path with ``torch.profiler`` (device time by kernel, idle
 share; the chunk kernel's device time beside its CUDA-event time).  Every
 kernel is held bit-equal to its plain version.  Any failure raises and exits non-zero; nothing falls back.  The
 last line of standard output is one JSON object with ``"ok": true`` and
@@ -62,6 +74,7 @@ GOLDEN = ROOT / "tests" / "data" / "golden_teddy_disparity.npz"
 GOLDEN_CVF = ROOT / "tests" / "data" / "golden_torch_cvf_teddy.npz"
 GOLDEN_BF16 = ROOT / "tests" / "data" / "golden_torch_bf16_teddy.npz"
 GOLDEN_REFINED = ROOT / "tests" / "data" / "golden_torch_refined_teddy.npz"
+GOLDEN_COSTS = ROOT / "tests" / "data" / "golden_torch_costs_teddy.npz"
 
 GOLDEN_MAX_DIFF = 16        # pixels of 168,750 (0.01%); 0 expected
 CVF_GOLDEN_MAX_DIFF = 169   # pixels of 168,750 (0.1%); 0 expected
@@ -93,6 +106,31 @@ FGS_REPS = 3
 EVAL_ARGS = ("--synthetic", "2", "--synthetic-size", "375x450x128",
              "--configs", "ssd:wta:sgm+refine,ssd:dyn:sgm")
 FAR_D = 600                 # past the SGM and DP kernels' 512
+# The Birchfield, ZNCC and SSD-over-textures paths: name -> ((cost,
+# reducer, aggregation), the kernels each must launch).  Their costs are
+# plain PyTorch on the card (no TPU kernel computes them), except
+# ssd-texture, whose float32 SSD is the SSD kernel's.
+FAMILY_PATHS = {
+    "birchfield_sgm_wta": (("birchfield", "wta", "sgm"),
+                           ("sgm_rows", "sgm_horizontal")),
+    "ncc_sgm_wta": (("ncc", "wta", "sgm"), ("sgm_rows", "sgm_horizontal")),
+    "ssd_texture_sgm_wta": (("ssd-texture", "wta", "sgm"),
+                            ("ssd", "sgm_rows", "sgm_horizontal")),
+    "birchfield_sgm_dyn": (("birchfield", "dyn", "sgm"),
+                           ("sgm_rows", "sgm_horizontal", "dp_forward",
+                            "dp_backward")),
+    "ncc_cvf_wta": (("ncc", "wta", "cvf"), ("cvf", "cvf_filter")),
+}
+# Pixels of 168,750 that each path may differ from its golden: the count
+# tests/test_torch_costs_golden.py measures on the CPU (0 for all five).
+COSTS_GOLDEN_MAX_DIFF = dict.fromkeys(FAMILY_PATHS, 0)
+# stm-image runs on the teddy PNGs: flags after "LEFT RIGHT 128 OUT".
+IMAGE_RUNS = (["-am", "sgm"],
+              ["-cm", "birchfield", "-am", "sgm", "-dm", "dyn", "-fig"],
+              ["-cm", "ncc", "-am", "sgm", "--refine", "--confidence",
+               "CONF"])
+IMAGE_REFUSALS = ((["--pyramid", "1"], "A.12"),
+                  (["-am", "cvf", "--cvf-subsample", "2"], "A.9"))
 CHUNK_CUTS = {"teddy": TEDDY_CUTS, "ragged": (12,),
               "hd": (256, 512, 768)}
 
@@ -537,6 +575,241 @@ def check_post_processing(torch, dev, shapes, run_path, mesh5, sharded_kw,
             f"CPU's")
 
 
+def family_pipeline(cli_common, name, d, **kw):
+    """The pipeline of FAMILY_PATHS[name] at ``d`` disparities, with the
+    golden's SGM and CVF parameters and each cost's default window."""
+    (cost, reducer, aggr), _ = FAMILY_PATHS[name]
+    g = np.load(GOLDEN_COSTS)
+    return cli_common.create_pipeline(
+        cost, reducer, aggr, max_disparity=d,
+        penalty1=float(g["penalty1"]), penalty2=float(g["penalty2"]),
+        cvf_radius=int(g["cvf_radius"]), cvf_eps=float(g["cvf_eps"]), **kw)
+
+
+def check_cost_families(torch, dev, shapes, run_path) -> None:
+    """Phase 4's Birchfield, ZNCC and SSD-over-textures checks: each path
+    of FAMILY_PATHS at teddy and HD through ``create_pipeline`` on the
+    card (launch counts set to 0 just before it and read just after),
+    equal to ``backend="torch"`` on the card; at teddy each cost volume
+    equal to the CPU's and each path against
+    ``golden_torch_costs_teddy.npz``; the sharded birchfield and ncc
+    paths (5 tiles at teddy, 4 at HD, on cuda:0) equal to the single
+    card."""
+    from stereomatch_tpu_torch import cli_common, parallel
+
+    golden = np.load(GOLDEN_COSTS)
+    single = {}
+    for tag in ("teddy", "hd"):
+        left, right, gt, d, _ = shapes[tag]
+        if tag == "teddy":
+            require((int(golden["height"]), int(golden["width"]),
+                     int(golden["max_disparity"])) == (*left.shape, d),
+                    "the teddy scene is not the golden's")
+        checked_costs = set()
+        for name, ((cost, _, _), kernels) in FAMILY_PATHS.items():
+            log(f"[cost family] {name.replace('_', ' ')}, {tag} "
+                f"{tuple(left.shape)} D={d}")
+            pipe = family_pipeline(cli_common, name, d)
+            disp, counts = run_path(f"{name} {tag}",
+                                    lambda: pipe.estimate(left, right),
+                                    kernels, shape=tuple(left.shape), d=d)
+            if cost != "ssd-texture":
+                require(counts["ssd"] == 0, f"{name} launched the SSD "
+                        f"kernel")
+            plain = family_pipeline(cli_common, name, d, backend="torch")
+            want = plain.estimate(left, right).cpu().numpy()
+            n_diff = int((disp != want).sum())
+            log(f"  pixels differing from backend='torch' on the card: "
+                f"{n_diff} of {disp.size}")
+            require(n_diff == 0, f"{name} {tag}: auto differs from torch")
+            if tag == "teddy":
+                single[name] = disp
+                if cost not in checked_costs:
+                    checked_costs.add(cost)
+                    compare(f"{cost} cost volume card vs CPU",
+                            pipe.cost(left.cpu(), right.cpu()).to(dev),
+                            pipe._cost_volume, 0, 0, exact=True)
+                check_golden(name, disp, golden[name], gt, d,
+                             COSTS_GOLDEN_MAX_DIFF[name],
+                             float(golden[f"bad_pixel_{name}"]), 1e-4)
+            else:
+                single[(name, tag)] = disp
+            del pipe, plain
+            torch.cuda.empty_cache()
+
+    for tag, tiles in (("teddy", 5), ("hd", 4)):
+        left, right, _, d, _ = shapes[tag]
+        mesh = parallel.make_mesh([dev] * tiles, n_batch=1)
+        for cost, name in (("birchfield", "birchfield_sgm_wta"),
+                           ("ncc", "ncc_sgm_wta")):
+            log(f"[sharded cost family] exact {cost} -> sgm -> wta, {tag} "
+                f"over {tiles} row tiles on {dev}, against the single card")
+            g = np.load(GOLDEN_COSTS)
+            pipe_sh = parallel.ShardedPipeline(
+                mesh, d, cost=cost, penalty1=float(g["penalty1"]),
+                penalty2=float(g["penalty2"]))
+            disp, counts = run_path(
+                f"sharded {cost} {tag}",
+                lambda: pipe_sh.estimate(left, right),
+                ("sgm_chunk", "sgm_horizontal"), shape=tuple(left.shape),
+                d=d)
+            require(counts["sgm_chunk"] == 6 * tiles
+                    and counts["sgm_rows"] == 0,
+                    f"sharded {cost} {tag} launches {counts}")
+            want = single[name] if tag == "teddy" else single[(name, tag)]
+            n_diff = int((disp != want).sum())
+            log(f"  pixels differing from the single-card path: {n_diff} of "
+                f"{disp.size}")
+            require(n_diff == 0, f"sharded {cost} {tag} differs at {n_diff} "
+                    f"pixels")
+            del pipe_sh
+            torch.cuda.empty_cache()
+
+
+def check_golden(label, disp_np, want, gt, d, max_diff, golden_bad,
+                 bad_slack):
+    """Hold teddy disparities to a golden: at most ``max_diff`` pixels
+    differ, and the bad-pixel rate is within ``bad_slack`` of the
+    golden's."""
+    n_diff = int((disp_np != want).sum())
+    bad = float(np.mean((np.abs(disp_np - gt) > 1)[:, d:]))
+    log(f"  pixels differing from golden {label}: {n_diff} of "
+        f"{disp_np.size}")
+    log(f"  bad-pixel vs ground truth: {bad!r} (golden {golden_bad!r})")
+    require(n_diff <= max_diff, f"{n_diff} pixels differ from golden "
+            f"{label}")
+    require(bad <= golden_bad + bad_slack,
+            f"bad-pixel {bad} above the golden's")
+
+
+def check_image_cli(torch, shapes, card) -> dict:
+    """stm-image (``python -m stereomatch_tpu_torch.cli.image``) on teddy
+    PNGs written by the port's encoder: each of IMAGE_RUNS as a
+    subprocess on the card, its output PNGs decoded to the same pixels as
+    the same command run in this process with ``--device cpu``; each of
+    IMAGE_REFUSALS exits 2 naming its ROADMAP item.  Returns the wall
+    seconds of the card runs and of the first one's stages (PNG decode,
+    estimate, PNG encode), timed in this process after a warm-up."""
+    from stereomatch_tpu_torch import cli_common
+    from stereomatch_tpu_torch.cli import image
+    from stereomatch_tpu_torch.io import png
+    from stereomatch_tpu_torch.io.data import load_image
+
+    left, right, _, d, _ = shapes["teddy"]
+    out = {"card_runs_s": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        lp, rp = tmp / "left.png", tmp / "right.png"
+        png.write(lp, (left.cpu().numpy() * 255).astype(np.uint8))
+        png.write(rp, (right.cpu().numpy() * 255).astype(np.uint8))
+        for i, flags in enumerate(IMAGE_RUNS):
+            results = {}
+            for where in ("card", "cpu"):
+                conf = tmp / f"conf_{i}_{where}.png"
+                run = [str(conf) if f == "CONF" else f for f in flags]
+                dst = tmp / f"out_{i}_{where}.png"
+                args = [str(lp), str(rp), str(d), str(dst), *run]
+                log(f"[stm-image] {where}: {' '.join(args[3:])}")
+                start = time.perf_counter()
+                if where == "card":
+                    proc = subprocess.run(
+                        [sys.executable, "-m",
+                         "stereomatch_tpu_torch.cli.image", *args],
+                        cwd=ROOT, capture_output=True, text=True,
+                        timeout=600)
+                    rc = proc.returncode
+                    require(rc == 0, f"stm-image failed: {proc.stderr}")
+                else:
+                    rc = image.main([*args, "--device", "cpu"])
+                    require(rc == 0, "stm-image --device cpu failed")
+                seconds = time.perf_counter() - start
+                if where == "card":
+                    out["card_runs_s"].append(seconds)
+                log(f"  exit {rc} in {seconds:.2f} s")
+                results[where] = [png.read(dst).array]
+                if "CONF" in flags:
+                    results[where].append(png.read(conf).array)
+            for a, b in zip(results["card"], results["cpu"]):
+                require(a.shape == b.shape and np.array_equal(a, b),
+                        f"stm-image {flags}: the card's PNG differs from "
+                        f"the CPU's")
+            log(f"  card PNGs {[a.shape for a in results['card']]} equal "
+                f"the CPU's pixel for pixel")
+        for flags, item in IMAGE_REFUSALS:
+            proc = subprocess.run(
+                [sys.executable, "-m", "stereomatch_tpu_torch.cli.image",
+                 str(lp), str(rp), str(d), str(tmp / "refused.png"),
+                 *flags], cwd=ROOT, capture_output=True, text=True,
+                timeout=300)
+            require(proc.returncode == 2 and f"ROADMAP {item}" in proc.stderr,
+                    f"stm-image {flags}: exit {proc.returncode}, "
+                    f"{proc.stderr!r}")
+            log(f"[stm-image] {' '.join(flags)}: exit 2, "
+                f"{proc.stderr.strip()}")
+
+        # The first run's stages in this process, warm: decode both PNGs,
+        # estimate on the card, colour and encode the output.
+        pipe = cli_common.create_pipeline("ssd", "wta", "sgm",
+                                          max_disparity=d)
+        stages = {"decode": [], "estimate": [], "encode": []}
+        for _ in range(6):
+            t0 = time.perf_counter()
+            lg = load_image(lp, "L").astype(np.float32)
+            rg = load_image(rp, "L").astype(np.float32)
+            t1 = time.perf_counter()
+            disp = pipe.estimate(lg, rg).cpu().numpy()
+            t2 = time.perf_counter()
+            png.write(tmp / "timed.png", image.render_panels(disp))
+            t3 = time.perf_counter()
+            for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+                stages[key].append(dt)
+        out.update({key: statistics.median(v[1:])
+                    for key, v in stages.items()})
+        log(f"  stm-image stages at teddy, median of 5 warm runs in one "
+            f"process: decode {out['decode']!r} s, estimate "
+            f"{out['estimate']!r} s, encode {out['encode']!r} s; card runs "
+            f"{out['card_runs_s']} s wall each, process start included "
+            f"[{card}]")
+    return out
+
+
+def time_cost_families(torch, shapes, card) -> dict:
+    """Phase 5/6 for FAMILY_PATHS at teddy and HD: ms/frame of each path
+    and of its cost stage alone (CUDA events, median of REPS after
+    WARMUP, device-resident images), then device busy time, idle share
+    and device operations per frame (torch.profiler, 10 frames)."""
+    from stereomatch_tpu_torch import cli_common
+    log(f"[cost family timings] median of {REPS} after {WARMUP}; then "
+        f"torch.profiler over 10 frames; card: {card}")
+    times = {}
+    for tag in ("teddy", "hd"):
+        left, right, _, d, _ = shapes[tag]
+        for name in FAMILY_PATHS:
+            pipe = family_pipeline(cli_common, name, d)
+            e2e = time_ms(torch, lambda: pipe.estimate(left, right))
+            cost_ms = time_ms(torch, lambda: pipe.cost(left, right))
+            wall, by_name, spans, ops = profile_path(
+                torch, lambda: pipe.estimate(left, right))
+            busy = sum(by_name.values())
+            require(busy > 0, f"the profiler saw no device time in {name}")
+            times[f"{name} {tag}"] = {
+                "ms": e2e, "cost_ms": cost_ms, "profiled_wall_ms": wall,
+                "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+                "device_ops": ops}
+            log(f"  {name} {tag} {tuple(left.shape)} D={d}: {e2e!r} "
+                f"ms/frame ({1000.0 / e2e!r} frames/s), cost stage "
+                f"{cost_ms!r} ms; profiled wall {wall!r} ms/frame, device "
+                f"busy {busy!r}, idle share {1.0 - busy / wall!r}, {ops!r} "
+                f"device operations/frame [{card}]")
+            log(f"    stage spans (device timeline) ms/frame: {spans}")
+            for kname, ms in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1])[:6]:
+                log(f"    {ms!r} ms/frame  {kname[:90]}")
+            del pipe
+            torch.cuda.empty_cache()
+    return times
+
+
 def time_post_processing(torch, shapes, p1, p2, card) -> dict:
     """Phase 5's post-processing times: estimate_refined per flag set at
     teddy and (without the smoother) at HD, and each refine stage alone
@@ -590,7 +863,7 @@ def main() -> int:
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     require((ROOT / "stereomatch_tpu_torch").is_dir() and GOLDEN.is_file()
             and GOLDEN_CVF.is_file() and GOLDEN_BF16.is_file()
-            and GOLDEN_REFINED.is_file(),
+            and GOLDEN_REFINED.is_file() and GOLDEN_COSTS.is_file(),
             f"{ROOT} is not a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     card = card_line()
@@ -821,18 +1094,6 @@ def main() -> int:
         require(disp_np.min() >= 0 and disp_np.max() < d,
                 "disparity out of range")
         return disp_np, counts
-
-    def check_golden(label, disp_np, want, gt, d, max_diff, golden_bad,
-                     bad_slack):
-        n_diff = int((disp_np != want).sum())
-        bad = float(np.mean((np.abs(disp_np - gt) > 1)[:, d:]))
-        log(f"  pixels differing from golden {label}: {n_diff} of "
-            f"{disp_np.size}")
-        log(f"  bad-pixel vs ground truth: {bad!r} (golden {golden_bad!r})")
-        require(n_diff <= max_diff, f"{n_diff} pixels differ from golden "
-                f"{label}")
-        require(bad <= golden_bad + bad_slack,
-                f"bad-pixel {bad} above the golden's")
 
     log("[main path] ssd -> sgm -> wta, teddy 375x450 D=128")
     left, right, gt, d, k = shapes["teddy"]
@@ -1073,6 +1334,8 @@ def main() -> int:
 
     check_post_processing(torch, dev, shapes, run_path, mesh5, sharded_kw,
                           p1, p2)
+    check_cost_families(torch, dev, shapes, run_path)
+    image_cli = check_image_cli(torch, shapes, card)
 
     def paths(tag):
         """(label, pipeline factory) of each timed path at one geometry:
@@ -1269,6 +1532,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     refined_ms = time_post_processing(torch, shapes, p1, p2, card)
+    family_ms = time_cost_families(torch, shapes, card)
 
     # Phase 6: where the time goes, per path and geometry, from a
     # torch.profiler capture (device kernel time against host wall time).
@@ -1377,6 +1641,8 @@ def main() -> int:
         name: {tag: bounds[tag][name][2] for tag in ("teddy", "hd")}
         for name in sources}, "card": card}))
     log(json.dumps({"refined_ms": refined_ms, "card": card}))
+    log(json.dumps({"cost_families": family_ms, "stm_image_s": image_cli,
+                    "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -5,13 +5,15 @@ hand-written CUDA kernels for NVIDIA Hopper in place of the Pallas TPU
 kernels.  It mirrors the JAX package's module names; the JAX package is
 the reference it is tested against, and this package never imports JAX.
 
-It runs SSD, SAD or census costs -> 8-path SGM with the adaptive P2 or
-guided-filter cost-volume filtering (the wedge path) -> winner-takes-all
-or scanline dynamic programming, then the post-processing of
-``Pipeline.estimate_refined`` (``ops/refine.py``), on one device or
-row-sharded over a mesh of devices (``parallel``); ``metrics``,
-``reconstruction``, ``io`` and the ``stm-eval`` CLI
-(``python -m stereomatch_tpu_torch.cli.evaluate``) surround it.
+It runs SSD, SAD, census, Birchfield-Tomasi, ZNCC or SSD-over-textures
+costs -> 8-path SGM with the adaptive P2 or guided-filter cost-volume
+filtering (the wedge path) -> winner-takes-all or scanline dynamic
+programming, then the post-processing of ``Pipeline.estimate_refined``
+(``ops/refine.py``), on one device or row-sharded over a mesh of
+devices (``parallel``); ``metrics``, ``reconstruction``, ``texture``,
+``io`` (a PNG codec of its own among them) and the ``stm-eval`` and
+``stm-image`` CLIs (``python -m stereomatch_tpu_torch.cli.evaluate``,
+``.cli.image``) surround it.
 Pipelines run on the card unless the caller asks for the CPU.  Plain
 PyTorch versions run on CPU tensors and are the kernels' oracles; CUDA
 tensors go through the kernels, which are built with ``nvcc`` at first
@@ -20,10 +22,10 @@ then runs the plain version on the card).
 """
 
 from . import (aggregation, cli_common, convert, cost, disparity_reduce,
-               parallel)
+               parallel, texture)
 from .pipeline import Pipeline
 
 __version__ = "0.1.0"
 
 __all__ = ["Pipeline", "aggregation", "cli_common", "convert", "cost",
-           "disparity_reduce", "parallel", "__version__"]
+           "disparity_reduce", "parallel", "texture", "__version__"]

@@ -1,8 +1,8 @@
 """String registries + pipeline factory, counterpart of
 ``stereomatch_tpu/cli_common.py``.
 
-The registries hold what this slice of the port runs.  A name that the
-JAX package knows but the port does not run yet raises
+The registries hold every name of the JAX package's registries.  An
+option the port does not run yet (``cvf_subsample > 1``) raises
 ``NotImplementedError`` naming its ROADMAP item: a refusal, never a
 quiet substitute.
 """
@@ -12,31 +12,21 @@ from __future__ import annotations
 import torch
 
 from .aggregation import CostFilter, Semiglobal
-from .cost import SAD, SSD, Census
+from .cost import NCC, SAD, SSD, Birchfield, Census, SSDTexture
 from .disparity_reduce import DynamicProgramming, WinnerTakesAll
 from .pipeline import Device, Pipeline
 
-COST_METHODS = {"ssd": SSD, "sad": SAD, "census": Census}
+COST_METHODS = {"ssd": SSD, "ssd-texture": SSDTexture,
+                "birchfield": Birchfield, "census": Census, "sad": SAD,
+                "ncc": NCC}
 AGGREGATION_METHODS = {"sgm": Semiglobal, "cvf": CostFilter}
 DISPARITY_METHODS = {"wta": WinnerTakesAll, "dyn": DynamicProgramming}
 VOLUME_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "int32": torch.int32}
 
-# Known to the JAX package, not ported yet: name -> ROADMAP item.
-NOT_PORTED = {
-    "ssd-texture": "A.8 (other cost families)",
-    "birchfield": "A.8 (other cost families)",
-    "ncc": "A.8 (other cost families)",
-}
-
-
 def _lookup(kind: str, name, registry: dict):
     if name in registry:
         return registry[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{kind} {name!r} is not ported to stereomatch_tpu_torch yet "
-            f"(ROADMAP {NOT_PORTED[name]})")
     raise ValueError(f"unknown {kind} {name!r}; expected one of "
                      f"{sorted(registry)}")
 
@@ -105,9 +95,10 @@ def create_pipeline(cost_method: str, disp_method: str,
     that have both; ``volume_dtype`` is the cost volume's dtype
     ("float32"; "bfloat16", volumes stored in half the bytes with float32
     arithmetic, each stage rounding once, see :func:`recommended_dtype`;
-    "int32", the reference's integer cost path, without aggregation).
-    The pipeline runs on ``device``: the card unless ``"cpu"`` is asked
-    for.
+    "int32", the reference's integer cost path, without aggregation;
+    ``ncc`` refuses it, ``birchfield`` and ``ssd-texture`` ignore it and
+    compute float32).  The pipeline runs on ``device``: the card unless
+    ``"cpu"`` is asked for.
     """
     dtype = _lookup("volume dtype", volume_dtype, VOLUME_DTYPES)
     if dtype == torch.int32 and aggr_method is not None:
@@ -134,10 +125,19 @@ def create_pipeline(cost_method: str, disp_method: str,
     disparity = (disparity_cls(backend=backend)
                  if disparity_cls is DynamicProgramming else disparity_cls())
     cost_cls = _lookup("cost method", cost_method, COST_METHODS)
+    if cost_cls is NCC and dtype == torch.int32:
+        raise ValueError("ncc cost is a normalized float quantity; "
+                         "volume_dtype int32 is not supported")
     if cost_cls is Census:
         cost = Census(max_disparity, window_size=census_window,
                       cost_volume_dtype=dtype)
-    else:
+    elif cost_cls in (SSD, SAD):
         cost = cost_cls(max_disparity, cost_volume_dtype=dtype,
                         backend=backend)
+    elif cost_cls is NCC:
+        cost = NCC(max_disparity, cost_volume_dtype=dtype)
+    elif cost_cls is SSDTexture:
+        cost = SSDTexture(max_disparity, backend=backend)
+    else:
+        cost = Birchfield(max_disparity)
     return Pipeline(cost, disparity, aggregation=aggregation, device=device)

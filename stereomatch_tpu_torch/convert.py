@@ -2,9 +2,10 @@
 
 The stereo engine has no weights: the state that carries across is each
 stage's configuration (the cost's ``max_disparity``, ``kernel_size``,
-``cost_volume_dtype`` (float32, bfloat16 or int32) and census
-``window_size``, the SGM penalties, the guided filter's radius, eps,
-subsample and wedge offset, the reducer) and, for the row-sharded
+``cost_volume_dtype`` (float32, bfloat16 or int32; Birchfield and
+SSDTexture have none: float32) and census ``window_size``, the SGM
+penalties, the guided filter's radius, eps, subsample and wedge
+offset, the reducer) and, for the row-sharded
 pipeline, the mesh layout (its configuration is taken under the same
 keywords on both sides).  It is read from the JAX objects by attribute
 and class name, so this module never imports JAX and works on any object
@@ -18,13 +19,17 @@ import numpy as np
 import torch
 
 from .aggregation import CostFilter, Semiglobal
-from .cost import SAD, SSD, Census
+from .cost import NCC, SAD, SSD, Birchfield, Census, SSDTexture
 from .disparity_reduce import DynamicProgramming, WinnerTakesAll
 from .parallel.mesh import BATCH_AXIS, TILE_AXIS, Mesh, make_mesh
 from .pipeline import Device, Pipeline, tensor_from_numpy
 from .utils import validation
 
-_COSTS = {"SSD": SSD, "SAD": SAD, "Census": Census}
+_COSTS = {"SSD": SSD, "SAD": SAD, "Census": Census, "NCC": NCC,
+          "Birchfield": Birchfield, "SSDTexture": SSDTexture}
+# The cost classes whose volume dtype is a setting (the others compute
+# float32).
+_DTYPED = ("SSD", "SAD", "Census", "NCC")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int32": torch.int32}
 
@@ -62,13 +67,16 @@ def pipeline_from_jax(jax_pipeline, device: Device = "cuda") -> Pipeline:
     (the card unless ``"cpu"`` is asked for)."""
     cost = jax_pipeline.cost
     kind = _kind(cost)
+    if kind == "_TexCostFunctionWrapper":     # the JAX pipeline's wrap
+        cost = cost.cost_function
+        kind = _kind(cost)
     if kind not in _COSTS:
         raise _not_ported(kind)
     extra = {"window_size": cost.window_size} if kind == "Census" else {}
+    if kind in _DTYPED:
+        extra["cost_volume_dtype"] = _dtype(cost.cost_volume_dtype)
     port_cost = _COSTS[kind](cost.max_disparity,
-                             kernel_size=cost.kernel_size,
-                             cost_volume_dtype=_dtype(cost.cost_volume_dtype),
-                             **extra)
+                             kernel_size=cost.kernel_size, **extra)
 
     port_aggregation = None
     if jax_pipeline.aggregation is not None:

@@ -1,4 +1,5 @@
-"""Cost-function API: ``SSD``, ``SAD`` and ``Census``, counterparts of
+"""Cost-function API: ``SSD``, ``SSDTexture``, ``SAD``, ``NCC``,
+``Census`` and ``Birchfield``, counterparts of
 ``stereomatch_tpu/cost.py``.
 
   * ``max_disparity`` is a mutable attribute (the reference's evaluation
@@ -21,6 +22,7 @@ import torch
 
 from .ops import cost as cost_ops
 from .ops import ssd_cuda
+from .texture import TextureImage
 from .utils import validation
 from .utils.backend import resolve_backend
 
@@ -131,3 +133,79 @@ class Census:
             left_image, right_image, max_disparity=self.max_disparity,
             window_size=self.window_size, kernel_size=self.kernel_size,
             cost_dtype=self.cost_volume_dtype)
+
+
+class SSDTexture:
+    """SSD over sampled textures (reference: stereomatch/cost.py:51-77).
+
+    Takes :class:`~stereomatch_tpu_torch.texture.TextureImage` inputs;
+    the pipeline wraps plain tensors.  The textures' nearest samples at
+    the integer pixel centres are the stored images, so the volume is
+    the float32 SSD of them, through the SSD kernel on the card under
+    ``backend`` "auto" or "cuda" (as :class:`SSD`).
+    """
+
+    def __init__(self, max_disparity: int, kernel_size: int = 7,
+                 backend: str = "auto"):
+        validation.check_positive("max_disparity", max_disparity)
+        self.max_disparity = max_disparity
+        self.kernel_size = kernel_size
+        self.backend = backend
+
+    def __call__(self, left_image: TextureImage, right_image: TextureImage,
+                 cost_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
+        left, right = cost_ops.texture_grids(left_image, right_image)
+        return _diff_cost_dispatch(left, right,
+                                   max_disparity=self.max_disparity,
+                                   kernel_size=self.kernel_size,
+                                   cost_dtype=torch.float32, absolute=False,
+                                   backend=self.backend)
+
+
+class NCC:
+    """Zero-mean normalised cross-correlation cost, ``1 - zncc``, the
+    counterpart of the JAX package's ``NCC``: invariant to a gain and a
+    bias between the cameras over each window; the SSD window and
+    validity.
+
+    Attributes:
+        max_disparity: number of disparity hypotheses (the D axis).
+        kernel_size: window half-extent k; the window is [i-k, i+k).
+        cost_volume_dtype: torch.float32 or torch.bfloat16 (the
+            statistics are float32, the cost rounded once); an integer
+            dtype raises ``ValueError`` when the cost is computed.
+    """
+
+    def __init__(self, max_disparity: int, kernel_size: int = 7,
+                 cost_volume_dtype: torch.dtype = torch.float32):
+        validation.check_positive("max_disparity", max_disparity)
+        validation.check_positive("kernel_size", kernel_size)
+        self.max_disparity = max_disparity
+        self.kernel_size = kernel_size
+        self.cost_volume_dtype = cost_volume_dtype
+
+    def __call__(self, left_image: torch.Tensor, right_image: torch.Tensor,
+                 cost_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
+        validation.check_stereo_pair(left_image, right_image)
+        return cost_ops.zncc_cost_volume(
+            left_image, right_image, max_disparity=self.max_disparity,
+            kernel_size=self.kernel_size, cost_dtype=self.cost_volume_dtype)
+
+
+class Birchfield:
+    """Birchfield-Tomasi sampling-insensitive cost (reference:
+    stereomatch/cost.py:80-101), float32, over the scanline window
+    [x-k, x+k); ``kernel_size`` defaults to 4, the reference's value."""
+
+    def __init__(self, max_disparity: int, kernel_size: int = 4):
+        validation.check_positive("max_disparity", max_disparity)
+        validation.check_positive("kernel_size", kernel_size)
+        self.max_disparity = max_disparity
+        self.kernel_size = kernel_size
+
+    def __call__(self, left_image: torch.Tensor, right_image: torch.Tensor,
+                 cost_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
+        validation.check_stereo_pair(left_image, right_image)
+        return cost_ops.birchfield_cost_volume(
+            left_image, right_image, max_disparity=self.max_disparity,
+            kernel_size=self.kernel_size)

@@ -3,11 +3,11 @@ numpy-only copy of ``stereomatch_tpu/io/data.py`` for the port, which
 imports nothing of the JAX package.
 
 The JAX module reads PFM and PGM/PPM through the native codec
-(``native/libstmio.so``) when it is built; the port has no binding of
-that library yet (ROADMAP A.13), so it always takes the pure-Python
-paths: the PFM parser, and a binary PNM reader in place of the codec.
-Both give the codec's values.  Other formats (PNG) need PIL, which stays
-optional.
+(``native/libstmio.so``) when it is built, and PNG through PIL; the port
+takes pure-Python paths for all three, so it reads the same files on a
+machine without PIL or the native library: the PFM parser, a binary PNM
+reader and the PNG codec of ``io/png.py``.  Each gives the values of the
+JAX module's reader.  Other image formats still need PIL.
 """
 
 from __future__ import annotations
@@ -18,11 +18,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-try:  # PIL is optional: the card's machine has none.
-    from PIL import Image
-    _HAS_PIL = True
-except ImportError:  # pragma: no cover
-    _HAS_PIL = False
+from . import png
 
 
 def read_pfm(path) -> np.ndarray:
@@ -147,22 +143,54 @@ def read_pnm(path) -> np.ndarray:
     return img[:, :, 0] if channels == 1 else img
 
 
-def load_image(path, grayscale: bool = False) -> np.ndarray:
-    """Load an image; PGM/PPM through :func:`read_pnm`, the rest through
-    PIL.  The Middlebury 2003 sets (teddy/cones) ship PGM/PPM.
+_PNM_SUFFIXES = (".pgm", ".ppm", ".pnm")
+
+
+def _pil_image(path):
+    """PIL's ``Image`` module for a format that the port does not read or
+    write itself, or a RuntimeError naming what is missing."""
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError(
+            f"{path}: {Path(path).suffix or 'this'} images need PIL, which "
+            f"is not installed (PNG, PGM and PPM do not)") from None
+    return Image
+
+
+def load_image(path, mode: Optional[str] = None) -> np.ndarray:
+    """Load an image as ``np.array(PIL.Image.open(path))`` gives it, or,
+    with ``mode`` "L" or "RGB", as PIL's ``convert(mode)`` does.
+
+    PNG goes through the port's codec (``io/png.py``) and PGM/PPM
+    through :func:`read_pnm`, with or without PIL; other formats (JPEG,
+    BMP, TIFF) through PIL, where it is installed.  The Middlebury 2003
+    sets (teddy/cones) ship PGM/PPM, the 2014/2021 sets and KITTI PNG.
     """
+    if mode not in (None, "L", "RGB"):
+        raise ValueError(f"load_image: mode None, 'L' or 'RGB', got {mode!r}")
     suffix = Path(path).suffix.lower()
-    if suffix in (".pgm", ".ppm", ".pnm"):
-        img = read_pnm(path)
-        if grayscale and img.ndim == 3:
-            img = rgb_to_grayscale_u8(img)
-        return img
-    if not _HAS_PIL:  # pragma: no cover
-        raise RuntimeError("PIL is required to load images")
-    img = Image.open(path)
-    if grayscale:
-        img = img.convert("L")
-    return np.array(img)
+    if suffix == ".png":
+        image = png.read(path)
+        return image.array if mode is None else png.convert(image, mode)
+    if suffix not in _PNM_SUFFIXES:
+        with _pil_image(path).open(path) as img:
+            return np.array(img if mode is None else img.convert(mode))
+    img = read_pnm(path)
+    if mode == "L" and img.ndim == 3:
+        return rgb_to_grayscale_u8(img)
+    if mode == "RGB" and img.ndim == 2:
+        return np.repeat(img[:, :, None], 3, axis=2)
+    return img
+
+
+def save_image(path, array: np.ndarray) -> None:
+    """Write a uint8 gray or RGB image: PNG through the port's codec, any
+    other suffix through PIL, which picks the format from it."""
+    if Path(path).suffix.lower() == ".png":
+        png.write(path, array)
+    else:
+        _pil_image(path).fromarray(array).save(path)
 
 
 class MiddleburyDataset:

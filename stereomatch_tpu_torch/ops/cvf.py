@@ -23,7 +23,7 @@ Semantics (those of the JAX package):
 Association: every box sum is 2r+1 explicit shifted adds in window
 order, the H axis first and then the W axis, the association of XLA's
 ``reduce_window`` on the CPU; the W prefix sums take the block
-association of XLA's CPU cumsum (``_prefix_sum_w``).  With
+association of XLA's CPU cumsum (``utils.numeric.prefix_sum_w``).  With
 ``use_mxu=False`` the JAX package's result is then equal to this one
 bit for bit.
 
@@ -40,36 +40,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.numeric import fma
-
-# XLA's CPU compiler rewrites a cumulative reduce_window into a scan over
-# blocks of this many elements (the ReduceWindowRewriter's base length).
-_SCAN_BASE = 16
-
-
-def _prefix_sum_w(plane: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumulative sum over axis 1 of an [H, N] float32 plane, in
-    the association of ``jnp.cumsum`` on XLA's CPU backend: the axis is
-    zero-padded to blocks of 16; each block is summed in order; the block
-    totals are scanned the same way, recursively; each element then adds
-    the exclusive scan of the totals before its block."""
-    height, n = plane.shape
-    if n <= _SCAN_BASE:
-        out = plane.clone()
-        for k in range(1, n):
-            out[:, k].add_(out[:, k - 1])
-        return out
-    blocks = -(-n // _SCAN_BASE)
-    padded = plane.new_zeros((height, blocks * _SCAN_BASE))
-    padded[:, :n] = plane
-    inner = padded.view(height, blocks, _SCAN_BASE)
-    for k in range(1, _SCAN_BASE):
-        inner[:, :, k].add_(inner[:, :, k - 1])
-    totals = _prefix_sum_w(inner[:, :, -1].contiguous())
-    exclusive = torch.cat([plane.new_zeros((height, 1)), totals[:, :-1]],
-                          dim=1)
-    out = inner + exclusive[:, :, None]
-    return out.view(height, blocks * _SCAN_BASE)[:, :n]
-
+from ..utils.numeric import prefix_sum_w as _prefix_sum_w
 
 def _box_sum_sym(x: torch.Tensor, radius: int, axes=(0, 1)) -> torch.Tensor:
     """Separable clipped box sum over a symmetric (2r+1) window: per axis,

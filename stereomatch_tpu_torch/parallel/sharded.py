@@ -13,12 +13,18 @@ traversal t + 1 on tile r.
 
 What crosses tile boundaries, and how:
 
-* The cost windows (SSD/SAD: [y-k, y+k) rows; census: +-window//2) pull
-  image-row halos from the neighbours, compute the existing cost on the
-  halo-extended block and crop it.  Each output's window taps are the
-  same values in the same order as on one device, and the zero halo at
-  the ring ends is the clipped window's own zero padding, so the crop
-  equals the single-device volume bit for bit.
+* The cost windows (SSD/SAD/SSD over textures: [y-k, y+k) rows; census:
+  +-window//2) pull image-row halos from the neighbours, compute the
+  existing cost on the halo-extended block and crop it.  Each output's
+  window taps are the same values in the same order as on one device,
+  and the zero halo at the ring ends is the clipped window's own zero
+  padding, so the crop equals the single-device volume bit for bit.
+  Birchfield never leaves a row: no halo.  ZNCC takes the (k, k-1)
+  halos, a row-validity mask (rows beyond the image stay out of the
+  window count, for which zero is no identity) and the whole images'
+  sums, from the tiles' per-row ``pairwise_sum_last`` sums gathered into
+  the [H] vector and summed again as one device sums it
+  (``ops.cost.zncc_cost_from_padded``).
 * The horizontal SGM traversals and both reducers (WTA, scanline DP)
   never leave an image row: tile-local.
 * The six row traversals cross every tile boundary.  Two modes:
@@ -57,9 +63,8 @@ gives the single-device ``estimate_refined`` (then ``filter_speckles``)
 bit for bit.
 
 Refused with ``NotImplementedError`` naming the ROADMAP item, never
-substituted: ``sgm_mode="auto"`` (it resolves from the TPU's ICI model),
-``aggregation="cvf"`` (A.9) and the costs "birchfield", "ncc" and
-"ssd-texture" (A.8).
+substituted: ``sgm_mode="auto"`` (it resolves from the TPU's ICI model,
+A.14) and ``aggregation="cvf"`` (A.9).
 
 bf16 volumes (``cost_dtype="bfloat16"``): each tile's cost volume is
 bf16, the image halos float32; the kernels read the bf16 tiles, the
@@ -71,6 +76,7 @@ so the result equals the single-device bf16 aggregation bit for bit.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -79,21 +85,21 @@ import torch.nn.functional as F
 
 from ..cost import SAD, SSD, Census
 from ..disparity_reduce import DynamicProgramming
+from ..ops import cost as cost_ops
 from ..ops import refine, sgm_cuda
 from ..ops.aggregation import TRAVERSALS, sweep, sweep_chunk_with_carry
 from ..ops.disparity import winner_takes_all
 from ..pipeline import disparity_bins, tensor_from_numpy
-from ..utils.numeric import exp_f32
+from ..utils.numeric import exp_f32, pairwise_sum_last
 from ..utils import profiling, validation
 from ..utils.backend import resolve_backend
 from . import halo
 from .mesh import BATCH_AXIS, TILE_AXIS, Mesh
 
-_COSTS = ("ssd", "sad", "census")
+_COSTS = ("ssd", "ssd-texture", "birchfield", "census", "sad", "ncc")
 _REDUCERS = ("wta", "dynamic_programming")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int32": torch.int32}
-_NOT_PORTED_COSTS = ("birchfield", "ncc", "ssd-texture")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -132,6 +138,38 @@ def local_cost(lefts: Sequence[torch.Tensor], rights: Sequence[torch.Tensor],
     rpad = halo.pad_with_halos(rights, before, after)
     return [cost_fn(lp, rp)[before:before + block.shape[0]]
             for lp, rp, block in zip(lpad, rpad, lefts)]
+
+
+def local_zncc(lefts: Sequence[torch.Tensor], rights: Sequence[torch.Tensor],
+               *, max_disparity: int, kernel_size: int,
+               cost_dtype: torch.dtype) -> List[torch.Tensor]:
+    """Per-tile ZNCC volumes, equal to the rows of the single-device
+    ``ops.cost.zncc_cost_volume`` bit for bit: (k, k-1) image-row halos,
+    the rows beyond the image marked invalid, and each image's sum from
+    the tiles' per-row sums (``pairwise_sum_last``, whose association
+    depends on W alone) gathered into the [H] vector on the first tile's
+    device and summed there as one device sums it."""
+    k, n = kernel_size, len(lefts)
+    h_loc, width = lefts[0].shape
+    first = lefts[0].device
+
+    def total(blocks):
+        rows = [pairwise_sum_last(b.to(torch.float32)).to(first)
+                for b in blocks]
+        return pairwise_sum_last(torch.cat(rows))
+
+    totals = total(lefts), total(rights)
+    lpad = halo.pad_with_halos(lefts, k, k - 1)
+    rpad = halo.pad_with_halos(rights, k, k - 1)
+    return [cost_ops.zncc_cost_from_padded(
+                lp, rp, pad_before=k, pad_after=k - 1,
+                max_disparity=max_disparity, kernel_size=k,
+                cost_dtype=cost_dtype,
+                row_valid=~halo.out_of_image_mask(t, n, h_loc, k, k - 1,
+                                                  device=lp.device),
+                left_total=totals[0], right_total=totals[1],
+                image_size=n * h_loc * width)
+            for t, (lp, rp) in enumerate(zip(lpad, rpad))]
 
 
 # --------------------------------------------------------------------------
@@ -436,7 +474,7 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     if sgm_schedule not in ("auto", "wavefront", "naive"):
         raise ValueError(f"unknown sgm_schedule: {sgm_schedule!r} "
                          "(expected 'auto', 'wavefront' or 'naive')")
-    if cost not in _COSTS + _NOT_PORTED_COSTS:
+    if cost not in _COSTS:
         raise ValueError(f"unknown cost: {cost!r}")
     if reducer not in _REDUCERS:
         raise ValueError(f"unknown reducer: {reducer!r}")
@@ -455,14 +493,15 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
             "parallel/ici_model.py; choose 'exact' or 'overlap')", "A.14")
     if aggregation == "cvf":
         raise _not_ported("sharded cvf aggregation", "A.9")
-    if cost in _NOT_PORTED_COSTS:
-        raise _not_ported(f"the {cost!r} cost", "A.8")
     dtype = _cost_dtype(cost_dtype)
     if dtype == torch.int32 and aggregation is not None:
         raise ValueError("int32 cost volumes do not support aggregation "
                          "(SGM's adaptive P2 is a float quantity)")
+    if cost == "ncc" and not dtype.is_floating_point:
+        raise ValueError("ncc cost is a normalized float quantity; "
+                         "cost_dtype int32 is not supported")
     if kernel_size is None:
-        kernel_size = 1 if cost == "census" else 7
+        kernel_size = {"birchfield": 4, "census": 1}.get(cost, 7)
     if cost == "census":
         if kernel_size != 1:
             raise ValueError(
@@ -473,10 +512,20 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
         cost_fn = Census(max_disparity, window_size=census_window,
                          cost_volume_dtype=dtype)
         halo_rows = (census_window // 2, census_window // 2)
-    else:
-        cls = SSD if cost == "ssd" else SAD
+    elif cost == "birchfield":          # float32, never leaves a row
+        cost_fn = functools.partial(cost_ops.birchfield_cost_volume,
+                                    max_disparity=max_disparity,
+                                    kernel_size=kernel_size)
+        halo_rows = (0, 0)
+    elif cost != "ncc":
+        # "ssd-texture": the textures' nearest samples at the pixel
+        # centres are the images, so float32 SSD (the SSD kernel on the
+        # card), as the single-device SSDTexture.
+        cls = SAD if cost == "sad" else SSD
         cost_fn = cls(max_disparity, kernel_size=kernel_size,
-                      cost_volume_dtype=dtype, backend=backend)
+                      cost_volume_dtype=(torch.float32
+                                         if cost == "ssd-texture" else dtype),
+                      backend=backend)
         halo_rows = (kernel_size, kernel_size - 1)
     dp = DynamicProgramming(backend=backend)
     n_batch, n_tiles = mesh.shape[BATCH_AXIS], mesh.shape[TILE_AXIS]
@@ -484,7 +533,12 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     def core(lefts, rights):
         """One frame's per-tile (aggregated volumes, disparities)."""
         with profiling.annotate("stm/cost"):
-            vols = local_cost(lefts, rights, cost_fn, *halo_rows)
+            if cost == "ncc":
+                vols = local_zncc(lefts, rights,
+                                  max_disparity=max_disparity,
+                                  kernel_size=kernel_size, cost_dtype=dtype)
+            else:
+                vols = local_cost(lefts, rights, cost_fn, *halo_rows)
         if aggregation == "sgm":
             with profiling.annotate("stm/aggregation"):
                 vols = sharded_semiglobal(vols, lefts, penalty1=penalty1,

@@ -5,8 +5,11 @@ PyTorch runs eagerly: each stage launches its kernels on the current
 CUDA stream, and the stages share the caching allocator's buffers from
 frame to frame.  ``estimate_refined`` adds the post-processing stages of
 ``ops/refine.py`` in the JAX package's order, and ``last_confidence``
-the PKRN confidence of the last run.  ``compiled()`` (a CUDA graph of
-the whole pipeline) comes with a later slice of the port (ROADMAP A.4).
+the PKRN confidence of the last run.  An ``SSDTexture`` cost gets its
+plain tensors wrapped as textures, as in the JAX package (the
+reference's ``_TexCostFunctionWrapper``, pipeline.py:22-33).
+``compiled()`` (a CUDA graph of the whole pipeline) comes with a later
+slice of the port (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from .cost import SSDTexture
+from .texture import TextureImage
 from .utils import profiling, validation
 
 Image = Union[torch.Tensor, np.ndarray]
@@ -59,6 +64,26 @@ def disparity_bins(disparity: torch.Tensor, max_disp: int) -> torch.Tensor:
     return disparity.clamp(0, max_disp - 1).to(torch.int64)
 
 
+class _TexCostFunctionWrapper:
+    """Wraps an SSDTexture cost so the pipeline can feed it tensors."""
+
+    def __init__(self, cost_function: SSDTexture):
+        self.cost_function = cost_function
+
+    @property
+    def max_disparity(self) -> int:
+        return self.cost_function.max_disparity
+
+    @max_disparity.setter
+    def max_disparity(self, value: int) -> None:
+        self.cost_function.max_disparity = value
+
+    def __call__(self, left_image, right_image, cost_volume=None):
+        return self.cost_function(TextureImage.from_array(left_image),
+                                  TextureImage.from_array(right_image),
+                                  cost_volume=cost_volume)
+
+
 class Pipeline:
     """Composable stereo pipeline: cost -> optional aggregation -> reduce
     (reference: stereomatch/pipeline.py:36-94)."""
@@ -75,6 +100,8 @@ class Pipeline:
               not given: the card by default; ``"cpu"`` runs the plain
               PyTorch versions on the CPU.
         """
+        if isinstance(cost, SSDTexture):
+            cost = _TexCostFunctionWrapper(cost)
         self.cost = cost
         self.disparity_reduce = disparity_reduce
         self.aggregation = aggregation

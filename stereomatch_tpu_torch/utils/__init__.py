@@ -1,3 +1,3 @@
-from . import backend, numeric, profiling, validation
+from . import backend, numeric, profiling, validation, viz
 
-__all__ = ["backend", "numeric", "profiling", "validation"]
+__all__ = ["backend", "numeric", "profiling", "validation", "viz"]

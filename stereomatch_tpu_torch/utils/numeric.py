@@ -1,5 +1,6 @@
 """Small numeric helpers, and the float32 arithmetic of XLA's CPU backend
-(:func:`fma`, :func:`exp_f32`) that the plain versions reproduce.
+(:func:`fma`, :func:`exp_f32`, :func:`prefix_sum_w`,
+:func:`pairwise_sum_last`) that the plain versions reproduce.
 
 TPU-native counterpart of the reference's ``stereomatch/numeric.py``
 (reference: stereomatch/numeric.py:5-26).  The reference needs power-of-two
@@ -55,6 +56,78 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """
     return torch.addcmul(c.to(torch.float64), a.to(torch.float64),
                          b.to(torch.float64)).to(torch.float32)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of a float32 tensor, as XLA's CPU
+    backend and numpy compute it, on every device.
+
+    ``torch.sqrt`` on the CPU is within one unit in the last place but
+    not always the nearest value (about one value in 150 is off, in
+    float32 and in float64, and which ones can change between calls as
+    the work is split among threads).  So its result is only the first
+    guess: of it and its two float32 neighbours, the one kept is the one
+    whose rounding interval holds sqrt(x), decided by squaring the
+    interval's ends in float64, where a 25-bit midpoint's square is
+    exact."""
+    x = x.to(torch.float32)
+    y = torch.sqrt(x)
+    x64 = x.to(torch.float64)
+    up = torch.nextafter(y, torch.full_like(y, float("inf")))
+    mid = (y.to(torch.float64) + up.to(torch.float64)) * 0.5
+    y = torch.where(mid * mid < x64, up, y)
+    down = torch.nextafter(y, torch.zeros_like(y))
+    mid = (y.to(torch.float64) + down.to(torch.float64)) * 0.5
+    return torch.where(mid * mid > x64, down, y)
+
+
+# XLA's CPU compiler rewrites a cumulative reduce_window into a scan over
+# blocks of this many elements (the ReduceWindowRewriter's base length).
+_SCAN_BASE = 16
+
+
+def prefix_sum_w(plane: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum over axis 1 of an [H, N] float32 plane, in
+    the association of ``jnp.cumsum`` on XLA's CPU backend: the axis is
+    zero-padded to blocks of 16; each block is summed in order; the block
+    totals are scanned the same way, recursively; each element then adds
+    the exclusive scan of the totals before its block.  Elementwise adds
+    only, so the card gives the CPU's values (``torch.cumsum`` on the
+    card takes another association)."""
+    height, n = plane.shape
+    if n <= _SCAN_BASE:
+        out = plane.clone()
+        for k in range(1, n):
+            out[:, k].add_(out[:, k - 1])
+        return out
+    blocks = -(-n // _SCAN_BASE)
+    padded = plane.new_zeros((height, blocks * _SCAN_BASE))
+    padded[:, :n] = plane
+    inner = padded.view(height, blocks, _SCAN_BASE)
+    for k in range(1, _SCAN_BASE):
+        inner[:, :, k].add_(inner[:, :, k - 1])
+    totals = prefix_sum_w(inner[:, :, -1].contiguous())
+    exclusive = torch.cat([plane.new_zeros((height, 1)), totals[:, :-1]],
+                          dim=1)
+    out = inner + exclusive[:, :, None]
+    return out.view(height, blocks * _SCAN_BASE)[:, :n]
+
+
+def pairwise_sum_last(v: torch.Tensor) -> torch.Tensor:
+    """Sum along the last axis in a fixed association, the JAX package's
+    ``pairwise_sum_last``: zero-pad the axis to a power of two, then fold
+    it in half with elementwise adds until one element is left.  The
+    association depends on the axis length alone, so a row band gives
+    the per-row sums of the whole image bit for bit, and the card gives
+    the CPU's (``torch.sum`` picks its own reduction tree)."""
+    n = v.shape[-1]
+    p = 1 << max((n - 1).bit_length(), 0)
+    if p != n:
+        v = torch.cat([v, v.new_zeros(v.shape[:-1] + (p - n,))], dim=-1)
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
 
 
 # Cephes' single-precision exp: the range limits, log2(e), ln(2) in two

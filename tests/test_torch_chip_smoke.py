@@ -165,3 +165,13 @@ def test_bf16_bounds_and_floors_at_hd(name, bound_ms, floor_ms):
     assert got_by == "bytes"
     assert got_ms == pytest.approx(bound_ms, abs=1e-4)
     assert got_floor == pytest.approx(floor_ms, abs=1e-4)
+
+
+def test_cost_family_paths_and_gates_follow_the_golden_test():
+    """chip_smoke.py holds the card's Birchfield, ZNCC and SSD-over-
+    textures paths to tests/data/golden_torch_costs_teddy.npz with the
+    same paths and pixel gates as the CPU test of that golden."""
+    from .test_torch_costs_golden import MAX_DIFF, PATHS
+    assert {name: spec for name, (spec, _) in
+            chip_smoke.FAMILY_PATHS.items()} == PATHS
+    assert chip_smoke.COSTS_GOLDEN_MAX_DIFF == MAX_DIFF

@@ -7,7 +7,7 @@ and a KITTI-layout one built here; each JSON row's metrics, per scene
 and averaged, must agree within 1e-6 relative (the metrics' float32
 sums run in another order), and the configs' names must be the same.
 ``--tune`` (ROADMAP A.11) and ``pyramidN`` configs (A.12) refuse with
-exit status 2, naming their items.
+exit status 2, naming their items; every cost family runs.
 """
 
 import json
@@ -129,9 +129,15 @@ def test_kitti_layout(tmp_path):
     (["--synthetic", "1", "--tune", "2"], "A.11"),
     (["--synthetic", "1", "--configs", "pyramid2"], "A.12"),
     (["--synthetic", "1", "--configs", "ssd:wta,pyramid+refine"], "A.12"),
-    (["--synthetic", "1", "--configs", "ncc:wta"], "A.8"),
+    (["--synthetic", "1", "--configs", "ncc:wta"], None),
 ], ids=["tune", "pyramid", "pyramid-late", "ncc"])
-def test_unported_options_refuse_with_status_2(args, item, capsys):
+def test_unported_options_refuse_with_status_2(args, item, capsys,
+                                               tmp_path):
+    """Options not ported yet exit 2 naming their ROADMAP item; "ncc"
+    (refused until the A.8 costs were ported) runs and equals JAX."""
+    if item is None:
+        _hold(tmp_path, args + ["--synthetic-size", "32x48x16"])
+        return
     assert evaluate.main(args + ["--device", "cpu"]) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
 

@@ -38,6 +38,10 @@ def test_import_leaves_jax_out():
         "import stereomatch_tpu_torch.metrics\n"
         "import stereomatch_tpu_torch.reconstruction\n"
         "import stereomatch_tpu_torch.cli.evaluate\n"
+        "import stereomatch_tpu_torch.cli.image\n"
+        "import stereomatch_tpu_torch.io.png\n"
+        "import stereomatch_tpu_torch.texture\n"
+        "import stereomatch_tpu_torch.utils.viz\n"
         "import stereomatch_tpu_torch.utils.backend\n"
         "import stereomatch_tpu_torch.utils.numeric\n"
         "import stereomatch_tpu_torch.utils.profiling\n"
@@ -60,13 +64,21 @@ PORT_SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in
                       (ROOT / "stereomatch_tpu_torch").rglob("*.py"))
 
 
-def _imported_modules(source: Path) -> set:
+def _imported_modules(source: Path, in_functions: bool = True) -> set:
     """Every module an import statement of ``source`` names (relative
-    imports resolved against its package)."""
+    imports resolved against its package); with ``in_functions`` False,
+    only those run when the module is imported."""
     tree = ast.parse(source.read_text())
     package = source.relative_to(ROOT).with_suffix("").parts[:-1]
+    skip = set()
+    if not in_functions:
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                skip.update(id(n) for n in ast.walk(node))
     modules = set()
     for node in ast.walk(tree):
+        if id(node) in skip:
+            continue
         if isinstance(node, ast.Import):
             modules.update(alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom):
@@ -82,6 +94,24 @@ def test_no_port_module_imports_jax(path):
     modules = _imported_modules(ROOT / path)
     assert not [m for m in modules
                 if m.split(".")[0] in ("jax", "jaxlib", "stereomatch_tpu")]
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
+def test_no_port_module_needs_pil_or_matplotlib(path):
+    """The card's machine has neither: PNG goes through ``io/png.py``,
+    colour maps through ``utils/viz.py``.  PIL is imported only inside
+    the functions that read or write other image formats (``io/data.py``,
+    ``stm-image``'s output check), matplotlib only by ``stm-image -sd``
+    (an interactive window), inside its branch."""
+    on_import = {m.split(".")[0]
+                 for m in _imported_modules(ROOT / path, in_functions=False)}
+    assert not on_import & {"PIL", "matplotlib"}
+    modules = {m.split(".")[0] for m in _imported_modules(ROOT / path)}
+    if path not in ("stereomatch_tpu_torch/io/data.py",
+                    "stereomatch_tpu_torch/cli/image.py"):
+        assert "PIL" not in modules
+    if path != "stereomatch_tpu_torch/cli/image.py":
+        assert "matplotlib" not in modules
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

@@ -943,3 +943,54 @@ def test_sharded_post_processing_on_card_equals_single_card(device, flags):
     pipe = ShardedPipeline(make_mesh([device] * 4, n_batch=1), 24,
                            kernel_size=3, **flags)
     assert torch.equal(pipe.estimate(left, right), want)
+
+
+@pytest.mark.parametrize("cost", ["birchfield", "ncc", "ssd-texture"])
+@pytest.mark.parametrize("h,w,d", [(37, 53, 24), (60, 96, 16)])
+def test_cost_families_on_the_card_equal_the_cpu(device, launches, cost, h,
+                                                 w, d):
+    """Birchfield and ZNCC are plain PyTorch on the card (no kernel);
+    their volumes, and SSD over textures (the SSD kernel's float32 SSD),
+    equal the CPU's bit for bit, and so do the SGM paths' disparities."""
+    left, right, _ = stereo_pair(h, w, d, seed=h + w)
+    pipe = cli_common.create_pipeline(cost, "wta", "sgm", max_disparity=d)
+    disp = pipe.estimate(left, right)
+    vol = pipe._cost_volume
+    assert disp.is_cuda and vol.is_cuda
+    assert launches["stm_ssd_f32"] == (1 if cost == "ssd-texture" else 0)
+    assert launches["stm_sgm_rows_f32"] == 6
+    assert torch.equal(disp.cpu(), pipe.estimate(left, right, device="cpu"))
+    assert torch.equal(vol.cpu(), pipe._cost_volume)
+
+
+def test_ssd_texture_reaches_the_ssd_kernel_and_equals_ssd(device, launches):
+    from stereomatch_tpu_torch.cost import SSD, SSDTexture
+    from stereomatch_tpu_torch.texture import TextureImage
+    left, right = _images(45, 70, 3, device)
+    tex = SSDTexture(20, kernel_size=4)(TextureImage(left),
+                                        TextureImage(right))
+    assert launches["stm_ssd_f32"] == 1
+    assert torch.equal(tex, SSD(20, kernel_size=4)(left, right))
+    assert torch.equal(tex.cpu(), cost_ops.ssd_cost_volume(
+        left.cpu(), right.cpu(), max_disparity=20, kernel_size=4))
+
+
+@pytest.mark.parametrize("cost", ["birchfield", "ncc"])
+def test_sharded_cost_families_equal_the_single_card(device, launches, cost):
+    d = 16
+    left, right, _ = stereo_pair(60, 96, d, seed=3)
+    want = cli_common.create_pipeline(cost, "wta", "sgm",
+                                      max_disparity=d).estimate(left, right)
+    launches.clear()
+    out = ShardedPipeline(make_mesh([device] * 3, n_batch=1), d,
+                          cost=cost).estimate(left, right)
+    assert launches["stm_sgm_chunk_f32"] == 18
+    assert torch.equal(out.reshape(want.shape), want)
+
+
+def test_sqrt_f32_is_correctly_rounded_on_the_card(device):
+    from stereomatch_tpu_torch.utils.numeric import sqrt_f32
+    x = torch.rand(1 << 20, generator=torch.Generator().manual_seed(2)) * 4
+    want = torch.from_numpy(np.sqrt(x.numpy()))
+    assert torch.equal(sqrt_f32(x.to(device)).cpu(), want)
+    assert torch.equal(sqrt_f32(x), want)

@@ -230,7 +230,7 @@ def test_pnm_reader_and_grayscale_match_pil(tmp_path):
     np.testing.assert_array_equal(data.load_image(tmp_path / "c.ppm"), rgb)
     np.testing.assert_array_equal(data.load_image(tmp_path / "g.pgm"), gray)
     np.testing.assert_array_equal(
-        data.load_image(tmp_path / "c.ppm", grayscale=True),
+        data.load_image(tmp_path / "c.ppm", "L"),
         np.array(Image.open(tmp_path / "c.ppm").convert("L")))
     np.testing.assert_array_equal(data.rgb_to_grayscale_u8(rgb),
                                   jax_data.rgb_to_grayscale_u8(rgb))

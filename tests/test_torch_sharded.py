@@ -224,12 +224,77 @@ def test_divisibility_and_shape_errors(mesh, pair):
 @pytest.mark.parametrize("kwargs,item", [
     (dict(sgm_mode="auto"), "A.14"),
     (dict(aggregation="cvf"), "A.9"),
-    (dict(cost="birchfield"), "A.8"),
-    (dict(cost="ncc"), "A.8"),
-    (dict(cost="ssd-texture"), "A.8")], ids=lambda v: str(v))
-def test_refused_options_name_their_roadmap_item(mesh, kwargs, item):
+    (dict(cost="birchfield"), None),
+    (dict(cost="ncc"), None),
+    (dict(cost="ssd-texture"), None)],
+    # The ids the cases had while the A.8 costs were refused.
+    ids=["{'sgm_mode': 'auto'}-A.14", "{'aggregation': 'cvf'}-A.9",
+         "{'cost': 'birchfield'}-A.8", "{'cost': 'ncc'}-A.8",
+         "{'cost': 'ssd-texture'}-A.8"])
+def test_refused_options_name_their_roadmap_item(jax_mesh, mesh, pair,
+                                                 kwargs, item):
+    """sgm_mode="auto" (A.14) and sharded CVF (A.9) refuse naming their
+    item; the A.8 costs, refused until they were ported, run and equal
+    JAX's sharded pipeline."""
+    if item is None:
+        ref, out = _both(jax_mesh, mesh, pair, aggregation="sgm",
+                         reducer="wta", **kwargs)
+        np.testing.assert_array_equal(out, ref)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ShardedPipeline(mesh, D, **kwargs)
+
+
+@pytest.mark.parametrize("cost", ["birchfield", "ncc", "ssd-texture"])
+@pytest.mark.parametrize("reducer", ["wta", "dynamic_programming"])
+def test_cost_families_equal_the_single_device(pair, cost, reducer):
+    """Row-sharded Birchfield (no halo), ZNCC (halos, row mask, gathered
+    image sums) and SSD over textures (float32 SSD with halos) over 4
+    tiles: each tile's volume the rows of the single-device volume, and
+    the disparities the single device's, bit for bit."""
+    left, right = pair
+    mesh4 = make_mesh([CPU] * 4, n_tile=4)
+    out = ShardedPipeline(mesh4, D, cost=cost, reducer=reducer,
+                          kernel_size=3).estimate(left[0], right[0])
+    single = cli_common.create_pipeline(
+        cost, "wta" if reducer == "wta" else "dyn", "sgm", max_disparity=D,
+        device="cpu")
+    inner = getattr(single.cost, "cost_function", single.cost)
+    inner.kernel_size = 3
+    np.testing.assert_array_equal(out.numpy(),
+                                  single.estimate(left[0],
+                                                  right[0]).numpy())
+    lefts = list(torch.from_numpy(left[0]).split(8))
+    rights = list(torch.from_numpy(right[0]).split(8))
+    if cost == "ncc":
+        vols = sharded.local_zncc(lefts, rights, max_disparity=D,
+                                  kernel_size=3, cost_dtype=torch.float32)
+    else:
+        fn = (port_cost.birchfield_cost_volume if cost == "birchfield"
+              else port_cost.ssd_cost_volume)
+        halo_rows = (0, 0) if cost == "birchfield" else (3, 2)
+        vols = sharded.local_cost(
+            lefts, rights, lambda l, r: fn(l, r, max_disparity=D,
+                                           kernel_size=3), *halo_rows)
+    assert torch.equal(torch.cat(vols), single._cost_volume)
+
+
+def test_sharded_kernel_size_defaults_follow_jax(pair):
+    """kernel_size None: 4 for Birchfield, 1 for census, 7 otherwise."""
+    left, right = pair
+    mesh2 = make_mesh([CPU] * 2, n_tile=2)
+    for cost, k in (("birchfield", 4), ("ncc", 7), ("ssd-texture", 7)):
+        out = ShardedPipeline(mesh2, D, cost=cost,
+                              aggregation=None).estimate(left[0], right[0])
+        single = cli_common.create_pipeline(cost, "wta", max_disparity=D,
+                                            device="cpu")
+        inner = getattr(single.cost, "cost_function", single.cost)
+        assert inner.kernel_size == k
+        np.testing.assert_array_equal(out.numpy(), single.estimate(
+            left[0], right[0]).numpy())
+    with pytest.raises(ValueError, match="int32"):
+        ShardedPipeline(mesh2, D, cost="ncc", aggregation=None,
+                        cost_dtype="int32")
 
 
 @pytest.mark.parametrize("kwargs", [
