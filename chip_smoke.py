@@ -40,9 +40,21 @@ with the launch counts set to 0 just before it and read just after:
   birchfield and ncc -> sgm -> wta (5 tiles at teddy, 4 at HD) against
   the single card; ssd-texture launching the SSD kernel;
 * ``python -m stereomatch_tpu_torch.cli.image`` on teddy PNGs written
-  by the port's encoder, on the card, its PNGs against the same command
-  run with ``--device cpu``; ``--pyramid`` and ``--cvf-subsample 2``
-  refused with exit status 2;
+  by the port's encoder, on the card (the fast guided filter,
+  ``-am cvf --cvf-subsample 2``, among its runs), its PNGs against the
+  same command run with ``--device cpu``; ``--pyramid`` refused with
+  exit status 2;
+* ``Pipeline.compiled()``, a CUDA graph of a frame, on the three main
+  paths and FAMILY_PATHS at teddy (float32 and bf16), the three main
+  paths at HD and D = 600 under ``backend="auto"``: replay equal to the
+  eager frame on two pairs in a row, the captured launch counts equal to
+  an eager frame's, eager and replay times, the profiler's view of the
+  replay and each graph's memory;
+* the plain guided-filter paths (the masked path, ``assume_finite``,
+  the fast guided filter at s = 2 and 4): card equal to CPU at teddy in
+  float32 and bf16, timed at teddy and HD; the sharded CVF (5 tiles at
+  teddy, 4 at HD) equal to the single-card masked path, and at teddy
+  against ``tests/data/golden_torch_cvf_teddy.npz``;
 
 times kernels, plain versions, pipelines, each post-processing flag set,
 the cost-family paths and their cost stages and the float32/bf16
@@ -83,6 +95,10 @@ WARMUP, REPS = 3, 20
 # a call at HD: timed once in each of their two turns (phase 3 has run
 # them at the same shapes), which keeps the run inside its time budget.
 PLAIN_WARMUP, PLAIN_REPS = 0, 1
+# A torch.profiler capture that comes back without one device event is
+# taken again, up to this many captures in all, before the caller's
+# check that the device was busy fails.
+PROFILE_ATTEMPTS = 3
 TEDDY_CUTS = (75, 150, 225, 300)     # 5 row tiles, as the sharded path
 # Frames between teddy (0.17 MP) and HD (1.31 MP) and past it, timed in
 # both volume dtypes: VGA, 720p and 1080p, each at the D beside it, and
@@ -128,9 +144,9 @@ COSTS_GOLDEN_MAX_DIFF = dict.fromkeys(FAMILY_PATHS, 0)
 IMAGE_RUNS = (["-am", "sgm"],
               ["-cm", "birchfield", "-am", "sgm", "-dm", "dyn", "-fig"],
               ["-cm", "ncc", "-am", "sgm", "--refine", "--confidence",
-               "CONF"])
-IMAGE_REFUSALS = ((["--pyramid", "1"], "A.12"),
-                  (["-am", "cvf", "--cvf-subsample", "2"], "A.9"))
+               "CONF"],
+              ["-cm", "census", "-am", "cvf", "--cvf-subsample", "2"])
+IMAGE_REFUSALS = ((["--pyramid", "1"], "A.12"),)
 CHUNK_CUTS = {"teddy": TEDDY_CUTS, "ragged": (12,),
               "hd": (256, 512, 768)}
 
@@ -287,24 +303,44 @@ def profile_path(torch, fn, frames: int = 10):
     frame by name, stage ms per frame by span, device operations per
     frame): the pipeline's ``stm/*``
     spans appear on the device timeline too, and are kept apart from the
-    kernels."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels.
+
+    The profiler's device tracing starts late: without a warm-up step the
+    first frames of a capture lose some or all of their device events
+    (about 1.3 of 10 eager teddy frames on the H100; a two-kernel capture
+    came back empty).  So the capture runs one frame as the schedule's
+    warm-up step, whose events are dropped, before the recorded ones; a
+    capture that still holds no device event is taken again."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        for _ in range(frames):
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3 / frames
+            torch.cuda.synchronize()
+            prof.step()
+            start = time.perf_counter()
+            for _ in range(frames):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3 / frames
+            prof.step()
+        device = [evt for evt in prof.events()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA
+                  and not evt.name.startswith("ProfilerStep")]
+        if device:
+            break
+        log(f"  [profile] capture {attempt} of {PROFILE_ATTEMPTS} held no "
+            f"device event")
     kernels, spans, count = {}, {}, 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            into = spans if evt.name.startswith("stm/") else kernels
-            ms = evt.time_range.elapsed_us() / 1e3 / frames
-            into[evt.name] = into.get(evt.name, 0.0) + ms
-            count += into is kernels
+    for evt in device:
+        into = spans if evt.name.startswith("stm/") else kernels
+        ms = evt.time_range.elapsed_us() / 1e3 / frames
+        into[evt.name] = into.get(evt.name, 0.0) + ms
+        count += into is kernels
     return wall_ms, kernels, spans, count / frames
 
 
@@ -855,6 +891,232 @@ def time_post_processing(torch, shapes, p1, p2, card) -> dict:
     return times
 
 
+# The kernel (``__global__`` function) each C entry point launches, by
+# the entry point's prefix: the names a profile of a graph replay shows.
+KERNEL_OF_ENTRY = {"stm_ssd": "ssd_kernel", "stm_sgm_rows": "sgm_rows_kernel",
+                   "stm_sgm_horizontal": "sgm_horizontal_kernel",
+                   "stm_sgm_chunk": "sgm_chunk_kernel",
+                   "stm_dp_forward": "dp_forward_kernel",
+                   "stm_dp_backward": "dp_backward_kernel",
+                   "stm_cvf": "cvf_kernel"}
+
+
+def compiled_paths(cli_common, shapes, p1, p2):
+    """(label, tag, pipeline factory, second pair's seed) of each path
+    whose ``compiled()`` is checked: at teddy the three main paths and
+    FAMILY_PATHS, float32 and (where the cost stores it) bf16; at HD
+    ssd+sgm+wta, ssd+sgm+dyn and census+cvf+wta; at 64x704 D = 600 under
+    backend="auto" (the SSD kernel, then the plain SGM and DP)."""
+    found = []
+    main_paths = (("ssd+sgm+wta", ("ssd", "wta", "sgm")),
+                  ("ssd+sgm+dyn", ("ssd", "dyn", "sgm")),
+                  ("census+cvf+wta", ("census", "wta", "cvf")))
+    for tag in ("teddy", "hd"):
+        _, _, _, d, k = shapes[tag]
+        for label, (cost, reducer, aggr) in main_paths:
+            for dtype in (("float32", "bfloat16") if tag == "teddy"
+                          else ("float32",)):
+                def make(cost=cost, reducer=reducer, aggr=aggr, dtype=dtype,
+                         d=d, k=k):
+                    pipe = cli_common.create_pipeline(
+                        cost, reducer, aggr, max_disparity=d, penalty1=p1,
+                        penalty2=p2, volume_dtype=dtype)
+                    if cost == "ssd":
+                        pipe.cost.kernel_size = k
+                    return pipe
+                suffix = " bf16" if dtype != "float32" else ""
+                found.append((label + suffix, tag, make))
+    d = shapes["teddy"][3]
+    for name, ((cost, _, _), _) in FAMILY_PATHS.items():
+        for dtype in ("float32", "bfloat16") if cost == "ncc" else (
+                "float32",):
+            suffix = " bf16" if dtype != "float32" else ""
+            found.append((name + suffix, "teddy",
+                          lambda name=name, dtype=dtype: family_pipeline(
+                              cli_common, name, d, volume_dtype=dtype)))
+    found.append(("ssd+sgm+dyn D=600 auto", "far", lambda: (
+        cli_common.create_pipeline("ssd", "dyn", "sgm", max_disparity=FAR_D,
+                                   penalty1=p1, penalty2=p2))))
+    return found
+
+
+def check_compiled(torch, dev, shapes, p1, p2, card) -> dict:
+    """``Pipeline.compiled()`` on the card (ROADMAP A.4): for each of
+    :func:`compiled_paths`, the replay equals the eager frame bit for bit
+    on two different pairs in a row (the static inputs refreshed, the
+    first result not overwritten); the capture's launch counts equal one
+    eager frame's, counted from 0 just before it; eager and replay
+    ms/frame (CUDA events, median of REPS after WARMUP); the profiler
+    over 10 replays: device busy time, idle share, device operations per
+    frame, and each captured kernel seen on the device; the device memory
+    each graph's pool holds."""
+    import collections
+    from stereomatch_tpu_torch import cli_common
+    from stereomatch_tpu_torch.io.synthetic import stereo_pair
+    from stereomatch_tpu_torch.ops import _build
+
+    def second(h, w, d, seed):
+        left, right, _ = stereo_pair(h, w, d, seed=seed)
+        return torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+
+    far = stereo_pair(64, 704, FAR_D, seed=3)[:2]
+    pairs = {
+        "teddy": [shapes["teddy"][:2], second(375, 450, 128, 7)],
+        "hd": [shapes["hd"][:2], second(1024, 1280, 256, 12)],
+        "far": [tuple(torch.from_numpy(a).to(dev) for a in far),
+                second(64, 704, FAR_D, 4)]}
+    log(f"[compiled] Pipeline.compiled(): a CUDA graph of a frame against "
+        f"the eager frame; ms median of {REPS} after {WARMUP}, then "
+        f"torch.profiler over 10 replays; card: {card}")
+    out = {}
+    for label, tag, make in compiled_paths(cli_common, shapes, p1, p2):
+        pipe = make()
+        two = pairs[tag]
+        eager = [pipe.estimate(*pair).clone() for pair in two]
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        pipe.estimate(*two[0])
+        torch.cuda.synchronize()
+        eager_counts = collections.Counter(_build.LAUNCHES)
+        fn = pipe.compiled()
+        start = time.perf_counter()
+        first = fn(*two[0])
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - start
+        replayed = fn(*two[1])
+        torch.cuda.synchronize()
+        require(torch.equal(first, eager[0]) and torch.equal(replayed,
+                                                             eager[1]),
+                f"compiled {label} {tag}: the replay differs from the eager "
+                f"frame")
+        (graph,) = fn.graphs.values()
+        require(graph.launches == eager_counts,
+                f"compiled {label} {tag}: captured launches "
+                f"{dict(graph.launches)}, eager {dict(eager_counts)}")
+        t_eager = time_ms(torch, lambda: pipe.estimate(*two[0]))
+        t_replay = time_ms(torch, lambda: fn(*two[0]))
+        wall, by_name, _, ops = profile_path(torch, lambda: fn(*two[0]))
+        busy = sum(by_name.values())
+        require(busy > 0, f"the profiler saw no device time in the replay "
+                f"of {label} {tag}")
+        for entry in graph.launches:
+            kernel = next(v for k, v in KERNEL_OF_ENTRY.items()
+                          if entry.startswith(k))
+            require(any(kernel in name for name in by_name),
+                    f"compiled {label} {tag}: {kernel} ({entry}) not seen "
+                    f"in the profile of the replay")
+        out[f"{label} {tag}"] = {
+            "eager_ms": t_eager, "replay_ms": t_replay,
+            "replay_profiled_wall_ms": wall, "replay_device_busy_ms": busy,
+            "replay_idle_share": 1.0 - busy / wall, "replay_device_ops": ops,
+            "graph_mb": graph.memory_bytes / 2 ** 20,
+            "capture_s": capture_s, "launches": dict(graph.launches)}
+        log(f"  {label} {tag} {tuple(two[0][0].shape)}: replay = eager on "
+            f"two pairs; captured launches {dict(graph.launches)} = "
+            f"eager's; eager {t_eager!r} ms/frame, replay {t_replay!r} "
+            f"ms/frame; replay profiled wall {wall!r} ms/frame, device busy "
+            f"{busy!r}, idle share {1.0 - busy / wall!r}, {ops!r} device "
+            f"operations/frame; graph pool "
+            f"{graph.memory_bytes / 2 ** 20:.1f} MiB; first call "
+            f"(eager warm-up + capture + replay) {capture_s:.3f} s [{card}]")
+        del fn, graph, pipe, eager, first, replayed
+        torch.cuda.empty_cache()
+    return out
+
+
+# The plain CVF paths of ROADMAP A.9 at the golden's radius and eps.
+CVF_PLAIN = {"masked": {}, "assume_finite": {"assume_finite": True},
+             "fast_s2": {"subsample": 2}, "fast_s4": {"subsample": 4}}
+CVF_HD_REPS = 3
+
+
+def check_plain_cvf(torch, dev, shapes, card) -> dict:
+    """The generic guided-filter paths (ROADMAP A.9), plain PyTorch on the
+    card: at teddy, float32 and bf16, each of CVF_PLAIN on the census
+    volume (``assume_finite`` on it with its +inf wedge set to 25, past
+    every Hamming distance of the 5x5 code) equal to the same call on the
+    CPU bit for bit; each timed at teddy (median of REPS) and HD (median
+    of CVF_HD_REPS after one); the sharded CVF (5 tiles at teddy, 4 at
+    HD, on cuda:0) equal at every pixel to the single-card masked
+    pipeline, in either dtype, and at teddy against
+    ``golden_torch_cvf_teddy.npz`` (the wedge path's) within the CVF
+    golden gate."""
+    from stereomatch_tpu_torch import cli_common, parallel
+    from stereomatch_tpu_torch.ops import cost as cost_ops
+    from stereomatch_tpu_torch.ops import cvf as cvf_ops
+
+    golden_cvf = np.load(GOLDEN_CVF)
+    radius, eps = int(golden_cvf["cvf_radius"]), float(golden_cvf["cvf_eps"])
+    window = int(golden_cvf["census_window"])
+    log(f"[plain cvf] masked, assume_finite, fast s=2 / s=4 on the census "
+        f"volume, r={radius}, eps={eps}; card: {card}")
+    out = {}
+    for tag in ("teddy", "hd"):
+        left, right, gt, d, _ = shapes[tag]
+        census = cost_ops.census_hamming_cost_volume(
+            left, right, max_disparity=d, window_size=window)
+        for dtype in (torch.float32, torch.bfloat16):
+            vol = census.to(dtype)     # Hamming distances: exact in bf16
+            for name, kw in CVF_PLAIN.items():
+                v = (torch.where(torch.isinf(vol), 25.0, vol).to(dtype)
+                     if kw.get("assume_finite") else vol)
+                label = f"cvf {name} {tag} {str(dtype)[6:]}"
+
+                def run(v=v, kw=kw):
+                    return cvf_ops.guided_filter_aggregate(
+                        v, left, radius=radius, eps=eps, **kw)
+                if tag == "teddy":
+                    compare(f"{label} card vs CPU",
+                            cvf_ops.guided_filter_aggregate(
+                                v.cpu(), left.cpu(), radius=radius, eps=eps,
+                                **kw).to(dev), run(), 0, 0, exact=True)
+                    ms = time_ms(torch, run)
+                else:
+                    ms = time_ms(torch, run, warmup=1, reps=CVF_HD_REPS)
+                out[label] = ms
+                log(f"  {label}: {ms!r} ms [{card}]")
+                torch.cuda.empty_cache()
+        del census
+        # Sharded CVF against the single-card masked pipeline.
+        for dtype in ("float32", "bfloat16"):
+            single = cli_common.create_pipeline(
+                "census", "wta", "cvf", max_disparity=d, cvf_radius=radius,
+                cvf_eps=eps, census_window=window, volume_dtype=dtype)
+            single.aggregation.wedge_offset = None      # the masked path
+            want = single.estimate(left, right).cpu().numpy()
+            tiles = 5 if tag == "teddy" else 4
+            pipe = parallel.ShardedPipeline(
+                parallel.make_mesh([dev] * tiles, n_batch=1), d,
+                cost="census", census_window=window, aggregation="cvf",
+                cvf_radius=radius, cvf_eps=eps, cost_dtype=dtype)
+            got = pipe.estimate(left, right).cpu().numpy()
+            n_diff = int((got != want).sum())
+            log(f"  sharded cvf {tag} {dtype}, {tiles} tiles on {dev}: "
+                f"{n_diff} of {got.size} pixels differ from the single-card "
+                f"masked path")
+            require(n_diff == 0, f"sharded cvf {tag} {dtype} differs from "
+                    f"the single-card masked path at {n_diff} pixels")
+            ms = time_ms(torch, lambda: pipe.estimate(left, right),
+                         **({} if tag == "teddy"
+                            else dict(warmup=1, reps=CVF_HD_REPS)))
+            single_ms = time_ms(torch, lambda: single.estimate(left, right),
+                                **({} if tag == "teddy"
+                                   else dict(warmup=1, reps=CVF_HD_REPS)))
+            out[f"sharded census+cvf+wta {tag} {dtype}"] = ms
+            out[f"census+masked cvf+wta {tag} {dtype}"] = single_ms
+            log(f"  sharded census+cvf+wta {tag} {dtype}: {ms!r} ms/frame; "
+                f"single-card census+masked cvf+wta {single_ms!r} ms/frame "
+                f"[{card}]")
+            if tag == "teddy" and dtype == "float32":
+                check_golden("sharded census_cvf_wta (masked)", got,
+                             golden_cvf["census_cvf_wta"], gt, d,
+                             CVF_GOLDEN_MAX_DIFF,
+                             float(golden_cvf["bad_pixel_vs_gt"]), 1e-3)
+            del single, pipe
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -1336,6 +1598,8 @@ def main() -> int:
                           p1, p2)
     check_cost_families(torch, dev, shapes, run_path)
     image_cli = check_image_cli(torch, shapes, card)
+    compiled_ms = check_compiled(torch, dev, shapes, p1, p2, card)
+    cvf_plain_ms = check_plain_cvf(torch, dev, shapes, card)
 
     def paths(tag):
         """(label, pipeline factory) of each timed path at one geometry:
@@ -1536,12 +1800,8 @@ def main() -> int:
 
     # Phase 6: where the time goes, per path and geometry, from a
     # torch.profiler capture (device kernel time against host wall time).
-    # The first capture in a process pays the profiler's own start-up
-    # (it read a 0.56 idle share where later ones read 0.11): one
-    # throw-away capture takes it.
     log("[profile] torch.profiler, 10 frames after one warm-up, "
         "device-resident images")
-    profile_path(torch, lambda: torch.ones(1, device=dev) + 1, frames=1)
     chunk_device = {}
     for tag in ("teddy", "hd"):
         left, right, _, d, k = shapes[tag]
@@ -1642,6 +1902,8 @@ def main() -> int:
         for name in sources}, "card": card}))
     log(json.dumps({"refined_ms": refined_ms, "card": card}))
     log(json.dumps({"cost_families": family_ms, "stm_image_s": image_cli,
+                    "card": card}))
+    log(json.dumps({"compiled": compiled_ms, "cvf_plain_ms": cvf_plain_ms,
                     "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")

@@ -69,13 +69,16 @@ class CostFilter:
     the counterpart of the JAX package's ``CostFilter``.
 
     Edge-aware local smoothing of every disparity slice with the left
-    image as the guide (see ``ops/cvf.py``).  This slice ports the wedge
-    path: ``wedge_offset`` declares that the volume's +inf cells are
-    exactly ``x < d + wedge_offset``, which every registry cost family
-    writes (``cli_common.create_pipeline`` passes 0).  A float32 or bf16
-    volume gives a result of its dtype (bf16: float32 statistics, q
-    rounded once).  ``wedge_offset=None``
-    and ``subsample > 1`` raise ``NotImplementedError`` (ROADMAP A.9).
+    image as the guide (see ``ops/cvf.py``).  ``wedge_offset`` declares
+    that the volume's +inf cells are exactly ``x < d + wedge_offset``,
+    which every registry cost family writes (``cli_common.
+    create_pipeline`` passes 0 at ``subsample=1``): the CUDA kernels
+    serve that path.  ``wedge_offset=None`` takes the generic masked
+    path (any +inf pattern) and ``subsample > 1`` the fast guided
+    filter; no kernel computes those (the JAX package has none either),
+    so they run the plain version on the tensors' own device whatever
+    ``backend`` says.  A float32 or bf16 volume gives a result of its
+    dtype (bf16: float32 statistics, q rounded once).
 
     ``penalty1``/``penalty2`` are accepted for registry compatibility with
     :class:`Semiglobal` and do not apply.
@@ -90,14 +93,18 @@ class CostFilter:
             radius: box window half-size (support (2*radius+1)^2; the
               second filter stage doubles the effective reach).
             eps: edge-stop regulariser in image-intensity^2 units.
-            subsample: 1 (the exact filter); > 1 is not ported yet.
+            subsample: 1 (the exact filter); > 1 the fast guided
+              filter (statistics on an s-times downsampled grid,
+              approximate).
             penalty1/penalty2: ignored (registry compatibility).
-            backend: "auto" (the CUDA kernels for CUDA tensors at a
-              radius they serve, ``cvf_cuda.fits``; the plain version
-              for the rest, on the tensors' own device), "cuda" (the
-              kernels; raises on CPU tensors and on a radius past them)
-              or "torch" (the plain version on the tensors' own device).
-            wedge_offset: the wedge of the volume's invalid cells.
+            backend: for the wedge path, "auto" (the CUDA kernels for
+              CUDA tensors at a radius they serve, ``cvf_cuda.fits``;
+              the plain version for the rest, on the tensors' own
+              device), "cuda" (the kernels; raises on CPU tensors and on
+              a radius past them) or "torch" (the plain version on the
+              tensors' own device).
+            wedge_offset: the wedge of the volume's invalid cells, or
+              None (the generic masked path).
         """
         del penalty1, penalty2
         check_filter_args(int(radius), float(eps), int(subsample),
@@ -124,8 +131,9 @@ class CostFilter:
                 f"quantity; got cost volume dtype {cost_volume.dtype}")
         wedge = None if self.wedge_offset is None else int(self.wedge_offset)
         kw = dict(radius=int(self.radius), eps=float(self.eps))
-        fits = cvf_cuda.fits(int(self.radius))
-        if resolve_backend(self.backend, cost_volume, fits) == "cuda":
+        if wedge is not None and resolve_backend(
+                self.backend, cost_volume,
+                cvf_cuda.fits(int(self.radius))) == "cuda":
             return cvf_cuda.guided_filter_aggregate_cuda(
                 cost_volume, left_image, wedge_offset=wedge, **kw)
         return guided_filter_aggregate(cost_volume, left_image,

@@ -262,18 +262,14 @@ def main(argv=None) -> int:
             name += "-refine"
         if "speckle" in mods:
             name += "-speckle"
-        try:
-            pipeline = create_pipeline(cost_m, disp_m, aggr_m,
-                                       volume_dtype=(args.dtype
-                                                     if cost_m in dtyped_costs
-                                                     else "float32"),
-                                       cvf_radius=args.cvf_radius,
-                                       cvf_eps=args.cvf_eps,
-                                       census_window=args.census_window,
-                                       device=args.device)
-        except NotImplementedError as err:      # a method not ported yet
-            print(err, file=sys.stderr)
-            return 2
+        pipeline = create_pipeline(cost_m, disp_m, aggr_m,
+                                   volume_dtype=(args.dtype
+                                                 if cost_m in dtyped_costs
+                                                 else "float32"),
+                                   cvf_radius=args.cvf_radius,
+                                   cvf_eps=args.cvf_eps,
+                                   census_window=args.census_window,
+                                   device=args.device)
         per_scene = []
         for item in items:
             left = grayscale(item["left"])

@@ -15,8 +15,7 @@ demands the hand-written kernels, ``torch`` runs the plain versions,
 port's own codec and PGM/PPM read with its own reader (``io/png.py``,
 ``io/data.py``), so neither PIL nor matplotlib is needed for them; other
 formats go through PIL (``-sd`` imports matplotlib).
-``--pyramid`` (ROADMAP A.12) and ``-am cvf --cvf-subsample > 1`` (A.9)
-are not ported yet: they exit with status 2.
+``--pyramid`` (ROADMAP A.12) is not ported yet: it exits with status 2.
 """
 
 import argparse
@@ -62,9 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "intensity^2 units; larger smooths across "
                              "weaker image edges.")
     parser.add_argument("--cvf-subsample", type=int, default=1,
-                        help="-am cvf: > 1 = Fast Guided Filter. Not "
-                             "ported yet (ROADMAP A.9): refused with "
-                             "status 2.")
+                        help="-am cvf: > 1 = Fast Guided Filter "
+                             "(statistics on an s x-downsampled grid; "
+                             "faster, approximate).")
     parser.add_argument("--census-window", type=int, default=5,
                         help="-cm census: code window (odd; >5 packs "
                              "several int32 words, e.g. 7 or 9 for the "
@@ -173,21 +172,16 @@ def main(argv=None) -> int:
     from ..io.data import load_image, save_image
     from ..pipeline import host_array
 
-    try:
-        pipeline = create_pipeline(args.cost_method, args.disparity_method,
-                                   args.aggregation_method,
-                                   max_disparity=args.max_disparity,
-                                   penalty1=args.p1, penalty2=args.p2,
-                                   cvf_radius=args.cvf_radius,
-                                   cvf_eps=args.cvf_eps,
-                                   cvf_subsample=args.cvf_subsample,
-                                   census_window=args.census_window,
-                                   backend=args.backend,
-                                   volume_dtype=args.dtype,
-                                   device=args.device)
-    except NotImplementedError as err:      # an option not ported yet
-        print(err, file=sys.stderr)
-        return 2
+    pipeline = create_pipeline(args.cost_method, args.disparity_method,
+                               args.aggregation_method,
+                               max_disparity=args.max_disparity,
+                               penalty1=args.p1, penalty2=args.p2,
+                               cvf_radius=args.cvf_radius,
+                               cvf_eps=args.cvf_eps,
+                               cvf_subsample=args.cvf_subsample,
+                               census_window=args.census_window,
+                               backend=args.backend,
+                               volume_dtype=args.dtype, device=args.device)
 
     left = load_image(args.left_image, "L").astype(np.float32)
     right = load_image(args.right_image, "L").astype(np.float32)

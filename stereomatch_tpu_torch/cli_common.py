@@ -1,10 +1,8 @@
 """String registries + pipeline factory, counterpart of
 ``stereomatch_tpu/cli_common.py``.
 
-The registries hold every name of the JAX package's registries.  An
-option the port does not run yet (``cvf_subsample > 1``) raises
-``NotImplementedError`` naming its ROADMAP item: a refusal, never a
-quiet substitute.
+The registries hold every name of the JAX package's registries, and
+every combination that the JAX package's factory builds runs.
 """
 
 from __future__ import annotations

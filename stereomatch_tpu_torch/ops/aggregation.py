@@ -60,9 +60,9 @@ def sgm_scan_with_carry(cost_sv: torch.Tensor, image_sv: torch.Tensor,
     """
     device = cost_sv.device
     n = cost_sv.shape[1]
-    p1 = torch.tensor(penalty1, dtype=torch.float32, device=device)
-    p2 = torch.tensor(penalty2, dtype=torch.float32, device=device)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=device)
+    p1 = torch.full((), penalty1, dtype=torch.float32, device=device)
+    p2 = torch.full((), penalty2, dtype=torch.float32, device=device)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=device)
     zero = torch.zeros((), dtype=torch.float32, device=device)
 
     # The column a diagonal enters the image through: a path start at

@@ -124,8 +124,8 @@ def _diff_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
                                                 device=left.device))
     cost = _box_sum(term, kernel_size, axes=(0, 1))
     return torch.where(valid, cost.to(cost_dtype),
-                       torch.tensor(_inf_value(cost_dtype), dtype=cost_dtype,
-                                    device=left.device))
+                       torch.full((), _inf_value(cost_dtype), dtype=cost_dtype,
+                                  device=left.device))
 
 
 def ssd_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
@@ -241,8 +241,8 @@ def census_hamming_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
     # integers of at most 32 bits a word, exact in float32, so rounding
     # them straight to bf16 equals XLA's cast through float32.
     return torch.where(valid, cost.to(cost_dtype),
-                       torch.tensor(_inf_value(cost_dtype), dtype=cost_dtype,
-                                    device=left.device))
+                       torch.full((), _inf_value(cost_dtype), dtype=cost_dtype,
+                                  device=left.device))
 
 
 def _valid_wedge(width: int, max_disparity: int, disparity_offset: int,
@@ -316,7 +316,7 @@ def birchfield_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
     m = torch.where(valid, m, torch.zeros((), device=left.device))
     cost = _box_sum(m, kernel_size, axes=(1,))
     return torch.where(valid, cost,
-                       torch.tensor(float("inf"), device=left.device))
+                       torch.full((), float("inf"), device=left.device))
 
 
 # --------------------------------------------------------------------------
@@ -355,8 +355,8 @@ def _zncc_combine(sums, valid: torch.Tensor,
                       torch.zeros((), device=denom.device))
     cost = 1.0 - ncc
     return torch.where(valid, cost.to(cost_dtype),
-                       torch.tensor(float("inf"), dtype=cost_dtype,
-                                    device=cost.device))
+                       torch.full((), float("inf"), dtype=cost_dtype,
+                                  device=cost.device))
 
 
 def image_sum(img: torch.Tensor) -> torch.Tensor:
@@ -389,8 +389,8 @@ def _centred(img: torch.Tensor, total: torch.Tensor, size: int, *,
     (``fused``, :func:`_cumsum_pads`: the prefix planes' input), that
     product feeds the subtraction as one fused multiply-add.  Measured
     against the JAX package on the CPU at widths 9-1280."""
-    recip = torch.tensor(float(np.float32(1) / np.float32(size)),
-                         dtype=torch.float32, device=img.device)
+    recip = torch.full((), float(np.float32(1) / np.float32(size)),
+                       dtype=torch.float32, device=img.device)
     total = total.to(img.device)
     if fused:
         return fma(-total, recip, img)

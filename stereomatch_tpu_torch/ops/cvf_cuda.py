@@ -49,6 +49,10 @@ def guided_filter_aggregate_cuda(cost_volume: torch.Tensor,
     """Wedge guided filter of a float32 or bf16 [H, W, D] CUDA volume:
     [H, W, D] in its dtype with +inf on the wedge ``x < d + wedge_offset``."""
     check_volume_and_guide(cost_volume, guide)
+    if wedge_offset is None:
+        raise ValueError("the CVF kernels serve the wedge path only; the "
+                         "generic masked path is ops.cvf."
+                         "guided_filter_aggregate(wedge_offset=None)")
     check_filter_args(int(radius), float(eps), wedge_offset=wedge_offset)
     r, off = int(radius), int(wedge_offset)
     planes = guide_planes(guide, r, off, cost_volume.shape[2])

@@ -49,9 +49,9 @@ def dp_forward(cost_volume: torch.Tensor):
                       device=cost.device)
     inf_col = torch.full((height, 1), float("inf"), dtype=torch.float32,
                          device=cost.device)
-    minus = torch.tensor(-1, dtype=torch.int8, device=cost.device)
-    zero = torch.tensor(0, dtype=torch.int8, device=cost.device)
-    plus = torch.tensor(1, dtype=torch.int8, device=cost.device)
+    minus = torch.full((), -1, dtype=torch.int8, device=cost.device)
+    zero = torch.full((), 0, dtype=torch.int8, device=cost.device)
+    plus = torch.full((), 1, dtype=torch.int8, device=cost.device)
     acc = cost[:, 0].clone()
     for w in range(1, width):
         c1 = torch.cat([inf_col, acc[:, :-1]], dim=1)        # acc[d-1]

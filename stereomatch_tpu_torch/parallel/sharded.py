@@ -62,9 +62,21 @@ guide halo rows, so every step is the single-device step.  Each flag
 gives the single-device ``estimate_refined`` (then ``filter_speckles``)
 bit for bit.
 
+Guided-filter aggregation (``aggregation="cvf"``, ``sharded_cvf``):
+both filter stages are (2r+1) box means, so an output row reads the
+input rows within 2r of it.  Each tile pulls 2r halo rows of the volume
+and the guide, the rows beyond the image set to +inf (invalid: zero is
+the identity of the window sums, not of the window counts), filters the
+extended block with the generic masked path
+(``ops.cvf.guided_filter_from_padded``) and crops it: every window sums
+the same values in the same order as on one device, so each tile equals
+the rows of the single-device masked filter bit for bit (the registry's
+single-device pipeline takes the wedge path instead, within about 3e-6
+relative of it, as in the JAX package).
+
 Refused with ``NotImplementedError`` naming the ROADMAP item, never
 substituted: ``sgm_mode="auto"`` (it resolves from the TPU's ICI model,
-A.14) and ``aggregation="cvf"`` (A.9).
+A.14).
 
 bf16 volumes (``cost_dtype="bfloat16"``): each tile's cost volume is
 bf16, the image halos float32; the kernels read the bf16 tiles, the
@@ -88,6 +100,7 @@ from ..disparity_reduce import DynamicProgramming
 from ..ops import cost as cost_ops
 from ..ops import refine, sgm_cuda
 from ..ops.aggregation import TRAVERSALS, sweep, sweep_chunk_with_carry
+from ..ops.cvf import guided_filter_from_padded
 from ..ops.disparity import winner_takes_all
 from ..pipeline import disparity_bins, tensor_from_numpy
 from ..utils.numeric import exp_f32, pairwise_sum_last
@@ -289,6 +302,35 @@ def sharded_semiglobal(vols: Sequence[torch.Tensor],
 
 
 # --------------------------------------------------------------------------
+# Guided-filter aggregation under row sharding
+# --------------------------------------------------------------------------
+
+def sharded_cvf(vols: Sequence[torch.Tensor], imgs: Sequence[torch.Tensor],
+                *, radius: int, eps: float) -> List[torch.Tensor]:
+    """The masked guided filter over one frame's row tiles: 2r halo rows
+    of the volume and the guide a side, +inf beyond the image, filtered
+    and cropped.  Equal to ``ops.cvf.guided_filter_aggregate(volume,
+    guide, wedge_offset=None)`` of the whole frame bit for bit, in the
+    volumes' dtype."""
+    rows, n, h_loc = 2 * radius, len(vols), imgs[0].shape[0]
+    if rows > h_loc:
+        raise ValueError(
+            f"cvf radius {radius} needs {rows} halo rows but tiles are only "
+            f"{h_loc} rows tall; use fewer tiles or a smaller radius")
+    vpad = halo.pad_with_halos(vols, rows, rows)
+    gpad = halo.pad_with_halos(imgs, rows, rows)
+    out = []
+    for t, (vp, gp) in enumerate(zip(vpad, gpad)):
+        outside = halo.out_of_image_mask(t, n, h_loc, rows, device=vp.device)
+        vp = torch.where(outside[:, None, None],
+                         torch.full((), float("inf"), dtype=vp.dtype,
+                                    device=vp.device), vp)
+        out.append(guided_filter_from_padded(vp, gp, rows, rows,
+                                             radius=radius, eps=eps))
+    return out
+
+
+# --------------------------------------------------------------------------
 # Post-processing under row sharding
 # --------------------------------------------------------------------------
 
@@ -453,8 +495,9 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     ``b * B/n_batch ..`` run on batch row ``b``; each tile's rows go to
     its device.  ``backend`` takes the port's names: "auto" (kernels on
     CUDA tiles, plain versions on CPU tiles), "cuda" or "torch".
-    ``cvf_radius``/``cvf_eps`` are accepted for the keywords' sake
-    (sharded CVF raises, ROADMAP A.9).  The post-processing options
+    ``cvf_radius``/``cvf_eps`` configure ``aggregation="cvf"``
+    (:func:`sharded_cvf`; 2 * ``cvf_radius`` must not exceed a tile's
+    height).  The post-processing options
     follow ``Pipeline.estimate_refined`` (``lr_max_diff`` is its
     ``max_diff``; the smoother runs 3 iterations), then ``speckle``
     applies ``refine.filter_speckles`` with its defaults and
@@ -463,7 +506,6 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     JAX side only (Pallas interpret mode): CPU tiles run the plain
     versions, so True raises.
     """
-    del cvf_radius, cvf_eps
     if lr_mode not in ("mirror", "volume"):
         raise ValueError(f"unknown lr_mode: {lr_mode!r}")
     if speckle_fill not in ("zero", "background"):
@@ -491,8 +533,6 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
         raise _not_ported(
             "sgm_mode='auto' (it resolves from the TPU's ICI model, "
             "parallel/ici_model.py; choose 'exact' or 'overlap')", "A.14")
-    if aggregation == "cvf":
-        raise _not_ported("sharded cvf aggregation", "A.9")
     dtype = _cost_dtype(cost_dtype)
     if dtype == torch.int32 and aggregation is not None:
         raise ValueError("int32 cost volumes do not support aggregation "
@@ -544,6 +584,10 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                 vols = sharded_semiglobal(vols, lefts, penalty1=penalty1,
                                           penalty2=penalty2, mode=sgm_mode,
                                           overlap=overlap, backend=backend)
+        elif aggregation == "cvf":
+            with profiling.annotate("stm/aggregation"):
+                vols = sharded_cvf(vols, lefts, radius=int(cvf_radius),
+                                   eps=float(cvf_eps))
         with profiling.annotate("stm/disparity_reduce"):
             if reducer == "wta":
                 return vols, [winner_takes_all(v) for v in vols]

@@ -8,18 +8,24 @@ frame to frame.  ``estimate_refined`` adds the post-processing stages of
 the PKRN confidence of the last run.  An ``SSDTexture`` cost gets its
 plain tensors wrapped as textures, as in the JAX package (the
 reference's ``_TexCostFunctionWrapper``, pipeline.py:22-33).
-``compiled()`` (a CUDA graph of the whole pipeline) comes with a later
-slice of the port (ROADMAP A.4).
+
+``compiled()`` is the counterpart of the JAX package's whole-pipeline
+``jax.jit``: on the card, a CUDA graph of one frame per input shape,
+dtype and device (:class:`CompiledPipeline`), replayed with one host
+call where the eager frame makes one launch for each kernel and
+PyTorch operation.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Union
+import collections
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .cost import SSDTexture
+from .ops import _build
 from .texture import TextureImage
 from .utils import profiling, validation
 
@@ -112,16 +118,22 @@ class Pipeline:
         self._cost_volume = None
         self._aggregation_volume = None
         self._disparity_image = None
+        # The stage the last run entered ("cost", "aggregation",
+        # "disparity_reduce"): a failed CUDA graph capture names it.
+        self._stage = None
 
     def _run(self, left_image: torch.Tensor, right_image: torch.Tensor):
         # Stage spans show up in torch.profiler captures.
+        self._stage = "cost"
         with profiling.annotate("stm/cost"):
             cost_volume = self.cost(left_image, right_image)
         if self.aggregation is not None:
+            self._stage = "aggregation"
             with profiling.annotate("stm/aggregation"):
                 aggregation_volume = self.aggregation(cost_volume, left_image)
         else:
             aggregation_volume = cost_volume
+        self._stage = "disparity_reduce"
         with profiling.annotate("stm/disparity_reduce"):
             disparity = self.disparity_reduce(aggregation_volume)
         return cost_volume, aggregation_volume, disparity
@@ -224,3 +236,104 @@ class Pipeline:
         def fn(left_image, right_image):
             return self._run(left_image, right_image)[2]
         return fn
+
+    def compiled(self, donate: bool = True) -> "CompiledPipeline":
+        """The whole pipeline as one program a frame, the counterpart of
+        the JAX package's ``compiled`` (a ``jax.jit`` of ``estimate_fn``):
+        ``(left, right) -> disparity``, images numpy or tensors.
+
+        On the card each input shape, dtype and device gets one CUDA
+        graph of the frame, captured at its first call (after one eager
+        run that builds and loads every kernel) and replayed from then
+        on; see :class:`CompiledPipeline`.  A pipeline built for the CPU
+        runs ``estimate_fn`` eagerly: the CPU has no graphs.
+
+        ``donate`` is accepted for the JAX signature's sake and changes
+        nothing: the graph's static input and volume buffers already make
+        a replay allocate nothing but the copy of its disparity that it
+        returns (a later call must not overwrite an earlier result)."""
+        del donate
+        return CompiledPipeline(self)
+
+
+class _Graph(NamedTuple):
+    """One captured frame: its static inputs and output, the launches of
+    the hand-written kernels it holds (``_build.LAUNCHES`` keys), and the
+    device memory its private pool reserved."""
+    graph: "torch.cuda.CUDAGraph"
+    left: torch.Tensor
+    right: torch.Tensor
+    disparity: torch.Tensor
+    launches: collections.Counter
+    memory_bytes: int
+
+
+class CompiledPipeline:
+    """``Pipeline.compiled()``: a frame replayed as a CUDA graph.
+
+    The first call for a (shape, dtype, device) key runs the frame once
+    eagerly on a side stream (building the kernels and loading every
+    module, which a capture cannot do), then captures it into a
+    ``torch.cuda.CUDAGraph`` with static input tensors.  Every call
+    validates the pair as ``estimate`` does, copies it into the static
+    inputs, replays the graph and returns a clone of the static
+    disparity.  A capture that fails raises ``RuntimeError`` naming the
+    stage it failed in; nothing falls back to the eager frame.
+
+    A replay makes no host call, so ``_build.LAUNCHES`` does not count
+    it: ``graphs[key].launches`` holds the kernel launches the capture
+    recorded (one eager frame's).  Each graph keeps its volumes in its
+    own memory pool (``graphs[key].memory_bytes``) for as long as this
+    object lives.
+    """
+
+    def __init__(self, pipeline: Pipeline):
+        self.pipeline = pipeline
+        self.graphs: Dict[Tuple, _Graph] = {}
+        self._fn = pipeline.estimate_fn()
+
+    def __call__(self, left_image: Image, right_image: Image
+                 ) -> torch.Tensor:
+        device = self.pipeline.device
+        left_image = as_tensor(left_image, device)
+        right_image = as_tensor(right_image, device)
+        validation.check_stereo_pair(left_image, right_image)
+        if not left_image.is_cuda:
+            return self._fn(left_image, right_image)
+        key = (tuple(left_image.shape), left_image.dtype, left_image.device)
+        entry = self.graphs.get(key)
+        if entry is None:
+            entry = self.graphs[key] = self._capture(left_image, right_image)
+        entry.left.copy_(left_image)
+        entry.right.copy_(right_image)
+        entry.graph.replay()
+        return entry.disparity.clone()
+
+    def _capture(self, left_image: torch.Tensor,
+                 right_image: torch.Tensor) -> _Graph:
+        device = left_image.device
+        static_left = left_image.clone()
+        static_right = right_image.clone()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self._fn(static_left, static_right)
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        # The capture empties the allocator's cache as it starts; empty it
+        # first, so that what the capture reserves is the graph's pool.
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        counted = collections.Counter(_build.LAUNCHES)
+        reserved = torch.cuda.memory_reserved(device)
+        try:
+            with torch.cuda.graph(graph):
+                disparity = self._fn(static_left, static_right)
+        except Exception as err:
+            raise RuntimeError(
+                f"capturing the frame as a CUDA graph failed in the "
+                f"{self.pipeline._stage!r} stage: {err}") from err
+        torch.cuda.synchronize(device)
+        return _Graph(graph, static_left, static_right, disparity,
+                      collections.Counter(_build.LAUNCHES) - counted,
+                      torch.cuda.memory_reserved(device) - reserved)

@@ -152,7 +152,7 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
     [-87.8, 88.8]; NaN stays NaN.
     """
     def const(value):
-        return torch.tensor(value, dtype=torch.float32, device=x.device)
+        return torch.full((), value, dtype=torch.float32, device=x.device)
 
     x = x.to(torch.float32).clamp(*_EXP_LIMITS)
     n = torch.floor(fma(x, const(_LOG2E), const(0.5))).clamp(-127, 127)

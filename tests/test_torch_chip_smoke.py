@@ -10,6 +10,7 @@ import importlib.util
 from pathlib import Path
 
 import pytest
+import torch
 
 _SPEC = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
@@ -175,3 +176,39 @@ def test_cost_family_paths_and_gates_follow_the_golden_test():
     assert {name: spec for name, (spec, _) in
             chip_smoke.FAMILY_PATHS.items()} == PATHS
     assert chip_smoke.COSTS_GOLDEN_MAX_DIFF == MAX_DIFF
+
+
+def test_every_entry_point_names_the_kernel_a_replay_profile_shows():
+    """Each C entry point maps to the ``__global__`` kernel it launches,
+    whose name the script looks for in the profile of a graph replay."""
+    from stereomatch_tpu_torch.ops import _build
+    sources = "".join(p.read_text() for p in _build.CSRC_DIR.glob("*.cu"))
+    for entry in _build._SIGNATURES:
+        kernels = [k for prefix, k in chip_smoke.KERNEL_OF_ENTRY.items()
+                   if entry.startswith(prefix)]
+        assert len(kernels) == 1, entry
+        assert kernels[0] in sources
+
+
+def test_compiled_paths_cover_the_single_card_registry_paths():
+    """The compiled() phase drives the three main paths in both volume
+    dtypes at teddy and in float32 at HD, every FAMILY_PATHS path (ncc in
+    bf16 too), and D = 600 under backend="auto"; each factory builds a
+    pipeline for the card."""
+    from stereomatch_tpu_torch import cli_common
+    shapes = {"teddy": (None, None, None, 128, 7),
+              "hd": (None, None, None, 256, 7)}
+    paths = chip_smoke.compiled_paths(cli_common, shapes, 0.1, 0.2)
+    labels = [(label, tag) for label, tag, _ in paths]
+    assert len(set(labels)) == len(labels) == 17
+    for main in ("ssd+sgm+wta", "ssd+sgm+dyn", "census+cvf+wta"):
+        assert {(main, "teddy"), (main + " bf16", "teddy"),
+                (main, "hd")} <= set(labels)
+    for name in chip_smoke.FAMILY_PATHS:
+        assert (name, "teddy") in labels
+    assert ("ssd+sgm+dyn D=600 auto", "far") in labels
+    for label, tag, make in paths:
+        pipe = make()
+        assert pipe.device == "cuda"
+        dtype = torch.bfloat16 if "bf16" in label else torch.float32
+        assert getattr(pipe.cost, "cost_volume_dtype", dtype) == dtype

@@ -150,17 +150,36 @@ def test_prefix_sum_takes_xla_cpu_association():
     (dict(subsample=0, wedge_offset=0), ValueError, "subsample"),
     (dict(assume_finite=True, wedge_offset=0), ValueError, "exclusive"),
     (dict(subsample=2, wedge_offset=0), ValueError, "subsampled"),
-    (dict(), NotImplementedError, "A.9"),
-    (dict(subsample=2), NotImplementedError, "A.9"),
-])
+    (dict(), None, None),
+    (dict(subsample=2), None, None),
+],
+    # The last two cases' ids from while the masked path and the fast
+    # guided filter were refused (ROADMAP A.9).
+    ids=[f"kwargs{i}-ValueError-{m}" for i, m in enumerate(
+        ("radius", "eps", "wedge_offset", "subsample", "exclusive",
+         "subsampled"))]
+    + ["kwargs6-NotImplementedError-A.9", "kwargs7-NotImplementedError-A.9"])
 def test_argument_errors_raise_as_in_jax(kwargs, exc, match):
+    """The JAX package's argument errors; the masked path (``wedge_offset
+    =None``) and the fast guided filter, refused until they were ported,
+    run and equal JAX's XLA paths (the masked one bit for bit, the fast
+    one within tests/test_torch_cvf_masked.py's FAST_RTOL/FAST_ATOL)."""
     vol, g = _case(8, 12, 4, 0)
+    if exc is None:
+        got = port.guided_filter_aggregate(torch.from_numpy(vol),
+                                           torch.from_numpy(g),
+                                           **kwargs).numpy()
+        ref = np.asarray(jax_cvf(vol, g, use_mxu=False, **kwargs))
+        if kwargs:
+            _assert_close(got, ref, 2e-4, 2e-5)
+        else:
+            np.testing.assert_array_equal(got, ref)
+        return
     with pytest.raises(exc, match=match):
         port.guided_filter_aggregate(torch.from_numpy(vol),
                                      torch.from_numpy(g), **kwargs)
-    if exc is ValueError:
-        with pytest.raises(ValueError):
-            jax_cvf(vol, g, **kwargs)
+    with pytest.raises(ValueError):
+        jax_cvf(vol, g, **kwargs)
 
 
 def test_cost_filter_class_matches_jax_class():
@@ -180,5 +199,9 @@ def test_cost_filter_class_matches_jax_class():
     with pytest.raises(validation.DTypeError, match="float"):
         CostFilter(wedge_offset=0)(torch.zeros(20, 30, 12, dtype=torch.int32),
                                    torch.from_numpy(g))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        CostFilter()(torch.from_numpy(vol), torch.from_numpy(g))
+    # The masked path (wedge_offset=None), refused until it was ported,
+    # equals the JAX class's (its default lowering: the H box an einsum,
+    # equal to the sequential sum at this height).
+    np.testing.assert_array_equal(
+        CostFilter()(torch.from_numpy(vol), torch.from_numpy(g)).numpy(),
+        np.asarray(JaxCostFilter()(vol, g)))

@@ -148,11 +148,23 @@ def test_depth_and_point_cloud_equal_jax(png_pair, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--pyramid", "1", "--band-radius", "3"], "A.12"),
-    (["-am", "cvf", "--cvf-subsample", "2"], "A.9")],
+    (["-am", "cvf", "--cvf-subsample", "2", "--cvf-radius", "4"], None)],
     ids=["pyramid", "cvf-subsample"])
 def test_unported_flags_exit_2_naming_their_item(png_pair, tmp_path, flags,
                                                  item, capsys):
+    """``--pyramid`` (A.12) exits 2 naming its item; the fast guided
+    filter (A.9), refused until it was ported, writes the JAX CLI's PNG
+    pixel for pixel."""
     lp, rp, _ = png_pair
+    if item is None:
+        for name, main, backend in (("jax", jax_image.main, "xla"),
+                                    ("port", _port, "torch")):
+            assert main([lp, rp, "8", str(tmp_path / f"{name}.png"),
+                         "--backend", backend] + flags) == 0
+        np.testing.assert_array_equal(
+            np.array(Image.open(tmp_path / "port.png")),
+            np.array(Image.open(tmp_path / "jax.png")))
+        return
     out = tmp_path / "refused.png"
     assert _port([lp, rp, "8", str(out)] + flags) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err

@@ -994,3 +994,99 @@ def test_sqrt_f32_is_correctly_rounded_on_the_card(device):
     want = torch.from_numpy(np.sqrt(x.numpy()))
     assert torch.equal(sqrt_f32(x.to(device)).cpu(), want)
     assert torch.equal(sqrt_f32(x), want)
+
+
+# --------------------------------------------------------------------------
+# Pipeline.compiled(): CUDA graph replay against the eager frame (A.4)
+# --------------------------------------------------------------------------
+
+COMPILED_PATHS = [("ssd", "wta", "sgm", "float32"), ("ssd", "dyn", "sgm",
+                                                     "float32"),
+                  ("census", "wta", "cvf", "float32"),
+                  ("ssd", "wta", "sgm", "bfloat16"),
+                  ("census", "dyn", "cvf", "bfloat16"),
+                  ("ncc", "wta", "sgm", "float32"),
+                  ("birchfield", "dyn", None, "float32"),
+                  ("ssd", "dyn", None, "int32")]
+
+
+@pytest.mark.parametrize("cost,reducer,aggr,dtype", COMPILED_PATHS, ids=str)
+def test_compiled_replay_equals_eager(device, launches, cost, reducer, aggr,
+                                      dtype):
+    """Two different pairs in a row: each replay equals the eager frame
+    bit for bit (the static inputs are refreshed, the first result is
+    not overwritten), and the capture recorded one eager frame's kernel
+    launches."""
+    pipe = cli_common.create_pipeline(cost, reducer, aggr, max_disparity=24,
+                                      cvf_radius=3, volume_dtype=dtype)
+    pairs = [_images(37, 53, seed, device) for seed in (1, 2)]
+    want = [pipe.estimate(*p).clone() for p in pairs]
+    launches.clear()
+    pipe.estimate(*pairs[0])
+    eager = collections.Counter(launches)
+    fn = pipe.compiled()
+    first = fn(*pairs[0])
+    second = fn(*pairs[1])
+    torch.cuda.synchronize()
+    assert torch.equal(first, want[0]) and torch.equal(second, want[1])
+    (graph,) = fn.graphs.values()
+    assert graph.launches == eager
+    assert graph.memory_bytes >= 0
+
+
+def test_compiled_keys_a_graph_per_shape_and_takes_numpy(device):
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=16)
+    fn = pipe.compiled()
+    small = _images(20, 30, 3, device)
+    large = _images(24, 40, 4, device)
+    for pair in (small, large, small):
+        assert torch.equal(fn(*pair), pipe.estimate(*pair))
+    assert len(fn.graphs) == 2
+    left, right = (t.cpu().numpy() for t in large)
+    out = fn(left, right)
+    assert out.is_cuda and torch.equal(out, pipe.estimate(*large))
+    assert len(fn.graphs) == 2
+
+
+def test_compiled_replays_past_the_kernels_under_auto(device, launches):
+    """D = 600 under backend="auto": the SSD kernel, then the plain SGM
+    and DP on the card, captured and replayed."""
+    pipe = cli_common.create_pipeline("ssd", "dyn", "sgm", max_disparity=600)
+    pair = _images(8, 640, 5, device)
+    assert torch.equal(pipe.compiled()(*pair), pipe.estimate(*pair))
+
+
+# --------------------------------------------------------------------------
+# The plain CVF paths (A.9): the card equals the CPU bit for bit
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(), dict(assume_finite=True),
+                                dict(subsample=2), dict(subsample=3),
+                                dict(subsample=2, assume_finite=True)],
+                         ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_plain_cvf_paths_on_card_equal_cpu(device, kw, dtype):
+    rng = np.random.default_rng(3)
+    vol = rng.random((41, 67, 20), np.float32)
+    if not kw.get("assume_finite"):
+        vol[rng.random(vol.shape) < 0.1] = np.inf
+    guide = torch.from_numpy(rng.random((41, 67), np.float32))
+    vol = torch.from_numpy(vol).to(dtype)
+    cpu = cvf_ops.guided_filter_aggregate(vol, guide, radius=5, **kw)
+    card = cvf_ops.guided_filter_aggregate(vol.to(device), guide.to(device),
+                                           radius=5, **kw)
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sharded_cvf_on_one_card_equals_masked_single_card(device, dtype):
+    left, right = _images(40, 64, 6, device)
+    pipe = ShardedPipeline(make_mesh([device] * 4, n_batch=1), 16,
+                           kernel_size=3, aggregation="cvf", cvf_radius=2,
+                           cost_dtype=dtype)
+    vol = cost_ops.ssd_cost_volume(left, right, max_disparity=16,
+                                   kernel_size=3,
+                                   cost_dtype=getattr(torch, dtype))
+    want = disp_ops.winner_takes_all(
+        cvf_ops.guided_filter_aggregate(vol, left, radius=2))
+    assert torch.equal(pipe.estimate(left, right), want)

@@ -104,13 +104,9 @@ def test_pipeline_without_aggregation_reduces_the_cost_volume():
     dict(cost_method="ssd", disp_method="wta", aggr_method="cvf",
          cvf_subsample=2)])
 def test_not_ported_names_refuse_with_roadmap_item(kwargs):
-    """Every name of the JAX package's registries: the A.8 costs
-    (refused until they were ported) run and equal JAX's disparities;
-    the fast guided filter (A.9) still refuses, naming its item."""
-    if kwargs.get("cvf_subsample", 1) > 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-            cli_common.create_pipeline(**kwargs)
-        return
+    """Every name of the JAX package's registries: the A.8 costs and the
+    fast guided filter (A.9), refused until they were ported, run and
+    equal JAX's disparities."""
     left, right, _ = stereo_pair(24, 40, 8, seed=5)
     ref = jax_cli.create_pipeline(max_disparity=8, **kwargs)
     pipe = cli_common.create_pipeline(max_disparity=8, device="cpu",
@@ -155,20 +151,21 @@ def test_convert_reads_configuration_and_refuses_unported_stages():
     assert (port.aggregation.penalty1, port.aggregation.penalty2) == (0.3, 0.9)
     assert isinstance(port.disparity_reduce, WinnerTakesAll)
     assert port.device == "cpu"
-    # The A.8 costs, refused until they were ported, now carry across
-    # and run as JAX's; the fast guided filter (A.9) still refuses.
+    # The A.8 costs and the fast guided filter (A.9), refused until they
+    # were ported, now carry across and run as JAX's: a JAX CostFilter
+    # with wedge_offset=None and subsample=2 crosses as it is.
     left, right, _ = stereo_pair(24, 40, 8, seed=6)
     for kw in (dict(cost_method="ncc", disp_method="wta"),
-               dict(cost_method="birchfield", disp_method="dyn")):
+               dict(cost_method="birchfield", disp_method="dyn"),
+               dict(cost_method="ssd", disp_method="wta", aggr_method="cvf",
+                    cvf_subsample=2)):
         ref_pipe = jax_cli.create_pipeline(max_disparity=8, **kw)
+        port_pipe = convert.pipeline_from_jax(ref_pipe, device="cpu")
         np.testing.assert_array_equal(
-            convert.pipeline_from_jax(ref_pipe, device="cpu").estimate(
-                left, right).numpy(),
+            port_pipe.estimate(left, right).numpy(),
             np.asarray(ref_pipe.estimate(left, right)))
-    with pytest.raises(NotImplementedError):
-        convert.pipeline_from_jax(jax_cli.create_pipeline(
-            cost_method="ssd", disp_method="wta", aggr_method="cvf",
-            cvf_subsample=2))
+    assert port_pipe.aggregation.wedge_offset is None
+    assert port_pipe.aggregation.subsample == 2
     with pytest.raises(TypeError):
         convert.pipeline_from_jax(
             Pipeline(SSD(8), WinnerTakesAll()))      # not a JAX pipeline

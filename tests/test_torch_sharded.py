@@ -17,9 +17,16 @@ single-device pipeline: by a last-place rounding after the sub-pixel
 step (measured 1.9e-6) and after the smoother's cross-tile column solves
 (measured 7.0e-5; its docstring bounds it by 4e-4).  There the port is
 held to JAX's sharded output within that documented 4e-4.
+
+Sharded CVF (``aggregation="cvf"``) equals JAX's sharded CVF and the
+port's single-device masked filter (``wedge_offset=None``) at every
+pixel, in float32 and bf16, its volume the masked filter's bit for bit;
+the post-processing flags on top of it equal the single-device refined
+pipeline.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,9 +35,14 @@ from stereomatch_tpu import cli_common as jax_cli_common
 from stereomatch_tpu import parallel as jax_parallel
 from stereomatch_tpu.ops import refine as jax_refine
 from stereomatch_tpu.parallel.mesh import batch_tile_axes as jax_axes
-from stereomatch_tpu_torch import cli_common, convert
+from stereomatch_tpu_torch import Pipeline, cli_common, convert
+from stereomatch_tpu_torch.aggregation import CostFilter
+from stereomatch_tpu_torch.cost import SSD
+from stereomatch_tpu_torch.disparity_reduce import (DynamicProgramming,
+                                                    WinnerTakesAll)
 from stereomatch_tpu_torch.ops import aggregation as port_agg
 from stereomatch_tpu_torch.ops import cost as port_cost
+from stereomatch_tpu_torch.ops import cvf as port_cvf
 from stereomatch_tpu_torch.ops import refine as port_refine
 from stereomatch_tpu_torch.parallel import (ShardedPipeline, batch_tile_axes,
                                             halo, initialize_distributed,
@@ -223,22 +235,22 @@ def test_divisibility_and_shape_errors(mesh, pair):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(sgm_mode="auto"), "A.14"),
-    (dict(aggregation="cvf"), "A.9"),
-    (dict(cost="birchfield"), None),
-    (dict(cost="ncc"), None),
-    (dict(cost="ssd-texture"), None)],
-    # The ids the cases had while the A.8 costs were refused.
+    (dict(aggregation="cvf", kernel_size=3, cvf_radius=3), None),
+    (dict(cost="birchfield", aggregation="sgm"), None),
+    (dict(cost="ncc", aggregation="sgm"), None),
+    (dict(cost="ssd-texture", aggregation="sgm"), None)],
+    # The ids the cases had while sharded CVF (A.9) and the A.8 costs
+    # were refused.
     ids=["{'sgm_mode': 'auto'}-A.14", "{'aggregation': 'cvf'}-A.9",
          "{'cost': 'birchfield'}-A.8", "{'cost': 'ncc'}-A.8",
          "{'cost': 'ssd-texture'}-A.8"])
 def test_refused_options_name_their_roadmap_item(jax_mesh, mesh, pair,
                                                  kwargs, item):
-    """sgm_mode="auto" (A.14) and sharded CVF (A.9) refuse naming their
-    item; the A.8 costs, refused until they were ported, run and equal
-    JAX's sharded pipeline."""
+    """sgm_mode="auto" (A.14) refuses naming its item; sharded CVF (A.9,
+    2r = 6 halo rows of 8-row tiles) and the A.8 costs, refused until
+    they were ported, run and equal JAX's sharded pipeline."""
     if item is None:
-        ref, out = _both(jax_mesh, mesh, pair, aggregation="sgm",
-                         reducer="wta", **kwargs)
+        ref, out = _both(jax_mesh, mesh, pair, reducer="wta", **kwargs)
         np.testing.assert_array_equal(out, ref)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -437,3 +449,86 @@ def test_post_processing_halos_span_tiles(frames, name):
                                            max_disparity=D, device="cpu"),
         frames, kw, port_refine.filter_speckles, lambda t: t.numpy())
     np.testing.assert_array_equal(pipe.estimate(*frames).numpy(), single)
+
+
+# --------------------------------------------------------------------------
+# Sharded CVF (ROADMAP A.9)
+# --------------------------------------------------------------------------
+
+def _masked_cvf_pipeline(reducer="wta", cost_dtype=torch.float32):
+    """The single-device pipeline the sharded CVF equals: SSD (k = 3) ->
+    the generic masked guided filter (r = 3) -> the reducer."""
+    reduce = (WinnerTakesAll() if reducer == "wta"
+              else DynamicProgramming())
+    return Pipeline(SSD(D, kernel_size=3, cost_volume_dtype=cost_dtype),
+                    reduce, aggregation=CostFilter(radius=3), device="cpu")
+
+
+@pytest.mark.parametrize("cost_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reducer", ["wta", "dynamic_programming"])
+def test_sharded_cvf_equals_jax_and_the_single_device_masked_path(
+        jax_mesh, mesh, pair, cost_dtype, reducer):
+    """4 row tiles of 8 rows, 2r = 6 halo rows: every pixel equals JAX's
+    sharded CVF and the port's single-device masked filter (bf16 volumes
+    too, as JAX's test_sharded_cvf_bf16_matches_single_chip)."""
+    left, right = pair
+    kw = dict(kernel_size=3, aggregation="cvf", cvf_radius=3,
+              reducer=reducer)
+    ref = np.asarray(jax_parallel.ShardedPipeline(
+        jax_mesh, D, backend="xla", cost_dtype=jnp.dtype(cost_dtype),
+        **kw).estimate(left, right))
+    out = ShardedPipeline(mesh, D, cost_dtype=cost_dtype, **kw).estimate(
+        left, right).numpy()
+    np.testing.assert_array_equal(out, ref)
+    single = _masked_cvf_pipeline(
+        "wta" if reducer == "wta" else "dyn",
+        getattr(torch, cost_dtype)).estimate(left[0], right[0]).numpy()
+    for frame in out:
+        np.testing.assert_array_equal(frame, single)
+
+
+@pytest.mark.parametrize("n_tiles", [2, 4])
+@pytest.mark.parametrize("cost_dtype", [torch.float32, torch.bfloat16])
+def test_sharded_cvf_volume_bit_equal_to_the_masked_filter(pair, n_tiles,
+                                                           cost_dtype):
+    """The aggregated tiles, stacked, are the masked filter's volume bit
+    for bit (+inf placement included): halo rows from one and from two
+    neighbours deep (2r = 8 rows of 8-row tiles with r = 4)."""
+    left = torch.from_numpy(pair[0][0])
+    right = torch.from_numpy(pair[1][0])
+    vol = port_cost.ssd_cost_volume(left, right, max_disparity=D,
+                                    kernel_size=3, cost_dtype=cost_dtype)
+    for radius in (1, 3, 32 // n_tiles // 2):
+        want = port_cvf.guided_filter_aggregate(vol, left, radius=radius)
+        tiles = sharded.sharded_cvf(list(vol.split(32 // n_tiles)),
+                                    list(left.split(32 // n_tiles)),
+                                    radius=radius, eps=1e-4)
+        got = torch.cat(tiles)
+        assert got.dtype == cost_dtype
+        assert torch.equal(got, want), radius
+
+
+def test_sharded_cvf_radius_guard_raises_as_jax(jax_mesh, mesh, pair):
+    """2r halo rows must fit in a tile: r = 8 needs 16 of 8-row tiles."""
+    left, right = pair
+    kw = dict(kernel_size=3, aggregation="cvf", cvf_radius=8)
+    with pytest.raises(ValueError, match="halo rows"):
+        jax_parallel.ShardedPipeline(jax_mesh, D, **kw).estimate(left, right)
+    with pytest.raises(ValueError, match="needs 16 halo rows"):
+        ShardedPipeline(mesh, D, **kw).estimate(left, right)
+
+
+@pytest.mark.parametrize("name", ["median_subpixel", "lr_check_volume",
+                                  "weighted_median", "all"])
+def test_sharded_cvf_post_processing_equals_single_device(mesh, frames,
+                                                          name):
+    """The post-processing flags on top of sharded CVF: every pixel
+    equals the single-device masked CVF pipeline's estimate_refined."""
+    kw = POST_PROCESSING.get(name, dict(median=True, subpixel=True))
+    out = ShardedPipeline(mesh, D, kernel_size=3, aggregation="cvf",
+                          cvf_radius=3, **kw).estimate(*frames)
+    single = _single_refined(_masked_cvf_pipeline, frames, kw,
+                             port_refine.filter_speckles,
+                             lambda t: t.numpy())
+    assert out.numpy().dtype == single.dtype
+    np.testing.assert_array_equal(out.numpy(), single)
