@@ -41,9 +41,8 @@ with the launch counts set to 0 just before it and read just after:
   the single card; ssd-texture launching the SSD kernel;
 * ``python -m stereomatch_tpu_torch.cli.image`` on teddy PNGs written
   by the port's encoder, on the card (the fast guided filter,
-  ``-am cvf --cvf-subsample 2``, among its runs), its PNGs against the
-  same command run with ``--device cpu``; ``--pyramid`` refused with
-  exit status 2;
+  ``-am cvf --cvf-subsample 2``, and ``--pyramid 1`` and ``2`` among its
+  runs), its PNGs against the same command run with ``--device cpu``;
 * ``Pipeline.compiled()``, a CUDA graph of a frame, on the three main
   paths and FAMILY_PATHS at teddy (float32 and bf16), the three main
   paths at HD and D = 600 under ``backend="auto"``: replay equal to the
@@ -55,6 +54,17 @@ with the launch counts set to 0 just before it and read just after:
   float32 and bf16, timed at teddy and HD; the sharded CVF (5 tiles at
   teddy, 4 at HD) equal to the single-card masked path, and at teddy
   against ``tests/data/golden_torch_cvf_teddy.npz``;
+* the coarse-to-fine pyramid (``PyramidPipeline`` at levels 1 and 2,
+  float32 and bf16) and the video tracker (``TemporalPipeline``, single
+  card and over 5 row tiles) at teddy against
+  ``tests/data/golden_torch_pyramid_teddy.npz``, each launching the SGM
+  kernels a frame as it should, the pyramid equal to
+  ``backend="torch"``; the row-sharded pyramid (4 tiles at HD, 5 at
+  380x450) against the single card;
+* the differentiable surface: the soft SGM's forward pass at teddy
+  against the SGM kernels, a tune step's time and memory at teddy,
+  ``tune_penalties`` on the card against the CPU, and ``stm-eval
+  --tune`` on the card against the CPU;
 
 times kernels, plain versions, pipelines, each post-processing flag set,
 the cost-family paths and their cost stages and the float32/bf16
@@ -87,6 +97,7 @@ GOLDEN_CVF = ROOT / "tests" / "data" / "golden_torch_cvf_teddy.npz"
 GOLDEN_BF16 = ROOT / "tests" / "data" / "golden_torch_bf16_teddy.npz"
 GOLDEN_REFINED = ROOT / "tests" / "data" / "golden_torch_refined_teddy.npz"
 GOLDEN_COSTS = ROOT / "tests" / "data" / "golden_torch_costs_teddy.npz"
+GOLDEN_PYRAMID = ROOT / "tests" / "data" / "golden_torch_pyramid_teddy.npz"
 
 GOLDEN_MAX_DIFF = 16        # pixels of 168,750 (0.01%); 0 expected
 CVF_GOLDEN_MAX_DIFF = 169   # pixels of 168,750 (0.1%); 0 expected
@@ -145,8 +156,14 @@ IMAGE_RUNS = (["-am", "sgm"],
               ["-cm", "birchfield", "-am", "sgm", "-dm", "dyn", "-fig"],
               ["-cm", "ncc", "-am", "sgm", "--refine", "--confidence",
                "CONF"],
-              ["-cm", "census", "-am", "cvf", "--cvf-subsample", "2"])
-IMAGE_REFUSALS = ((["--pyramid", "1"], "A.12"),)
+              ["-cm", "census", "-am", "cvf", "--cvf-subsample", "2"],
+              ["--pyramid", "1"],
+              ["--pyramid", "2", "--refine"])
+# stm-eval with --tune on the card and on the CPU (the tuned census
+# penalties within the tuner's 2e-5; pyramid1's metrics within 1e-6).
+TUNE_EVAL_ARGS = ("--synthetic", "1", "--tune", "1", "--tune-steps", "3",
+                  "--configs", "census:wta:sgm,pyramid1")
+TUNE_RTOL = 2e-5
 CHUNK_CUTS = {"teddy": TEDDY_CUTS, "ragged": (12,),
               "hd": (256, 512, 768)}
 
@@ -722,8 +739,8 @@ def check_image_cli(torch, shapes, card) -> dict:
     """stm-image (``python -m stereomatch_tpu_torch.cli.image``) on teddy
     PNGs written by the port's encoder: each of IMAGE_RUNS as a
     subprocess on the card, its output PNGs decoded to the same pixels as
-    the same command run in this process with ``--device cpu``; each of
-    IMAGE_REFUSALS exits 2 naming its ROADMAP item.  Returns the wall
+    the same command run in this process with ``--device cpu``.  Returns
+    the wall
     seconds of the card runs and of the first one's stages (PNG decode,
     estimate, PNG encode), timed in this process after a warm-up."""
     from stereomatch_tpu_torch import cli_common
@@ -771,18 +788,6 @@ def check_image_cli(torch, shapes, card) -> dict:
                         f"the CPU's")
             log(f"  card PNGs {[a.shape for a in results['card']]} equal "
                 f"the CPU's pixel for pixel")
-        for flags, item in IMAGE_REFUSALS:
-            proc = subprocess.run(
-                [sys.executable, "-m", "stereomatch_tpu_torch.cli.image",
-                 str(lp), str(rp), str(d), str(tmp / "refused.png"),
-                 *flags], cwd=ROOT, capture_output=True, text=True,
-                timeout=300)
-            require(proc.returncode == 2 and f"ROADMAP {item}" in proc.stderr,
-                    f"stm-image {flags}: exit {proc.returncode}, "
-                    f"{proc.stderr!r}")
-            log(f"[stm-image] {' '.join(flags)}: exit 2, "
-                f"{proc.stderr.strip()}")
-
         # The first run's stages in this process, warm: decode both PNGs,
         # estimate on the card, colour and encode the output.
         pipe = cli_common.create_pipeline("ssd", "wta", "sgm",
@@ -1117,6 +1122,291 @@ def check_plain_cvf(torch, dev, shapes, card) -> dict:
     return out
 
 
+def pyramid_video(golden):
+    """The golden's 8-frame teddy video: 5 frames of one sequence, then a
+    scene cut to 3 of another (``tests/test_torch_pyramid_golden.py``)."""
+    from stereomatch_tpu_torch.io.synthetic import stereo_sequence
+    h, w, d = (int(golden[k]) for k in ("height", "width", "max_disparity"))
+    return (stereo_sequence(h, w, d, 5, seed=int(golden["seed"]), motion=1)
+            + stereo_sequence(h, w, d, 3, seed=int(golden["cut_seed"]),
+                              motion=1))
+
+
+def pyramid_golden_key(levels: int, dtype: str) -> str:
+    """The golden's entry of ``PyramidPipeline.estimate`` at ``levels`` on
+    a ``dtype`` coarse volume."""
+    return f"pyramid{levels}_{'bf16' if dtype == 'bfloat16' else 'estimate'}"
+
+
+def check_pyramid_temporal(torch, dev, shapes, run_path, card) -> dict:
+    """The coarse-to-fine pyramid and the video tracker on the card.
+
+    * ``PyramidPipeline`` at teddy, levels 1 and 2, float32 and bf16
+      coarse volumes: 0 pixels off ``tests/data/
+      golden_torch_pyramid_teddy.npz`` (estimate, and estimate_refined
+      in float32), equal to ``backend="torch"`` on the card, the SGM
+      kernels launched 6 (rows) and 2 (horizontal) times a frame;
+    * ``parallel.make_pyramid_sharded_estimate`` over 4 tiles at HD
+      (levels 1 and 2) and 5 tiles at 380x450 (level 1): equal to the
+      single card, the chunk kernel launched 6 times a tile;
+    * ``TemporalPipeline(128, keyframe_interval=4)`` on the golden's
+      8-frame video, single-card and over 5 row tiles: each frame and
+      both keyframe counters equal to the golden's; keyframes launch the
+      SGM kernels (sharded: the chunk kernel), tracked frames none.
+
+    Returns ms/frame (CUDA events, median of REPS) of the pyramids, the
+    sharded pyramids, tracked frames and keyframes at teddy and HD, and
+    the profiler's view of pyramid1 and a tracked frame at both."""
+    from stereomatch_tpu_torch import parallel
+    from stereomatch_tpu_torch.io.synthetic import (stereo_pair,
+                                                    stereo_sequence)
+    from stereomatch_tpu_torch.pyramid import PyramidPipeline
+    from stereomatch_tpu_torch.temporal import TemporalPipeline
+
+    golden = np.load(GOLDEN_PYRAMID)
+    left, right, gt, d, _ = shapes["teddy"]
+    out = {"ms": {}, "profile": {}}
+    for levels in (1, 2):
+        for dtype in ("float32", "bfloat16"):
+            sfx = "_bf16" if dtype == "bfloat16" else ""
+            label = f"pyramid{levels} {dtype}"
+            log(f"[pyramid] {label}, teddy 375x450 D=128")
+            pipe = PyramidPipeline(d, levels=levels, cost_dtype=dtype)
+            disp_np, counts = run_path(
+                label, lambda: pipe.estimate(left.cpu().numpy(),
+                                             right.cpu().numpy()),
+                (f"sgm_rows{sfx}", f"sgm_horizontal{sfx}"))
+            require(counts[f"sgm_rows{sfx}"] == 6
+                    and counts[f"sgm_horizontal{sfx}"] == 2
+                    and counts["sgm_chunk"] == 0,
+                    f"{label} launches {counts}")
+            key = pyramid_golden_key(levels, dtype)
+            check_golden(key, disp_np, golden[key], gt, d, 0,
+                         float(golden[f"bad_pixel_{key}"]), 0.0)
+            plain = PyramidPipeline(d, levels=levels, cost_dtype=dtype,
+                                    backend="torch")
+            require(np.array_equal(plain.estimate(left, right).cpu().numpy(),
+                                   disp_np),
+                    f"{label}: the kernels differ from backend='torch'")
+            log("  equal to backend='torch' on the card")
+            if not sfx:
+                refined = pipe.estimate_refined(left, right).cpu().numpy()
+                key = f"pyramid{levels}_refined"
+                n_diff = int((refined != golden[key]).sum())
+                log(f"  estimate_refined: {n_diff} pixels differ from "
+                    f"golden {key}")
+                require(n_diff == 0, f"{key} differs at {n_diff} pixels")
+            out["ms"][f"{label} teddy"] = time_ms(
+                torch, lambda: pipe.estimate(left, right))
+            log(f"  {label} teddy: {out['ms'][f'{label} teddy']!r} "
+                f"ms/frame [{card}]")
+            del pipe, plain
+    torch.cuda.empty_cache()
+
+    hd_left, hd_right, _, hd_d, _ = shapes["hd"]
+    l380, r380, _ = stereo_pair(380, 450, 128, seed=2026)
+    l380 = torch.from_numpy(l380).to(dev)
+    r380 = torch.from_numpy(r380).to(dev)
+    for tag, (sl, sr, sd), tiles, levels in (
+            ("hd", shapes["hd"][:2] + (hd_d,), 4, 1),
+            ("hd", shapes["hd"][:2] + (hd_d,), 4, 2),
+            ("380x450", (l380, r380, 128), 5, 1)):
+        label = f"sharded pyramid{levels} {tag}, {tiles} tiles"
+        log(f"[pyramid] {label} on {dev}, against the single card")
+        single = PyramidPipeline(sd, levels=levels)
+        want = single.estimate(sl, sr).cpu().numpy()
+        fn = parallel.make_pyramid_sharded_estimate(
+            parallel.make_mesh([dev] * tiles, n_batch=1), max_disparity=sd,
+            levels=levels)
+        disp_np, counts = run_path(label, lambda: fn(sl[None], sr[None])[0],
+                                   ("sgm_chunk", "sgm_horizontal"),
+                                   shape=tuple(sl.shape), d=sd)
+        require(counts["sgm_chunk"] == 6 * tiles and counts["sgm_rows"] == 0,
+                f"{label} launches {counts}")
+        n_diff = int((disp_np != want).sum())
+        log(f"  pixels differing from the single card: {n_diff}")
+        require(n_diff == 0, f"{label} differs at {n_diff} pixels")
+        if tag == "hd":
+            out["ms"][f"pyramid{levels} float32 hd"] = time_ms(
+                torch, lambda: single.estimate(sl, sr))
+            out["ms"][label] = time_ms(torch, lambda: fn(sl[None], sr[None]))
+            log(f"  pyramid{levels} hd single card "
+                f"{out['ms'][f'pyramid{levels} float32 hd']!r} ms/frame, "
+                f"sharded {out['ms'][label]!r} ms/frame [{card}]")
+        del single, fn
+        torch.cuda.empty_cache()
+    del l380, r380
+
+    h, w = int(golden["height"]), int(golden["width"])
+    video = pyramid_video(golden)
+    interval = int(golden["keyframe_interval"])
+    for label, kw, key_kernel, key_launches in (
+            ("temporal", {}, "sgm_rows", 6),
+            ("sharded temporal, 5 tiles",
+             dict(mesh=parallel.make_mesh([dev] * 5, n_batch=1)),
+             "sgm_chunk", 30)):
+        log(f"[temporal] {label}: the golden's 8-frame teddy video, "
+            f"keyframe_interval={interval}")
+        pipe = TemporalPipeline(d, keyframe_interval=interval, **kw)
+        for i, (fl, fr, _) in enumerate(video):
+            before = pipe.keyframes
+            disp_np, counts = run_path(f"{label} frame {i}",
+                                       lambda: pipe.estimate(fl, fr), ())
+            keyframe = pipe.keyframes > before
+            require((counts[key_kernel] == key_launches) if keyframe
+                    else sum(counts.values()) == 0,
+                    f"{label} frame {i} (keyframe {keyframe}) launches "
+                    f"{counts}")
+            n_diff = int((disp_np != golden["video"][i]).sum())
+            require(n_diff == 0 and pipe.keyframes == golden["keyframes"][i]
+                    and pipe.drift_keyframes == golden["drift_keyframes"][i],
+                    f"{label} frame {i}: {n_diff} pixels off the golden, "
+                    f"keyframes {pipe.keyframes}/{pipe.drift_keyframes}")
+            if not keyframe:
+                require(np.array_equal(pipe.host_disparity().numpy(),
+                                       disp_np),
+                        "the pinned host copy differs from the disparity")
+        log(f"  8 frames 0 pixels off the golden; keyframes "
+            f"{pipe.keyframes}, drift keyframes {pipe.drift_keyframes}")
+        del pipe
+
+    for tag, (sh, sw, sd, seed) in (("teddy", (h, w, d, 2026)),
+                                    ("hd", (1024, 1280, hd_d, 11))):
+        (l0, r0, _), (l1, r1, _) = stereo_sequence(sh, sw, sd, 2, seed=seed,
+                                                   motion=1)
+        pipe = TemporalPipeline(sd, keyframe_interval=0)
+        l1 = torch.from_numpy(l1).to(dev)
+        r1 = torch.from_numpy(r1).to(dev)
+        pipe.estimate(l0, r0)
+        out["ms"][f"tracked frame {tag}"] = time_ms(
+            torch, lambda: pipe.estimate(l1, r1))
+        require(pipe.keyframes == 1, f"tracking {tag} lost its anchor")
+        out["ms"][f"keyframe {tag}"] = time_ms(
+            torch, lambda: pipe.keyframe.estimate(l1, r1))
+        log(f"  {tag}: tracked frame {out['ms'][f'tracked frame {tag}']!r} "
+            f"ms (host read included), keyframe "
+            f"{out['ms'][f'keyframe {tag}']!r} ms [{card}]")
+        pyr = PyramidPipeline(sd, levels=1)
+        sl, sr = shapes[tag][:2]
+        for name, fn in (("pyramid1", lambda: pyr.estimate(sl, sr)),
+                         ("tracked frame", lambda: pipe.estimate(l1, r1))):
+            wall, by_name, spans, ops = profile_path(torch, fn)
+            busy = sum(by_name.values())
+            require(busy > 0, f"the profiler saw no device time in {name}")
+            out["profile"][f"{name} {tag}"] = {
+                "wall_ms": wall, "device_busy_ms": busy,
+                "idle_share": 1.0 - busy / wall, "device_ops": ops}
+            log(f"  {name} {tag}: wall {wall!r} ms/frame, device busy "
+                f"{busy!r}, idle share {1.0 - busy / wall!r}, {ops!r} device "
+                f"operations/frame [{card}]")
+            for kname, ms in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1])[:5]:
+                log(f"    {ms!r} ms/frame  {kname[:90]}")
+        del pipe, pyr
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_tune(torch, dev, shapes, card) -> dict:
+    """The differentiable surface on the card: the soft SGM's forward pass
+    at teddy equal to the SGM kernels' aggregation bit for bit; a tune
+    step at teddy timed (host clock, 2 steps after one, the volume built
+    in each run) with its peak memory above what was already held; ``tune_penalties`` at 96x128, D=32 on the
+    card against the CPU within TUNE_RTOL (the card's exp and sums are
+    not the CPU's); ``stm-eval`` with ``--tune`` on the card against the
+    CPU."""
+    from stereomatch_tpu_torch import tune
+    from stereomatch_tpu_torch.io.synthetic import stereo_pair
+    from stereomatch_tpu_torch.ops import cost as cost_ops
+    from stereomatch_tpu_torch.ops import sgm_cuda
+    from stereomatch_tpu_torch.ops.soft import semiglobal_aggregate_diff
+
+    left, right, gt, d, _ = shapes["teddy"]
+    out = {}
+    log("[soft sgm] semiglobal_aggregate_diff at teddy (census volume) "
+        "against the SGM kernels")
+    vol = cost_ops.census_hamming_cost_volume(left, right, max_disparity=d)
+    for p1, p2 in ((0.1, 0.2), (3.0, 9.0)):
+        want = sgm_cuda.semiglobal_aggregate_cuda(vol, left, penalty1=p1,
+                                                  penalty2=p2)
+        got = semiglobal_aggregate_diff(vol, left, p1, p2)
+        compare(f"soft forward P1={p1} P2={p2}", want, got, 0, 0,
+                exact=True)
+    out["soft_forward_ms"] = time_ms(
+        torch, lambda: semiglobal_aggregate_diff(vol, left, 0.1, 0.2),
+        warmup=1, reps=3)
+    log(f"  soft forward teddy: {out['soft_forward_ms']!r} ms [{card}]")
+    del vol, want, got
+
+    log("[tune] tune_penalties, teddy 375x450 D=128, one scene")
+    scenes = [(left, right, gt)]
+    tune.tune_penalties(scenes, max_disparity=d, steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    start = time.perf_counter()
+    res = tune.tune_penalties(scenes, max_disparity=d, steps=2)
+    torch.cuda.synchronize()
+    out["teddy_step_ms"] = (time.perf_counter() - start) * 1e3 / 2
+    # The tuner's own peak: what the run allocated above what was held.
+    out["teddy_peak_memory_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                      - held)
+    require(np.all(np.isfinite(res.loss_history)),
+            f"tune losses {res.loss_history}")
+    log(f"  {out['teddy_step_ms']!r} ms/step, peak memory "
+        f"{out['teddy_peak_memory_bytes'] / 2**30!r} GiB; losses "
+        f"{res.loss_history.tolist()} [{card}]")
+    torch.cuda.empty_cache()
+
+    log(f"[tune] 96x128 D=32, 2 scenes, 8 steps: card against CPU within "
+        f"{TUNE_RTOL}")
+    small = [stereo_pair(96, 128, 32, seed=s) for s in (7, 8)]
+    kw = dict(max_disparity=32, steps=8, tau=0.5, learning_rate=0.1)
+    on_card = tune.tune_penalties(small, **kw)
+    on_cpu = tune.tune_penalties(small, device="cpu", **kw)
+    for name in ("loss_history", "penalty_history"):
+        a, b = getattr(on_card, name), getattr(on_cpu, name)
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        log(f"  {name}: largest relative difference {rel!r}")
+        require(rel <= TUNE_RTOL, f"tune {name}: card {a}, CPU {b}")
+
+    log(f"[stm-eval] {' '.join(TUNE_EVAL_ARGS)}, on the card and the CPU")
+    from stereomatch_tpu_torch.cli import evaluate
+    with tempfile.TemporaryDirectory() as tmp:
+        card_json, cpu_json = Path(tmp) / "card.json", Path(tmp) / "cpu.json"
+        start = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "stereomatch_tpu_torch.cli.evaluate",
+             *TUNE_EVAL_ARGS, "--json", str(card_json)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        out["eval_tune_card_s"] = time.perf_counter() - start
+        require(proc.returncode == 0, f"stm-eval --tune failed: "
+                f"{proc.stderr}")
+        for line in proc.stdout.strip().splitlines():
+            log(f"    {line}")
+        require(evaluate.main([*TUNE_EVAL_ARGS, "--device", "cpu", "--json",
+                               str(cpu_json)]) == 0, "stm-eval --tune on CPU")
+        card_rows = json.loads(card_json.read_text())
+        cpu_rows = json.loads(cpu_json.read_text())
+    require([r["name"] for r in card_rows] == ["census-wta-sgm-tuned",
+                                               "pyramid1"],
+            f"stm-eval rows {[r['name'] for r in card_rows]}")
+    tuned, pyr = zip(card_rows, cpu_rows)
+    for key in ("penalty1", "penalty2"):
+        rel = abs(tuned[0][key] - tuned[1][key]) / abs(tuned[1][key])
+        log(f"  tuned {key}: card {tuned[0][key]!r}, CPU {tuned[1][key]!r}")
+        require(rel <= TUNE_RTOL, f"stm-eval tuned {key} differs by {rel}")
+    for key in ("rmse", "avg_abs_error", "bad_pixel_ratio"):
+        rel = abs(pyr[0][key] - pyr[1][key]) / max(abs(pyr[1][key]), 1e-12)
+        require(rel <= 1e-6, f"stm-eval pyramid1 {key}: card {pyr[0][key]}, "
+                f"CPU {pyr[1][key]}")
+        log(f"  census-wta-sgm-tuned {key}: card {tuned[0][key]!r}, CPU "
+            f"{tuned[1][key]!r}")
+    log(f"  pyramid1 metrics equal the CPU's within 1e-6; card run "
+        f"{out['eval_tune_card_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -1125,7 +1415,8 @@ def main() -> int:
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     require((ROOT / "stereomatch_tpu_torch").is_dir() and GOLDEN.is_file()
             and GOLDEN_CVF.is_file() and GOLDEN_BF16.is_file()
-            and GOLDEN_REFINED.is_file() and GOLDEN_COSTS.is_file(),
+            and GOLDEN_REFINED.is_file() and GOLDEN_COSTS.is_file()
+            and GOLDEN_PYRAMID.is_file(),
             f"{ROOT} is not a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     card = card_line()
@@ -1600,6 +1891,8 @@ def main() -> int:
     image_cli = check_image_cli(torch, shapes, card)
     compiled_ms = check_compiled(torch, dev, shapes, p1, p2, card)
     cvf_plain_ms = check_plain_cvf(torch, dev, shapes, card)
+    pyramid_ms = check_pyramid_temporal(torch, dev, shapes, run_path, card)
+    tune_ms = check_tune(torch, dev, shapes, card)
 
     def paths(tag):
         """(label, pipeline factory) of each timed path at one geometry:
@@ -1904,6 +2197,8 @@ def main() -> int:
     log(json.dumps({"cost_families": family_ms, "stm_image_s": image_cli,
                     "card": card}))
     log(json.dumps({"compiled": compiled_ms, "cvf_plain_ms": cvf_plain_ms,
+                    "card": card}))
+    log(json.dumps({"pyramid_temporal": pyramid_ms, "tune": tune_ms,
                     "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")

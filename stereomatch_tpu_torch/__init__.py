@@ -10,7 +10,10 @@ costs -> 8-path SGM with the adaptive P2 or guided-filter cost-volume
 filtering (the wedge path) -> winner-takes-all or scanline dynamic
 programming, then the post-processing of ``Pipeline.estimate_refined``
 (``ops/refine.py``), on one device or row-sharded over a mesh of
-devices (``parallel``); ``metrics``, ``reconstruction``, ``texture``,
+devices (``parallel``); the coarse-to-fine ``PyramidPipeline``, the
+video tracker ``TemporalPipeline`` and SGM penalty tuning by gradient
+descent (``tune``, on the differentiable aggregation of ``ops/soft.py``);
+``metrics``, ``reconstruction``, ``texture``,
 ``io`` (a PNG codec of its own among them) and the ``stm-eval`` and
 ``stm-image`` CLIs (``python -m stereomatch_tpu_torch.cli.evaluate``,
 ``.cli.image``) surround it.
@@ -22,10 +25,13 @@ then runs the plain version on the card).
 """
 
 from . import (aggregation, cli_common, convert, cost, disparity_reduce,
-               parallel, texture)
+               parallel, pyramid, temporal, texture, tune)
 from .pipeline import Pipeline
+from .pyramid import PyramidPipeline
+from .temporal import TemporalPipeline
 
 __version__ = "0.1.0"
 
-__all__ = ["Pipeline", "aggregation", "cli_common", "convert", "cost",
-           "disparity_reduce", "parallel", "texture", "__version__"]
+__all__ = ["Pipeline", "PyramidPipeline", "TemporalPipeline", "aggregation",
+           "cli_common", "convert", "cost", "disparity_reduce", "parallel",
+           "pyramid", "temporal", "texture", "tune", "__version__"]

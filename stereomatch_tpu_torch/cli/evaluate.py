@@ -11,9 +11,9 @@ The port's ``stm-eval``, with the flags and config grammar of
 
 Pipelines run on the card (``--device cuda``, the default) or on the CPU
 (``--device cpu``).  Per scene, ``max_disparity`` is next_power_of_2
-(ndisp), as the reference's predict task sets it.  ``--tune`` (ROADMAP
-A.11) and ``pyramidN`` configs (A.12) are not ported yet: they refuse
-with exit status 2.
+(ndisp), as the reference's predict task sets it.  ``--tune N`` fits each
+SGM config's penalties first (``tune.py``, on N generated scenes, seeds
+200 + i); ``pyramidN`` configs run ``pyramid.PyramidPipeline``.
 """
 
 import argparse
@@ -85,9 +85,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "them on re-runs (the reference's Flyte tasks "
                              "set cache=True, workflow.py:41).")
     parser.add_argument("--tune", type=int, default=None, metavar="N",
-                        help="Fit each SGM config's P1/P2 by gradient "
-                             "descent first. Not ported yet (ROADMAP "
-                             "A.11): refused with status 2.")
+                        help="Before evaluating, fit each SGM config's "
+                             "P1/P2 by gradient descent (tune.py) on N "
+                             "generated scenes disjoint from the "
+                             "evaluation set. Requires --synthetic "
+                             "(tuning needs ground truth at one common "
+                             "geometry).")
     parser.add_argument("--tune-steps", type=int, default=60,
                         help="Adam steps for --tune.")
     parser.add_argument("--tune-tau", type=float, default=2.0,
@@ -182,9 +185,9 @@ def grayscale(image):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.tune:
-        print("--tune is not ported to stereomatch_tpu_torch yet (ROADMAP "
-              "A.11: the differentiable surface).", file=sys.stderr)
+    if args.tune and not args.synthetic:
+        print("--tune requires --synthetic (it fits penalties on "
+              "generated ground-truth scenes).", file=sys.stderr)
         return 2
 
     import numpy as np
@@ -198,10 +201,6 @@ def main(argv=None) -> int:
 
     configs = (parse_configs(args.configs) if args.configs
                else DEFAULT_CONFIGS)
-    if any(cost_m.startswith("pyramid") for cost_m, *_ in configs):
-        print("pyramidN configs are not ported to stereomatch_tpu_torch yet "
-              "(ROADMAP A.12: pyramid and temporal).", file=sys.stderr)
-        return 2
     if args.synthetic:
         from ..io.synthetic import stereo_pair_occluded
         h, w, d = (int(v) for v in args.synthetic_size.split("x"))
@@ -239,6 +238,33 @@ def main(argv=None) -> int:
         print("No scenes found.", file=sys.stderr)
         return 1
 
+    tuned_cache = {}
+
+    def tuned_penalties(cost_m):
+        """Fit P1/P2 for this cost family on scenes disjoint from the
+        evaluation seeds (evaluation uses 100 + i; tuning 200 + i)."""
+        if cost_m in tuned_cache:
+            return tuned_cache[cost_m]
+        from ..io.synthetic import stereo_pair_occluded
+        from .. import tune as tune_mod
+        h, w, d = (int(v) for v in args.synthetic_size.split("x"))
+        d_pow2 = next_power_of_2(d)
+        scenes, masks = [], []
+        for i in range(args.tune):
+            left, right, gt, occ = stereo_pair_occluded(h, w, d,
+                                                        seed=200 + i)
+            scenes.append((grayscale(left), grayscale(right), gt))
+            mask = np.zeros(gt.shape, bool)
+            mask[:, d_pow2:] = True
+            mask &= ~occ            # occluded pixels have no true match
+            masks.append(mask)
+        res = tune_mod.tune_penalties(
+            scenes, max_disparity=d_pow2, cost=cost_m,
+            steps=args.tune_steps, tau=args.tune_tau,
+            valid_masks=np.stack(masks), device=args.device)
+        tuned_cache[cost_m] = (res.penalty1, res.penalty2)
+        return tuned_cache[cost_m]
+
     # [0, 1]-intensity synthetic scenes need a [0, 1]-scale affinity
     # bandwidth; real datasets are 8-bit-range grayscale.
     wmf_sigma = (args.wmf_sigma if args.wmf_sigma is not None
@@ -249,6 +275,20 @@ def main(argv=None) -> int:
     for cost_m, disp_m, aggr_m, mods in configs:
         refined = "refine" in mods
         name = "-".join(filter(None, [cost_m, disp_m, aggr_m]))
+        is_pyramid = cost_m.startswith("pyramid") and disp_m is None
+        if is_pyramid:
+            if args.confidence:
+                print("--confidence is unavailable for pyramid configs "
+                      "(the band stage has no full cost volume).",
+                      file=sys.stderr)
+                return 2
+            levels = int(cost_m[len("pyramid"):] or "1")
+            pipeline = None         # built per scene (range is baked in)
+        penalty_kwargs = {}
+        if args.tune and aggr_m == "sgm":
+            p1, p2 = tuned_penalties(cost_m)
+            penalty_kwargs = {"penalty1": p1, "penalty2": p2}
+            name += "-tuned"
         # Only the costs with a storage dtype take the flag; labeling
         # other configs with it would attribute f32 numbers to bf16.
         dtyped_costs = ("ssd", "census", "sad", "ncc")
@@ -262,21 +302,28 @@ def main(argv=None) -> int:
             name += "-refine"
         if "speckle" in mods:
             name += "-speckle"
-        pipeline = create_pipeline(cost_m, disp_m, aggr_m,
-                                   volume_dtype=(args.dtype
-                                                 if cost_m in dtyped_costs
-                                                 else "float32"),
-                                   cvf_radius=args.cvf_radius,
-                                   cvf_eps=args.cvf_eps,
-                                   census_window=args.census_window,
-                                   device=args.device)
+        if not is_pyramid:
+            pipeline = create_pipeline(cost_m, disp_m, aggr_m,
+                                       volume_dtype=(args.dtype
+                                                     if cost_m in dtyped_costs
+                                                     else "float32"),
+                                       cvf_radius=args.cvf_radius,
+                                       cvf_eps=args.cvf_eps,
+                                       census_window=args.census_window,
+                                       device=args.device, **penalty_kwargs)
         per_scene = []
         for item in items:
             left = grayscale(item["left"])
             right = grayscale(item["right"])
             # Reference mutates max_disparity per scene (workflow.py:34).
             d_scene = next_power_of_2(item["max_disparity"])
-            pipeline.cost.max_disparity = d_scene
+            if is_pyramid:
+                if pipeline is None or pipeline.max_disparity != d_scene:
+                    from ..pyramid import PyramidPipeline
+                    pipeline = PyramidPipeline(d_scene, levels=levels,
+                                               device=args.device)
+            else:
+                pipeline.cost.max_disparity = d_scene
             cache_file = None
             if args.cache:
                 from pathlib import Path
@@ -294,7 +341,7 @@ def main(argv=None) -> int:
                 predicted = np.load(cache_file)
                 conf = np.load(conf_file) if args.confidence else None
             else:
-                use_wmf = "wmf" in mods
+                use_wmf = "wmf" in mods      # pyramid+wmf rejected at parse
                 use_fgs = "fgs" in mods
                 if use_wmf or use_fgs:
                     predicted = pipeline.estimate_refined(
@@ -337,6 +384,8 @@ def main(argv=None) -> int:
         }
         if args.confidence:
             row["ause"] = float(np.mean([m["ause"] for m in per_scene]))
+        if penalty_kwargs:
+            row.update(penalty_kwargs)
         rows.append(row)
 
     print(metrics_markdown_table(rows))

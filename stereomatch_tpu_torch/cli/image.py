@@ -14,8 +14,10 @@ demands the hand-written kernels, ``torch`` runs the plain versions,
 ``pallas``, ``xla`` and ``auto``).  PNG is read and written with the
 port's own codec and PGM/PPM read with its own reader (``io/png.py``,
 ``io/data.py``), so neither PIL nor matplotlib is needed for them; other
-formats go through PIL (``-sd`` imports matplotlib).
-``--pyramid`` (ROADMAP A.12) is not ported yet: it exits with status 2.
+formats go through PIL (``-sd`` imports matplotlib).  ``--pyramid
+LEVELS`` runs ``pyramid.PyramidPipeline`` (census + SGM at 1/2**LEVELS,
+then band refinement; ``--refine`` takes its in-band sub-pixel step,
+``--dtype`` its coarse volume's dtype).
 """
 
 import argparse
@@ -80,8 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "the volume's bytes; recurrences stay "
                              "float32).")
     parser.add_argument("--pyramid", type=int, default=0, metavar="LEVELS",
-                        help="Coarse-to-fine mode. Not ported yet (ROADMAP "
-                             "A.12): LEVELS > 0 is refused with status 2.")
+                        help="Coarse-to-fine mode: run census+SGM at "
+                             "1/2**LEVELS resolution and disparity range, "
+                             "then refine a narrow per-pixel band up to "
+                             "full resolution (overrides -cm/-am/-dm).")
     parser.add_argument("--band-radius", type=int, default=24, metavar="R",
                         help="Half-width of the per-pixel refinement band "
                              "in --pyramid mode.")
@@ -142,10 +146,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refusal(args):
-    """The message of an option that is not ported yet, or None."""
+    """The message of a refused combination of options, or None."""
     if args.pyramid > 0:
-        return ("--pyramid is not ported to stereomatch_tpu_torch yet "
-                "(ROADMAP A.12: pyramid and temporal).")
+        # --refine is served: the final band stage takes the sub-pixel
+        # vertex from the winner's neighbour costs.
+        incompatible = [flag for flag, on in [
+            ("--lr-check", args.lr_check),
+            ("--wmf", args.wmf),
+            ("--fgs", args.fgs is not None),
+            ("--min-confidence", args.min_confidence is not None),
+            ("--confidence", args.confidence is not None)] if on]
+        if incompatible:
+            return (f"--pyramid is incompatible with {' '.join(incompatible)} "
+                    "(the band stage has no full cost volume to "
+                    "post-process).")
     for path in (args.output_depthmap, args.confidence):
         if path is not None and not path.lower().endswith(".png"):
             try:
@@ -172,21 +186,32 @@ def main(argv=None) -> int:
     from ..io.data import load_image, save_image
     from ..pipeline import host_array
 
-    pipeline = create_pipeline(args.cost_method, args.disparity_method,
-                               args.aggregation_method,
-                               max_disparity=args.max_disparity,
-                               penalty1=args.p1, penalty2=args.p2,
-                               cvf_radius=args.cvf_radius,
-                               cvf_eps=args.cvf_eps,
-                               cvf_subsample=args.cvf_subsample,
-                               census_window=args.census_window,
-                               backend=args.backend,
-                               volume_dtype=args.dtype, device=args.device)
+    if args.pyramid > 0:
+        from ..pyramid import PyramidPipeline
+        pipeline = PyramidPipeline(
+            args.max_disparity, levels=args.pyramid,
+            band_radius=args.band_radius, penalty1=args.p1,
+            penalty2=args.p2, backend=args.backend, cost_dtype=args.dtype,
+            device=args.device)
+    else:
+        pipeline = create_pipeline(args.cost_method, args.disparity_method,
+                                   args.aggregation_method,
+                                   max_disparity=args.max_disparity,
+                                   penalty1=args.p1, penalty2=args.p2,
+                                   cvf_radius=args.cvf_radius,
+                                   cvf_eps=args.cvf_eps,
+                                   cvf_subsample=args.cvf_subsample,
+                                   census_window=args.census_window,
+                                   backend=args.backend,
+                                   volume_dtype=args.dtype,
+                                   device=args.device)
 
     left = load_image(args.left_image, "L").astype(np.float32)
     right = load_image(args.right_image, "L").astype(np.float32)
 
-    if (args.refine or args.lr_check or args.wmf or args.fgs is not None
+    if args.pyramid > 0 and args.refine:
+        disparity = pipeline.estimate_refined(left, right)
+    elif (args.refine or args.lr_check or args.wmf or args.fgs is not None
             or args.min_confidence is not None):
         disparity = pipeline.estimate_refined(
             left, right, subpixel=args.refine, median=args.refine,

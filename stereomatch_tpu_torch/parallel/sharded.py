@@ -459,6 +459,43 @@ def _as_frames(images) -> torch.Tensor:
     return images.to(torch.float32)
 
 
+def check_frames(left, right, mesh: Mesh, row_multiple: int):
+    """Two [B, H, W] image stacks (numpy or tensors) as float32 tensors,
+    with B divisible by the mesh's batch axis and H by ``row_multiple``
+    (the tile count, times 2**levels for the pyramid)."""
+    left, right = _as_frames(left), _as_frames(right)
+    if left.ndim != 3 or left.shape != right.shape:
+        raise ValueError(f"expected two [B, H, W] stacks of one shape, got "
+                         f"{tuple(left.shape)} and {tuple(right.shape)}")
+    n_batch = mesh.shape[BATCH_AXIS]
+    if left.shape[0] % n_batch or left.shape[1] % row_multiple:
+        raise ValueError(
+            f"batch {left.shape[0]} / height {left.shape[1]} not divisible "
+            f"by {n_batch} / {row_multiple} (the mesh's batch axis / its "
+            f"row multiple)")
+    return left, right
+
+
+def map_frames(mesh: Mesh, fn: Callable, *stacks) -> list:
+    """``fn(tiles_a, tiles_b, ...)`` on each frame of the [B, H, W] stacks:
+    frame f's row tiles, each on its device of batch row f // (B /
+    n_batch) of the mesh.  Returns ``fn``'s results in frame order."""
+    per_row = stacks[0].shape[0] // mesh.shape[BATCH_AXIS]
+
+    def tiles(frame, devices):
+        h_loc = frame.shape[0] // len(devices)
+        return [frame[t * h_loc:(t + 1) * h_loc].to(d)
+                for t, d in enumerate(devices)]
+
+    return [fn(*[tiles(s[f], mesh.devices[f // per_row]) for s in stacks])
+            for f in range(stacks[0].shape[0])]
+
+
+def join_tiles(mesh: Mesh, tiles: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One frame's row tiles as one tensor on the mesh's first device."""
+    return torch.cat([t.to(mesh.devices[0][0]) for t in tiles])
+
+
 def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                           cost: str = "ssd",
                           kernel_size: Optional[int] = None,
@@ -568,7 +605,7 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                       backend=backend)
         halo_rows = (kernel_size, kernel_size - 1)
     dp = DynamicProgramming(backend=backend)
-    n_batch, n_tiles = mesh.shape[BATCH_AXIS], mesh.shape[TILE_AXIS]
+    n_tiles = mesh.shape[TILE_AXIS]
 
     def core(lefts, rights):
         """One frame's per-tile (aggregated volumes, disparities)."""
@@ -628,11 +665,7 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                                   min_frac=0.25, fill=speckle_fill)
         return disps
 
-    def frame(left, right, devices):
-        h_loc = left.shape[0] // n_tiles
-        rows = [slice(t * h_loc, (t + 1) * h_loc) for t in range(n_tiles)]
-        lefts = [left[r].to(d) for r, d in zip(rows, devices)]
-        rights = [right[r].to(d) for r, d in zip(rows, devices)]
+    def frame(lefts, rights):
         disps_r = None
         if lr_check and lr_mode == "mirror":
             # Right-to-left matching is left-to-right matching on the
@@ -641,25 +674,11 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                             [x.flip(-1) for x in lefts])[1]
             disps_r = [d.flip(-1) for d in mirrored]
         vols, disps = core(lefts, rights)
-        return refined(vols, disps, lefts, disps_r)
+        return join_tiles(mesh, refined(vols, disps, lefts, disps_r))
 
     def fn(left, right) -> torch.Tensor:
-        left, right = _as_frames(left), _as_frames(right)
-        if left.ndim != 3 or left.shape != right.shape:
-            raise ValueError(f"expected two [B, H, W] stacks of one shape, "
-                             f"got {tuple(left.shape)} and "
-                             f"{tuple(right.shape)}")
-        if left.shape[0] % n_batch or left.shape[1] % n_tiles:
-            raise ValueError(
-                f"batch {left.shape[0]} / height {left.shape[1]} not "
-                f"divisible by mesh axes {(n_batch, n_tiles)}")
-        per_row = left.shape[0] // n_batch
-        out_device = mesh.devices[0][0]
-        frames = []
-        for f in range(left.shape[0]):
-            tiles = frame(left[f], right[f], mesh.devices[f // per_row])
-            frames.append(torch.cat([t.to(out_device) for t in tiles]))
-        return torch.stack(frames)
+        left, right = check_frames(left, right, mesh, n_tiles)
+        return torch.stack(map_frames(mesh, frame, left, right))
 
     return fn
 

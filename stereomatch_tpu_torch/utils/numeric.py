@@ -1,6 +1,7 @@
 """Small numeric helpers, and the float32 arithmetic of XLA's CPU backend
-(:func:`fma`, :func:`exp_f32`, :func:`prefix_sum_w`,
-:func:`pairwise_sum_last`) that the plain versions reproduce.
+(:func:`fma`, :func:`exp_f32`, :func:`log_f32`, :func:`log1p_f32`,
+:func:`prefix_sum_w`, :func:`pairwise_sum_last`) that the plain versions
+reproduce.
 
 TPU-native counterpart of the reference's ``stereomatch/numeric.py``
 (reference: stereomatch/numeric.py:5-26).  The reference needs power-of-two
@@ -166,3 +167,82 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
     scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
     out = y * scale
     return torch.where(out < torch.finfo(torch.float32).tiny, 0.0, out)
+
+
+# Cephes' single-precision log: sqrt(1/2), the polynomial's coefficients
+# (highest power first) and ln(2) in two parts.
+_SQRTHF = 0.707106781186547524
+_LOG_POLY = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+             -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+             2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q = (-2.12194440e-4, 0.693359375)
+_MIN_NORMAL = 1.1754943508222875e-38
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of a float32 tensor as XLA's CPU backend computes it:
+    Cephes' polynomial in three interleaved Horner chains, the products
+    feeding sums contracted into fused multiply-adds as LLVM contracts
+    them (measured against ``jnp.log`` under ``jit``).  Denormal inputs
+    are flushed to zero: 0 and a denormal give -inf, +inf gives +inf, a
+    negative input NaN."""
+    def const(value):
+        return torch.full((), value, dtype=torch.float32, device=x.device)
+
+    x = x.to(torch.float32)
+    m = torch.maximum(x, const(_MIN_NORMAL))
+    bits = m.view(torch.int32)
+    exponent = (bits >> 23) - 0x7F
+    # The mantissa in [0.5, 1): the exponent bits replaced by 0.5's.
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    e = 1.0 + exponent.to(torch.float32)
+    low = m < const(_SQRTHF)
+    e = e - low.to(torch.float32)
+    m = (m - 1.0) + torch.where(low, m, const(0.0))
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOG_POLY
+    y = fma(fma(m, const(p[0]), const(p[1])), m, const(p[2]))
+    y1 = fma(fma(m, const(p[3]), const(p[4])), m, const(p[5]))
+    y2 = fma(fma(m, const(p[6]), const(p[7])), m, const(p[8]))
+    y = fma(fma(y, x3, y1), x3, y2)
+    y = fma(y, x3, const(_LOG_Q[0]) * e)
+    out = fma(const(-0.5), x2, m) + y
+    out = fma(const(_LOG_Q[1]), e, out)
+    out = torch.where(x.abs() < _MIN_NORMAL, const(float("-inf")), out)
+    out = torch.where(x == float("inf"), const(float("inf")), out)
+    return torch.where((x <= -_MIN_NORMAL) | x.isnan(), const(float("nan")),
+                       out)
+
+
+# Cephes' log1p rational approximation for |x| < sqrt(2) - 1: numerator
+# and denominator coefficients, highest power first.
+_LOG1P_SMALL = 0.41421356237309504880
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + x) of a float32 tensor as XLA's CPU backend computes it:
+    ``log_f32(x + 1)`` from sqrt(2) - 1 up, below it x - x^2/2 + x^3 P/Q
+    with Cephes' rational P/Q in fused Horner steps (measured against
+    ``jnp.log1p`` under ``jit``)."""
+    def const(value):
+        return torch.full((), value, dtype=torch.float32, device=x.device)
+
+    def horner(coefficients):
+        acc = const(0.0)
+        for c in coefficients:
+            acc = fma(acc, x, const(c))
+        return acc
+
+    x = x.to(torch.float32)
+    x2 = x * x
+    ratio = horner(_LOG1P_NUM) / horner(_LOG1P_DEN)
+    small = x + fma(const(-0.5), x2, (x * x2) * ratio)
+    return torch.where(x.abs() < const(_LOG1P_SMALL), small, log_f32(x + 1.0))

@@ -212,3 +212,45 @@ def test_compiled_paths_cover_the_single_card_registry_paths():
         assert pipe.device == "cuda"
         dtype = torch.bfloat16 if "bf16" in label else torch.float32
         assert getattr(pipe.cost, "cost_volume_dtype", dtype) == dtype
+
+
+def test_pyramid_phase_reads_the_golden_the_cpu_test_holds():
+    """check_pyramid_temporal rebuilds the golden's video and reads its
+    entries as tests/test_torch_pyramid_golden.py writes them."""
+    import numpy as np
+    from . import test_torch_pyramid_golden as golden_test
+    golden = np.load(chip_smoke.GOLDEN_PYRAMID)
+    frames = chip_smoke.pyramid_video(golden)
+    want = golden_test.video()
+    assert len(frames) == len(want) == golden["video"].shape[0]
+    for (l, r, gt), (wl, wr, wgt) in zip(frames, want):
+        np.testing.assert_array_equal(l, wl)
+        np.testing.assert_array_equal(r, wr)
+    for levels in (1, 2):
+        for dtype in ("float32", "bfloat16"):
+            key = chip_smoke.pyramid_golden_key(levels, dtype)
+            assert key in golden_test.PYRAMIDS and key in golden
+        assert f"pyramid{levels}_refined" in golden
+
+
+def test_image_runs_include_the_pyramid_and_refuse_nothing():
+    flags = [run for run in chip_smoke.IMAGE_RUNS if "--pyramid" in run]
+    assert [run[run.index("--pyramid") + 1] for run in flags] == ["1", "2"]
+    assert not hasattr(chip_smoke, "IMAGE_REFUSALS")
+
+
+def test_tune_eval_args_give_the_rows_check_tune_reads(tmp_path):
+    """TUNE_EVAL_ARGS on the CPU: the tuned census row with its penalties
+    and the pyramid row, the names check_tune requires; TUNE_RTOL is the
+    tolerance tests/test_torch_tune.py holds the tuner to."""
+    import json
+    from stereomatch_tpu_torch.cli import evaluate
+    from .test_torch_tune import HISTORY_RTOL
+    out = tmp_path / "rows.json"
+    assert evaluate.main([*chip_smoke.TUNE_EVAL_ARGS, "--synthetic-size",
+                          "32x48x16", "--device", "cpu", "--json",
+                          str(out)]) == 0
+    rows = json.loads(out.read_text())
+    assert [r["name"] for r in rows] == ["census-wta-sgm-tuned", "pyramid1"]
+    assert rows[0]["penalty1"] > 0 and "penalty1" not in rows[1]
+    assert chip_smoke.TUNE_RTOL == HISTORY_RTOL

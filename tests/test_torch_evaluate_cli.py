@@ -6,8 +6,9 @@ generated scenes (``--synthetic``) and on a Middlebury-format directory
 and a KITTI-layout one built here; each JSON row's metrics, per scene
 and averaged, must agree within 1e-6 relative (the metrics' float32
 sums run in another order), and the configs' names must be the same.
-``--tune`` (ROADMAP A.11) and ``pyramidN`` configs (A.12) refuse with
-exit status 2, naming their items; every cost family runs.
+Every cost family, ``pyramidN`` configs and ``--tune`` run; the tuned
+penalties agree with the JAX CLI's within the tuner's tolerance, 2e-5
+relative (``tests/test_torch_tune.py``).
 """
 
 import json
@@ -131,15 +132,39 @@ def test_kitti_layout(tmp_path):
     (["--synthetic", "1", "--configs", "ssd:wta,pyramid+refine"], "A.12"),
     (["--synthetic", "1", "--configs", "ncc:wta"], None),
 ], ids=["tune", "pyramid", "pyramid-late", "ncc"])
-def test_unported_options_refuse_with_status_2(args, item, capsys,
-                                               tmp_path):
-    """Options not ported yet exit 2 naming their ROADMAP item; "ncc"
-    (refused until the A.8 costs were ported) runs and equals JAX."""
-    if item is None:
-        _hold(tmp_path, args + ["--synthetic-size", "32x48x16"])
-        return
-    assert evaluate.main(args + ["--device", "cpu"]) == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+def test_unported_options_refuse_with_status_2(args, item, tmp_path):
+    """The options that once refused, each ported since (``ncc``: A.8;
+    ``--tune``: A.11; ``pyramidN``: A.12), now run and equal the JAX
+    CLI: its metrics and config names, and ``--tune``'s penalties."""
+    rows = _hold(tmp_path, args + ["--synthetic-size", "32x48x16"])
+    if item == "A.11":
+        ref = json.loads((tmp_path / "jax.json").read_text())
+        assert [r["name"] for r in rows][-1] == "ssd-dyn-sgm-tuned"
+        for row, want in zip(rows, ref):
+            for key in ("penalty1", "penalty2"):
+                assert (key in row) == (key in want)
+                if key in want:
+                    assert row[key] == pytest.approx(want[key], rel=2e-5)
+    elif item == "A.12":
+        assert rows[-1]["name"].startswith("pyramid")
+
+
+def test_tune_with_pyramid_and_census_configs(tmp_path, capsys):
+    """--tune tunes each SGM cost once (census here), leaves the other
+    configs untuned, and mixes with pyramid and speckle configs."""
+    args = ["--synthetic", "2", "--synthetic-size", "32x48x16", "--tune",
+            "1", "--tune-steps", "5", "--configs",
+            "census:wta:sgm,census:wta:sgm+refine,pyramid1+speckle,ssd:wta"]
+    rows = _hold(tmp_path, args)
+    assert [r["name"] for r in rows] == [
+        "census-wta-sgm-tuned", "census-wta-sgm-tuned-refine",
+        "pyramid1-speckle", "ssd-wta"]
+    assert rows[0]["penalty1"] == rows[1]["penalty1"]
+    assert evaluate.main(["--tune", "1", "--device", "cpu"]) == 2
+    assert "--synthetic" in capsys.readouterr().err
+    assert evaluate.main(["--synthetic", "1", "--synthetic-size", "32x48x16",
+                          "--configs", "pyramid", "--confidence",
+                          "--device", "cpu"]) == 2
 
 
 def test_usage_errors(capsys):

@@ -5,10 +5,11 @@ The cases of ``tests/test_image_cli.py`` run on the port with
 ``--device cpu``, on synthetic PNGs; for every cost method and the
 post-processing flags, the port's output PNGs decode to the same pixels
 as the JAX CLI's on the same inputs and flags (``--backend xla`` there,
-``torch`` here), exactly.  ``--pyramid`` (ROADMAP A.12) and
-``-am cvf --cvf-subsample 2`` (A.9) exit with status 2, naming their
-items.  An output other than PNG is written through PIL, as the JAX CLI
-writes it, and refused with status 2 where PIL is missing.
+``torch`` here), exactly, ``--pyramid`` (with ``--refine``, bf16 and
+``--speckle``) and ``-am cvf --cvf-subsample 2`` among them; the flags
+that ``--pyramid`` cannot serve exit with status 2 as in JAX.  An output
+other than PNG is written through PIL, as the JAX CLI writes it, and
+refused with status 2 where PIL is missing.
 """
 
 import subprocess
@@ -148,27 +149,51 @@ def test_depth_and_point_cloud_equal_jax(png_pair, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--pyramid", "1", "--band-radius", "3"], "A.12"),
-    (["-am", "cvf", "--cvf-subsample", "2", "--cvf-radius", "4"], None)],
+    (["-am", "cvf", "--cvf-subsample", "2", "--cvf-radius", "4"], "A.9")],
     ids=["pyramid", "cvf-subsample"])
 def test_unported_flags_exit_2_naming_their_item(png_pair, tmp_path, flags,
-                                                 item, capsys):
-    """``--pyramid`` (A.12) exits 2 naming its item; the fast guided
-    filter (A.9), refused until it was ported, writes the JAX CLI's PNG
-    pixel for pixel."""
+                                                 item):
+    """The flags that once refused, each ported since (``--pyramid``:
+    A.12; the fast guided filter: A.9), write the JAX CLI's PNG pixel
+    for pixel."""
     lp, rp, _ = png_pair
-    if item is None:
-        for name, main, backend in (("jax", jax_image.main, "xla"),
-                                    ("port", _port, "torch")):
-            assert main([lp, rp, "8", str(tmp_path / f"{name}.png"),
-                         "--backend", backend] + flags) == 0
-        np.testing.assert_array_equal(
-            np.array(Image.open(tmp_path / "port.png")),
-            np.array(Image.open(tmp_path / "jax.png")))
-        return
-    out = tmp_path / "refused.png"
-    assert _port([lp, rp, "8", str(out)] + flags) == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
-    assert not out.exists()
+    for name, main, backend in (("jax", jax_image.main, "xla"),
+                                ("port", _port, "torch")):
+        assert main([lp, rp, "8", str(tmp_path / f"{name}.png"),
+                     "--backend", backend] + flags) == 0
+    np.testing.assert_array_equal(
+        np.array(Image.open(tmp_path / "port.png")),
+        np.array(Image.open(tmp_path / "jax.png")))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--pyramid", "2", "--refine"],
+    ["--pyramid", "1", "--dtype", "bfloat16", "--speckle", "--p1", "0.3"],
+    ["--pyramid", "1", "--refine", "--speckle", "--speckle-fill",
+     "background", "-fig"]], ids=["refine", "bf16-speckle", "figure"])
+def test_pyramid_flags_equal_jax(png_pair, tmp_path, flags):
+    lp, rp, _ = png_pair
+    for name, main, backend in (("jax", jax_image.main, "xla"),
+                                ("port", _port, "torch")):
+        assert main([lp, rp, "8", str(tmp_path / f"{name}.png"),
+                     "--backend", backend] + flags) == 0
+    np.testing.assert_array_equal(
+        np.array(Image.open(tmp_path / "port.png")),
+        np.array(Image.open(tmp_path / "jax.png")))
+
+
+@pytest.mark.parametrize("flag", [["--lr-check"], ["--wmf"], ["--fgs", "8"],
+                                  ["--min-confidence", "0.1"],
+                                  ["--confidence", "CONF"]])
+def test_pyramid_refuses_volume_flags_as_jax(png_pair, tmp_path, flag,
+                                             capsys):
+    lp, rp, _ = png_pair
+    flag = [str(tmp_path / "c.png") if f == "CONF" else f for f in flag]
+    args = [lp, rp, "8", str(tmp_path / "o.png"), "--pyramid", "1"] + flag
+    assert jax_image.main(args + ["--backend", "xla"]) == 2
+    assert _port(args) == 2
+    assert "--pyramid is incompatible with" in capsys.readouterr().err
+    assert not (tmp_path / "o.png").exists()
 
 
 def test_non_png_output_goes_through_pil(png_pair, tmp_path, monkeypatch,

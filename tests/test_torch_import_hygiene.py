@@ -49,8 +49,13 @@ def test_import_leaves_jax_out():
         "import stereomatch_tpu_torch.parallel.mesh\n"
         "import stereomatch_tpu_torch.parallel.halo\n"
         "import stereomatch_tpu_torch.parallel.sharded\n"
+        "import stereomatch_tpu_torch.parallel.pyramid_sharded\n"
+        "import stereomatch_tpu_torch.parallel.temporal_sharded\n"
+        "import stereomatch_tpu_torch.pyramid, stereomatch_tpu_torch.temporal\n"
+        "import stereomatch_tpu_torch.tune, stereomatch_tpu_torch.ops.soft\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
-        "                        if m == 'jax' or m.startswith('jax.')\n"
+        "                        if m in ('jax', 'optax')\n"
+        "                        or m.startswith(('jax.', 'optax.'))\n"
         "                        or m.startswith('stereomatch_tpu.'))))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -93,7 +98,8 @@ def _imported_modules(source: Path, in_functions: bool = True) -> set:
 def test_no_port_module_imports_jax(path):
     modules = _imported_modules(ROOT / path)
     assert not [m for m in modules
-                if m.split(".")[0] in ("jax", "jaxlib", "stereomatch_tpu")]
+                if m.split(".")[0] in ("jax", "jaxlib", "optax",
+                                       "stereomatch_tpu")]
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES)

@@ -1090,3 +1090,76 @@ def test_sharded_cvf_on_one_card_equals_masked_single_card(device, dtype):
     want = disp_ops.winner_takes_all(
         cvf_ops.guided_filter_aggregate(vol, left, radius=2))
     assert torch.equal(pipe.estimate(left, right), want)
+
+
+# The pyramid, the video tracker and the differentiable surface (A.11,
+# A.12): plain PyTorch around the SGM kernels; on the card they launch
+# K2/K3 (single card) or the chunk kernel (sharded) and equal the CPU.
+
+@pytest.mark.parametrize("levels,dtype", [(1, "float32"), (2, "float32"),
+                                          (1, "bfloat16")])
+def test_pyramid_on_the_card_equals_cpu(device, launches, levels, dtype):
+    from stereomatch_tpu_torch.pyramid import PyramidPipeline
+    left, right, _ = stereo_pair(45, 67, 32, seed=levels)    # padded
+    pipe = PyramidPipeline(32, levels=levels, band_radius=5,
+                           cost_dtype=dtype)
+    launches.clear()
+    out = pipe.estimate(left, right)
+    sfx = "bf16" if dtype == "bfloat16" else "f32"
+    assert out.is_cuda and out.dtype == torch.int32
+    assert launches[f"stm_sgm_rows_{sfx}"] == 6
+    assert launches[f"stm_sgm_horizontal_{sfx}"] == 2
+    assert torch.equal(out.cpu(), pipe.estimate(left, right, device="cpu"))
+    refined = pipe.estimate_refined(left, right)
+    assert torch.equal(refined.cpu(),
+                       pipe.estimate_refined(left, right, device="cpu"))
+
+
+def test_soft_forward_equals_the_sgm_kernels(device):
+    from stereomatch_tpu_torch.ops.soft import semiglobal_aggregate_diff
+    left, right = (torch.from_numpy(x).to(device)
+                   for x in stereo_pair(40, 56, 16, seed=3)[:2])
+    flat = left.clone()
+    flat[5:9] = 0.5
+    vol = cost_ops.census_hamming_cost_volume(left, right, max_disparity=16)
+    for p1, p2 in ((0.1, 0.2), (2.0, 4.0)):
+        want = sgm_cuda.semiglobal_aggregate_cuda(vol, flat, penalty1=p1,
+                                                  penalty2=p2)
+        got = semiglobal_aggregate_diff(vol, flat, p1, p2)
+        assert torch.equal(got, want)
+    p = torch.tensor([0.1, 0.2], device=device, requires_grad=True)
+    semiglobal_aggregate_diff(vol, flat, p[0], p[1]).sum().backward()
+    assert torch.isfinite(p.grad).all() and (p.grad != 0).all()
+
+
+@pytest.mark.parametrize("mode", ["exact", "overlap"])
+def test_sharded_pyramid_launches_the_chunk_kernel(device, launches, mode):
+    from stereomatch_tpu_torch.parallel import make_pyramid_sharded_estimate
+    from stereomatch_tpu_torch.pyramid import PyramidPipeline
+    left, right, _ = stereo_pair(80, 96, 32, seed=6)
+    want = PyramidPipeline(32, levels=2, band_radius=4).estimate(left, right)
+    fn = make_pyramid_sharded_estimate(
+        make_mesh([device] * 5, n_batch=1), max_disparity=32, levels=2,
+        band_radius=4, sgm_mode=mode, overlap=64)
+    launches.clear()
+    out = fn(left[None], right[None])[0]
+    assert torch.equal(out, want)
+    assert launches["stm_sgm_chunk_f32"] == (30 if mode == "exact" else 0)
+    assert launches["stm_sgm_rows_f32"] == (0 if mode == "exact" else 30)
+
+
+def test_sharded_keyframe_launches_the_chunk_kernel(device, launches):
+    from stereomatch_tpu_torch.io.synthetic import stereo_sequence
+    from stereomatch_tpu_torch.temporal import TemporalPipeline
+    frames = stereo_sequence(40, 64, 16, 3, seed=4, motion=1)
+    single = TemporalPipeline(16, keyframe_interval=2)
+    sharded = TemporalPipeline(16, keyframe_interval=2,
+                               mesh=make_mesh([device] * 5, n_batch=1))
+    for i, (left, right, _) in enumerate(frames):
+        want = single.estimate(left, right)
+        launches.clear()
+        out = sharded.estimate(left, right)
+        assert torch.equal(out, want)
+        assert launches["stm_sgm_chunk_f32"] == (30 if i % 2 == 0 else 0)
+        assert torch.equal(sharded.host_disparity(), want.cpu())
+    assert sharded.keyframes == single.keyframes == 2
