@@ -60,7 +60,8 @@ with the launch counts set to 0 just before it and read just after:
   ``tests/data/golden_torch_pyramid_teddy.npz``, each launching the SGM
   kernels a frame as it should, the pyramid equal to
   ``backend="torch"``; the row-sharded pyramid (4 tiles at HD, 5 at
-  380x450) against the single card;
+  380x450) against the single card, and the single card there against
+  ``backend="torch"``;
 * the differentiable surface: the soft SGM's forward pass at teddy
   against the SGM kernels, a tune step's time and memory at teddy,
   ``tune_penalties`` on the card against the CPU, and ``stm-eval
@@ -1148,7 +1149,10 @@ def check_pyramid_temporal(torch, dev, shapes, run_path, card) -> dict:
       kernels launched 6 (rows) and 2 (horizontal) times a frame;
     * ``parallel.make_pyramid_sharded_estimate`` over 4 tiles at HD
       (levels 1 and 2) and 5 tiles at 380x450 (level 1): equal to the
-      single card, the chunk kernel launched 6 times a tile;
+      single card, the chunk kernel launched 6 times a tile; the single
+      card there equal to ``backend="torch"``, which holds the SGM
+      kernels at the coarse shapes (512x640 D=128, 256x320 D=64,
+      190x225 D=64) against their plain version;
     * ``TemporalPipeline(128, keyframe_interval=4)`` on the golden's
       8-frame video, single-card and over 5 row tiles: each frame and
       both keyframe counters equal to the golden's; keyframes launch the
@@ -1215,6 +1219,11 @@ def check_pyramid_temporal(torch, dev, shapes, run_path, card) -> dict:
         log(f"[pyramid] {label} on {dev}, against the single card")
         single = PyramidPipeline(sd, levels=levels)
         want = single.estimate(sl, sr).cpu().numpy()
+        plain = PyramidPipeline(sd, levels=levels, backend="torch")
+        n_diff = int((plain.estimate(sl, sr).cpu().numpy() != want).sum())
+        log(f"  single card against backend='torch': {n_diff} pixels differ")
+        require(n_diff == 0, f"pyramid{levels} {tag}: the kernels differ "
+                f"from backend='torch' at {n_diff} pixels")
         fn = parallel.make_pyramid_sharded_estimate(
             parallel.make_mesh([dev] * tiles, n_batch=1), max_disparity=sd,
             levels=levels)
@@ -1233,7 +1242,7 @@ def check_pyramid_temporal(torch, dev, shapes, run_path, card) -> dict:
             log(f"  pyramid{levels} hd single card "
                 f"{out['ms'][f'pyramid{levels} float32 hd']!r} ms/frame, "
                 f"sharded {out['ms'][label]!r} ms/frame [{card}]")
-        del single, fn
+        del single, plain, fn
         torch.cuda.empty_cache()
     del l380, r380
 

@@ -36,6 +36,29 @@ TRAVERSALS = ((0, 1), (0, -1), (1, 0), (-1, 0),
               (1, 1), (-1, -1), (1, -1), (-1, 1))
 
 
+def sgm_band(prev, prev_int, intensity, p1, p2, inf_col, grad_floor=None):
+    """The band term of one SGM step: ``min(n[d], n[d-1] + P1,
+    n[d+1] + P1, P2_adj)`` over the normalised carry ``n``.
+
+    ``prev`` is [..., D], the intensities [...], ``inf_col`` the +inf
+    column [..., 1]; the penalties are float32 0-d tensors.  Normalising
+    first makes the P2 candidate P2_adj itself, with no trailing "- min"
+    (the XLA scan's association).  ``grad_floor``, where given, floors
+    |dI| so that the division has a finite backward pass
+    (``ops/soft.py``).
+    """
+    prev_min = prev.amin(dim=-1, keepdim=True)                   # [..., 1]
+    grad = (intensity - prev_int).abs()                          # [...]
+    if grad_floor is not None:
+        grad = torch.maximum(grad, grad_floor)
+    p2_adj = torch.maximum(p1, p2 / grad)[..., None]             # [..., 1]
+    prevn = prev - prev_min
+    up = torch.cat([inf_col, prevn[..., :-1]], dim=-1)           # d - 1
+    down = torch.cat([prevn[..., 1:], inf_col], dim=-1)          # d + 1
+    return torch.minimum(torch.minimum(prevn, up + p1),
+                         torch.minimum(down + p1, p2_adj))
+
+
 def sgm_scan_with_carry(cost_sv: torch.Tensor, image_sv: torch.Tensor,
                         penalty1: float, penalty2: float, carry_shift: int,
                         init_carry=None, seed_first: bool = True):
@@ -95,18 +118,7 @@ def sgm_scan_with_carry(cost_sv: torch.Tensor, image_sv: torch.Tensor,
         prev = shift_n(prev, inf)
         prev_int = shift_n(prev_int, zero)
 
-        prev_min = prev.amin(dim=-1, keepdim=True)               # [N, 1]
-        grad = (intensity - prev_int).abs()                      # [N]
-        p2_adj = torch.maximum(p1, p2 / grad)[:, None]           # [N, 1]
-
-        # Normalise first: the P2 candidate is then P2_adj itself, and
-        # no trailing "- min" is needed (the XLA scan's association).
-        prevn = prev - prev_min
-        up = torch.cat([inf_col, prevn[:, :-1]], dim=1)          # d - 1
-        down = torch.cat([prevn[:, 1:], inf_col], dim=1)         # d + 1
-        band = torch.minimum(torch.minimum(prevn, up + p1),
-                             torch.minimum(down + p1, p2_adj))
-        sgm = cost + band
+        sgm = cost + sgm_band(prev, prev_int, intensity, p1, p2, inf_col)
 
         start = edge_start | (s == 0 and seed_first)
         prev = torch.where(start, cost, sgm)

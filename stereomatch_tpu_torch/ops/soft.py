@@ -38,6 +38,8 @@ from __future__ import annotations
 
 import torch
 
+from .aggregation import TRAVERSALS, sgm_band
+
 # The floor on |dI| of the adaptive penalty (the JAX module's _GRAD_EPS).
 _GRAD_EPS = 1e-30
 
@@ -81,17 +83,8 @@ def _diff_scan(cost_sv, image_sv, p1, p2, carry_shift):
         prev = shift_n(prev)
         prev_int = shift_n(prev_int)
 
-        prev_min = prev.amin(dim=-1, keepdim=True)               # [B, N, 1]
-        grad = (intensity - prev_int).abs()                      # [B, N]
-        p2_adj = torch.maximum(p1, p2 / torch.maximum(grad, eps))[..., None]
-
-        # The association of sgm_scan_with_carry (normalised band).
-        prevn = prev - prev_min
-        up = torch.cat([inf_col, prevn[..., :-1]], dim=-1)       # d - 1
-        down = torch.cat([prevn[..., 1:], inf_col], dim=-1)      # d + 1
-        band = torch.minimum(torch.minimum(prevn, up + p1),
-                             torch.minimum(down + p1, p2_adj))
-        prev = cost_sv[s] + band
+        prev = cost_sv[s] + sgm_band(prev, prev_int, intensity, p1, p2,
+                                     inf_col, grad_floor=eps)
         prev_int = intensity
         contributions.append(prev)
     return torch.stack(contributions)
@@ -137,7 +130,6 @@ def semiglobal_aggregate_diff(cost_volume: torch.Tensor,
         cost, image = cost[None], image[None]
     p1 = _penalty(penalty1, cost.device)
     p2 = _penalty(penalty2, cost.device)
-    from .aggregation import TRAVERSALS
     out = None
     for step in TRAVERSALS:
         part = _sweep(cost, image, p1, p2, step)
