@@ -66,6 +66,19 @@ with the launch counts set to 0 just before it and read just after:
   against the SGM kernels, a tune step's time and memory at teddy,
   ``tune_penalties`` on the card against the CPU, and ``stm-eval
   --tune`` on the card against the CPU;
+* streaming (``check_stream``): ``StreamingEstimator.run`` over a Y4M of
+  48 teddy frames read by the port's libstmio binding, at batch 1, 4
+  and 8 and depth 1 to 3, on float32 and bf16 volumes, with DP, the
+  refine stages and the pyramid, then 16 HD frames: every frame equal to
+  ``Pipeline.estimate`` on the card, the launches a frame equal to an
+  eager frame's; frames/s and the stage split, and the profiler's idle
+  share of a batched run;
+* ``python -m stereomatch_tpu_torch.cli.video`` (batched, ``--temporal``
+  and per frame) on the card, its PNGs against ``--device cpu``
+  (``check_video_cli``), and ``stm-serve`` in this process at batch 1
+  and 8 (``check_serve``): 64 requests from 8 clients, each response
+  equal to the local pipeline, requests/s and latency, no thread left
+  after it closes;
 
 times kernels, plain versions, pipelines, each post-processing flag set,
 the cost-family paths and their cost stages and the float32/bf16
@@ -82,6 +95,8 @@ JAX.
 
 from __future__ import annotations
 
+import collections
+import io
 import json
 import statistics
 import subprocess
@@ -167,6 +182,30 @@ TUNE_EVAL_ARGS = ("--synthetic", "1", "--tune", "1", "--tune-steps", "3",
 TUNE_RTOL = 2e-5
 CHUNK_CUTS = {"teddy": TEDDY_CUTS, "ragged": (12,),
               "hd": (256, 512, 768)}
+
+# The stream phase: teddy frames of STREAM_SCENES scenes in turn, each
+# run (batch, depth, options) counted, checked and timed; then HD.
+STREAM_FRAMES, STREAM_SCENES = 48, 8
+STREAM_RUNS = tuple((b, dp, {}) for b in (1, 4, 8) for dp in (1, 2, 3)) + (
+    (4, 2, {"cost_dtype": "bfloat16"}), (8, 3, {"cost_dtype": "bfloat16"}),
+    (4, 2, {"reducer": "dynamic_programming"}),
+    (4, 2, {"median": True, "subpixel": True}),
+    (4, 2, {"pyramid_levels": 1}))
+HD_STREAM_FRAMES, HD_STREAM_SCENES = 16, 4
+HD_STREAM_RUNS = ((4, 2, {}),)
+# stm-video runs on the card, each against --device cpu on its first
+# VIDEO_CPU_FRAMES frames (plain SGM on the host: seconds a frame).  The
+# batched run is a subprocess (`python -m ...`, as a user runs it); the
+# others call the CLI's main in this process, which saves a process
+# start and a kernel load (about 8 s each) of the time limit.
+VIDEO_RUNS = {"batched": ["--batch", "4"],
+              "temporal": ["--temporal", "--keyframe-interval", "4"],
+              "per-frame": []}
+VIDEO_SUBPROCESS = ("batched",)
+VIDEO_CPU_FRAMES = 4
+# stm-serve: requests, client threads, and the servers' flags.
+SERVE_REQUESTS, SERVE_CLIENTS = 64, 8
+SERVE_RUNS = (["--batch", "1"], ["--batch", "8", "--warmup", "375x450"])
 
 # The card's published rates (NVIDIA H100 SXM data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1416,9 +1455,390 @@ def check_tune(torch, dev, shapes, card) -> dict:
     return out
 
 
+def teddy_video(golden, n_scenes=STREAM_SCENES):
+    """``n_scenes`` different side-by-side teddy frames [375, 900] uint8:
+    the golden scene, then the scenes of the seeds after it."""
+    from stereomatch_tpu_torch.io.synthetic import stereo_pair
+    seed = int(golden["seed"])
+    frames = []
+    for i in range(n_scenes):
+        left, right, _ = stereo_pair(375, 450, 128, seed=seed + i)
+        frames.append(np.concatenate([(left * 255).astype(np.uint8),
+                                      (right * 255).astype(np.uint8)],
+                                     axis=1))
+    return frames
+
+
+def launch_counts(counters, launches) -> dict:
+    return {name: sum(launches[e] for e in entries)
+            for name, entries in counters.items()}
+
+
+def check_stream(torch, dev, golden, counters, card) -> dict:
+    """``stream.StreamingEstimator.run`` over ``io.capture.Y4MCapture`` (the
+    port's libstmio binding) on the card, each run of STREAM_RUNS with
+    the launch counts set to 0 just before it and read just after:
+    STREAM_FRAMES teddy frames (STREAM_SCENES scenes in turn, written
+    with ``native.write_y4m``), then HD_STREAM_FRAMES HD frames.  Every
+    yielded disparity equals ``Pipeline.estimate`` (``estimate_refined``,
+    ``PyramidPipeline.estimate``) of the same uint8 frame on the card;
+    the run launched each kernel of its path, and its launches a frame
+    (a replayed frame counting its graph's) equal an eager frame's.  A
+    second run of each estimator is timed with the host clock (frames/s
+    and the stage split), beside ``Pipeline.estimate`` timed with CUDA
+    events on device-resident images; one batched run is profiled for
+    the device's idle share."""
+    from stereomatch_tpu_torch import cli_common, native
+    from stereomatch_tpu_torch.io.capture import Y4MCapture
+    from stereomatch_tpu_torch.io.synthetic import stereo_pair
+    from stereomatch_tpu_torch.ops import _build
+    from stereomatch_tpu_torch.pyramid import PyramidPipeline
+    from stereomatch_tpu_torch.stream import StreamingEstimator
+
+    k = int(golden["kernel_size"])
+    p1, p2 = float(golden["penalty1"]), float(golden["penalty2"])
+    out = {"runs": []}
+
+    def reference(d, options, kernel_size):
+        """(frame function on uint8 pair -> card tensor, the kernels the
+        path launches)."""
+        sfx = "_bf16" if options.get("cost_dtype") == "bfloat16" else ""
+        flat = (f"ssd{sfx}", f"sgm_rows{sfx}", f"sgm_horizontal{sfx}")
+        if options.get("pyramid_levels"):
+            pyr = PyramidPipeline(d, levels=options["pyramid_levels"],
+                                  penalty1=p1, penalty2=p2)
+            return pyr.estimate, ("sgm_rows", "sgm_horizontal")
+        dyn = options.get("reducer") == "dynamic_programming"
+        pipe = cli_common.create_pipeline(
+            "ssd", "dyn" if dyn else "wta", "sgm", max_disparity=d,
+            penalty1=p1, penalty2=p2,
+            volume_dtype=options.get("cost_dtype", "float32"),
+            kernel_size=kernel_size)
+        if options.get("subpixel"):
+            return (lambda l, r: pipe.estimate_refined(l, r, subpixel=True,
+                                                       median=True), flat)
+        return pipe.estimate, flat + (("dp_forward", "dp_backward")
+                                      if dyn else ())
+
+    def on_card(frame):
+        w = frame.shape[1] // 2
+        return (torch.from_numpy(frame[:, :w]).to(dev).float(),
+                torch.from_numpy(frame[:, w:]).to(dev).float())
+
+    def stream_runs(tag, path, scenes, n_frames, d, runs, kernel_size):
+        for batch, depth, options in runs:
+            label = (f"{tag} batch {batch} depth {depth} "
+                     f"{options or 'ssd+sgm+wta'}")
+            log(f"[stream] {label}")
+            frame_fn, kernels = reference(d, options, kernel_size)
+            pairs = [on_card(f) for f in scenes]
+            refs = [frame_fn(*p).cpu().numpy() for p in pairs]
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            frame_fn(*pairs[0])
+            torch.cuda.synchronize()
+            eager = collections.Counter(_build.LAUNCHES)
+            est = StreamingEstimator(d, batch=batch, depth=depth,
+                                     kernel_size=kernel_size, penalty1=p1,
+                                     penalty2=p2, **options)
+            # The counted run: counts from 0 just before, read just after.
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            cap = Y4MCapture(path)
+            outs = list(est.run(cap))
+            cap.close()
+            torch.cuda.synchronize()
+            counts = launch_counts(counters, _build.LAUNCHES)
+            stream_counts = launch_counts(counters, est.stats.launches)
+            require(len(outs) == n_frames, f"{label}: {len(outs)} frames")
+            for i, (_, disp) in enumerate(outs):
+                ref = refs[i % len(scenes)]
+                require(disp.dtype == (np.float32 if ref.dtype == np.float32
+                                       else np.int32)
+                        and np.array_equal(disp, ref),
+                        f"{label}: frame {i} differs from the pipeline's")
+            for name in kernels:
+                require(counts[name] > 0 and stream_counts[name] > 0,
+                        f"{label} launched {name} no time")
+            n_run = est.stats.frames_run
+            require(est.stats.launches == collections.Counter(
+                {e: c * n_run for e, c in eager.items()}),
+                f"{label}: launches {dict(est.stats.launches)} over "
+                f"{n_run} frames, an eager frame {dict(eager)}")
+            # The timed run, warm.
+            cap = Y4MCapture(path)
+            n = sum(1 for _ in est.run(cap))
+            cap.close()
+            require(n == n_frames, f"{label}: timed run {n} frames")
+            s = est.stats
+            estimate_ms = time_ms(torch, lambda: frame_fn(*pairs[0]))
+            row = {"tag": tag, "batch": batch, "depth": depth,
+                   "options": options, "frames": s.frames,
+                   "fps": s.fps, "stage_ms_per_frame":
+                       s.stage_ms_per_frame(),
+                   "estimate_ms": estimate_ms,
+                   "estimate_fps": 1e3 / estimate_ms,
+                   "launches_per_frame": {e: c // n_run for e, c in
+                                          est.stats.launches.items()},
+                   "graph": est._compiled is not None}
+            out["runs"].append(row)
+            log(f"  {n_frames} frames equal the pipeline's; launches a "
+                f"frame {row['launches_per_frame']} = an eager frame's; "
+                f"{s.fps!r} frames/s (host clock), stages ms/frame "
+                f"{row['stage_ms_per_frame']}; Pipeline.estimate "
+                f"{estimate_ms!r} ms = {1e3 / estimate_ms!r} frames/s "
+                f"(CUDA events, device-resident) [{card}]")
+            del est, pairs
+            torch.cuda.empty_cache()
+
+    teddy = teddy_video(golden)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "teddy.y4m"
+        native.write_y4m(path, np.stack([teddy[i % len(teddy)]
+                                         for i in range(STREAM_FRAMES)]))
+        stream_runs("teddy", path, teddy, STREAM_FRAMES, 128, STREAM_RUNS,
+                    k)
+
+        log("[stream profile] teddy batch 4 depth 2, one run of "
+            f"{STREAM_FRAMES} frames")
+        est = StreamingEstimator(128, batch=4, depth=2, kernel_size=k,
+                                 penalty1=p1, penalty2=p2)
+
+        def one_run():
+            cap = Y4MCapture(path)
+            for _ in est.run(cap):
+                pass
+            cap.close()
+
+        wall, by_name, _, ops = profile_path(torch, one_run, frames=1)
+        busy = sum(by_name.values())
+        require(busy > 0, "the profiler saw no device time in the stream")
+        out["profile"] = {"wall_ms_per_frame": wall / STREAM_FRAMES,
+                          "busy_ms_per_frame": busy / STREAM_FRAMES,
+                          "idle_share": 1.0 - busy / wall,
+                          "device_ops_per_frame": ops / STREAM_FRAMES}
+        log(f"  wall {wall / STREAM_FRAMES!r} ms/frame, device busy "
+            f"{busy / STREAM_FRAMES!r} ms/frame, idle share "
+            f"{1.0 - busy / wall!r}, {ops / STREAM_FRAMES!r} device "
+            f"operations/frame [{card}]")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"    {ms / STREAM_FRAMES!r} ms/frame  {name[:90]}")
+        del est
+
+        hd = []
+        for i in range(HD_STREAM_SCENES):
+            left, right, _ = stereo_pair(1024, 1280, 256, seed=11 + i)
+            hd.append(np.concatenate([(left * 255).astype(np.uint8),
+                                      (right * 255).astype(np.uint8)],
+                                     axis=1))
+        path.unlink()
+        path = Path(tmp) / "hd.y4m"
+        native.write_y4m(path, np.stack([hd[i % len(hd)] for i in
+                                         range(HD_STREAM_FRAMES)]))
+        stream_runs("hd", path, hd, HD_STREAM_FRAMES, 256, HD_STREAM_RUNS,
+                    7)
+    return out
+
+
+def check_video_cli(torch, golden, card) -> dict:
+    """``stm-video`` on a teddy Y4M: each of VIDEO_RUNS on the card (those
+    of VIDEO_SUBPROCESS as ``python -m stereomatch_tpu_torch.cli.video``,
+    the others through its ``main`` in this process), its PNGs of the
+    first VIDEO_CPU_FRAMES frames equal to the same command's in this
+    process with ``--device cpu --max-frames VIDEO_CPU_FRAMES``.  Returns
+    the card runs' wall seconds (a subprocess's with its start) and
+    frames/s over them."""
+    from stereomatch_tpu_torch import native
+    from stereomatch_tpu_torch.cli import video
+    from stereomatch_tpu_torch.io import png
+
+    frames = teddy_video(golden)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        path = tmp / "teddy.y4m"
+        native.write_y4m(path, np.stack(frames))
+        for name, flags in VIDEO_RUNS.items():
+            base = ["y4m", str(path), "128", "--headless", *flags]
+            log(f"[stm-video] {name}: {' '.join(base[2:])}")
+            card_argv = [*base, "--output-dir", str(tmp / f"{name}_card")]
+            start = time.perf_counter()
+            if name in VIDEO_SUBPROCESS:
+                proc = subprocess.run(
+                    [sys.executable, "-m",
+                     "stereomatch_tpu_torch.cli.video", *card_argv],
+                    cwd=ROOT, capture_output=True, text=True, timeout=600)
+                rc, said = proc.returncode, proc.stdout.strip()
+                where, err = "a subprocess, its start included", proc.stderr
+            else:
+                rc, said = video.main(card_argv), ""
+                where, err = "in this process", ""
+            seconds = time.perf_counter() - start
+            require(rc == 0, f"stm-video {name} failed on the card: {err}")
+            log(f"  card: {said} ({seconds:.2f} s wall, {where}) [{card}]")
+            require(video.main([*base, "--device", "cpu", "--max-frames",
+                                str(VIDEO_CPU_FRAMES), "--output-dir",
+                                str(tmp / f"{name}_cpu")]) == 0,
+                    f"stm-video {name} --device cpu failed")
+            card_pngs = sorted((tmp / f"{name}_card").glob("depth_*.png"))
+            cpu_pngs = sorted((tmp / f"{name}_cpu").glob("depth_*.png"))
+            require(len(card_pngs) == len(frames)
+                    and len(cpu_pngs) == VIDEO_CPU_FRAMES,
+                    f"stm-video {name}: {len(card_pngs)} card PNGs, "
+                    f"{len(cpu_pngs)} CPU PNGs")
+            for a, b in zip(card_pngs, cpu_pngs):
+                require(np.array_equal(png.read(a).array,
+                                       png.read(b).array),
+                        f"stm-video {name}: {a.name} differs from the "
+                        f"CPU's")
+            out[name] = {"wall_s": seconds, "frames": len(frames),
+                         "fps_wall": len(frames) / seconds,
+                         "subprocess": name in VIDEO_SUBPROCESS}
+            log(f"  the first {VIDEO_CPU_FRAMES} PNGs equal the CPU's "
+                f"pixel for pixel")
+    return out
+
+
+def check_serve(torch, golden, counters, card) -> dict:
+    """``stm-serve`` (``cli.serve.make_server``) in this process, port 0,
+    teddy ssd+sgm+wta, once for each of SERVE_RUNS, the launch counts set
+    to 0 before and read after: SERVE_REQUESTS requests from
+    SERVE_CLIENTS client threads, npy and PNG bodies, npy and png16
+    responses, some with ``refine=1``, each decoded and equal to the
+    local ``Pipeline.estimate`` (``estimate_refined``) of its frame on
+    the card.  Returns requests/s, client latency p50/p99 and /healthz's
+    stage windows; closing the server must leave no thread of it."""
+    import threading
+    import urllib.request
+
+    from stereomatch_tpu_torch import cli_common
+    from stereomatch_tpu_torch.cli import serve
+    from stereomatch_tpu_torch.io import png
+    from stereomatch_tpu_torch.ops import _build
+
+    frames = teddy_video(golden)
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=128)
+    plain, refined, bodies = [], [], []
+    for frame in frames:
+        left = torch.from_numpy(frame[:, :450]).to("cuda").float()
+        right = torch.from_numpy(frame[:, 450:]).to("cuda").float()
+        plain.append(pipe.estimate(left, right).cpu().numpy())
+        refined.append(pipe.estimate_refined(left, right).cpu().numpy())
+        buf = io.BytesIO()
+        np.save(buf, frame)
+        bodies.append({"npy": buf.getvalue(), "png": png.encode(frame)})
+
+    def request(j):
+        """(scene, body kind, response format, refine) of request j."""
+        return (j % len(frames), ("npy", "png")[j % 2],
+                ("npy", "png16")[(j // 2) % 2], j % 16 == 0)
+
+    out = {}
+    for flags in SERVE_RUNS:
+        label = " ".join(flags)
+        log(f"[stm-serve] 128 -cm ssd -am sgm {label}: {SERVE_REQUESTS} "
+            f"requests from {SERVE_CLIENTS} clients")
+        before = {t.ident for t in threading.enumerate()}
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        args = serve.build_parser().parse_args(
+            ["128", "-cm", "ssd", "-am", "sgm", "--port", "0", *flags])
+        srv = serve.make_server(args)
+        thread = threading.Thread(target=srv.serve_forever)
+        thread.start()
+        url = f"http://127.0.0.1:{srv.server_port}"
+        latencies, responses, failures = [], {}, []
+
+        def post(j):
+            scene, kind, fmt, refine = request(j)
+            query = f"format={fmt}" + ("&refine=1" if refine else "")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"{url}/estimate?{query}", data=bodies[scene][kind]),
+                    timeout=300) as resp:
+                responses[j] = resp.read()
+            latencies.append(time.perf_counter() - t0)
+
+        def check(j):
+            """Response j decoded against the local pipeline (after the
+            timed window: the clients share this process's interpreter
+            lock with the server)."""
+            scene, _, fmt, refine = request(j)
+            raw = responses.pop(j)
+            got = (np.load(io.BytesIO(raw)) if fmt == "npy"
+                   else png.decode(raw).array)
+            want = refined[scene] if refine else plain[scene]
+            if fmt == "png16":
+                want = np.clip(np.round(want), 0, 65535).astype(np.uint16)
+            if not (got.shape == want.shape
+                    and np.array_equal(got.astype(want.dtype), want)):
+                failures.append(j)
+
+        def client(c):
+            try:
+                for j in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                    post(j)
+            except Exception as err:               # noqa: BLE001
+                failures.append(repr(err))
+
+        try:
+            for j in (0, 1, 16, 17):               # build, capture: untimed
+                post(j)
+                check(j)
+            latencies.clear()
+            start = time.perf_counter()
+            clients = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVE_CLIENTS)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(600)
+            wall = time.perf_counter() - start
+            with urllib.request.urlopen(f"{url}/healthz") as resp:
+                health = json.loads(resp.read())
+            for j in sorted(responses):
+                check(j)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(60)
+        torch.cuda.synchronize()
+        counts = launch_counts(counters, _build.LAUNCHES)
+        left = [t.name for t in threading.enumerate()
+                if t.ident not in before]
+        require(not failures, f"stm-serve {label}: requests {failures} "
+                f"differ from the local pipeline or failed")
+        require(len(latencies) == SERVE_REQUESTS and not responses,
+                f"stm-serve {label}: {len(latencies)} responses")
+        require(not left, f"stm-serve {label}: threads left {left}")
+        for name in ("ssd", "sgm_rows", "sgm_horizontal"):
+            require(counts[name] > 0, f"stm-serve {label} launched {name} "
+                    f"no time")
+        lat = sorted(latencies)
+        row = {"requests_per_s": SERVE_REQUESTS / wall,
+               "p50_ms": lat[len(lat) // 2] * 1e3,
+               "p99_ms": lat[min(int(len(lat) * 0.99), len(lat) - 1)] * 1e3,
+               "healthz_stages": health.get("stages"),
+               "healthz_latency": health.get("latency"),
+               "batching": health.get("batching")}
+        out[label] = row
+        log(f"  {SERVE_REQUESTS} responses equal the local pipeline's; "
+            f"{row['requests_per_s']!r} requests/s, p50 {row['p50_ms']!r} "
+            f"ms, p99 {row['p99_ms']!r} ms (client clock); /healthz "
+            f"stages {row['healthz_stages']}; batching "
+            f"{row['batching']}; no thread left; launches {counts} "
+            f"[{card}]")
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
+
+    def elapsed(after: str) -> None:
+        """When each phase ended (the script must stay well inside its
+        time limit as phases are added)."""
+        log(f"[elapsed] {time.perf_counter() - started:.1f} s after {after}")
 
     # Phase 1: device.
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -1614,6 +2034,8 @@ def main() -> int:
             0, 0, exact=True)
         del census16
         torch.cuda.empty_cache()
+
+    elapsed("the kernels against their plain versions")
 
     # Phase 4: the paths, through the entry points a user calls; the
     # launch counts are set to 0 just before each and read just after.
@@ -1894,14 +2316,28 @@ def main() -> int:
         torch.cuda.empty_cache()
     del single_hd
 
+    elapsed("the main paths")
     check_post_processing(torch, dev, shapes, run_path, mesh5, sharded_kw,
                           p1, p2)
+    elapsed("post-processing")
     check_cost_families(torch, dev, shapes, run_path)
+    elapsed("the cost families")
     image_cli = check_image_cli(torch, shapes, card)
+    elapsed("stm-image")
     compiled_ms = check_compiled(torch, dev, shapes, p1, p2, card)
+    elapsed("compiled()")
     cvf_plain_ms = check_plain_cvf(torch, dev, shapes, card)
+    elapsed("plain CVF")
     pyramid_ms = check_pyramid_temporal(torch, dev, shapes, run_path, card)
+    elapsed("the pyramid and tracker")
     tune_ms = check_tune(torch, dev, shapes, card)
+    elapsed("the tuner")
+    stream_out = check_stream(torch, dev, golden, counters, card)
+    elapsed("the stream")
+    video_out = check_video_cli(torch, golden, card)
+    elapsed("stm-video")
+    serve_out = check_serve(torch, golden, counters, card)
+    elapsed("stm-serve")
 
     def paths(tag):
         """(label, pipeline factory) of each timed path at one geometry:
@@ -2100,6 +2536,9 @@ def main() -> int:
     refined_ms = time_post_processing(torch, shapes, p1, p2, card)
     family_ms = time_cost_families(torch, shapes, card)
 
+    elapsed("the timings, the dtype crossover and the refined and "
+            "cost-family timings")
+
     # Phase 6: where the time goes, per path and geometry, from a
     # torch.profiler capture (device kernel time against host wall time).
     log("[profile] torch.profiler, 10 frames after one warm-up, "
@@ -2209,6 +2648,8 @@ def main() -> int:
                     "card": card}))
     log(json.dumps({"pyramid_temporal": pyramid_ms, "tune": tune_ms,
                     "card": card}))
+    log(json.dumps({"stream": stream_out, "video_cli": video_out,
+                    "serve": serve_out, "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {

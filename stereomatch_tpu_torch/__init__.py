@@ -14,9 +14,11 @@ devices (``parallel``); the coarse-to-fine ``PyramidPipeline``, the
 video tracker ``TemporalPipeline`` and SGM penalty tuning by gradient
 descent (``tune``, on the differentiable aggregation of ``ops/soft.py``);
 ``metrics``, ``reconstruction``, ``texture``,
-``io`` (a PNG codec of its own among them) and the ``stm-eval`` and
-``stm-image`` CLIs (``python -m stereomatch_tpu_torch.cli.evaluate``,
-``.cli.image``) surround it.
+``io`` (a PNG codec of its own among them, the captures, and
+``native``, the binding of the repository's libstmio), the streaming
+estimator ``stream.StreamingEstimator`` and the CLIs (``python -m
+stereomatch_tpu_torch.cli.evaluate``, ``.image``, ``.video``,
+``.serve``, ``.fetch``) surround it.
 Pipelines run on the card unless the caller asks for the CPU.  Plain
 PyTorch versions run on CPU tensors and are the kernels' oracles; CUDA
 tensors go through the kernels, which are built with ``nvcc`` at first

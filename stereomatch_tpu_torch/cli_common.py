@@ -7,6 +7,8 @@ every combination that the JAX package's factory builds runs.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .aggregation import CostFilter, Semiglobal
@@ -21,6 +23,10 @@ AGGREGATION_METHODS = {"sgm": Semiglobal, "cvf": CostFilter}
 DISPARITY_METHODS = {"wta": WinnerTakesAll, "dyn": DynamicProgramming}
 VOLUME_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "int32": torch.int32}
+# CLI disparity-method name -> the reducer name of ``stream`` and
+# ``parallel`` (which took the long name first, as in the JAX package).
+STREAM_REDUCERS = {"wta": "wta", "dyn": "dynamic_programming"}
+
 
 def _lookup(kind: str, name, registry: dict):
     if name in registry:
@@ -83,7 +89,8 @@ def create_pipeline(cost_method: str, disp_method: str,
                     census_window: int = 5,
                     backend: str = "auto",
                     volume_dtype: str = "float32",
-                    device: Device = "cuda") -> Pipeline:
+                    device: Device = "cuda",
+                    kernel_size: Optional[int] = None) -> Pipeline:
     """Create a pipeline from method names.
 
     ``penalty1``/``penalty2`` configure SGM, ``cvf_radius``/``cvf_eps``/
@@ -96,7 +103,8 @@ def create_pipeline(cost_method: str, disp_method: str,
     "int32", the reference's integer cost path, without aggregation;
     ``ncc`` refuses it, ``birchfield`` and ``ssd-texture`` ignore it and
     compute float32).  The pipeline runs on ``device``: the card unless
-    ``"cpu"`` is asked for.
+    ``"cpu"`` is asked for.  ``kernel_size`` overrides the cost's window
+    (None: the cost class's default, as the JAX factory leaves it).
     """
     dtype = _lookup("volume dtype", volume_dtype, VOLUME_DTYPES)
     if dtype == torch.int32 and aggr_method is not None:
@@ -138,4 +146,6 @@ def create_pipeline(cost_method: str, disp_method: str,
         cost = SSDTexture(max_disparity, backend=backend)
     else:
         cost = Birchfield(max_disparity)
+    if kernel_size is not None:
+        cost.kernel_size = kernel_size
     return Pipeline(cost, disparity, aggregation=aggregation, device=device)

@@ -2,12 +2,13 @@
 numpy-only copy of ``stereomatch_tpu/io/data.py`` for the port, which
 imports nothing of the JAX package.
 
-The JAX module reads PFM and PGM/PPM through the native codec
-(``native/libstmio.so``) when it is built, and PNG through PIL; the port
-takes pure-Python paths for all three, so it reads the same files on a
-machine without PIL or the native library: the PFM parser, a binary PNM
-reader and the PNG codec of ``io/png.py``.  Each gives the values of the
-JAX module's reader.  Other image formats still need PIL.
+As the JAX module does, PFM and PGM/PPM go through the native codec
+(the port's binding of ``native/stmio.cpp``, ``stereomatch_tpu_torch
+.native``) where it builds, and through the pure-Python parsers here
+where it does not (no ``g++``); both give the same arrays.  PNG goes
+through the port's own codec (``io/png.py``; the JAX module takes PIL),
+so PNG, PFM, PGM and PPM read without PIL.  Other image formats still
+need PIL.
 """
 
 from __future__ import annotations
@@ -25,8 +26,15 @@ def read_pfm(path) -> np.ndarray:
     """Parse a PFM file (the Middlebury disparity format).
 
     Returns float32 [H, W] (grayscale) or [H, W, 3] (color), with the
-    bottom-up scanline order of the format undone.
+    bottom-up scanline order of the format undone.  Uses the native codec
+    where it builds; a malformed file raises ``ValueError`` either way.
     """
+    from .. import native
+    if native.available():
+        try:
+            return native.read_pfm(path)
+        except native.NativeIOError as err:
+            raise ValueError(f"{path}: {err}") from err
     with open(path, "rb") as f:
         header = f.readline().decode("latin-1").strip()
         if header == "PF":
@@ -125,25 +133,43 @@ def _pnm_token(f) -> bytes:
             token += ch
 
 
-def read_pnm(path) -> np.ndarray:
+def read_pnm(path_or_file) -> np.ndarray:
     """Read a binary 8-bit PGM (P5) or PPM (P6): uint8 [H, W] or [H, W, 3],
-    as the native codec reads them (it refuses 16-bit files too)."""
-    with open(path, "rb") as f:
-        magic = _pnm_token(f)
-        if magic not in (b"P5", b"P6"):
-            raise ValueError(f"{path}: not a binary PGM/PPM "
-                             f"(magic {magic!r})")
-        width, height, maxval = (int(_pnm_token(f)) for _ in range(3))
-        if maxval > 255:
-            raise ValueError(f"{path}: 16-bit PNM not supported")
-        channels = 3 if magic == b"P6" else 1
-        count = width * height * channels
-        data = np.frombuffer(f.read(count), dtype=np.uint8, count=count)
+    as the native codec reads them (it refuses 16-bit files too).
+    ``path_or_file``: a path, or a binary file-like object (e.g.
+    ``io.BytesIO`` of a request body)."""
+    if hasattr(path_or_file, "read"):
+        return _parse_pnm(path_or_file, "PNM data")
+    with open(path_or_file, "rb") as f:
+        return _parse_pnm(f, path_or_file)
+
+
+def _parse_pnm(f, name) -> np.ndarray:
+    magic = _pnm_token(f)
+    if magic not in (b"P5", b"P6"):
+        raise ValueError(f"{name}: not a binary PGM/PPM (magic {magic!r})")
+    width, height, maxval = (int(_pnm_token(f)) for _ in range(3))
+    if maxval > 255:
+        raise ValueError(f"{name}: 16-bit PNM not supported")
+    channels = 3 if magic == b"P6" else 1
+    count = width * height * channels
+    data = np.frombuffer(f.read(count), dtype=np.uint8, count=count)
     img = data.reshape(height, width, channels)
     return img[:, :, 0] if channels == 1 else img
 
 
 _PNM_SUFFIXES = (".pgm", ".ppm", ".pnm")
+
+
+def _read_pnm_codec(path) -> np.ndarray:
+    """:func:`read_pnm` through the native codec where it builds."""
+    from .. import native
+    if native.available():
+        try:
+            return native.read_pnm(path)
+        except native.NativeIOError as err:
+            raise ValueError(f"{path}: {err}") from err
+    return read_pnm(path)
 
 
 def _pil_image(path):
@@ -163,7 +189,7 @@ def load_image(path, mode: Optional[str] = None) -> np.ndarray:
     with ``mode`` "L" or "RGB", as PIL's ``convert(mode)`` does.
 
     PNG goes through the port's codec (``io/png.py``) and PGM/PPM
-    through :func:`read_pnm`, with or without PIL; other formats (JPEG,
+    through the native codec or :func:`read_pnm`, with or without PIL; other formats (JPEG,
     BMP, TIFF) through PIL, where it is installed.  The Middlebury 2003
     sets (teddy/cones) ship PGM/PPM, the 2014/2021 sets and KITTI PNG.
     """
@@ -176,7 +202,7 @@ def load_image(path, mode: Optional[str] = None) -> np.ndarray:
     if suffix not in _PNM_SUFFIXES:
         with _pil_image(path).open(path) as img:
             return np.array(img if mode is None else img.convert(mode))
-    img = read_pnm(path)
+    img = _read_pnm_codec(path)
     if mode == "L" and img.ndim == 3:
         return rgb_to_grayscale_u8(img)
     if mode == "RGB" and img.ndim == 2:

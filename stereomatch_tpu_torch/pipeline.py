@@ -19,6 +19,7 @@ PyTorch operation.
 from __future__ import annotations
 
 import collections
+import threading
 from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -285,29 +286,50 @@ class CompiledPipeline:
     recorded (one eager frame's).  Each graph keeps its volumes in its
     own memory pool (``graphs[key].memory_bytes``) for as long as this
     object lives.
+
+    Replays of one graph share its static buffers, so calls from several
+    threads or on several streams replay one at a time: a lock orders
+    them on the host, and each waits on the device for the event
+    recorded after the last one's copy out.
     """
 
     def __init__(self, pipeline: Pipeline):
         self.pipeline = pipeline
         self.graphs: Dict[Tuple, _Graph] = {}
         self._fn = pipeline.estimate_fn()
+        self._lock = threading.Lock()
+        self._done: Dict[Tuple, "torch.cuda.Event"] = {}
 
-    def __call__(self, left_image: Image, right_image: Image
-                 ) -> torch.Tensor:
+    def __call__(self, left_image: Image, right_image: Image,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The frame's disparity: a new tensor, or ``out`` (on the frame's
+        device, the disparity's shape and dtype) with the disparity
+        copied in on the current stream, which a later replay then
+        cannot overwrite."""
         device = self.pipeline.device
         left_image = as_tensor(left_image, device)
         right_image = as_tensor(right_image, device)
         validation.check_stereo_pair(left_image, right_image)
         if not left_image.is_cuda:
-            return self._fn(left_image, right_image)
+            disparity = self._fn(left_image, right_image)
+            return disparity if out is None else out.copy_(disparity)
         key = (tuple(left_image.shape), left_image.dtype, left_image.device)
-        entry = self.graphs.get(key)
-        if entry is None:
-            entry = self.graphs[key] = self._capture(left_image, right_image)
-        entry.left.copy_(left_image)
-        entry.right.copy_(right_image)
-        entry.graph.replay()
-        return entry.disparity.clone()
+        with self._lock:
+            entry = self.graphs.get(key)
+            if entry is None:
+                entry = self.graphs[key] = self._capture(left_image,
+                                                         right_image)
+            stream = torch.cuda.current_stream(left_image.device)
+            if key in self._done:
+                stream.wait_event(self._done[key])
+            entry.left.copy_(left_image)
+            entry.right.copy_(right_image)
+            entry.graph.replay()
+            result = (entry.disparity.clone() if out is None
+                      else out.copy_(entry.disparity))
+            self._done[key] = torch.cuda.Event()
+            self._done[key].record(stream)
+        return result
 
     def _capture(self, left_image: torch.Tensor,
                  right_image: torch.Tensor) -> _Graph:
@@ -327,7 +349,9 @@ class CompiledPipeline:
         counted = collections.Counter(_build.LAUNCHES)
         reserved = torch.cuda.memory_reserved(device)
         try:
-            with torch.cuda.graph(graph):
+            # "thread_local": a server's other threads may wait on events
+            # or pin host memory while this thread captures.
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 disparity = self._fn(static_left, static_right)
         except Exception as err:
             raise RuntimeError(

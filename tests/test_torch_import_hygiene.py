@@ -53,9 +53,16 @@ def test_import_leaves_jax_out():
         "import stereomatch_tpu_torch.parallel.temporal_sharded\n"
         "import stereomatch_tpu_torch.pyramid, stereomatch_tpu_torch.temporal\n"
         "import stereomatch_tpu_torch.tune, stereomatch_tpu_torch.ops.soft\n"
+        "import stereomatch_tpu_torch.stream, stereomatch_tpu_torch.native\n"
+        "import stereomatch_tpu_torch.io.capture\n"
+        "import stereomatch_tpu_torch.cli.video\n"
+        "import stereomatch_tpu_torch.cli.serve\n"
+        "import stereomatch_tpu_torch.cli.fetch\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
-        "                        if m in ('jax', 'optax')\n"
-        "                        or m.startswith(('jax.', 'optax.'))\n"
+        "                        if m in ('jax', 'optax', 'PIL', 'cv2',\n"
+        "                                 'matplotlib')\n"
+        "                        or m.startswith(('jax.', 'optax.', 'PIL.',\n"
+        "                                         'cv2.', 'matplotlib.'))\n"
         "                        or m.startswith('stereomatch_tpu.'))))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -104,20 +111,28 @@ def test_no_port_module_imports_jax(path):
 
 @pytest.mark.parametrize("path", PORT_SOURCES)
 def test_no_port_module_needs_pil_or_matplotlib(path):
-    """The card's machine has neither: PNG goes through ``io/png.py``,
-    colour maps through ``utils/viz.py``.  PIL is imported only inside
-    the functions that read or write other image formats (``io/data.py``,
-    ``stm-image``'s output check), matplotlib only by ``stm-image -sd``
-    (an interactive window), inside its branch."""
+    """The card's machine has neither, nor OpenCV: PNG goes through
+    ``io/png.py``, colour maps through ``utils/viz.py``.  PIL is imported
+    only inside the functions that read or write other image formats
+    (``io/data.py``, ``stm-image``'s output check, ``stm-serve``'s
+    request decoder), matplotlib only by ``stm-image -sd`` and
+    ``stm-video``'s ``i`` key (interactive windows), OpenCV only by the
+    camera and video-file captures and ``stm-video``'s display loop, each
+    inside its branch."""
     on_import = {m.split(".")[0]
                  for m in _imported_modules(ROOT / path, in_functions=False)}
-    assert not on_import & {"PIL", "matplotlib"}
+    assert not on_import & {"PIL", "matplotlib", "cv2"}
     modules = {m.split(".")[0] for m in _imported_modules(ROOT / path)}
     if path not in ("stereomatch_tpu_torch/io/data.py",
-                    "stereomatch_tpu_torch/cli/image.py"):
+                    "stereomatch_tpu_torch/cli/image.py",
+                    "stereomatch_tpu_torch/cli/serve.py"):
         assert "PIL" not in modules
-    if path != "stereomatch_tpu_torch/cli/image.py":
+    if path not in ("stereomatch_tpu_torch/cli/image.py",
+                    "stereomatch_tpu_torch/cli/video.py"):
         assert "matplotlib" not in modules
+    if path not in ("stereomatch_tpu_torch/io/capture.py",
+                    "stereomatch_tpu_torch/cli/video.py"):
+        assert "cv2" not in modules
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

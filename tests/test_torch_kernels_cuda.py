@@ -14,11 +14,15 @@ plain versions' association and round every operation on its own, so
 those comparisons are bit-equality.  The CVF kernels keep the plain version's association too
 and are held equal to it, +inf placement included, at the edges of their
 tile (narrow and ragged W, H shorter than the window or than a row
-chunk, odd D, radii 0 to 32, a wedge offset, a misaligned volume).  This
-file imports nothing of JAX, so it runs where JAX is not installed.
+chunk, odd D, radii 0 to 32, a wedge offset, a misaligned volume).  The
+stream and ``stm-serve`` are held at teddy against the eager pipeline:
+the pinned staging ring refilled under depth 3, one graph a geometry
+replayed by concurrent server batches.  This file imports nothing of
+JAX, so it runs where JAX is not installed.
 """
 
 import collections
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -1163,3 +1167,143 @@ def test_sharded_keyframe_launches_the_chunk_kernel(device, launches):
         assert launches["stm_sgm_chunk_f32"] == (30 if i % 2 == 0 else 0)
         assert torch.equal(sharded.host_disparity(), want.cpu())
     assert sharded.keyframes == single.keyframes == 2
+
+
+# --------------------------------------------------------------------------
+# Streaming and serving (A.13): pinned staging, one stream, graph outputs
+# --------------------------------------------------------------------------
+
+def _teddy_frames(n, seed0=40):
+    """n different side-by-side teddy-size frames (375x900 uint8)."""
+    frames = []
+    for i in range(n):
+        left, right, _ = stereo_pair(375, 450, 128, seed=seed0 + i)
+        frames.append(np.concatenate([(left * 255).astype(np.uint8),
+                                      (right * 255).astype(np.uint8)],
+                                     axis=1))
+    return frames
+
+
+def _estimates(pipe, frames, device):
+    return [pipe.estimate(torch.from_numpy(f[:, :450]).to(device).float(),
+                          torch.from_numpy(f[:, 450:]).to(device).float()
+                          ).cpu().numpy() for f in frames]
+
+
+def test_stream_staging_ring_under_depth_3_at_teddy(device, launches):
+    """Ten different frames, batch 1, depth 3: ten staging uses of a ring
+    of four pinned buffers.  A buffer refilled while its copy still read
+    it would show as another frame's disparity."""
+    from stereomatch_tpu_torch.io.capture import ImageSequenceCapture
+    from stereomatch_tpu_torch.stream import StreamingEstimator
+    frames = _teddy_frames(10)
+    est = StreamingEstimator(128, batch=1, depth=3, fetch_workers=3)
+    outs = list(est.run(ImageSequenceCapture(frames)))
+    (ring,) = est._rings.values()
+    assert len(ring[0]) == 4 and all(s.left.is_pinned() for s in ring[0])
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm",
+                                      max_disparity=128)
+    for (_, disp), want in zip(outs, _estimates(pipe, frames, device)):
+        assert disp.dtype == np.int32
+        np.testing.assert_array_equal(disp, want)
+    assert len(outs) == 10 and est.stats.batches == 10
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stream_equals_pipeline_estimate_at_teddy(device, launches, dtype):
+    """Batches of 4 (the last padded) replay one graph a frame; every
+    frame equals the eager pipeline and a frame's launches equal an
+    eager frame's."""
+    from stereomatch_tpu_torch.io.capture import ImageSequenceCapture
+    from stereomatch_tpu_torch.stream import StreamingEstimator
+    frames = _teddy_frames(6, seed0=60)
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=128,
+                                      volume_dtype=dtype)
+    want = _estimates(pipe, frames, device)
+    launches.clear()
+    _estimates(pipe, frames[:1], device)
+    eager = collections.Counter(launches)
+    est = StreamingEstimator(128, batch=4, cost_dtype=dtype)
+    outs = list(est.run(ImageSequenceCapture(frames)))
+    assert len(est._compiled.graphs) == 1
+    assert est.stats.frames_run == 8
+    assert est.stats.launches == collections.Counter(
+        {k: v * 8 for k, v in eager.items()})
+    for (_, disp), ref in zip(outs, want):
+        np.testing.assert_array_equal(disp, ref)
+
+
+def test_serve_concurrent_batches_against_the_graphs_output(device):
+    """Sixteen clients with sixteen different frames through a batcher of
+    eight workers: batches enqueue their frames and copies under one lock
+    on one stream, so no replay overwrites a static output that an
+    earlier batch has not copied out; every geometry has one graph,
+    whatever the chunk size."""
+    from stereomatch_tpu_torch.cli.serve import (_Batcher, _Engine,
+                                                 build_parser)
+    args = build_parser().parse_args(
+        ["128", "-cm", "ssd", "--batch", "4", "--linger-ms", "2",
+         "--dispatch-workers", "8"])
+    batcher = _Batcher(args, _Engine(args))
+    try:
+        z = np.zeros((375, 450), np.uint8)
+        batcher.warmup(z, z)
+        est = batcher._fns[False, False]
+        assert len(est._compiled.graphs) == 1
+        assert len(est._rings) == 3              # chunks of 1, 2 and 4
+        frames = _teddy_frames(16, seed0=80)
+        results = [None] * 16
+        barrier = threading.Barrier(16)
+
+        def client(i):
+            barrier.wait()
+            results[i] = batcher.estimate(frames[i][:, :450],
+                                          frames[i][:, 450:], refine=False)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert len(est._compiled.graphs) == 1
+        pipe = cli_common.create_pipeline("ssd", "wta", "sgm",
+                                          max_disparity=128)
+        for got, want in zip(results, _estimates(pipe, frames, device)):
+            assert got is not None and got.dtype == np.uint8
+            np.testing.assert_array_equal(got.astype(np.int32), want)
+        assert batcher.batches < 16
+    finally:
+        batcher.close()
+
+
+def test_compiled_replays_from_two_streams_do_not_race(device):
+    """Two threads, each on its own stream, replay one graph with
+    different frames: every result equals its eager frame (the replays
+    wait for each other's copy out, so none reads another's inputs)."""
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=64)
+    pairs = [_images(120, 160, seed, device) for seed in (11, 12)]
+    want = [pipe.estimate(*p).clone() for p in pairs]
+    fn = pipe.compiled()
+    fn(*pairs[0])
+    torch.cuda.synchronize()
+    results = {0: [], 1: []}
+
+    def worker(i):
+        stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(stream):
+            for _ in range(20):
+                results[i].append(fn(*pairs[i]))
+        stream.synchronize()
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert len(fn.graphs) == 1
+    for i in (0, 1):
+        assert len(results[i]) == 20
+        for got in results[i]:
+            assert torch.equal(got, want[i])
