@@ -79,6 +79,13 @@ with the launch counts set to 0 just before it and read just after:
   and 8 (``check_serve``): 64 requests from 8 clients, each response
   equal to the local pipeline, requests/s and latency, no thread left
   after it closes;
+* the partitioners (``check_partitioners``): disparity blocks at HD
+  over 4 blocks on cuda:0 (ssd+wta at D = 256 and 1024, census+cvf+wta),
+  2-D tiles at HD over (1, 2, 2) (ssd+sgm with WTA, DP and LR + median
+  + speckle at a covering overlap, WTA at the default 48) and at teddy
+  over (1, 3, 3) (census+cvf+wta), each against the single-card path
+  and launching its kernels; ``stm-video --mesh`` and ``stm-serve
+  --mesh`` against the card's paths;
 
 times kernels, plain versions, pipelines, each post-processing flag set,
 the cost-family paths and their cost stages and the float32/bf16
@@ -206,6 +213,9 @@ VIDEO_CPU_FRAMES = 4
 # stm-serve: requests, client threads, and the servers' flags.
 SERVE_REQUESTS, SERVE_CLIENTS = 64, 8
 SERVE_RUNS = (["--batch", "1"], ["--batch", "8", "--warmup", "375x450"])
+# The partitioners (disparity blocks, 2-D tiles): CUDA events, median of
+# PARTITION_REPS after PARTITION_WARMUP (their HD frames take 0.1-1 s).
+PARTITION_WARMUP, PARTITION_REPS = 1, 5
 
 # The card's published rates (NVIDIA H100 SXM data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1831,6 +1841,272 @@ def check_serve(torch, golden, counters, card) -> dict:
     return out
 
 
+def check_partitioners(torch, dev, shapes, run_path, golden, p1, p2,
+                       card) -> dict:
+    """The disparity blocks, the 2-D tiles and the mesh CLIs (A.14a-c),
+    each against the single-card path at 0 differing pixels, its launches
+    counted from 0 around one frame and read after it, timed with CUDA
+    events (PARTITION_WARMUP, PARTITION_REPS) and every volume freed
+    before the next path:
+
+    * ``make_disp_sharded_wta`` over 4 blocks on ``dev`` (and one block a
+      card where there are several) at HD: ssd+wta at D = 256 and 1024,
+      census+cvf+wta at D = 256 (the registry's K9 wedge path is the
+      single-card one), the profiler showing the SSD and CVF kernels;
+    * ``make_tiled2d_estimate`` over (1, 2, 2) on ``dev`` at HD: ssd+sgm
+      with WTA, with DP and with the LR check, median and background
+      speckle fill at the covering overlap 640, and the share of pixels
+      off the single card at the default overlap 48 (under 0.02); each
+      tile launching the SSD and SGM kernels, the profiler showing them;
+      census+cvf+wta at teddy over (1, 3, 3) against the single-card
+      masked filter;
+    * ``stm-video --mesh`` on the teddy Y4M against the same run without
+      ``--mesh``, and ``stm-serve --mesh`` answering requests equal to the
+      card's pipeline.
+
+    Returns the paths' times (ms a frame, CUDA events) and launches."""
+    import threading
+    import urllib.request
+
+    from stereomatch_tpu_torch import cli_common, native, parallel
+    from stereomatch_tpu_torch.aggregation import CostFilter
+    from stereomatch_tpu_torch.cli import serve, video
+    from stereomatch_tpu_torch.io import png
+    from stereomatch_tpu_torch.ops import refine
+
+    out = {}
+    left, right, _, hd_d, hd_k = shapes["hd"]
+    n_cards = torch.cuda.device_count()
+
+    def timed(label, fn, frames=1):
+        ms = time_ms(torch, fn, warmup=PARTITION_WARMUP,
+                     reps=PARTITION_REPS) / frames
+        log(f"  {label}: {ms!r} ms/frame (CUDA events, median of "
+            f"{PARTITION_REPS}) [{card}]")
+        return ms
+
+    def profiled(label, fn, names):
+        _, by_name, _, _ = profile_path(torch, fn, frames=1)
+        for name in names:
+            require(any(name in k for k in by_name),
+                    f"the profiler saw no {name} in {label}")
+        log(f"  profiler: {', '.join(names)} on the device timeline")
+
+    def equal(label, got, want):
+        n_diff = int((np.asarray(got) != np.asarray(want)).sum())
+        log(f"  pixels differing from the single-card path: {n_diff} of "
+            f"{np.asarray(want).size}")
+        require(n_diff == 0, f"{label} differs from the single-card path "
+                f"at {n_diff} pixels")
+
+    # Disparity blocks at HD.
+    block_runs = (("ssd+wta", dict(), hd_d), ("ssd+wta", dict(), 1024),
+                  ("census+cvf+wta", dict(cost="census", aggregation="cvf"),
+                   hd_d))
+    for label, kw, d in block_runs:
+        single = cli_common.create_pipeline(
+            kw.get("cost", "ssd"), "wta", kw.get("aggregation"),
+            max_disparity=d, kernel_size=hd_k if "cost" not in kw else None)
+        want = single.estimate(left, right).cpu().numpy()
+        del single
+        torch.cuda.empty_cache()
+        kernels = (("cvf", "cvf_filter") if "cost" in kw else ("ssd",))
+        layouts = [("4 blocks on " + str(dev), [dev] * 4)]
+        if n_cards > 1:
+            layouts.append((f"{min(n_cards, 4)} blocks, one a card",
+                            [torch.device("cuda", i)
+                             for i in range(min(n_cards, 4))]))
+        for where, devices in layouts:
+            log(f"[partitioners] disparity blocks, {label} hd 1024x1280 "
+                f"D={d}, {where}")
+            fn = parallel.make_disp_sharded_wta(
+                parallel.make_disp_mesh(devices), max_disparity=d,
+                kernel_size=None if "cost" in kw else hd_k, **kw)
+            got, counts = run_path(f"disparity blocks {label}",
+                                   lambda: fn(left, right), kernels,
+                                   shape=(1024, 1280), d=d)
+            for name in kernels:
+                require(counts[name] == len(devices),
+                        f"disparity blocks {label}: {counts[name]} {name} "
+                        f"launches for {len(devices)} blocks")
+            equal(f"disparity blocks {label} D={d}", got, want)
+            key = f"disp_blocks {label} D={d} {len(devices)}x"
+            if where.startswith("4 blocks on"):
+                profiled(f"disparity blocks {label}",
+                         lambda: fn(left, right),
+                         ("ssd_kernel",) if "cost" not in kw
+                         else ("cvf_kernel",))
+            out[key] = {"ms": timed(key, lambda: fn(left, right)),
+                        "launches": {n: counts[n] for n in kernels}}
+            del fn
+            torch.cuda.empty_cache()
+
+    # 2-D tiles at HD over (1, 2, 2) on one card.
+    mesh4 = parallel.make_mesh_2d([dev] * 4, n_batch=1, n_tile=2,
+                                  n_tile_w=2)
+    pipe_wta = cli_common.create_pipeline("ssd", "wta", "sgm",
+                                          max_disparity=hd_d, penalty1=p1,
+                                          penalty2=p2, kernel_size=hd_k)
+    agg = pipe_wta.aggregation(pipe_wta.cost(left, right), left)
+    single_wta = disp_wta = pipe_wta.disparity_reduce(agg)
+    mask = refine.left_right_consistency(
+        disp_wta, refine.right_disparity_from_volume(agg), 1,
+        max_disparity=hd_d)
+    single_refined = refine.filter_speckles(
+        refine.median_filter_3x3(refine.fill_inconsistent(disp_wta, mask)),
+        fill="background").cpu().numpy()
+    single_wta = single_wta.cpu().numpy()
+    del agg, mask, disp_wta
+    pipe_dyn = cli_common.create_pipeline("ssd", "dyn", "sgm",
+                                          max_disparity=hd_d, penalty1=p1,
+                                          penalty2=p2, kernel_size=hd_k)
+    single_dyn = pipe_dyn.estimate(left, right).cpu().numpy()
+    del pipe_wta, pipe_dyn
+    torch.cuda.empty_cache()
+    tile_kw = dict(max_disparity=hd_d, kernel_size=hd_k, penalty1=p1,
+                   penalty2=p2)
+    tile_runs = (
+        ("ssd+sgm+wta", dict(overlap=640), single_wta, torch.int32),
+        ("ssd+sgm+dyn", dict(overlap=640, reducer="dynamic_programming"),
+         single_dyn, torch.int32),
+        ("ssd+sgm+wta lr+median+speckle", dict(
+            overlap=640, lr_check=True, median=True, speckle=True,
+            speckle_fill="background"), single_refined, torch.float32),
+        ("ssd+sgm+wta overlap 48", dict(overlap=48), single_wta,
+         torch.int32))
+    for label, kw, want, dtype in tile_runs:
+        log(f"[partitioners] 2-D tiles (1, 2, 2) on {dev}, {label}, hd "
+            f"1024x1280 D={hd_d}")
+        fn = parallel.make_tiled2d_estimate(mesh4, **tile_kw, **kw)
+        frames = (left[None], right[None])
+        got, counts = run_path(f"2-D tiles {label}",
+                               lambda: fn(*frames)[0],
+                               ("ssd", "sgm_rows", "sgm_horizontal"),
+                               shape=(1024, 1280), d=hd_d, dtype=dtype)
+        require(counts["ssd"] == 4 and counts["sgm_rows"] == 24
+                and counts["sgm_horizontal"] == 8,
+                f"2-D tiles {label}: launches {counts}, not one SSD and 8 "
+                f"SGM traversals a tile")
+        if kw["overlap"] == 48:
+            share = float(np.mean(got != want))
+            log(f"  share of pixels off the single card at overlap 48: "
+                f"{share!r} (JAX's bound 0.02)")
+            require(share < 0.02, f"2-D tiles at overlap 48 differ at a "
+                    f"share {share!r} of pixels")
+        else:
+            equal(f"2-D tiles {label}", got, want)
+        if label == "ssd+sgm+wta":
+            profiled("2-D tiles", lambda: fn(*frames),
+                     ("ssd_kernel", "sgm_rows_kernel",
+                      "sgm_horizontal_kernel"))
+        reps = 1 if "dyn" in label or "lr" in label else None
+        key = f"tiled2d {label}"
+        ms = (time_ms(torch, lambda: fn(*frames), warmup=0, reps=reps)
+              if reps else timed(key, lambda: fn(*frames)))
+        if reps:
+            log(f"  {key}: {ms!r} ms/frame (CUDA events, one frame: plain "
+                f"Python loops) [{card}]")
+        out[key] = {"ms": ms, "launches": {
+            n: counts[n] for n in ("ssd", "sgm_rows", "sgm_horizontal")}}
+        del fn
+        torch.cuda.empty_cache()
+    del single_wta, single_dyn, single_refined
+
+    t_left, t_right, _, t_d, _ = shapes["teddy"]
+    log(f"[partitioners] 2-D tiles (1, 3, 3) on {dev}, census+cvf+wta, "
+        f"teddy 375x450 D={t_d}, against the single-card masked filter")
+    masked = cli_common.create_pipeline("census", "wta", "cvf",
+                                        max_disparity=t_d)
+    masked.aggregation = CostFilter(8, 1e-4, wedge_offset=None)
+    want = masked.estimate(t_left, t_right).cpu().numpy()
+    fn = parallel.make_tiled2d_estimate(
+        parallel.make_mesh_2d([dev] * 9, n_batch=1, n_tile=3, n_tile_w=3),
+        max_disparity=t_d, cost="census", aggregation="cvf")
+    got, _ = run_path("2-D tiles census+cvf+wta",
+                      lambda: fn(t_left[None], t_right[None])[0], (),
+                      shape=(375, 450), d=t_d)
+    equal("2-D tiles census+cvf+wta teddy", got, want)
+    out["tiled2d census+cvf+wta teddy 3x3"] = {"ms": timed(
+        "tiled2d census+cvf+wta teddy", lambda: fn(t_left[None],
+                                                   t_right[None]))}
+    del fn, masked
+    torch.cuda.empty_cache()
+
+    frames = teddy_video(golden)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        path = tmp / "teddy.y4m"
+        native.write_y4m(path, np.stack(frames))
+        runs = {}
+        for name, flags in (("per-frame", []), ("mesh", ["--mesh"])):
+            argv = ["y4m", str(path), "128", "-am", "sgm", "--headless",
+                    *flags, "--output-dir", str(tmp / name)]
+            log(f"[partitioners] stm-video {' '.join(argv[2:-2])}")
+            start = time.perf_counter()
+            require(video.main(argv) == 0, f"stm-video {name} failed")
+            runs[name] = time.perf_counter() - start
+            log(f"  {runs[name]:.2f} s wall for {len(frames)} frames, in "
+                f"this process [{card}]")
+        for a, b in zip(sorted((tmp / "mesh").glob("depth_*.png")),
+                        sorted((tmp / "per-frame").glob("depth_*.png"))):
+            require(np.array_equal(png.read(a).array, png.read(b).array),
+                    f"stm-video --mesh: {a.name} differs")
+        require(len(list((tmp / "mesh").glob("depth_*.png")))
+                == len(frames), "stm-video --mesh wrote too few PNGs")
+        log(f"  {len(frames)} --mesh PNGs equal the run without --mesh")
+        out["stm-video --mesh"] = {"wall_s": runs["mesh"],
+                                   "wall_s_without_mesh": runs["per-frame"]}
+
+    log("[partitioners] stm-serve --mesh --batch 4: 8 requests from 4 "
+        "clients")
+    pipe = cli_common.create_pipeline("census", "wta", "sgm",
+                                      max_disparity=128)
+    srv = serve.make_server(serve.build_parser().parse_args(
+        ["128", "--port", "0", "--mesh", "--batch", "4"]))
+    thread = threading.Thread(target=srv.serve_forever)
+    thread.start()
+    answers, failures = {}, []
+
+    def client(c):
+        try:
+            for j in range(c, 8, 4):
+                buf = io.BytesIO()
+                np.save(buf, frames[j])
+                with urllib.request.urlopen(urllib.request.Request(
+                        f"http://127.0.0.1:{srv.server_port}/estimate"
+                        f"?format=npy", data=buf.getvalue()),
+                        timeout=300) as resp:
+                    answers[j] = np.load(io.BytesIO(resp.read()))
+        except Exception as err:                   # noqa: BLE001
+            failures.append(repr(err))
+
+    try:
+        start = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(600)
+        wall = time.perf_counter() - start
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(60)
+    require(not failures and len(answers) == 8,
+            f"stm-serve --mesh: {failures}")
+    for j, got in answers.items():
+        frame = torch.from_numpy(frames[j]).to(dev).float()
+        want = pipe.estimate(frame[:, :450], frame[:, 450:]).cpu().numpy()
+        require(np.array_equal(got.astype(np.int32), want),
+                f"stm-serve --mesh: response {j} differs from the card's "
+                f"pipeline")
+    log(f"  8 responses equal the card's pipeline; {wall:.2f} s wall, "
+        f"builds included [{card}]")
+    out["stm-serve --mesh"] = {"wall_s": wall}
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -2338,6 +2614,9 @@ def main() -> int:
     elapsed("stm-video")
     serve_out = check_serve(torch, golden, counters, card)
     elapsed("stm-serve")
+    partition_out = check_partitioners(torch, dev, shapes, run_path, golden,
+                                       p1, p2, card)
+    elapsed("the partitioners")
 
     def paths(tag):
         """(label, pipeline factory) of each timed path at one geometry:
@@ -2650,6 +2929,7 @@ def main() -> int:
                     "card": card}))
     log(json.dumps({"stream": stream_out, "video_cli": video_out,
                     "serve": serve_out, "card": card}))
+    log(json.dumps({"partitioners": partition_out, "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {

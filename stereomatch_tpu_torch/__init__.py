@@ -26,8 +26,9 @@ use, except where a kernel does not serve the shape (``backend="auto"``
 then runs the plain version on the card).
 """
 
-from . import (aggregation, cli_common, convert, cost, disparity_reduce,
-               parallel, pyramid, temporal, texture, tune)
+from . import (aggregation, cli_common, convert, cost, disparity_reduce, io,
+               metrics, parallel, pipeline, pyramid, reconstruction,
+               temporal, texture, tune, utils)
 from .pipeline import Pipeline
 from .pyramid import PyramidPipeline
 from .temporal import TemporalPipeline
@@ -35,5 +36,6 @@ from .temporal import TemporalPipeline
 __version__ = "0.1.0"
 
 __all__ = ["Pipeline", "PyramidPipeline", "TemporalPipeline", "aggregation",
-           "cli_common", "convert", "cost", "disparity_reduce", "parallel",
-           "pyramid", "temporal", "texture", "tune", "__version__"]
+           "cli_common", "convert", "cost", "disparity_reduce", "io",
+           "metrics", "parallel", "pipeline", "pyramid", "reconstruction",
+           "temporal", "texture", "tune", "utils", "__version__"]

@@ -37,8 +37,12 @@ key, waiting at most ``--linger-ms`` for company, into batches of
 powers of two (5 requests run as 4 + 1), which ``--warmup HxW``
 prepares up front; ``--dispatch-workers`` threads carry batches through
 their round trips and ``--pipeline-depth 1`` makes the batcher
-synchronous.  ``--mesh`` is not ported yet (ROADMAP A.14) and exits 2.
-SIGTERM stops the server cleanly.
+synchronous.  ``--mesh`` serves over the ``stm-video --mesh`` mesh
+(every visible card, or ``cli_common.MESH_CPU_DEVICES`` CPU devices
+with ``--device cpu``): one sharded estimator per frame geometry, each
+batch split over the mesh's batch axis (padded to fill it) and each
+frame's rows over its tile axis; a mesh over more than one process is
+refused (exit 2, ROADMAP A.14).  SIGTERM stops the server cleanly.
 """
 
 import argparse
@@ -54,9 +58,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-MESH_REFUSAL = ("--mesh is not ported to stereomatch_tpu_torch yet "
-                "(ROADMAP A.14: the mesh CLIs build a multi-host mesh, "
-                "which the port refuses); run without --mesh.")
 PNM_MAGICS = (b"P5", b"P6")
 
 
@@ -144,8 +145,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="With --batch > 1: how long a request waits "
                              "for companions before running short.")
     parser.add_argument("--mesh", action="store_true",
-                        help="Serve over a device mesh: not ported yet "
-                             "(ROADMAP A.14); exits 2.")
+                        help="Serve over the device mesh: batches split "
+                             "across the mesh batch axis and image rows "
+                             "over the tile axis (the stm-video --mesh "
+                             "program behind the HTTP face).")
     parser.add_argument("--pipeline-depth", type=int, default=2,
                         metavar="N",
                         help="1 = synchronous batcher (gather, enqueue, "
@@ -230,8 +233,10 @@ class _Job:
 
 
 class _Engine:
-    """The device side: one frame estimator per (refine, speckle) key,
-    built once, every one on one CUDA stream, enqueued under one lock.
+    """The device side: one frame estimator per (refine, speckle) key (and
+    per frame geometry with ``--mesh``, whose row tiles follow the
+    height), built once, every one on one CUDA stream, enqueued under
+    one lock.
 
     ``enqueue`` stages a batch, enqueues its frames, narrows the result
     and enqueues its copy to pinned host memory, all under ``lock``;
@@ -243,39 +248,54 @@ class _Engine:
     def __init__(self, args):
         import torch
         self.args = args
-        self.fns = {}                     # (refine, speckle) -> estimator
+        self.fns = {}                     # key -> estimator
         self.lock = threading.Lock()      # enqueueing device work
         self._build_lock = threading.Lock()
         self.device = torch.device(args.device)
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
 
-    def estimator(self, refine: bool, speckle: bool):
+    def estimator(self, job):
+        """The estimator of a job's key; with ``--mesh`` every chunk it
+        runs fills its ``batch_multiple`` (the mesh's batch axis)."""
+        key = job.key if self.args.mesh else (job.refine, job.speckle)
         with self._build_lock:
-            if (refine, speckle) not in self.fns:
-                from ..cli_common import STREAM_REDUCERS
-                from ..stream import StreamingEstimator
-                a = self.args
-                self.fns[refine, speckle] = StreamingEstimator(
-                    a.max_disparity, batch=1, cost=a.cost_method,
-                    cost_dtype=a.dtype, census_window=a.census_window,
-                    aggregation=a.aggregation_method,
-                    reducer=STREAM_REDUCERS[a.disparity_method],
-                    penalty1=a.p1, penalty2=a.p2, cvf_radius=a.cvf_radius,
-                    cvf_eps=a.cvf_eps, backend=a.backend,
-                    pyramid_levels=a.pyramid, median=refine,
-                    subpixel=refine, lr_check=a.lr_check,
-                    lr_mode=a.lr_mode, weighted_median=a.wmf,
-                    wmf_sigma=a.wmf_sigma, fgs_lambda=a.fgs,
-                    fgs_sigma=a.fgs_sigma, speckle=speckle,
-                    speckle_fill="background", device=self.device,
-                    stream=self.stream)
-            return self.fns[refine, speckle]
+            if key not in self.fns:
+                self.fns[key] = self._build(job)
+            return self.fns[key]
+
+    def _build(self, job):
+        from ..cli_common import STREAM_REDUCERS, mesh_devices
+        from ..stream import StreamingEstimator
+        a = self.args
+        refine, speckle = job.refine, job.speckle
+        placement = dict(batch=1, device=self.device)
+        if a.mesh:
+            from .video import _pick_video_mesh
+            placement = dict(batch=max(a.batch, 1), mesh=_pick_video_mesh(
+                job.left.shape[0], 2 ** a.pyramid, mesh_devices(a.device)))
+        return StreamingEstimator(
+            a.max_disparity, cost=a.cost_method,
+            cost_dtype=a.dtype, census_window=a.census_window,
+            aggregation=a.aggregation_method,
+            reducer=STREAM_REDUCERS[a.disparity_method],
+            penalty1=a.p1, penalty2=a.p2, cvf_radius=a.cvf_radius,
+            cvf_eps=a.cvf_eps, backend=a.backend,
+            pyramid_levels=a.pyramid, median=refine,
+            subpixel=refine, lr_check=a.lr_check,
+            lr_mode=a.lr_mode, weighted_median=a.wmf,
+            wmf_sigma=a.wmf_sigma, fgs_lambda=a.fgs,
+            fgs_sigma=a.fgs_sigma, speckle=speckle,
+            speckle_fill="background", stream=self.stream,
+            **placement)
 
     @staticmethod
-    def enqueue_locked(est, lefts, rights):
-        """Under the lock: the batch's frames and its fetch enqueued."""
-        return est._fetch_async(est._dispatch(lefts, rights))
+    def enqueue_locked(est, lefts, rights, pad: int = 0):
+        """Under the lock: the batch's frames (``pad`` copies of the last
+        one after them, to fill a mesh's batch axis) and the fetch of the
+        real frames' results enqueued."""
+        out = est._dispatch(lefts, rights, pad)
+        return est._fetch_async(out[:len(lefts)] if pad else out)
 
     @staticmethod
     def wait(host, event) -> np.ndarray:
@@ -312,7 +332,7 @@ class _Batcher:
         self.queue = queue.SimpleQueue()
         self.batches = 0
         self.batched_frames = 0
-        self.padded_frames = 0           # /healthz field: chunks are exact
+        self.padded_frames = 0           # frames added to fill a mesh
         self.device_s = 0.0              # enqueue -> host-result seconds
         self.queue_s = 0.0               # request arrival -> enqueue
         self.eff_batch = self.max_batch
@@ -351,7 +371,7 @@ class _Batcher:
 
     def estimate(self, left, right, refine: bool, speckle: bool = False):
         job = _Job(left, right, refine, speckle)
-        if self.eff_batch <= 2:
+        if self.eff_batch <= 2 and not self.args.mesh:
             return self._estimate_direct(job)
         self.queue.put(job)
         if not job.done.wait(timeout=self.args.request_timeout_s):
@@ -433,16 +453,19 @@ class _Batcher:
 
     def _fn(self, job):
         """The frame estimator of one job's key."""
-        return self.engine.estimator(job.refine, job.speckle)
+        return self.engine.estimator(job)
 
     @staticmethod
-    def _chunk_sizes(n: int, cap: int):
-        """Decompose a group of n into power-of-two batch sizes up to
-        ``cap``, largest first: no frame is padded (the JAX module pads
-        only to fill a mesh's batch axis)."""
+    def _chunk_sizes(n: int, cap: int, multiple: int = 1):
+        """Decompose a group of n into power-of-two batch sizes (times the
+        mesh's batch ``multiple``) up to ``cap``, largest first: no frame
+        is padded but the last chunk's, to fill a mesh's batch axis."""
         sizes = []
         while n > 0:
-            b = 1
+            if n < multiple:
+                sizes.append(multiple)           # the ragged mesh pad
+                break
+            b = multiple
             while b * 2 <= min(n, cap):
                 b *= 2
             sizes.append(b)
@@ -460,11 +483,16 @@ class _Batcher:
         fetches = []
         i = 0
         with self.engine.lock:
-            for size in self._chunk_sizes(len(group), self.max_batch):
+            for size in self._chunk_sizes(len(group), self.max_batch,
+                                          est.batch_multiple):
                 chunk = group[i:i + size]
                 i += size
+                pad = size - len(chunk)
+                with self._stats_lock:
+                    self.padded_frames += pad
                 fetches.append(self.engine.enqueue_locked(
-                    est, [j.left for j in chunk], [j.right for j in chunk]))
+                    est, [j.left for j in chunk], [j.right for j in chunk],
+                    pad))
         return now, batch_queue_s, fetches
 
     def _finish(self, group, out):
@@ -660,10 +688,10 @@ class _State:
         if self.batcher is not None:
             out = self.batcher.estimate(left, right, refine, speckle)
         else:
-            est = self.engine.estimator(refine, speckle)
+            est = self.engine.estimator(_Job(left, right, refine, speckle))
             with self.engine.lock:
-                host, event = self.engine.enqueue_locked(est, [left],
-                                                         [right])
+                host, event = self.engine.enqueue_locked(
+                    est, [left], [right], est.batch_multiple - 1)
             out = self.engine.wait(host, event)[0]
         if count:
             with self.lock:
@@ -755,6 +783,16 @@ def _make_handler(state: _State):
                 pair = split_side_by_side(gray)
                 left = np.ascontiguousarray(pair.left)
                 right = np.ascontiguousarray(pair.right)
+                a = state.args
+                if a.mesh and a.pyramid:
+                    # The sharded pyramid pools 2x2 inside each tile: a
+                    # frame it cannot pool is the client's fault.
+                    scale = 2 ** a.pyramid
+                    h, w = left.shape
+                    if h % scale or w % scale:
+                        raise ValueError(
+                            f"--mesh --pyramid {a.pyramid} needs frame "
+                            f"sides divisible by {scale}; got {h}x{w}")
             except Exception as exc:     # noqa: BLE001 — client fault
                 self._reply(400, json.dumps({"error": str(exc)}).encode())
                 return
@@ -792,7 +830,9 @@ def make_server(args) -> ThreadingHTTPServer:
     port when ``--port 0`` asked for an ephemeral one, and
     ``server_close`` stops every thread the server started."""
     if args.mesh:
-        raise ValueError(MESH_REFUSAL)
+        from ..parallel.mesh import MULTI_PROCESS_REFUSAL, process_count
+        if process_count() > 1:
+            raise ValueError(MULTI_PROCESS_REFUSAL)
     if args.batch < 1:
         raise ValueError("--batch must be >= 1")
     if args.dtype == "auto":
@@ -831,8 +871,10 @@ def make_server(args) -> ThreadingHTTPServer:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.mesh:
-        print(MESH_REFUSAL, file=sys.stderr)
-        return 2
+        from ..parallel.mesh import MULTI_PROCESS_REFUSAL, process_count
+        if process_count() > 1:
+            print(MULTI_PROCESS_REFUSAL, file=sys.stderr)
+            return 2
     if args.wmf and args.pyramid > 0:
         print("--wmf is incompatible with --pyramid (the band stage has "
               "no integer disparity/bin range to median over).",

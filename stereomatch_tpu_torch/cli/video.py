@@ -21,8 +21,12 @@ It runs on the card (``--device cuda``, the default) or on the CPU
 ``stream.StreamingEstimator`` (N frames a step, ``--depth`` steps in
 flight); without it each frame runs through the pipeline on its own
 (``--temporal`` tracks disparity across frames).  ``--backend`` takes
-the port's names (``cuda``, ``torch``, ``auto``).  ``--mesh`` is not
-ported yet (ROADMAP A.14) and exits 2.
+the port's names (``cuda``, ``torch``, ``auto``).  ``--mesh`` runs the
+row-sharded pipeline over every visible card (``--device cuda``) or
+``cli_common.MESH_CPU_DEVICES`` CPU devices (``--device cpu``): frames
+over the mesh's batch axis and up to 4 row tiles that divide the frame
+height; with ``--temporal`` the tracker over row tiles alone.  A mesh
+over more than one process is refused (exit 2, ROADMAP A.14).
 """
 
 import argparse
@@ -30,10 +34,6 @@ import pickle
 import sys
 
 import numpy as np
-
-MESH_REFUSAL = ("--mesh is not ported to stereomatch_tpu_torch yet "
-                "(ROADMAP A.14: the mesh CLIs build a multi-host mesh, "
-                "which the port refuses); run without --mesh.")
 
 
 def _print_instructions() -> None:
@@ -89,8 +89,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Result-fetch threads (effective concurrency "
                              "min(N, --depth)).")
     parser.add_argument("--mesh", action="store_true",
-                        help="Sharded mesh pipeline: not ported yet "
-                             "(ROADMAP A.14); exits 2.")
+                        help="Run frames through the sharded mesh pipeline: "
+                             "frames split over the mesh batch axis, image "
+                             "rows over the tile axis (every visible card, "
+                             "or 8 CPU devices with --device cpu).  With "
+                             "--temporal, row-shard the tracker on a "
+                             "tile-only mesh instead.")
     parser.add_argument("--sgm-mode", choices=("exact", "overlap"),
                         default="exact",
                         help="Mesh-mode SGM scan splitting strategy.")
@@ -174,9 +178,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refusal(args):
     """The message of a refused combination of options, or None (the JAX
-    CLI's checks, in its order, after the port's --mesh refusal)."""
+    CLI's checks, in its order, after the port's refusal of a mesh over
+    more than one process)."""
     if args.mesh:
-        return MESH_REFUSAL
+        from ..parallel.mesh import MULTI_PROCESS_REFUSAL, process_count
+        if process_count() > 1:
+            return MULTI_PROCESS_REFUSAL
     if args.wmf and args.pyramid > 0:
         return ("--wmf is incompatible with --pyramid (the band stage has "
                 "no integer disparity/bin range to median over).")
@@ -192,8 +199,87 @@ def _refusal(args):
                 "path; post-filter offline instead).")
     if args.temporal and (args.batch is not None or args.refine):
         return ("--temporal is a stateful per-frame path; it is "
-                "incompatible with --batch/--refine.")
+                "incompatible with --batch/--refine (row-shard each frame "
+                "with --mesh).")
     return None
+
+
+def _pick_video_mesh(height: int, scale: int, devices):
+    """(batch, tile) mesh for video: up to 4 devices shard image rows (the
+    latency axis; the tile count must divide the device count and the
+    frame height), the rest batch frames (the throughput axis).
+    ``scale`` > 1 (the pyramid's 2**levels) also keeps each tile's
+    height divisible by it, so 2x2 pooling never splits a row pair."""
+    from ..parallel.mesh import make_hybrid_mesh
+    n = len(devices)
+    n_tile, t = 1, 2
+    while t <= min(n, 4):
+        if n % t == 0 and height % (t * scale) == 0:
+            n_tile = t
+        t *= 2
+    return make_hybrid_mesh(n_tile=n_tile, devices=devices)
+
+
+def _pick_temporal_mesh(height: int, scale: int, devices):
+    """Tile-only mesh for --temporal --mesh: the tracker is stateful per
+    frame (no frame batching), so every usable device shards image rows
+    (up to 4 tiles that divide the height, times ``scale``)."""
+    from ..parallel.mesh import make_mesh
+    n = len(devices)
+    n_tile, t = 1, 2
+    while t <= min(n, 4):
+        if height % (t * scale) == 0:
+            n_tile = t
+        t *= 2
+    return make_mesh(devices[:n_tile], n_batch=1)
+
+
+class _FnEstimator:
+    """Adapter giving a mesh program the ``estimate`` surface
+    TemporalPipeline expects of a keyframe."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def estimate(self, left, right):
+        return self._fn(left, right)
+
+
+class _ReplayFirst:
+    """Capture wrapper re-yielding an already-read first frame (the mesh
+    paths peek at it to size the tile axis)."""
+
+    def __init__(self, capture, first):
+        self._capture = capture
+        self._first = first
+
+    def read_next(self):
+        if self._first is not None:
+            first, self._first = self._first, None
+            return True, first
+        return self._capture.read_next()
+
+    def close(self):
+        self._capture.close()
+
+
+def _peek_first_frame(capture, pyramid_levels: int):
+    """Read one frame to size a mesh; returns (height, capture', error):
+    ``capture'`` re-yields the frame, ``error`` a message when the stream
+    is empty or the frame's sides do not divide by 2**pyramid_levels
+    (the sharded pyramid pools 2x2 inside each tile)."""
+    ok, first = capture.read_next()
+    if not ok:
+        return None, capture, "empty stream"
+    gray = (first if not hasattr(first, "to_grayscale")
+            else first.to_grayscale())
+    height, width = np.asarray(gray.left).shape
+    scale = 2 ** pyramid_levels
+    if pyramid_levels and (height % scale or width % scale):
+        return None, capture, (
+            f"--mesh --pyramid {pyramid_levels} needs frame sides "
+            f"divisible by {scale}; got {height}x{width}.")
+    return height, _ReplayFirst(capture, first), None
 
 
 def _open_capture(args):
@@ -241,15 +327,27 @@ def _save_depth(out_dir, index: int, rgb) -> None:
 
 
 def _run_batched(args, capture, rectifier, headless, out_dir) -> int:
-    """--batch: the StreamingEstimator over the capture."""
-    from ..cli_common import STREAM_REDUCERS
+    """--batch / --mesh: the StreamingEstimator over the capture, on one
+    device or over the mesh."""
+    from ..cli_common import STREAM_REDUCERS, mesh_devices
     from ..stream import StreamingEstimator
     from ..utils.viz import colorize_disparity
 
     if rectifier is not None:
         capture = _RectifiedCapture(capture, rectifier)
+    placement = dict(batch=args.batch, device=args.device)
+    if args.mesh:
+        height, capture, err = _peek_first_frame(capture, args.pyramid)
+        if err:
+            print(err, file=sys.stderr)
+            return 2 if "divisible" in err else 1
+        placement = dict(
+            batch=args.batch or 0, sgm_mode=args.sgm_mode,
+            overlap=args.overlap,
+            mesh=_pick_video_mesh(height, 2 ** args.pyramid,
+                                  mesh_devices(args.device)))
     estimator = StreamingEstimator(
-        args.max_disparity, batch=args.batch, depth=args.depth,
+        args.max_disparity, depth=args.depth,
         fetch_workers=args.fetch_workers, cost=args.cost_method,
         aggregation=args.aggregation_method,
         reducer=STREAM_REDUCERS[args.disparity_method], penalty1=args.p1,
@@ -263,7 +361,7 @@ def _run_batched(args, capture, rectifier, headless, out_dir) -> int:
         lr_mode=args.lr_mode, weighted_median=args.wmf,
         wmf_sigma=args.wmf_sigma, fgs_lambda=args.fgs,
         fgs_sigma=args.fgs_sigma, speckle=args.speckle,
-        speckle_fill=args.speckle_fill, device=args.device)
+        speckle_fill=args.speckle_fill, **placement)
 
     do_quit = False
     frame_idx = 0
@@ -297,16 +395,33 @@ def _run_batched(args, capture, rectifier, headless, out_dir) -> int:
     return 0
 
 
-def _build_pipeline(args):
+def _build_pipeline(args, mesh=None):
     """The per-frame pipeline: the pyramid, the flat registry pipeline, and
-    with --temporal the tracker around either as its keyframe."""
-    from ..cli_common import create_pipeline
-    if args.pyramid > 0:
+    with --temporal the tracker around either as its keyframe; with a
+    (tile-only) ``mesh`` the keyframe and the tracker are row-sharded."""
+    from ..cli_common import STREAM_REDUCERS, create_pipeline
+    band = args.band_radius if args.band_radius is not None else 24
+    if mesh is not None and args.pyramid > 0:
+        from ..parallel import make_pyramid_sharded_estimate
+        pipeline = _FnEstimator(make_pyramid_sharded_estimate(
+            mesh, max_disparity=args.max_disparity, levels=args.pyramid,
+            band_radius=band, cost_dtype=args.dtype, penalty1=args.p1,
+            penalty2=args.p2, sgm_mode=args.sgm_mode,
+            overlap=args.overlap, backend=args.backend))
+    elif mesh is not None:
+        from ..parallel import ShardedPipeline
+        pipeline = ShardedPipeline(
+            mesh, args.max_disparity, cost=args.cost_method,
+            aggregation=args.aggregation_method,
+            reducer=STREAM_REDUCERS[args.disparity_method],
+            penalty1=args.p1, penalty2=args.p2, cvf_radius=args.cvf_radius,
+            cvf_eps=args.cvf_eps, sgm_mode=args.sgm_mode,
+            overlap=args.overlap, backend=args.backend,
+            cost_dtype=args.dtype)
+    elif args.pyramid > 0:
         from ..pyramid import PyramidPipeline
         pipeline = PyramidPipeline(
-            args.max_disparity, levels=args.pyramid,
-            band_radius=(args.band_radius if args.band_radius is not None
-                         else 24),
+            args.max_disparity, levels=args.pyramid, band_radius=band,
             penalty1=args.p1, penalty2=args.p2, backend=args.backend,
             cost_dtype=args.dtype, device=args.device)
     else:
@@ -329,7 +444,7 @@ def _build_pipeline(args):
             keyframe_interval=args.keyframe_interval,
             drift_threshold=args.drift_threshold,
             penalty1=args.p1, penalty2=args.p2, backend=args.backend,
-            device=args.device)
+            mesh=mesh, device=args.device)
     return pipeline
 
 
@@ -343,9 +458,21 @@ def main(argv=None) -> int:
     from ..io.calibration import StereoRectifier
     from ..pipeline import host_array
 
-    batched = args.batch is not None
+    # The tracker is stateful frame to frame, so it batches no frames,
+    # but it can row-shard each one: --temporal --mesh runs it on a
+    # tile-only mesh instead of the batched estimator.
+    batched = (args.batch is not None or args.mesh) and not args.temporal
     capture = _open_capture(args)
-    pipeline = None if batched else _build_pipeline(args)
+    temporal_mesh = None
+    if args.temporal and args.mesh:
+        from ..cli_common import mesh_devices
+        height, capture, err = _peek_first_frame(capture, args.pyramid)
+        if err:
+            print(err, file=sys.stderr)
+            return 2 if "divisible" in err else 1
+        temporal_mesh = _pick_temporal_mesh(height, 2 ** args.pyramid,
+                                            mesh_devices(args.device))
+    pipeline = None if batched else _build_pipeline(args, temporal_mesh)
 
     rectifier = None
     if args.calib:

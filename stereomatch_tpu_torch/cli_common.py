@@ -28,6 +28,24 @@ VOLUME_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 STREAM_REDUCERS = {"wta": "wta", "dyn": "dynamic_programming"}
 
 
+# ``--mesh --device cpu``: the CPU devices of a CLI's mesh, as many as
+# the JAX package's tests run their CLIs over (the 8-device virtual CPU
+# mesh), so that the tiles, and the refusals that depend on them, match.
+MESH_CPU_DEVICES = 8
+
+
+def mesh_devices(device) -> list:
+    """The devices a CLI's ``--mesh`` lays out: every visible card under
+    ``--device cuda``, ``MESH_CPU_DEVICES`` CPU devices under ``--device
+    cpu``."""
+    if torch.device(device).type == "cpu":
+        return [torch.device("cpu")] * MESH_CPU_DEVICES
+    if not torch.cuda.is_available():
+        raise RuntimeError("--mesh on the card found no CUDA device; pass "
+                           "--device cpu to run the mesh on the CPU")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def _lookup(kind: str, name, registry: dict):
     if name in registry:
         return registry[name]

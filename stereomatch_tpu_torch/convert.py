@@ -5,9 +5,9 @@ stage's configuration (the cost's ``max_disparity``, ``kernel_size``,
 ``cost_volume_dtype`` (float32, bfloat16 or int32; Birchfield and
 SSDTexture have none: float32) and census ``window_size``, the SGM
 penalties, the guided filter's radius, eps, subsample and wedge
-offset, the reducer) and, for the row-sharded
-pipeline, the mesh layout (its configuration is taken under the same
-keywords on both sides); for ``PyramidPipeline`` and
+offset, the reducer) and, for the partitioners (row tiles, 2-D tiles,
+disparity blocks), the mesh layout (their configuration is taken under
+the same keywords on both sides); for ``PyramidPipeline`` and
 ``TemporalPipeline`` their settings and the keyframe pipeline; a
 ``tune.TuneResult`` is plain data.  It is read from the JAX objects by
 attribute and class name, so this module never imports JAX and works on
@@ -25,7 +25,9 @@ import torch
 from .aggregation import CostFilter, Semiglobal
 from .cost import NCC, SAD, SSD, Birchfield, Census, SSDTexture
 from .disparity_reduce import DynamicProgramming, WinnerTakesAll
+from .parallel.disp_sharded import DISP_AXIS, make_disp_mesh
 from .parallel.mesh import BATCH_AXIS, TILE_AXIS, Mesh, make_mesh
+from .parallel.tiled2d import TILE_W_AXIS, make_mesh_2d
 from .pipeline import Device, Pipeline, tensor_from_numpy
 from .pyramid import PyramidPipeline
 from .temporal import TemporalPipeline
@@ -118,6 +120,29 @@ def mesh_from_jax(jax_mesh, devices) -> Mesh:
         raise ValueError(f"the JAX mesh is {n_batch} x {n_tile}; got "
                          f"{len(devices)} torch devices")
     return make_mesh(devices, n_batch=n_batch)
+
+
+def mesh_2d_from_jax(jax_mesh, devices) -> Mesh:
+    """The (batch, tile, tile_w) layout of a JAX package 2-D tile mesh
+    (``make_mesh_2d``) laid over the given torch devices."""
+    shape = jax_mesh.shape
+    dims = [int(shape[a]) for a in (BATCH_AXIS, TILE_AXIS, TILE_W_AXIS)]
+    devices = list(devices)
+    if len(devices) != int(np.prod(dims)):
+        raise ValueError(f"the JAX mesh is {' x '.join(map(str, dims))}; "
+                         f"got {len(devices)} torch devices")
+    return make_mesh_2d(devices, *dims)
+
+
+def disp_mesh_from_jax(jax_mesh, devices) -> Mesh:
+    """The one-axis ``disp`` layout of a JAX package disparity-block mesh
+    (``make_disp_mesh``) laid over the given torch devices."""
+    n_disp = int(jax_mesh.shape[DISP_AXIS])
+    devices = list(devices)
+    if len(devices) != n_disp:
+        raise ValueError(f"the JAX mesh has {n_disp} disparity blocks; got "
+                         f"{len(devices)} torch devices")
+    return make_disp_mesh(devices)
 
 
 def pyramid_from_jax(jax_pyramid, device: Device = "cuda") -> PyramidPipeline:

@@ -28,7 +28,7 @@ from .utils.backend import resolve_backend
 
 
 def _diff_cost_dispatch(left, right, *, max_disparity, kernel_size,
-                        cost_dtype, absolute, backend):
+                        cost_dtype, absolute, backend, disparity_offset=0):
     if cost_dtype not in validation.COST_DTYPES:
         raise validation.DTypeError(
             f"cost_volume_dtype must be one of "
@@ -38,10 +38,11 @@ def _diff_cost_dispatch(left, right, *, max_disparity, kernel_size,
         return ssd_cuda.diff_cost_volume_cuda(
             left, right, max_disparity=max_disparity,
             kernel_size=kernel_size, cost_dtype=cost_dtype,
-            absolute=absolute)
+            absolute=absolute, disparity_offset=disparity_offset)
     fn = cost_ops.sad_cost_volume if absolute else cost_ops.ssd_cost_volume
     return fn(left, right, max_disparity=max_disparity,
-              kernel_size=kernel_size, cost_dtype=cost_dtype)
+              kernel_size=kernel_size, cost_dtype=cost_dtype,
+              disparity_offset=disparity_offset)
 
 
 class _DiffCost:

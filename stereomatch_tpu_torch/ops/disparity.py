@@ -2,7 +2,9 @@
 
 Port of ``stereomatch_tpu/ops/disparity.py``: ``winner_takes_all`` and
 the scanline dynamic programming (``dynamic_programming``,
-``dynamic_programming_with_paths``).  These are plain PyTorch and run on
+``dynamic_programming_with_paths``, and the chunk forms
+``dp_forward_chunk``/``dp_backward_chunk`` that the 2-D tiles hand
+across column tiles).  These are plain PyTorch and run on
 any device; for the DP they are the oracle of the CUDA kernels in
 ``ops/dp_cuda.py``.
 
@@ -38,10 +40,15 @@ def winner_takes_all(cost_volume: torch.Tensor) -> torch.Tensor:
     return torch.argmin(cost_volume, dim=2).to(torch.int32)
 
 
-def dp_forward(cost_volume: torch.Tensor):
-    """DP forward pass over a float32 [H, W, D] volume.
+def dp_forward_chunk(cost_volume: torch.Tensor, init_acc=None):
+    """DP forward pass over a chunk of columns of a float32 [H, Wc, D]
+    volume, exposing the accumulator (the JAX ``dp_forward_chunk``).
 
-    Returns (back-pointers int8 [H, W, D], final accumulator [H, D]).
+    ``init_acc`` [H, D] is the accumulator after the column left of the
+    chunk (the hand-off from the tile that holds those columns); None
+    marks the scanline start, where column 0 seeds from the raw cost and
+    gets pointer 0.  Returns (back-pointers int8 [H, Wc, D], final
+    accumulator [H, D]).
     """
     height, width, max_disp = cost_volume.shape
     cost = cost_volume.to(torch.float32)
@@ -52,8 +59,12 @@ def dp_forward(cost_volume: torch.Tensor):
     minus = torch.full((), -1, dtype=torch.int8, device=cost.device)
     zero = torch.full((), 0, dtype=torch.int8, device=cost.device)
     plus = torch.full((), 1, dtype=torch.int8, device=cost.device)
-    acc = cost[:, 0].clone()
-    for w in range(1, width):
+    if init_acc is None:
+        acc, first = cost[:, 0].clone(), 1
+    else:
+        acc, first = init_acc.to(device=cost.device,
+                                 dtype=torch.float32), 0
+    for w in range(first, width):
         c1 = torch.cat([inf_col, acc[:, :-1]], dim=1)        # acc[d-1]
         c2 = acc
         c3 = torch.cat([acc[:, 1:], inf_col], dim=1)         # acc[d+1]
@@ -64,25 +75,52 @@ def dp_forward(cost_volume: torch.Tensor):
     return ptr, acc
 
 
+def dp_forward(cost_volume: torch.Tensor):
+    """DP forward pass over a float32 [H, W, D] volume.
+
+    Returns (back-pointers int8 [H, W, D], final accumulator [H, D]).
+    """
+    return dp_forward_chunk(cost_volume)
+
+
 def dp_end_disparities(final_costs: torch.Tensor) -> torch.Tensor:
     """Argmin of the final column per row, ties -> lowest d. int32 [H]."""
     return torch.argmin(final_costs, dim=1).to(torch.int32)
 
 
-def dp_backward(path_volume: torch.Tensor,
-                end_disparities: torch.Tensor) -> torch.Tensor:
-    """Right-to-left pointer walk from the end disparities. int32 [H, W]."""
+def dp_backward_chunk(path_volume: torch.Tensor, current: torch.Tensor,
+                      emit_current: bool):
+    """Right-to-left pointer walk over a chunk of columns (the JAX
+    ``dp_backward_chunk``).
+
+    ``current`` [H] is the disparity decided for the column right of the
+    chunk (the scanline end's argmin for the rightmost chunk).  With
+    ``emit_current`` (the rightmost chunk) it is written at the last
+    column and the walk reads pointer columns Wc-2..0; otherwise the
+    walk reads all Wc columns.  Returns (disparities int32 [H, Wc], the
+    leftmost decided disparity [H], the next chunk's ``current``).
+    """
     height, width, max_disp = path_volume.shape
     rows = torch.arange(height, device=path_volume.device)
     disp = torch.empty((height, width), dtype=torch.int32,
                        device=path_volume.device)
-    cur = end_disparities.to(torch.int64)
-    disp[:, width - 1] = cur.to(torch.int32)
-    for w in range(width - 2, -1, -1):
+    cur = current.to(device=path_volume.device, dtype=torch.int64)
+    last = width - 1
+    if emit_current:
+        disp[:, last] = cur.to(torch.int32)
+        last -= 1
+    for w in range(last, -1, -1):
         step = path_volume[rows, w, cur].to(torch.int64)
         cur = (cur + step).clamp(0, max_disp - 1)
         disp[:, w] = cur.to(torch.int32)
-    return disp
+    return disp, cur.to(torch.int32)
+
+
+def dp_backward(path_volume: torch.Tensor,
+                end_disparities: torch.Tensor) -> torch.Tensor:
+    """Right-to-left pointer walk from the end disparities. int32 [H, W]."""
+    return dp_backward_chunk(path_volume, end_disparities,
+                             emit_current=True)[0]
 
 
 def dynamic_programming(cost_volume: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .cost import compute_dtype
+from .cost import _inf_value, compute_dtype
 
 _ENTRIES = {torch.float32: "stm_ssd_f32", torch.int32: "stm_ssd_i32",
             torch.bfloat16: "stm_ssd_bf16"}
@@ -51,9 +51,19 @@ def fits(height: int, kernel_size: int) -> bool:
 
 def diff_cost_volume_cuda(left: torch.Tensor, right: torch.Tensor, *,
                           max_disparity: int, kernel_size: int,
-                          cost_dtype: torch.dtype,
-                          absolute: bool) -> torch.Tensor:
-    """SSD (``absolute=False``) or SAD cost volume [H, W, D] on the card."""
+                          cost_dtype: torch.dtype, absolute: bool,
+                          disparity_offset: int = 0) -> torch.Tensor:
+    """SSD (``absolute=False``) or SAD cost volume [H, W, D] on the card.
+
+    ``disparity_offset`` o > 0 gives the block of disparities [o, o + D)
+    (``ops.cost.ssd_cost_volume``'s ``disparity_offset``): one launch on
+    the cropped pair ``left[:, o:]``, ``right[:, :W - o]``, then o
+    columns of +inf in front of it (every disparity of the block passes
+    those columns), one copy of the volume.  The crop reads the same
+    nonzero window terms in the same order (a column c >= d + o of the
+    block is column c - o >= d of the crop), so the block equals the
+    plain version at the offset bit for bit.
+    """
     if not (left.is_cuda and right.is_cuda):
         raise ValueError("diff_cost_volume_cuda needs CUDA tensors, got "
                          f"{left.device} and {right.device}")
@@ -68,20 +78,35 @@ def diff_cost_volume_cuda(left: torch.Tensor, right: torch.Tensor, *,
                         f"got {cost_dtype}")
     if max_disparity < 1 or kernel_size < 1:
         raise ValueError("max_disparity and kernel_size must be positive")
+    if disparity_offset < 0:
+        raise ValueError(f"disparity_offset must be >= 0, got "
+                         f"{disparity_offset}")
     height, width = left.shape
     if height > _MAX_GRID_Y:
         raise ValueError(f"height {height} exceeds the kernel's "
                          f"{_MAX_GRID_Y}-row grid")
+    off = min(int(disparity_offset), width)
     cdt = compute_dtype(cost_dtype)
-    left_c = left.to(cdt).contiguous()
-    right_c = right.to(cdt).contiguous()
-    out = torch.empty((height, width, max_disparity), dtype=cost_dtype,
-                      device=left.device)
-    if out.numel() == 0:
+    left_c = left[:, off:].to(cdt).contiguous()
+    right_c = right[:, :width - off].to(cdt).contiguous()
+    out = torch.empty((height, width - off, max_disparity),
+                      dtype=cost_dtype, device=left.device)
+    if out.numel():
+        _launch(left_c, right_c, out, kernel_size, cost_dtype, absolute)
+    if not off:
         return out
+    wedge = torch.full((height, off, max_disparity), _inf_value(cost_dtype),
+                       dtype=cost_dtype, device=left.device)
+    return torch.cat([wedge, out], dim=1)
+
+
+def _launch(left_c, right_c, out, kernel_size, cost_dtype, absolute):
+    """One launch of the kernel: contiguous compute-dtype images into the
+    contiguous [H, W, D] ``out``, on the current stream."""
+    height, width, max_disparity = out.shape
     name = _ENTRIES[cost_dtype]
     fn = getattr(_build.library(), name)
-    with torch.cuda.device(left.device):
+    with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(left_c.data_ptr(), right_c.data_ptr(), out.data_ptr(),
                     height, width, max_disparity, kernel_size,
@@ -91,4 +116,3 @@ def diff_cost_volume_cuda(left: torch.Tensor, right: torch.Tensor, *,
                          "shared memory than one block has, even at the "
                          "smallest tile")
     _build.check_launch(name, status)
-    return out

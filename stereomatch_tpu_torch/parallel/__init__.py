@@ -1,28 +1,36 @@
 """Multi-device execution: device meshes, halo exchange and the
-row-sharded pipeline, the counterpart of ``stereomatch_tpu/parallel/``.
+partitioners, the counterpart of ``stereomatch_tpu/parallel/``.
 
-* ``mesh``    — a (batch, tile) grid of torch devices owned by one process:
-  ``batch`` data-parallel over frames, ``tile`` over image rows.  Devices
-  may repeat (several tiles on one card, or the CPU).
-* ``halo``    — edge-row exchange between neighbouring tiles by
-  cross-device copies, zero-filled at the ring ends.
+* ``mesh``    — grids of torch devices with named axes, owned by one
+  process: (batch, tile) for the row-sharded paths, ``batch``
+  data-parallel over frames and ``tile`` over image rows.  Devices may
+  repeat (several tiles on one card, or the CPU).  ``make_hybrid_mesh``
+  and ``initialize_distributed`` serve one process; more processes wait
+  for ROADMAP A.14.
+* ``halo``    — edge-slice exchange between neighbouring tiles along any
+  axis by cross-device copies, zero-filled at the ring ends.
 * ``sharded`` — the row-sharded pipeline: cost with image-row halos,
   8-path SGM with exact carry hand-off (the chunk kernel) or warm-up
-  overlap, WTA or scanline DP.
+  overlap, WTA or scanline DP, the post-processing.
 * ``pyramid_sharded``, ``temporal_sharded`` — the coarse-to-fine pyramid
   and the temporal tracking step over the same row tiles.
-
-The JAX package's other partitioners (2-D tiles, disparity blocks) and
-multi-host meshes are not ported yet (ROADMAP A.14).
+* ``disp_sharded`` — cost (+ CVF) + WTA with the disparity axis split
+  into blocks over a one-axis ``disp`` mesh.
+* ``tiled2d`` — 2-D image tiles over a (batch, tile, tile_w) mesh: SGM on
+  overlap-extended blocks, exact CVF, exact DP across column tiles.
 """
 
+from .disp_sharded import DISP_AXIS, make_disp_mesh, make_disp_sharded_wta
 from .mesh import (BATCH_AXIS, TILE_AXIS, Mesh, batch_tile_axes,
                    initialize_distributed, make_hybrid_mesh, make_mesh)
 from .pyramid_sharded import make_pyramid_sharded_estimate
 from .sharded import ShardedPipeline, make_sharded_estimate
 from .temporal_sharded import make_temporal_track_sharded
+from .tiled2d import TILE_W_AXIS, make_mesh_2d, make_tiled2d_estimate
 
-__all__ = ["BATCH_AXIS", "TILE_AXIS", "Mesh", "ShardedPipeline",
-           "batch_tile_axes", "initialize_distributed", "make_hybrid_mesh",
-           "make_mesh", "make_pyramid_sharded_estimate",
-           "make_sharded_estimate", "make_temporal_track_sharded"]
+__all__ = ["BATCH_AXIS", "DISP_AXIS", "TILE_AXIS", "TILE_W_AXIS", "Mesh",
+           "ShardedPipeline", "batch_tile_axes", "initialize_distributed",
+           "make_disp_mesh", "make_disp_sharded_wta", "make_hybrid_mesh",
+           "make_mesh", "make_mesh_2d", "make_pyramid_sharded_estimate",
+           "make_sharded_estimate", "make_temporal_track_sharded",
+           "make_tiled2d_estimate"]

@@ -13,7 +13,7 @@ crosses tiles is a point-to-point chain, which cross-device ``.to()``
 copies express and PyTorch orders against the streams of both devices.
 A device may repeat, so several tiles can share one card (or the CPU,
 as the tests run it); the same code runs over N cards unchanged.
-Multi-host layouts wait for ROADMAP A.14.
+Meshes of more than one process wait for ROADMAP A.14.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ import torch
 BATCH_AXIS = "batch"
 TILE_AXIS = "tile"
 
-_MULTI_HOST = ("multi-host meshes are not ported to stereomatch_tpu_torch "
-               "yet (ROADMAP A.14)")
+MULTI_PROCESS_REFUSAL = ("meshes over more than one process are not ported "
+                         "to stereomatch_tpu_torch yet (ROADMAP A.14)")
 
 
 def batch_tile_axes(n_devices: int, n_batch: Optional[int] = None):
@@ -49,24 +49,42 @@ def batch_tile_axes(n_devices: int, n_batch: Optional[int] = None):
 
 
 class Mesh:
-    """A [n_batch, n_tile] grid of torch devices.
+    """A grid of torch devices with named axes, by default the
+    [n_batch, n_tile] grid of the row-sharded pipeline.
 
-    ``devices[b][t]`` holds tile ``t`` (rows ``t*Hl .. (t+1)*Hl``) of the
-    frames of batch row ``b``; ``shape`` is keyed by axis name like the
-    JAX mesh's.
+    ``devices`` nests one tuple level per axis: ``devices[b][t]`` holds
+    tile ``t`` (rows ``t*Hl .. (t+1)*Hl``) of the frames of batch row
+    ``b``; a one-axis mesh (``make_disp_mesh``) is a tuple of devices and
+    the 2-D tile mesh (``make_mesh_2d``) a [batch][tile][tile_w] grid.
+    ``shape`` is keyed by axis name like the JAX mesh's.
     """
 
-    axis_names = (BATCH_AXIS, TILE_AXIS)
+    def __init__(self, devices, axis_names=(BATCH_AXIS, TILE_AXIS)):
+        self.axis_names = tuple(axis_names)
 
-    def __init__(self, devices: Sequence[Sequence[torch.device]]):
-        self.devices = tuple(tuple(torch.device(d) for d in row)
-                             for row in devices)
-        widths = {len(row) for row in self.devices}
-        if not self.devices or len(widths) != 1 or 0 in widths:
+        def grid(level, rank):
+            if rank == 0:
+                return torch.device(level)
+            return tuple(grid(item, rank - 1) for item in level)
+
+        def dims(level, rank):
+            if rank == 0:
+                return ()
+            inner = {dims(item, rank - 1) for item in level}
+            if not level or len(inner) != 1:
+                raise ValueError("a mesh is a non-empty rectangular grid "
+                                 "of devices")
+            return (len(level),) + inner.pop()
+
+        rank = len(self.axis_names)
+        if rank == 0:
+            raise ValueError("a mesh needs at least one axis")
+        self.devices = grid(devices, rank)
+        sizes = dims(self.devices, rank)
+        if 0 in sizes:
             raise ValueError("a mesh is a non-empty rectangular grid of "
                              "devices")
-        self.shape = {BATCH_AXIS: len(self.devices),
-                      TILE_AXIS: len(self.devices[0])}
+        self.shape = dict(zip(self.axis_names, sizes))
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={self.devices})"
@@ -98,12 +116,33 @@ def make_mesh(devices: Optional[Sequence] = None,
                  for b in range(n_batch)])
 
 
+def process_count() -> int:
+    """The processes of this job: ``torch.distributed``'s world when it is
+    initialised, else the ``WORLD_SIZE`` a launcher sets, else 1."""
+    import os
+
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1") or 1)
+
+
 def make_hybrid_mesh(n_batch_hosts: Optional[int] = None,
-                     n_tile: Optional[int] = None) -> Mesh:
-    """Batch over hosts, tiles within a host: not ported yet."""
-    raise NotImplementedError(_MULTI_HOST)
+                     n_tile: Optional[int] = None,
+                     devices: Optional[Sequence] = None) -> Mesh:
+    """Batch over hosts, tiles within a host.  In one process it is
+    :func:`make_mesh` over ``devices`` (default: every visible card), the
+    JAX package's single-host branch; more processes are refused."""
+    if process_count() > 1:
+        raise NotImplementedError(MULTI_PROCESS_REFUSAL)
+    return make_mesh(devices, n_batch=n_batch_hosts, n_tile=n_tile)
 
 
 def initialize_distributed(**kwargs) -> None:
-    """Multi-host process bootstrap: not ported yet."""
-    raise NotImplementedError(_MULTI_HOST)
+    """Multi-host process bootstrap.  With no coordinator (no initialised
+    ``torch.distributed`` and no ``WORLD_SIZE`` above 1) there is nothing
+    to set up and it returns, as the JAX package's does; more processes
+    are refused."""
+    del kwargs
+    if process_count() > 1:
+        raise NotImplementedError(MULTI_PROCESS_REFUSAL)

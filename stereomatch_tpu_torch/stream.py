@@ -191,10 +191,12 @@ class StreamingEstimator:
         self._compiled = None
         self._pipeline = None
         self._pyramid = None
+        # Every batch run fills this many frames or a multiple of it: the
+        # mesh's batch axis (1 without a mesh).
+        self.batch_multiple = 1
         if mesh is not None:
             from .parallel.mesh import BATCH_AXIS
-            n_batch = mesh.shape[BATCH_AXIS]
-            # Frames per step must fill the mesh batch axis exactly.
+            n_batch = self.batch_multiple = mesh.shape[BATCH_AXIS]
             self.batch = -(-max(batch, n_batch) // n_batch) * n_batch
             self.device = mesh.devices[0][0]
             if pyramid_levels > 0:

@@ -1307,3 +1307,67 @@ def test_compiled_replays_from_two_streams_do_not_race(device):
         assert len(results[i]) == 20
         for got in results[i]:
             assert torch.equal(got, want[i])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("offset", [0, 1, 5, 37, 53, 80])
+def test_ssd_kernel_at_a_disparity_offset_bit_equal(device, launches, dtype,
+                                                    offset):
+    """A disparity block (the crop launch and its +inf columns) equals the
+    plain version at the offset, SSD and SAD, offsets past the width
+    included (no launch: every cell beyond the wedge)."""
+    left, right = _images(37, 53, offset, device)
+    if dtype == torch.int32:
+        left, right = (left * 255).to(torch.int32), (right * 255).to(
+            torch.int32)
+    for absolute in (False, True):
+        kw = dict(max_disparity=24, kernel_size=3, cost_dtype=dtype,
+                  absolute=absolute, disparity_offset=offset)
+        got = ssd_cuda.diff_cost_volume_cuda(left, right, **kw)
+        want = cost_ops._diff_cost_volume(left, right, **kw)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert torch.equal(got, want)
+    assert sum(launches.values()) == (2 if offset < 53 else 0)
+
+
+def test_disparity_blocks_launch_their_kernels(device, launches):
+    """ssd and census+cvf over 4 blocks on one card: one SSD launch and
+    one CVF stats/filter pair a block, equal to the single-card paths."""
+    from stereomatch_tpu_torch.parallel import (make_disp_mesh,
+                                                make_disp_sharded_wta)
+    left, right, _ = stereo_pair(64, 96, 32, seed=3)
+    left, right = (torch.from_numpy(x).to(device) for x in (left, right))
+    mesh = make_disp_mesh([device] * 4)
+    out = make_disp_sharded_wta(mesh, max_disparity=32, kernel_size=3)(
+        left, right)
+    pipe = cli_common.create_pipeline("ssd", "wta", None, max_disparity=32,
+                                      kernel_size=3)
+    assert torch.equal(out, pipe.estimate(left, right))
+    assert launches["stm_ssd_f32"] >= 4
+    launches.clear()
+    out = make_disp_sharded_wta(mesh, max_disparity=32, cost="census",
+                                aggregation="cvf", cvf_radius=4)(left, right)
+    assert launches["stm_cvf_stats_f32"] == 4
+    assert launches["stm_cvf_filter_f32"] == 4
+    pipe = cli_common.create_pipeline("census", "wta", "cvf",
+                                      max_disparity=32, cvf_radius=4)
+    assert torch.equal(out, pipe.estimate(left, right))
+
+
+def test_2d_tiles_launch_their_kernels(device, launches):
+    """ssd+sgm+wta over (1, 2, 2) tiles on one card at a covering
+    overlap: one SSD launch and the SGM families on each tile, equal to
+    the single-card path."""
+    from stereomatch_tpu_torch.parallel import (make_mesh_2d,
+                                                make_tiled2d_estimate)
+    left, right, _ = stereo_pair(64, 96, 32, seed=3)
+    fn = make_tiled2d_estimate(make_mesh_2d([device] * 4, 1, 2, 2),
+                               max_disparity=32, kernel_size=3, overlap=96)
+    out = fn(left[None], right[None])[0]
+    assert launches["stm_ssd_f32"] == 4
+    assert launches["stm_sgm_rows_f32"] == 24
+    assert launches["stm_sgm_horizontal_f32"] == 8
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=32,
+                                      kernel_size=3)
+    assert torch.equal(out, pipe.estimate(left, right, device="cuda"))

@@ -3,9 +3,11 @@ end to end on the CPU: in-process servers on an ephemeral port, a stdlib
 client, synthetic side-by-side frames (32x48 halves, D=16).
 
 Each test of ``tests/test_serve_cli.py`` has its counterpart here (the
-``--mesh`` ones become "exits 2 naming ROADMAP A.14"), its responses held
-against the port's local pipeline and, for the integer disparities,
-against the JAX package's pipeline; the port's ``npy`` responses equal
+``--mesh`` ones over the 8 CPU devices of ``--device cpu``, as JAX's
+over its 8-device CPU mesh; only a mesh over more than one process exits
+2 naming ROADMAP A.14), its responses held against the port's local
+pipeline and, for the integer disparities, against the JAX package's
+pipeline and mesh batcher; the port's ``npy`` responses equal
 the JAX server's ``_encode`` bytes and its ``png16``/``png`` responses
 decode to the JAX server's pixels.  Every server and batcher is closed
 after its test, and closing one leaves no thread of it behind.
@@ -526,13 +528,94 @@ def test_warmup_builds_every_flag_combo():
         srv.server_close()
 
 
-def test_mesh_exits_2_naming_the_roadmap_item(capsys):
-    """The JAX mesh-serving tests' counterpart: --mesh is refused."""
+def test_mesh_exits_2_naming_the_roadmap_item(capsys, monkeypatch):
+    """A mesh over more than one process (a launcher's WORLD_SIZE) waits
+    for ROADMAP A.14; one process serves (the tests below)."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
     assert serve.main([str(D), "--mesh", "--device", "cpu"]) == 2
     assert "A.14" in capsys.readouterr().err
     with pytest.raises(ValueError, match="A.14"):
         make_server(_args("--port", "0", "--batch", "2", "--mesh",
                           "--pyramid", "2"))
+
+
+def test_batcher_mesh_mode_matches_jax_and_single_chip():
+    """``tests/test_serve_cli.py:364``: --mesh runs requests through the
+    sharded program (frames over the batch axis, rows over 4 tiles),
+    padding a lone request to fill the batch axis; each answer equals
+    the JAX mesh batcher's and the local pipeline's (refined ones
+    ``estimate_refined``'s), concurrent mixed keys included."""
+    args = _args("--batch", "4", "--mesh", "--linger-ms", "50")
+    batcher = _make_batcher(args)
+    left, right, _ = synthetic_stereo_pair(32, 48, D, seed=7)
+    left, right = left.astype(np.float32), right.astype(np.float32)
+    out = np.asarray(batcher.estimate(left, right, refine=False))
+    jax_args = jax_serve.build_parser().parse_args(
+        [str(D), "--backend", "xla", "--batch", "4", "--mesh",
+         "--linger-ms", "50"])
+    jax_batcher = jax_serve._Batcher(jax_args)
+    try:
+        ref = np.asarray(jax_batcher.estimate(left, right, refine=False))
+    finally:
+        jax_batcher.close()
+    np.testing.assert_array_equal(out, ref)
+    assert batcher.padded_frames == 1            # 1 frame, batch axis 2
+    pipe = create_pipeline("census", "wta", "sgm", max_disparity=D,
+                           device="cpu")
+    np.testing.assert_array_equal(out.astype(np.int32),
+                                  pipe.estimate(left, right).numpy())
+    refined = pipe.estimate_refined(left, right).numpy()
+    results = [None] * 5
+
+    def client(i):
+        results[i] = np.asarray(batcher.estimate(left, right,
+                                                 refine=i % 2 == 1))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(5)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    for i, got in enumerate(results):
+        want = refined if i % 2 else out
+        np.testing.assert_array_equal(got, want)
+
+
+def test_mesh_server_answers_as_the_jax_mesh_server(running, scene):
+    """An unbatched --mesh server over HTTP: png16 and npy responses
+    equal the JAX --mesh server's."""
+    body = scene[0]
+    srv = running("--mesh")
+    jax_srv = jax_serve.make_server(jax_serve.build_parser().parse_args(
+        [str(D), "--port", "0", "--backend", "xla", "--mesh"]))
+    thread = threading.Thread(target=jax_srv.serve_forever)
+    thread.start()
+    try:
+        jax_url = f"http://127.0.0.1:{jax_srv.server_port}"
+        for fmt in ("npy", "png16"):
+            got, _ = _post(f"{srv.url}/estimate?format={fmt}", body)
+            want, _ = _post(f"{jax_url}/estimate?format={fmt}", body)
+            if fmt == "npy":
+                np.testing.assert_array_equal(np.load(io.BytesIO(got)),
+                                              np.load(io.BytesIO(want)))
+            else:
+                np.testing.assert_array_equal(png.decode(got).array,
+                                              png.decode(want).array)
+    finally:
+        jax_srv.shutdown()
+        jax_srv.server_close()
+        thread.join(60)
+
+
+def test_mesh_pyramid_rejects_indivisible_frames(running):
+    """``tests/test_serve_cli.py:507``: --mesh --pyramid 2 answers a
+    30x34 frame with 400 "divisible", as the JAX server does."""
+    srv = running("--batch", "2", "--mesh", "--pyramid", "2",
+                  "--linger-ms", "0")
+    body = png.encode(np.zeros((30, 68), np.uint8))
+    err = _http_error(f"{srv.url}/estimate?format=npy", body)
+    assert err.code == 400
+    assert "divisible" in json.loads(err.read())["error"]
 
 
 def test_serve_cvf_batched_matches_local_pipeline(running, scene):

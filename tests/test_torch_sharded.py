@@ -92,7 +92,7 @@ def _single(pair, reducer="wta", cost="ssd"):
     return pipe.estimate(left[0], right[0]).numpy()
 
 
-def test_batch_tile_axes_and_mesh_layout(jax_mesh, mesh):
+def test_batch_tile_axes_and_mesh_layout(jax_mesh, mesh, monkeypatch):
     for n in range(1, 17):
         assert batch_tile_axes(n) == jax_axes(n)
         for n_batch in (1, 2, 4):
@@ -107,13 +107,37 @@ def test_batch_tile_axes_and_mesh_layout(jax_mesh, mesh):
     assert make_mesh([CPU]).shape == {"batch": 1, "tile": 1}
     with pytest.raises(ValueError, match="torch devices"):
         convert.mesh_from_jax(jax_mesh, [CPU] * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
-        make_hybrid_mesh()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
-        initialize_distributed()
+    # One process: JAX's single-host branches (make_mesh; no bootstrap).
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert initialize_distributed() is None
+    hybrid = make_hybrid_mesh(n_tile=4, devices=[CPU] * 8)
+    assert hybrid.shape == mesh.shape and hybrid.devices == mesh.devices
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh()                  # no CPU fallback
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_hybrid_mesh()
+    # More processes wait for ROADMAP A.14 (the multi-process slice).
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
+        make_hybrid_mesh(devices=[CPU] * 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
+        initialize_distributed()
+
+
+def test_mesh_is_a_grid_of_any_rank():
+    """The 2-axis (batch, tile) form is the default; one axis (disparity
+    blocks) and three (2-D tiles) nest one tuple level per axis; a grid
+    that is not rectangular is refused."""
+    from stereomatch_tpu_torch.parallel import Mesh
+    one = Mesh([CPU] * 3, axis_names=("disp",))
+    assert one.shape == {"disp": 3} and one.devices == (CPU,) * 3
+    three = Mesh([[[CPU] * 2] * 3] * 1, axis_names=("b", "t", "w"))
+    assert three.shape == {"b": 1, "t": 3, "w": 2}
+    assert Mesh([[CPU, CPU]]).axis_names == ("batch", "tile")
+    for bad in ([[CPU, CPU], [CPU]], [], [[]]):
+        with pytest.raises(ValueError, match="rectangular"):
+            Mesh(bad)
 
 
 def test_halo_exchange_matches_the_whole_axis():

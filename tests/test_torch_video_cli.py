@@ -8,9 +8,13 @@ the pixels of the JAX CLI's on the same frames and flags (``--backend
 xla`` there, ``--device cpu`` here).  The JAX CLI's ``y4m`` mode needs
 its native library, built in place (a race under several test workers),
 so the port's ``y4m`` mode is held against its own ``imgdir`` mode on
-the same frames instead.  The refused combinations exit 2 as in JAX,
-and ``--mesh`` exits 2 naming ROADMAP A.14.  The q/h/i/w/e/r key
-contract is driven through a stand-in for OpenCV.
+the same frames instead.  ``--mesh`` (its batched, pyramid, refine,
+speckle and ``--temporal`` forms: ``tests/test_video_cli.py:77,149,194,
+211,247``) runs over the 8 CPU devices of ``--device cpu``, as the JAX
+CLI over its 8-device CPU mesh, and gives the JAX CLI's PNGs; only a
+mesh over more than one process exits 2 naming ROADMAP A.14.  The
+refused combinations exit 2 as in JAX.  The q/h/i/w/e/r key contract is
+driven through a stand-in for OpenCV.
 """
 
 import shutil
@@ -82,6 +86,13 @@ CASES = {
                                    "--speckle-fill", "background",
                                    "--batch", "2"],
     "bf16-batched": ["-am", "sgm", "--dtype", "bfloat16", "--batch", "4"],
+    "mesh": ["-am", "sgm", "--mesh"],
+    "mesh-pyramid": ["--mesh", "--pyramid", "1"],
+    "mesh-refine": ["--mesh", "-am", "sgm", "--refine"],
+    "mesh-speckle": ["--mesh", "--speckle"],
+    "temporal-mesh": ["--temporal", "--mesh", "--keyframe-interval", "3"],
+    "temporal-mesh-pyramid": ["--temporal", "--mesh", "--pyramid", "1",
+                              "--keyframe-interval", "3"],
 }
 
 
@@ -140,11 +151,29 @@ def test_refused_combinations_exit_2_as_in_jax(flags, tmp_path, capsys):
     assert "incompatible" in capsys.readouterr().err
 
 
-def test_mesh_exits_2_naming_the_roadmap_item(tmp_path, capsys):
+def test_mesh_exits_2_naming_the_roadmap_item(tmp_path, capsys,
+                                              monkeypatch):
+    """A mesh over more than one process (a launcher's WORLD_SIZE) waits
+    for ROADMAP A.14; one process runs (``test_outputs_equal_jax_cli``)."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
     for extra in ([], ["--temporal"], ["--batch", "4"]):
         assert video.main(["y4m", str(tmp_path / "missing.y4m"), str(D),
                            "--mesh", *extra, "--headless"]) == 2
         assert "A.14" in capsys.readouterr().err
+
+
+def test_mesh_pyramid_refuses_indivisible_frames(tmp_path, capsys):
+    """``--mesh --pyramid 2`` on 30x34 halves exits 2 as the JAX CLI."""
+    frames = tmp_path / "odd"
+    frames.mkdir()
+    png.write(frames / "f.png", np.zeros((30, 68), np.uint8))
+    for flags in (["--mesh"], ["--mesh", "--temporal"]):
+        argv = ["imgdir", str(frames), str(D), "--pyramid", "2", *flags,
+                "--headless", "--output-dir", str(tmp_path / "out")]
+        assert jax_video_main(argv + ["--backend", "xla"]) == 2
+        capsys.readouterr()
+        assert video.main(argv + ["--device", "cpu"]) == 2
+        assert "divisible by 4" in capsys.readouterr().err
 
 
 class _FakeCv2(types.ModuleType):
