@@ -86,6 +86,15 @@ with the launch counts set to 0 just before it and read just after:
   over (1, 3, 3) (census+cvf+wta), each against the single-card path
   and launching its kernels; ``stm-video --mesh`` and ``stm-serve
   --mesh`` against the card's paths;
+* the batch axis over two processes (``check_distributed``): two worker
+  processes of this script (``--distributed-worker RANK HOST:PORT``) in
+  a gloo ``torch.distributed`` world, teddy over a (2, 5) and HD over a
+  (2, 4) hybrid mesh on ``cuda:(rank % cards)``, each rank's frame equal
+  to the single card at 0 pixels (rank 0's teddy frame also to the
+  goldens) in exact, overlap and DP with the launches a frame stated,
+  and ``sgm_mode="auto"`` equal to the mode it resolved to; then the
+  carry copy, a hand-off stage and the card's copy rate behind
+  ``parallel/ici_model.py``'s defaults;
 
 times kernels, plain versions, pipelines, each post-processing flag set,
 the cost-family paths and their cost stages and the float32/bf16
@@ -105,6 +114,7 @@ from __future__ import annotations
 import collections
 import io
 import json
+import socket
 import statistics
 import subprocess
 import sys
@@ -220,6 +230,56 @@ PARTITION_WARMUP, PARTITION_REPS = 1, 5
 # The card's published rates (NVIDIA H100 SXM data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+
+
+# Each kernel's C entry points, whose launches _build.LAUNCHES counts.
+COUNTERS = {"ssd": ("stm_ssd_f32", "stm_ssd_i32"),
+            "sgm_rows": ("stm_sgm_rows_f32",),
+            "sgm_chunk": ("stm_sgm_chunk_f32",),
+            "sgm_horizontal": ("stm_sgm_horizontal_f32",),
+            "dp_forward": ("stm_dp_forward_f32",),
+            "dp_backward": ("stm_dp_backward",),
+            "cvf": ("stm_cvf_stats_f32",),
+            "cvf_filter": ("stm_cvf_filter_f32",),
+            "ssd_bf16": ("stm_ssd_bf16",),
+            "sgm_rows_bf16": ("stm_sgm_rows_bf16",),
+            "sgm_chunk_bf16": ("stm_sgm_chunk_bf16",),
+            "sgm_horizontal_bf16": ("stm_sgm_horizontal_bf16",),
+            "dp_forward_bf16": ("stm_dp_forward_bf16",),
+            "cvf_bf16": ("stm_cvf_stats_bf16",),
+            "cvf_filter_bf16": ("stm_cvf_filter_bf16",)}
+
+# The two-process phase (check_distributed): its workers' time limit;
+# each cell's tiles and runs (label -> ShardedPipeline keywords, the
+# launches a frame, the golden array rank 0's frame meets); the frames
+# timed (CUDA events, median of DIST_REPS after DIST_WARMUP).  The
+# teddy cell's global stack is the golden scene (its k and seed) and the
+# next seed; HD's, seeds 11 and 12 at k = 7.
+DIST_TIMEOUT_S = 300
+DIST_WARMUP, DIST_REPS = 1, 5
+DIST_HD = (1024, 1280, 256, 7, (11, 12))
+DIST_CELLS = {
+    "teddy": (5, {
+        "exact ssd+sgm+wta": (dict(sgm_mode="exact"), dict(
+            ssd=5, sgm_horizontal=10, sgm_chunk=30, sgm_rows=0), "wta"),
+        "overlap=300 ssd+sgm+wta": (
+            dict(sgm_mode="overlap", overlap=300),
+            dict(ssd=5, sgm_horizontal=10, sgm_chunk=0, sgm_rows=30), "wta"),
+        "exact ssd+sgm+dyn": (
+            dict(sgm_mode="exact", reducer="dynamic_programming"),
+            dict(ssd=5, sgm_horizontal=10, sgm_chunk=30, dp_forward=5,
+                 dp_backward=5), "dp"),
+    }),
+    "hd": (4, {
+        "exact ssd+sgm+wta": (dict(sgm_mode="exact"), dict(
+            ssd=4, sgm_horizontal=8, sgm_chunk=24, sgm_rows=0), None),
+    }),
+}
+# The rates behind parallel/ici_model.py's defaults: copies timed
+# LINK_COPIES to a pair of CUDA events, hand-off stages LINK_STAGES to a
+# pair; the card's copy rate on COPY_BYTES.
+LINK_COPIES, LINK_STAGES = 100, 100
+COPY_BYTES = 1 << 30
 
 
 class SmokeFailure(RuntimeError):
@@ -2107,6 +2167,285 @@ def check_partitioners(torch, dev, shapes, run_path, golden, p1, p2,
     return out
 
 
+def distributed_worker(rank: int, address: str) -> int:
+    """One rank of ``check_distributed``: ``python3 chip_smoke.py
+    --distributed-worker RANK HOST:PORT``.
+
+    Joins the two-process gloo world (``initialize_distributed``), lays
+    a (2, tiles) hybrid mesh over ``cuda:(RANK % cards)`` repeated, and
+    runs each cell's global stack through ``ShardedPipeline``: its own
+    frame must equal the single-card ``Pipeline.estimate`` at 0 pixels
+    (rank 0's teddy frame also the golden), with the launches a frame
+    stated, then ``sgm_mode="auto"`` must equal the mode it resolved to,
+    bit for bit.  Both ranks time each run at once (a barrier before
+    each), so they share the card.  Loads the kernels phase 2 built and
+    prints one ``DISTRIBUTED_RESULT {json}`` line."""
+    import logging
+
+    import torch
+    import torch.distributed as dist
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    require((ROOT / "stereomatch_tpu_torch").is_dir() and GOLDEN.is_file(),
+            f"{ROOT} is not a checkout of the repository")
+    sys.path.insert(0, str(ROOT))
+    from stereomatch_tpu_torch import cli_common, parallel
+    from stereomatch_tpu_torch.io.synthetic import stereo_pair
+    from stereomatch_tpu_torch.ops import _build
+    from stereomatch_tpu_torch.parallel import mesh as mesh_mod
+
+    built = _build.build()
+    require(built.seconds == 0.0, f"rank {rank} built the kernels; phase 2 "
+            f"builds them before the workers start")
+    _build.library()
+    parallel.initialize_distributed(
+        coordinator_address=address, num_processes=2, process_id=rank,
+        initialization_timeout=DIST_TIMEOUT_S)
+    require(mesh_mod.process_count() == 2, "the world is not two processes")
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    golden = np.load(GOLDEN)
+    p1, p2 = float(golden["penalty1"]), float(golden["penalty2"])
+    seed = int(golden["seed"])
+    picks = []
+
+    class Picks(logging.Handler):
+        def emit(self, record):
+            picks.append(record.getMessage())
+
+    logger = logging.getLogger("stereomatch_tpu_torch.parallel.sharded")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(Picks())
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: sum(_build.LAUNCHES[e] for e in entries)
+                     for name, entries in COUNTERS.items()}
+
+    result = {"rank": rank, "device": str(dev)}
+    geometry = {"teddy": (375, 450, 128, int(golden["kernel_size"]),
+                          (seed, seed + 1)), "hd": DIST_HD}
+    for tag, (h, w, d, k, seeds) in geometry.items():
+        tiles, runs = DIST_CELLS[tag]
+        scenes = [stereo_pair(h, w, d, seed=s) for s in seeds]
+        left = np.stack([scene[0] for scene in scenes])
+        right = np.stack([scene[1] for scene in scenes])
+        mesh = parallel.make_hybrid_mesh(devices=[dev] * tiles)
+        require(mesh.shape == {"batch": 2, "tile": tiles}
+                and mesh.owned_rows() == [rank]
+                and mesh.frame_indices(2) == [rank],
+                f"rank {rank}: mesh {mesh.shape}, rows {mesh.owned_rows()}")
+        gt = scenes[rank][2]
+        singles, cell = {}, {}
+
+        def sharded(**kw):
+            return parallel.ShardedPipeline(mesh, d, kernel_size=k,
+                                            penalty1=p1, penalty2=p2, **kw)
+
+        for label, (kw, want, golden_key) in runs.items():
+            reducer = "dyn" if "reducer" in kw else "wta"
+            if reducer not in singles:
+                pipe = cli_common.create_pipeline(
+                    "ssd", reducer, "sgm", max_disparity=d, penalty1=p1,
+                    penalty2=p2)
+                pipe.cost.kernel_size = k
+                singles[reducer] = pipe.estimate(
+                    left[rank], right[rank], device=dev).cpu().numpy()
+            log(f"[rank {rank}] {label} {tag}, frame {rank} of a "
+                f"(2, {tiles}) mesh on {dev}")
+            pipe_sh = sharded(**kw)
+            out, counts = counted(lambda: pipe_sh.estimate(left, right))
+            require(out.device == dev and out.dtype == torch.int32
+                    and tuple(out.shape) == (1, h, w),
+                    f"disparity {out.device} {out.dtype} {tuple(out.shape)}")
+            disp = out[0].cpu().numpy()
+            n_diff = int((disp != singles[reducer]).sum())
+            log(f"  launches: {dict((n, c) for n, c in counts.items() if c)}"
+                f"; pixels differing from the single card: {n_diff} of "
+                f"{disp.size}")
+            require(n_diff == 0, f"rank {rank} {label} {tag} differs from "
+                    f"the single card at {n_diff} pixels")
+            for name, n in want.items():
+                require(counts[name] == n, f"rank {rank} {label} {tag} "
+                        f"launched {name} {counts[name]} times, not {n}")
+            if golden_key is not None and rank == 0:
+                golden_bad = float(np.mean(
+                    (np.abs(golden[golden_key] - gt) > 1)[:, d:]))
+                check_golden(golden_key, disp, golden[golden_key], gt, d,
+                             GOLDEN_MAX_DIFF, golden_bad, 1e-4)
+            dist.barrier()
+            ms = time_ms(torch, lambda: pipe_sh.estimate(left, right),
+                         warmup=DIST_WARMUP, reps=DIST_REPS)
+            cell[label] = {"ms": ms, "pixels_differing": n_diff,
+                           "launches": {n: c for n, c in counts.items()
+                                        if c}}
+            del pipe_sh, out
+        picks.clear()
+        pipe_auto = sharded(sgm_mode="auto")
+        auto = pipe_auto.estimate(left, right)
+        require(len(picks) == 1, f"sgm_mode=auto logged {picks}")
+        mode = picks[0].split("'")[1]
+        require(torch.equal(auto, sharded(sgm_mode=mode).estimate(left,
+                                                                  right)),
+                f"rank {rank} {tag}: sgm_mode=auto differs from {mode!r}")
+        n_diff = int((auto[0].cpu().numpy() != singles["wta"]).sum())
+        log(f"[rank {rank}] {tag}: {picks[0]}; equal to {mode!r} bit for "
+            f"bit, {n_diff} pixels off the single card")
+        dist.barrier()
+        ms = time_ms(torch, lambda: pipe_auto.estimate(left, right),
+                     warmup=DIST_WARMUP, reps=DIST_REPS)
+        cell["auto"] = {"resolved": mode, "log": picks[0], "ms": ms,
+                        "pixels_differing": n_diff}
+        result[tag] = cell
+        del auto, pipe_auto, singles
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    require("jax" not in sys.modules, "jax was imported")
+    print("DISTRIBUTED_RESULT " + json.dumps(result), flush=True)
+    return 0
+
+
+def measure_link(torch, dev, shapes, p1, p2, card) -> dict:
+    """The rates behind ``parallel/ici_model.py``'s defaults, with CUDA
+    events (median of DIST_REPS after DIST_WARMUP), at teddy and HD:
+
+    * the [3, W, D] float32 carry copied to the next tile's device
+      (``cuda:1`` where there are two cards; with one, a copy within the
+      card), LINK_COPIES copies to a pair of events;
+    * one exact hand-off stage: the carry copied to the next tile's
+      device and a chunk-kernel launch (the TPU's K5) on one row from
+      it, LINK_STAGES chained to a pair;
+    * the card's copy rate: COPY_BYTES copied once, 2 * COPY_BYTES
+      moved."""
+    from stereomatch_tpu_torch.ops import cost as cost_ops
+    from stereomatch_tpu_torch.ops import sgm_cuda
+
+    other = torch.device("cuda", 1 % torch.cuda.device_count())
+    out = {"other_device": str(other)}
+    step = (1, 0)
+    for tag in ("teddy", "hd"):
+        left, right, _, d, k = shapes[tag]
+        w = left.shape[1]
+        carry3 = torch.rand((3, w, d), device=dev)
+        dst3 = torch.empty((3, w, d), device=other)
+
+        def copies():
+            for _ in range(LINK_COPIES):
+                dst3.copy_(carry3)
+
+        copy_ms = time_ms(torch, copies, warmup=DIST_WARMUP,
+                          reps=DIST_REPS) / LINK_COPIES
+        vol = cost_ops.ssd_cost_volume(left[:1], right[:1], max_disparity=d,
+                                       kernel_size=k)
+        rows = [(vol.to(x).contiguous(), left[:1].to(x).contiguous())
+                for x in (dev, other)]
+        _, (carry, _) = sgm_cuda.sweep_chunk_with_carry_cuda(
+            rows[0][0], rows[0][1], step, penalty1=p1, penalty2=p2,
+            seed=True)
+        landing = [torch.empty_like(carry, device=x) for x in (dev, other)]
+
+        def stages():
+            c = carry
+            for i in range(LINK_STAGES):
+                vol_i, img_i = rows[(i + 1) % 2]
+                nxt = landing[(i + 1) % 2].copy_(c)
+                _, (c, _) = sgm_cuda.sweep_chunk_with_carry_cuda(
+                    vol_i, img_i, step, nxt, img_i[0], penalty1=p1,
+                    penalty2=p2, seed=False)
+
+        stage_ms = time_ms(torch, stages, warmup=DIST_WARMUP,
+                           reps=DIST_REPS) / LINK_STAGES
+        out[tag] = {"carry_copy_us": copy_ms * 1e3,
+                    "carry_gbps": carry3.numel() * 4 / copy_ms / 1e6,
+                    "stage_us": stage_ms * 1e3}
+        log(f"  carry [3, {w}, {d}] float32 {dev} -> {other}: "
+            f"{out[tag]['carry_copy_us']!r} us = {out[tag]['carry_gbps']!r} "
+            f"GB/s; one hand-off stage (copy + 1-row chunk launch): "
+            f"{out[tag]['stage_us']!r} us [{card}]")
+        del carry3, dst3, vol, rows, carry, landing
+    a = torch.empty(COPY_BYTES, dtype=torch.uint8, device=dev)
+    b = torch.empty_like(a)
+    ms = time_ms(torch, lambda: b.copy_(a), warmup=DIST_WARMUP,
+                 reps=DIST_REPS)
+    out["copy_gbps"] = 2 * COPY_BYTES / ms / 1e6
+    log(f"  copy rate: {COPY_BYTES} bytes in {ms!r} ms = "
+        f"{out['copy_gbps']!r} GB/s read + written [{card}]")
+    del a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_distributed(torch, dev, shapes, p1, p2, card) -> dict:
+    """The batch axis over two processes: two worker processes of this
+    script (``distributed_worker``) joined in a gloo world on this card
+    (one card each where there are two), teddy over (2, 5) and HD over
+    (2, 4).  Fails unless both exit 0 within DIST_TIMEOUT_S with their
+    result lines, killing both on the first failure.  Then, with the
+    card free, ``measure_link``.  Returns both ranks' results and the
+    link measurements."""
+    from stereomatch_tpu_torch.parallel import ici_model
+
+    log(f"[distributed] two worker processes, a gloo world, teddy over "
+        f"(2, 5) and HD over (2, 4) on cuda:(rank % "
+        f"{torch.cuda.device_count()}); both ranks share the card")
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    address = f"localhost:{sock.getsockname()[1]}"
+    sock.close()
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--distributed-worker", str(rank), address],
+        stdout=logs[rank], stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+        for rank in range(2)]
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while (any(p.poll() is None for p in procs)
+               and all(p.returncode in (None, 0) for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        outputs = []
+        for f in logs:
+            f.seek(0)
+            outputs.append(f.read())
+            f.close()
+    results = []
+    for rank, (proc, text) in enumerate(zip(procs, outputs)):
+        lines = [line for line in text.splitlines()
+                 if line.startswith("DISTRIBUTED_RESULT ")]
+        for line in text.splitlines():
+            if not line.startswith("DISTRIBUTED_RESULT "):
+                log(f"  {line}")
+        require(proc.returncode == 0 and lines,
+                f"distributed worker {rank} exited {proc.returncode} "
+                f"(a timeout of {DIST_TIMEOUT_S} s or its partner's "
+                f"failure kills it)")
+        results.append(json.loads(lines[-1].split(" ", 1)[1]))
+    for result in results:
+        for tag, (_, runs) in DIST_CELLS.items():
+            for label in [*runs, "auto"]:
+                shown = label if label != "auto" else (
+                    f"sgm_mode=auto ({result[tag]['auto']['resolved']}) "
+                    f"ssd+sgm+wta")
+                log(f"  rank {result['rank']} {shown} {tag}: "
+                    f"{result[tag][label]['ms']!r} ms/frame (CUDA events, "
+                    f"median of {DIST_REPS} after {DIST_WARMUP}, images on "
+                    f"the host, the other rank timing at once on the same "
+                    f"card) [{card}]")
+    link = measure_link(torch, dev, shapes, p1, p2, card)
+    log(f"  ici_model defaults: carry {ici_model.CARRY_GBPS!r} GB/s, stage "
+        f"{ici_model.STAGE_US!r} us, copy {ici_model.COPY_GBPS!r} GB/s")
+    return {"ranks": results, "link": link}
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -2315,22 +2654,7 @@ def main() -> int:
 
     # Phase 4: the paths, through the entry points a user calls; the
     # launch counts are set to 0 just before each and read just after.
-    # Each kernel's C entry points, whose launches _build.LAUNCHES counts.
-    counters = {"ssd": ("stm_ssd_f32", "stm_ssd_i32"),
-                "sgm_rows": ("stm_sgm_rows_f32",),
-                "sgm_chunk": ("stm_sgm_chunk_f32",),
-                "sgm_horizontal": ("stm_sgm_horizontal_f32",),
-                "dp_forward": ("stm_dp_forward_f32",),
-                "dp_backward": ("stm_dp_backward",),
-                "cvf": ("stm_cvf_stats_f32",),
-                "cvf_filter": ("stm_cvf_filter_f32",),
-                "ssd_bf16": ("stm_ssd_bf16",),
-                "sgm_rows_bf16": ("stm_sgm_rows_bf16",),
-                "sgm_chunk_bf16": ("stm_sgm_chunk_bf16",),
-                "sgm_horizontal_bf16": ("stm_sgm_horizontal_bf16",),
-                "dp_forward_bf16": ("stm_dp_forward_bf16",),
-                "cvf_bf16": ("stm_cvf_stats_bf16",),
-                "cvf_filter_bf16": ("stm_cvf_filter_bf16",)}
+    counters = COUNTERS
     # The float32 kernels a bf16 path must not launch: no cast of a bf16
     # volume to float32 in front of them.
     f32_only = ("ssd", "sgm_rows", "sgm_chunk", "sgm_horizontal",
@@ -2617,6 +2941,8 @@ def main() -> int:
     partition_out = check_partitioners(torch, dev, shapes, run_path, golden,
                                        p1, p2, card)
     elapsed("the partitioners")
+    distributed_out = check_distributed(torch, dev, shapes, p1, p2, card)
+    elapsed("the meshes over two processes")
 
     def paths(tag):
         """(label, pipeline factory) of each timed path at one geometry:
@@ -2930,6 +3256,7 @@ def main() -> int:
     log(json.dumps({"stream": stream_out, "video_cli": video_out,
                     "serve": serve_out, "card": card}))
     log(json.dumps({"partitioners": partition_out, "card": card}))
+    log(json.dumps({"distributed": distributed_out, "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {
@@ -2939,4 +3266,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        sys.exit(distributed_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -15,6 +15,8 @@ and ``stm-fetch``.  On the CPU, e.g. ``python -m
 stereomatch_tpu_torch.cli.video imgdir frames/ 64 --headless --device
 cpu``; ``serve`` then answers ``curl --data-binary @sbs.png
 'localhost:8792/estimate?format=npy'``.  ``--mesh`` on ``video`` and
-``serve`` is not ported yet (ROADMAP A.14) and exits 2.  The console
+``serve`` lays out this process's devices (every visible card, or 8 CPU
+devices with ``--device cpu``), whatever ``WORLD_SIZE`` a launcher
+sets, as the JAX CLIs do.  The console
 scripts of ``pyproject.toml`` stay bound to the JAX package.
 """

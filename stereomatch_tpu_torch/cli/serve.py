@@ -41,8 +41,9 @@ synchronous.  ``--mesh`` serves over the ``stm-video --mesh`` mesh
 (every visible card, or ``cli_common.MESH_CPU_DEVICES`` CPU devices
 with ``--device cpu``): one sharded estimator per frame geometry, each
 batch split over the mesh's batch axis (padded to fill it) and each
-frame's rows over its tile axis; a mesh over more than one process is
-refused (exit 2, ROADMAP A.14).  SIGTERM stops the server cleanly.
+frame's rows over its tile axis, on this process's devices under any
+launcher's environment (the server starts no process group, as JAX's
+starts none).  SIGTERM stops the server cleanly.
 """
 
 import argparse
@@ -829,10 +830,6 @@ def make_server(args) -> ThreadingHTTPServer:
     """Build (but don't run) the server; ``server_port`` reports the bound
     port when ``--port 0`` asked for an ephemeral one, and
     ``server_close`` stops every thread the server started."""
-    if args.mesh:
-        from ..parallel.mesh import MULTI_PROCESS_REFUSAL, process_count
-        if process_count() > 1:
-            raise ValueError(MULTI_PROCESS_REFUSAL)
     if args.batch < 1:
         raise ValueError("--batch must be >= 1")
     if args.dtype == "auto":
@@ -870,11 +867,6 @@ def make_server(args) -> ThreadingHTTPServer:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        from ..parallel.mesh import MULTI_PROCESS_REFUSAL, process_count
-        if process_count() > 1:
-            print(MULTI_PROCESS_REFUSAL, file=sys.stderr)
-            return 2
     if args.wmf and args.pyramid > 0:
         print("--wmf is incompatible with --pyramid (the band stage has "
               "no integer disparity/bin range to median over).",

@@ -25,8 +25,9 @@ the port's names (``cuda``, ``torch``, ``auto``).  ``--mesh`` runs the
 row-sharded pipeline over every visible card (``--device cuda``) or
 ``cli_common.MESH_CPU_DEVICES`` CPU devices (``--device cpu``): frames
 over the mesh's batch axis and up to 4 row tiles that divide the frame
-height; with ``--temporal`` the tracker over row tiles alone.  A mesh
-over more than one process is refused (exit 2, ROADMAP A.14).
+height; with ``--temporal`` the tracker over row tiles alone.  The mesh
+is this process's devices under any launcher's environment: the CLI
+starts no process group, as the JAX CLI starts none.
 """
 
 import argparse
@@ -178,12 +179,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refusal(args):
     """The message of a refused combination of options, or None (the JAX
-    CLI's checks, in its order, after the port's refusal of a mesh over
-    more than one process)."""
-    if args.mesh:
-        from ..parallel.mesh import MULTI_PROCESS_REFUSAL, process_count
-        if process_count() > 1:
-            return MULTI_PROCESS_REFUSAL
+    CLI's checks, in its order)."""
     if args.wmf and args.pyramid > 0:
         return ("--wmf is incompatible with --pyramid (the band stage has "
                 "no integer disparity/bin range to median over).")

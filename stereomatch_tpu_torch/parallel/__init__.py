@@ -1,12 +1,16 @@
 """Multi-device execution: device meshes, halo exchange and the
 partitioners, the counterpart of ``stereomatch_tpu/parallel/``.
 
-* ``mesh``    — grids of torch devices with named axes, owned by one
-  process: (batch, tile) for the row-sharded paths, ``batch``
+* ``mesh``    — grids of torch devices with named axes and the process
+  that owns each: (batch, tile) for the row-sharded paths, ``batch``
   data-parallel over frames and ``tile`` over image rows.  Devices may
-  repeat (several tiles on one card, or the CPU).  ``make_hybrid_mesh``
-  and ``initialize_distributed`` serve one process; more processes wait
-  for ROADMAP A.14.
+  repeat (several tiles on one card, or the CPU).
+  ``initialize_distributed`` joins a gloo ``torch.distributed`` world and
+  ``make_hybrid_mesh`` lays the batch axis over its processes, each
+  computing the frames of its own batch rows; a tile axis across
+  processes waits for ROADMAP A.14.
+* ``ici_model`` — the interconnect model behind ``sgm_mode="auto"``,
+  with the H100's measured rates.
 * ``halo``    — edge-slice exchange between neighbouring tiles along any
   axis by cross-device copies, zero-filled at the ring ends.
 * ``sharded`` — the row-sharded pipeline: cost with image-row halos,

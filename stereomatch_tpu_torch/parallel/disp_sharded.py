@@ -39,7 +39,7 @@ from ..aggregation import CostFilter
 from ..cost import _diff_cost_dispatch
 from ..ops import cost as cost_ops
 from ..pipeline import as_tensor
-from .mesh import Mesh
+from .mesh import Mesh, world_layout
 from .sharded import _cost_dtype
 
 DISP_AXIS = "disp"
@@ -49,21 +49,18 @@ _COSTS = ("ssd", "ssd-texture", "birchfield", "census", "sad", "ncc")
 def make_disp_mesh(devices: Optional[Sequence] = None,
                    n_disp: Optional[int] = None) -> Mesh:
     """A one-axis ``disp`` mesh over the first ``n_disp`` of ``devices``
-    (default: every visible card; devices may repeat, e.g.
-    ``[torch.device("cpu")] * 8``).  With no card and no ``devices`` it
-    raises: there is no CPU fallback."""
+    (this process's; devices may repeat, e.g. ``[torch.device("cpu")] *
+    8``), by default of the world's devices (every visible card of one
+    process).  With no card and no ``devices`` it raises: there is no CPU
+    fallback.  Blocks spread over processes are refused (ROADMAP A.14)."""
+    processes = None
     if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "make_disp_mesh() found no CUDA device; pass devices= (for "
-                "example [torch.device('cpu')] * 8) to build a mesh "
-                "without a card")
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        devices, processes = world_layout("make_disp_mesh()")
     devices = list(devices)
     if n_disp is None:
         n_disp = len(devices)
-    return Mesh(devices[:n_disp], axis_names=(DISP_AXIS,))
+    return Mesh(devices[:n_disp], axis_names=(DISP_AXIS,),
+                processes=None if processes is None else processes[:n_disp])
 
 
 def make_disp_sharded_wta(mesh: Mesh, *, max_disparity: int,

@@ -21,10 +21,15 @@ maps onto the row-sharding of ``parallel/sharded.py``:
   (``sharded._median3x3_rows``, ``sharded._speckle_rows``).
 
 So ``sgm_mode="exact"`` equals the single-device pyramid bit for bit.
+``sgm_mode="auto"`` resolves from the coarse level's geometry, where the
+SGM runs (``sharded.sgm_mode_resolver``).  Over processes each rank
+computes the frames of its own batch rows (``sharded.map_frames``).
 """
 
 from __future__ import annotations
 
+import functools
+import logging
 from typing import Callable, List, Sequence
 
 import torch
@@ -35,8 +40,8 @@ from ..pyramid import (_cost_dtype, band_refine_census, downsample2,
                        upsample2_nearest)
 from . import halo
 from .mesh import TILE_AXIS, Mesh
-from .sharded import (_median3x3_rows, _not_ported, _speckle_rows,
-                      check_frames, join_tiles, local_cost, map_frames,
+from .sharded import (_median3x3_rows, _speckle_rows, check_frames,
+                      join_tiles, local_cost, map_frames, sgm_mode_resolver,
                       sharded_semiglobal)
 
 
@@ -98,9 +103,10 @@ def make_pyramid_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     tensors) -> [B, H, W] on the mesh's first device (int32; float32 with
     ``subpixel``), with B divisible by the batch axis and H by
     ``tiles * 2**levels`` (pooling must not split a row pair at a tile
-    boundary).  ``sgm_mode`` "exact" or "overlap" (``overlap`` warm-up
-    rows); "auto" resolves from the TPU's interconnect model and is
-    refused (ROADMAP A.14).  ``backend`` is the coarse SGM's ("auto",
+    boundary).  ``sgm_mode`` "exact", "overlap" (``overlap`` warm-up
+    rows) or "auto" (the interconnect model's pick for the coarse
+    level).  Over processes each rank returns its own frames
+    (``mesh.frame_indices(B)``).  ``backend`` is the coarse SGM's ("auto",
     "cuda" or "torch").
     """
     if levels < 1:
@@ -108,11 +114,7 @@ def make_pyramid_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     if max_disparity % (2 ** levels):
         raise ValueError(f"max_disparity {max_disparity} not divisible "
                          f"by 2**levels = {2 ** levels}")
-    if sgm_mode == "auto":
-        raise _not_ported(
-            "sgm_mode='auto' (it resolves from the TPU's ICI model, "
-            "parallel/ici_model.py; choose 'exact' or 'overlap')", "A.14")
-    if sgm_mode not in ("exact", "overlap"):
+    if sgm_mode not in ("exact", "overlap", "auto"):
         raise ValueError(f"unknown sgm_mode: {sgm_mode!r}")
     if speckle_fill not in ("zero", "background"):
         raise ValueError(f"unknown fill mode: {speckle_fill!r}")
@@ -124,8 +126,10 @@ def make_pyramid_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     census = Census(d_coarse, window_size=window_size,
                     cost_volume_dtype=dtype)
     n_tiles = mesh.shape[TILE_AXIS]
+    resolve = sgm_mode_resolver(mesh, sgm_mode, overlap=overlap,
+                                logger=logging.getLogger(__name__))
 
-    def frame(lefts, rights):
+    def frame(lefts, rights, mode):
         pyr = [(lefts, rights)]
         for _ in range(levels):
             ls, rs = pyr[-1]
@@ -135,7 +139,7 @@ def make_pyramid_sharded_estimate(mesh: Mesh, *, max_disparity: int,
         vols = local_cost(coarse_l, coarse_r, census, window_size // 2,
                           window_size // 2)
         aggs = sharded_semiglobal(vols, coarse_l, penalty1=penalty1,
-                                  penalty2=penalty2, mode=sgm_mode,
+                                  penalty2=penalty2, mode=mode,
                                   overlap=overlap, backend=backend)
         disps = [winner_takes_all(a) for a in aggs]
         for level in range(levels - 1, -1, -1):
@@ -155,6 +159,10 @@ def make_pyramid_sharded_estimate(mesh: Mesh, *, max_disparity: int,
 
     def fn(left, right) -> torch.Tensor:
         left, right = check_frames(left, right, mesh, n_tiles * 2 ** levels)
-        return torch.stack(map_frames(mesh, frame, left, right))
+        b, h, w = left.shape
+        scale = 2 ** levels
+        mode = resolve(h // scale, w // scale, d_coarse, b)
+        return torch.stack(map_frames(
+            mesh, functools.partial(frame, mode=mode), left, right))
 
     return fn

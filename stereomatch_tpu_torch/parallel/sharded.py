@@ -5,7 +5,7 @@
 Partitioning, as in the JAX package: each frame's [H, W, D] cost volume
 is split over image rows along the mesh's ``tile`` axis, and frames over
 its ``batch`` axis; W and D stay whole on every tile.  One process
-drives the whole mesh: a frame is a list of per-tile blocks, each on its
+drives each frame: a frame is a list of per-tile blocks, each on its
 tile's device, and what crosses tiles moves with ``.to()`` of the
 receiving tile's device (``halo.py``).  Nothing here synchronises the
 host: with one card per tile, traversal t on tile r + 1 overlaps
@@ -74,9 +74,15 @@ the rows of the single-device masked filter bit for bit (the registry's
 single-device pipeline takes the wedge path instead, within about 3e-6
 relative of it, as in the JAX package).
 
-Refused with ``NotImplementedError`` naming the ROADMAP item, never
-substituted: ``sgm_mode="auto"`` (it resolves from the TPU's ICI model,
-A.14).
+``sgm_mode="auto"`` resolves to "exact" or "overlap" at the first call
+of each frame shape, through ``ici_model.select_sgm_mode`` (the H100's
+measured rates) with the frames a batch row holds, as the JAX package
+resolves it at trace time.
+
+Over processes (a mesh from ``make_hybrid_mesh`` in a world of several),
+every rank is given the same global [B, H, W] stacks and computes only
+the frames of its own batch rows (``Mesh.frame_indices``); the others
+never reach a device, and nothing crosses processes.
 
 bf16 volumes (``cost_dtype="bfloat16"``): each tile's cost volume is
 bf16, the image halos float32; the kernels read the bf16 tiles, the
@@ -89,6 +95,7 @@ so the result equals the single-device bf16 aggregation bit for bit.
 from __future__ import annotations
 
 import functools
+import logging
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -107,18 +114,13 @@ from ..utils.numeric import exp_f32, pairwise_sum_last
 from ..utils import profiling, validation
 from ..utils.backend import resolve_backend
 from . import halo
+from .ici_model import select_sgm_mode
 from .mesh import BATCH_AXIS, TILE_AXIS, Mesh
 
 _COSTS = ("ssd", "ssd-texture", "birchfield", "census", "sad", "ncc")
 _REDUCERS = ("wta", "dynamic_programming")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int32": torch.int32}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to stereomatch_tpu_torch's sharded pipeline "
-        f"yet (ROADMAP {item})")
 
 
 def _cost_dtype(dtype) -> torch.dtype:
@@ -477,9 +479,11 @@ def check_frames(left, right, mesh: Mesh, row_multiple: int):
 
 
 def map_frames(mesh: Mesh, fn: Callable, *stacks) -> list:
-    """``fn(tiles_a, tiles_b, ...)`` on each frame of the [B, H, W] stacks:
-    frame f's row tiles, each on its device of batch row f // (B /
-    n_batch) of the mesh.  Returns ``fn``'s results in frame order."""
+    """``fn(tiles_a, tiles_b, ...)`` on each of this process's frames of
+    the [B, H, W] stacks (``mesh.frame_indices(B)``; all of them in one
+    process): frame f's row tiles, each on its device of batch row f //
+    (B / n_batch) of the mesh.  Returns ``fn``'s results in frame
+    order."""
     per_row = stacks[0].shape[0] // mesh.shape[BATCH_AXIS]
 
     def tiles(frame, devices):
@@ -488,12 +492,38 @@ def map_frames(mesh: Mesh, fn: Callable, *stacks) -> list:
                 for t, d in enumerate(devices)]
 
     return [fn(*[tiles(s[f], mesh.devices[f // per_row]) for s in stacks])
-            for f in range(stacks[0].shape[0])]
+            for f in mesh.frame_indices(stacks[0].shape[0])]
 
 
 def join_tiles(mesh: Mesh, tiles: Sequence[torch.Tensor]) -> torch.Tensor:
-    """One frame's row tiles as one tensor on the mesh's first device."""
-    return torch.cat([t.to(mesh.devices[0][0]) for t in tiles])
+    """One frame's row tiles as one tensor on this process's first device
+    of the mesh."""
+    return torch.cat([t.to(mesh.local_device) for t in tiles])
+
+
+def sgm_mode_resolver(mesh: Mesh, sgm_mode: str, *, overlap: int,
+                      logger: logging.Logger) -> Callable:
+    """``resolve(height, width, disp, frames) -> "exact" | "overlap"``:
+    ``sgm_mode`` itself, or for "auto" the interconnect model's pick
+    (``ici_model.select_sgm_mode``) for a [frames, height, width] stack
+    with ``disp`` disparities, made once per geometry and logged as the
+    JAX package logs it; the batch is the frames a batch row holds."""
+    picks = {}
+
+    def resolve(height, width, disp, frames):
+        if sgm_mode != "auto":
+            return sgm_mode
+        key = (height, width, disp, frames)
+        if key not in picks:
+            mode, info = select_sgm_mode(
+                height=height, width=width, disp=disp,
+                tiles=mesh.shape[TILE_AXIS],
+                batch=frames // mesh.shape[BATCH_AXIS], overlap=overlap)
+            logger.info("sgm_mode=auto resolved to %r (%s)", mode, info)
+            picks[key] = mode
+        return picks[key]
+
+    return resolve
 
 
 def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
@@ -530,7 +560,10 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     tensors, any device) -> [B, H, W] int32 on the mesh's first device,
     with B divisible by the batch axis and H by the tile axis.  Frames
     ``b * B/n_batch ..`` run on batch row ``b``; each tile's rows go to
-    its device.  ``backend`` takes the port's names: "auto" (kernels on
+    its device.  Over processes each rank returns its own frames
+    (``mesh.frame_indices(B)``) on its first device.  ``sgm_mode``:
+    "exact", "overlap" or "auto" (resolved per frame geometry by
+    :func:`sgm_mode_resolver`).  ``backend`` takes the port's names: "auto" (kernels on
     CUDA tiles, plain versions on CPU tiles), "cuda" or "torch".
     ``cvf_radius``/``cvf_eps`` configure ``aggregation="cvf"``
     (:func:`sharded_cvf`; 2 * ``cvf_radius`` must not exceed a tile's
@@ -566,10 +599,6 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
         raise ValueError("interpret=True is the JAX package's Pallas "
                          "interpret mode; the port runs its plain versions "
                          "on CPU tiles instead")
-    if sgm_mode == "auto" and aggregation == "sgm":
-        raise _not_ported(
-            "sgm_mode='auto' (it resolves from the TPU's ICI model, "
-            "parallel/ici_model.py; choose 'exact' or 'overlap')", "A.14")
     dtype = _cost_dtype(cost_dtype)
     if dtype == torch.int32 and aggregation is not None:
         raise ValueError("int32 cost volumes do not support aggregation "
@@ -606,8 +635,10 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
         halo_rows = (kernel_size, kernel_size - 1)
     dp = DynamicProgramming(backend=backend)
     n_tiles = mesh.shape[TILE_AXIS]
+    resolve = sgm_mode_resolver(mesh, sgm_mode, overlap=overlap,
+                                logger=logging.getLogger(__name__))
 
-    def core(lefts, rights):
+    def core(lefts, rights, mode):
         """One frame's per-tile (aggregated volumes, disparities)."""
         with profiling.annotate("stm/cost"):
             if cost == "ncc":
@@ -619,7 +650,7 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
         if aggregation == "sgm":
             with profiling.annotate("stm/aggregation"):
                 vols = sharded_semiglobal(vols, lefts, penalty1=penalty1,
-                                          penalty2=penalty2, mode=sgm_mode,
+                                          penalty2=penalty2, mode=mode,
                                           overlap=overlap, backend=backend)
         elif aggregation == "cvf":
             with profiling.annotate("stm/aggregation"):
@@ -665,20 +696,24 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                                   min_frac=0.25, fill=speckle_fill)
         return disps
 
-    def frame(lefts, rights):
+    def frame(lefts, rights, mode):
         disps_r = None
         if lr_check and lr_mode == "mirror":
             # Right-to-left matching is left-to-right matching on the
             # mirrored pair (refine.right_disparity); W is never split.
             mirrored = core([r.flip(-1) for r in rights],
-                            [x.flip(-1) for x in lefts])[1]
+                            [x.flip(-1) for x in lefts], mode)[1]
             disps_r = [d.flip(-1) for d in mirrored]
-        vols, disps = core(lefts, rights)
+        vols, disps = core(lefts, rights, mode)
         return join_tiles(mesh, refined(vols, disps, lefts, disps_r))
 
     def fn(left, right) -> torch.Tensor:
         left, right = check_frames(left, right, mesh, n_tiles)
-        return torch.stack(map_frames(mesh, frame, left, right))
+        b, h, w = left.shape
+        mode = resolve(h, w, max_disparity, b) if aggregation == "sgm" \
+            else None
+        return torch.stack(map_frames(
+            mesh, functools.partial(frame, mode=mode), left, right))
 
     return fn
 
@@ -697,7 +732,9 @@ class ShardedPipeline:
     def estimate(self, left, right) -> torch.Tensor:
         """[B, H, W] (or [H, W], auto-batched) -> [B, H, W] int32 (float32
         after sub-pixel, LR fill or the smoother) on the mesh's first
-        device."""
+        device.  Over processes: this process's frames, in frame order,
+        on its first device; ``mesh.frame_indices(B)`` gives their
+        global indices."""
         left, right = _as_frames(left), _as_frames(right)
         squeeze = left.ndim == 2
         if squeeze:

@@ -8,7 +8,8 @@ census band stage takes +-window//2 image-row halos
 (``pyramid_sharded._band_sharded``), the 3x3 median one disparity row a
 side, and the drift statistic is the tiles' poor and scorable counts
 summed in float32 (integers below 2^24, so any order gives the same
-sums) and divided once per stream, as one device divides them.
+sums) and divided once per stream, as one device divides them.  A mesh
+over several processes is refused (ROADMAP A.14).
 """
 
 from __future__ import annotations
@@ -35,6 +36,13 @@ def make_temporal_track_sharded(mesh: Mesh, *, max_disparity: int,
     B divisible by the batch axis and H by the tile axis; per stream
     equal to ``TemporalPipeline._track`` bit for bit.
     """
+    if mesh.spans_processes:
+        raise NotImplementedError(
+            "the temporal tracker over a mesh of several processes: its "
+            "keyframe decision reads every stream's drift fraction on one "
+            "host each frame (a collective a frame here; the JAX package's "
+            "TemporalPipeline fetches it with np.asarray, which refuses an "
+            "array spanning another process's devices), ROADMAP A.14")
     n_tiles = mesh.shape[TILE_AXIS]
     first = mesh.devices[0][0]
 

@@ -2,8 +2,10 @@
 ``stereomatch_tpu/parallel/tiled2d.py``: image rows split over ``tile``,
 columns over ``tile_w``, frames over ``batch``.
 
-One process drives the mesh.  A frame is a [n_tile][n_tile_w] grid of
-blocks, each on its device; what crosses blocks moves with ``.to()`` of
+One process drives each frame (over processes, each rank the frames of
+its own batch rows, ``Mesh.frame_indices``; the tile and tile_w axes stay
+within a process).  A frame is a [n_tile][n_tile_w] grid of blocks, each
+on its device; what crosses blocks moves with ``.to()`` of
 the receiving block's device (``halo.pad_with_halos``, zero beyond the
 image, as ``lax.ppermute`` fills the ring ends).  Halos go along the
 tile axis first, then along tile_w on the row-extended blocks, so the
@@ -59,7 +61,7 @@ from ..ops.disparity import (dp_backward_chunk, dp_end_disparities,
 from ..pipeline import disparity_bins
 from ..utils import profiling
 from . import halo
-from .mesh import BATCH_AXIS, TILE_AXIS, Mesh
+from .mesh import BATCH_AXIS, TILE_AXIS, Mesh, world_layout
 from .sharded import _as_frames, local_cost, local_zncc
 
 TILE_W_AXIS = "tile_w"
@@ -71,24 +73,26 @@ Grid = List[List[torch.Tensor]]
 def make_mesh_2d(devices: Optional[Sequence] = None, n_batch: int = 1,
                  n_tile: int = 2, n_tile_w: int = 2) -> Mesh:
     """A (batch, tile, tile_w) mesh over the first n_batch * n_tile *
-    n_tile_w of ``devices`` (default: every visible card; devices may
-    repeat, e.g. ``[torch.device("cpu")] * 8``)."""
+    n_tile_w of ``devices`` (this process's; devices may repeat, e.g.
+    ``[torch.device("cpu")] * 8``), by default of the world's devices in
+    (rank, local index) order (``mesh.make_mesh``'s default), where only
+    the batch axis may span processes."""
+    processes = None
     if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "make_mesh_2d() found no CUDA device; pass devices= (for "
-                "example [torch.device('cpu')] * 8) to build a mesh "
-                "without a card")
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        devices, processes = world_layout("make_mesh_2d()")
     devices = list(devices)
     need = n_batch * n_tile * n_tile_w
     if len(devices) < need:
         raise ValueError(f"need {need} devices, have {len(devices)}")
-    grid = [[devices[(b * n_tile + t) * n_tile_w:
-                     (b * n_tile + t + 1) * n_tile_w]
-             for t in range(n_tile)] for b in range(n_batch)]
-    return Mesh(grid, axis_names=(BATCH_AXIS, TILE_AXIS, TILE_W_AXIS))
+
+    def grid(items):
+        return [[items[(b * n_tile + t) * n_tile_w:
+                       (b * n_tile + t + 1) * n_tile_w]
+                 for t in range(n_tile)] for b in range(n_batch)]
+
+    return Mesh(grid(devices), axis_names=(BATCH_AXIS, TILE_AXIS,
+                                           TILE_W_AXIS),
+                processes=None if processes is None else grid(processes))
 
 
 # --------------------------------------------------------------------------
@@ -457,9 +461,9 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
                 f"mesh axes {(n_batch, n_tile, n_tile_w)}")
         h_loc, w_loc = h // n_tile, w // n_tile_w
         per_row = b // n_batch
-        first = mesh.devices[0][0][0]
+        first = mesh.local_device
         out = []
-        for f in range(b):
+        for f in mesh.frame_indices(b):
             devices = mesh.devices[f // per_row]
 
             def split(image):

@@ -195,6 +195,15 @@ class StreamingEstimator:
         # mesh's batch axis (1 without a mesh).
         self.batch_multiple = 1
         if mesh is not None:
+            if mesh.spans_processes:
+                raise NotImplementedError(
+                    "StreamingEstimator over a mesh of several processes: "
+                    "each batch is fetched whole to this process's host, "
+                    "and the frames of another process's batch rows never "
+                    "reach it (the JAX package's stream fetches each batch "
+                    "with np.asarray, which refuses an array spanning "
+                    "another process's devices); stream a one-process mesh "
+                    "in each process instead")
             from .parallel.mesh import BATCH_AXIS
             n_batch = self.batch_multiple = mesh.shape[BATCH_AXIS]
             self.batch = -(-max(batch, n_batch) // n_batch) * n_batch

@@ -53,6 +53,7 @@ def test_import_leaves_jax_out():
         "import stereomatch_tpu_torch.parallel.temporal_sharded\n"
         "import stereomatch_tpu_torch.parallel.disp_sharded\n"
         "import stereomatch_tpu_torch.parallel.tiled2d\n"
+        "import stereomatch_tpu_torch.parallel.ici_model\n"
         "import stereomatch_tpu_torch.pyramid, stereomatch_tpu_torch.temporal\n"
         "import stereomatch_tpu_torch.tune, stereomatch_tpu_torch.ops.soft\n"
         "import stereomatch_tpu_torch.stream, stereomatch_tpu_torch.native\n"

@@ -110,8 +110,8 @@ def test_sharded_pyramid_validation(meshes, frames):
         make_pyramid_sharded_estimate(mesh, max_disparity=D, levels=0)
     with pytest.raises(ValueError):
         make_pyramid_sharded_estimate(mesh, max_disparity=18, levels=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
-        make_pyramid_sharded_estimate(mesh, max_disparity=D, sgm_mode="auto")
+    with pytest.raises(ValueError, match="sgm_mode"):
+        make_pyramid_sharded_estimate(mesh, max_disparity=D, sgm_mode="fast")
     with pytest.raises(TypeError):
         make_pyramid_sharded_estimate(mesh, max_disparity=D, interpret=True)
     fn = make_pyramid_sharded_estimate(mesh, max_disparity=D, levels=2)

@@ -4,8 +4,8 @@ client, synthetic side-by-side frames (32x48 halves, D=16).
 
 Each test of ``tests/test_serve_cli.py`` has its counterpart here (the
 ``--mesh`` ones over the 8 CPU devices of ``--device cpu``, as JAX's
-over its 8-device CPU mesh; only a mesh over more than one process exits
-2 naming ROADMAP A.14), its responses held against the port's local
+over its 8-device CPU mesh, whatever ``WORLD_SIZE`` a launcher sets),
+its responses held against the port's local
 pipeline and, for the integer disparities, against the JAX package's
 pipeline and mesh batcher; the port's ``npy`` responses equal
 the JAX server's ``_encode`` bytes and its ``png16``/``png`` responses
@@ -528,15 +528,21 @@ def test_warmup_builds_every_flag_combo():
         srv.server_close()
 
 
-def test_mesh_exits_2_naming_the_roadmap_item(capsys, monkeypatch):
-    """A mesh over more than one process (a launcher's WORLD_SIZE) waits
-    for ROADMAP A.14; one process serves (the tests below)."""
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    assert serve.main([str(D), "--mesh", "--device", "cpu"]) == 2
-    assert "A.14" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="A.14"):
-        make_server(_args("--port", "0", "--batch", "2", "--mesh",
-                          "--pyramid", "2"))
+def test_mesh_exits_2_naming_the_roadmap_item(running, scene, monkeypatch):
+    """A launcher's WORLD_SIZE starts no world (C.5): as the JAX server,
+    ``--mesh`` (unbatched, and batched with ``--pyramid 2``) serves this
+    process's devices and answers as it does without WORLD_SIZE."""
+    body = scene[0]
+    for flags in (["--mesh"], ["--batch", "2", "--mesh", "--pyramid", "2",
+                               "--linger-ms", "0"]):
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        alone = running(*flags)
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        world = running(*flags)
+        for fmt in ("npy", "png16"):
+            want, _ = _post(f"{alone.url}/estimate?format={fmt}", body)
+            got, _ = _post(f"{world.url}/estimate?format={fmt}", body)
+            assert got == want
 
 
 def test_batcher_mesh_mode_matches_jax_and_single_chip():

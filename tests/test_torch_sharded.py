@@ -48,6 +48,8 @@ from stereomatch_tpu_torch.parallel import (ShardedPipeline, batch_tile_axes,
                                             halo, initialize_distributed,
                                             make_hybrid_mesh, make_mesh,
                                             sharded)
+from stereomatch_tpu_torch.parallel.ici_model import select_sgm_mode
+from stereomatch_tpu_torch.parallel.mesh import process_count
 
 from .conftest import STM_MAX_DISPARITY, synthetic_stereo_pair
 from .torch_threads import one_torch_thread  # noqa: F401
@@ -117,12 +119,18 @@ def test_batch_tile_axes_and_mesh_layout(jax_mesh, mesh, monkeypatch):
             make_mesh()                  # no CPU fallback
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_hybrid_mesh()
-    # More processes wait for ROADMAP A.14 (the multi-process slice).
+    # A launcher's WORLD_SIZE alone starts no world (C.5): JAX's
+    # process_count() is 1 until jax.distributed.initialize runs, so its
+    # hybrid mesh is its one-process mesh, and so is the port's.
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
-        make_hybrid_mesh(devices=[CPU] * 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
-        initialize_distributed()
+    assert jax_parallel.make_hybrid_mesh().shape == jax_mesh.shape
+    assert process_count() == 1
+    assert initialize_distributed() is None
+    assert process_count() == 1
+    hybrid = make_hybrid_mesh(n_tile=4, devices=[CPU] * 8)
+    assert (hybrid.shape, hybrid.devices, hybrid.processes) == (
+        mesh.shape, mesh.devices, ((0,) * 4,) * 2)
+    assert not hybrid.spans_processes and hybrid.owned_rows() == [0, 1]
 
 
 def test_mesh_is_a_grid_of_any_rank():
@@ -258,22 +266,34 @@ def test_divisibility_and_shape_errors(mesh, pair):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(sgm_mode="auto"), "A.14"),
+    (dict(sgm_mode="auto"), None),
     (dict(aggregation="cvf", kernel_size=3, cvf_radius=3), None),
     (dict(cost="birchfield", aggregation="sgm"), None),
     (dict(cost="ncc", aggregation="sgm"), None),
     (dict(cost="ssd-texture", aggregation="sgm"), None)],
-    # The ids the cases had while sharded CVF (A.9) and the A.8 costs
-    # were refused.
+    # The ids the cases had while sgm_mode="auto" (A.14), sharded CVF
+    # (A.9) and the A.8 costs were refused.
     ids=["{'sgm_mode': 'auto'}-A.14", "{'aggregation': 'cvf'}-A.9",
          "{'cost': 'birchfield'}-A.8", "{'cost': 'ncc'}-A.8",
          "{'cost': 'ssd-texture'}-A.8"])
 def test_refused_options_name_their_roadmap_item(jax_mesh, mesh, pair,
                                                  kwargs, item):
-    """sgm_mode="auto" (A.14) refuses naming its item; sharded CVF (A.9,
-    2r = 6 halo rows of 8-row tiles) and the A.8 costs, refused until
-    they were ported, run and equal JAX's sharded pipeline."""
+    """sgm_mode="auto" (A.14), sharded CVF (A.9, 2r = 6 halo rows of
+    8-row tiles) and the A.8 costs, refused until they were ported, run
+    and equal JAX's sharded pipeline; auto equals JAX's at the mode the
+    port's model (the H100's rates, not JAX's TPU ones) resolves it to,
+    a pair a batch row over 4 tiles."""
     if item is None:
+        left, right = pair
+        if kwargs.get("sgm_mode") == "auto":
+            mode = select_sgm_mode(height=32, width=48, disp=D, tiles=4,
+                                   batch=1)[0]
+            ref = jax_parallel.ShardedPipeline(
+                jax_mesh, D, backend="xla", sgm_mode=mode).estimate(left,
+                                                                    right)
+            out = ShardedPipeline(mesh, D, **kwargs).estimate(left, right)
+            np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+            return
         ref, out = _both(jax_mesh, mesh, pair, reducer="wta", **kwargs)
         np.testing.assert_array_equal(out, ref)
         return

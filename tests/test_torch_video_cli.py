@@ -11,8 +11,8 @@ so the port's ``y4m`` mode is held against its own ``imgdir`` mode on
 the same frames instead.  ``--mesh`` (its batched, pyramid, refine,
 speckle and ``--temporal`` forms: ``tests/test_video_cli.py:77,149,194,
 211,247``) runs over the 8 CPU devices of ``--device cpu``, as the JAX
-CLI over its 8-device CPU mesh, and gives the JAX CLI's PNGs; only a
-mesh over more than one process exits 2 naming ROADMAP A.14.  The
+CLI over its 8-device CPU mesh, and gives the JAX CLI's PNGs, whatever
+``WORLD_SIZE`` a launcher sets (the CLI starts no process group).  The
 refused combinations exit 2 as in JAX.  The q/h/i/w/e/r key contract is
 driven through a stand-in for OpenCV.
 """
@@ -151,15 +151,24 @@ def test_refused_combinations_exit_2_as_in_jax(flags, tmp_path, capsys):
     assert "incompatible" in capsys.readouterr().err
 
 
-def test_mesh_exits_2_naming_the_roadmap_item(tmp_path, capsys,
+def test_mesh_exits_2_naming_the_roadmap_item(frame_dir, tmp_path,
                                               monkeypatch):
-    """A mesh over more than one process (a launcher's WORLD_SIZE) waits
-    for ROADMAP A.14; one process runs (``test_outputs_equal_jax_cli``)."""
-    monkeypatch.setenv("WORLD_SIZE", "2")
+    """A launcher's WORLD_SIZE starts no world (C.5): as the JAX CLI,
+    ``--mesh`` lays out this process's devices and writes the PNGs it
+    writes without WORLD_SIZE (batched, ``--temporal``, ``--batch 4``)."""
     for extra in ([], ["--temporal"], ["--batch", "4"]):
-        assert video.main(["y4m", str(tmp_path / "missing.y4m"), str(D),
-                           "--mesh", *extra, "--headless"]) == 2
-        assert "A.14" in capsys.readouterr().err
+        argv = ["imgdir", str(frame_dir), str(D), "--mesh", *extra]
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        assert _port(argv, tmp_path / "alone") == 0
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        assert _port(argv, tmp_path / "world") == 0
+        alone, world = _decoded(tmp_path / "alone"), _decoded(
+            tmp_path / "world")
+        assert len(alone) == len(world) == N_FRAMES
+        for a, b in zip(alone, world):
+            np.testing.assert_array_equal(a, b)
+        shutil.rmtree(tmp_path / "alone")
+        shutil.rmtree(tmp_path / "world")
 
 
 def test_mesh_pyramid_refuses_indivisible_frames(tmp_path, capsys):
