@@ -95,6 +95,15 @@ with the launch counts set to 0 just before it and read just after:
   and ``sgm_mode="auto"`` equal to the mode it resolved to; then the
   carry copy, a hand-off stage and the card's copy rate behind
   ``parallel/ici_model.py``'s defaults;
+* the tile axes across two processes (``check_distributed_tiles``):
+  two workers (``--distributed-tiles-worker RANK HOST:PORT``), each
+  bringing ``cuda:(rank % cards)`` twice, so that the world's meshes
+  split a frame between them: HD over ``make_mesh()`` (1, 4) (exact
+  with WTA and DP, overlap 64, ``auto``, the pyramid, a tracked frame),
+  HD 2-D tiles (1, 2, 2), HD disparity blocks (4), teddy census+cvf+wta
+  over tile_w; each rank's shards equal to the single card at 0 pixels
+  with its launches a frame stated, the teddy halves against the CVF
+  golden; then a carry and a 64-row HD halo moved between the ranks;
 
 times kernels, plain versions, pipelines, each post-processing flag set,
 the cost-family paths and their cost stages and the float32/bf16
@@ -275,6 +284,28 @@ DIST_CELLS = {
             ssd=4, sgm_horizontal=8, sgm_chunk=24, sgm_rows=0), None),
     }),
 }
+# The tile axes across two processes (check_distributed_tiles): HD's
+# global stack (DIST_HD) over make_mesh() (1, 4) with each path's
+# launches a frame on each rank (two of the four tiles); the 2-D tiles
+# (1, 2, 2) at the covering overlap, one frame; the disparity blocks (4)
+# of frame 0; teddy census+cvf+wta over a (1, 1, 2) mesh of one device
+# of each rank (tile_w across the ranks).  The transport's moves between
+# the ranks are timed over TILES_LINK_REPS round trips (host clock, both
+# ranks synchronised).
+TILES_RUNS = {
+    "exact ssd+sgm+wta": (dict(sgm_mode="exact"), "wta", dict(
+        ssd=2, sgm_horizontal=4, sgm_chunk=12, sgm_rows=0)),
+    "exact ssd+sgm+dyn": (dict(sgm_mode="exact",
+                               reducer="dynamic_programming"), "dyn", dict(
+        ssd=2, sgm_horizontal=4, sgm_chunk=12, sgm_rows=0, dp_forward=2,
+        dp_backward=2)),
+    "overlap=64 ssd+sgm+wta": (dict(sgm_mode="overlap", overlap=64),
+                               "one-process", dict(
+        ssd=2, sgm_horizontal=4, sgm_chunk=0, sgm_rows=12)),
+}
+TILES_2D_OVERLAP = 640
+TILES_LINK_REPS = {"carry": 20, "halo": 3}
+
 # The rates behind parallel/ici_model.py's defaults: copies timed
 # LINK_COPIES to a pair of CUDA events, hand-off stages LINK_STAGES to a
 # pair; the card's copy rate on COPY_BYTES.
@@ -2308,6 +2339,308 @@ def distributed_worker(rank: int, address: str) -> int:
     return 0
 
 
+def distributed_tiles_worker(rank: int, address: str) -> int:
+    """One rank of ``check_distributed_tiles``: ``python3 chip_smoke.py
+    --distributed-tiles-worker RANK HOST:PORT``.
+
+    Joins the two-process gloo world bringing ``cuda:(RANK % cards)``
+    twice, so the world's meshes lay their tile axes across both ranks,
+    and runs each path on the global stacks: each rank computes its own
+    tiles (or blocks), what crosses the ranks moves host-staged over
+    ``torch.distributed``, and each rank's shards must equal, at their
+    indices, the single card (``Pipeline.estimate``, ``PyramidPipeline``,
+    the tracker's step; the overlap warm-up and ``auto``, which is not
+    exact against one card, the same partitioner in one process) at 0
+    pixels, with the launches a frame stated.  Both ranks time each path
+    at once behind a barrier (CUDA events), then one carry move and one
+    64-row HD volume halo between them.  Loads the kernels phase 2 built
+    and prints one ``DISTRIBUTED_TILES_RESULT {json}`` line."""
+    import logging
+
+    import torch
+    import torch.distributed as dist
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    require((ROOT / "stereomatch_tpu_torch").is_dir() and GOLDEN.is_file(),
+            f"{ROOT} is not a checkout of the repository")
+    sys.path.insert(0, str(ROOT))
+    from stereomatch_tpu_torch import cli_common, parallel
+    from stereomatch_tpu_torch.aggregation import CostFilter
+    from stereomatch_tpu_torch.io.synthetic import stereo_pair
+    from stereomatch_tpu_torch.ops import _build
+    from stereomatch_tpu_torch.parallel import mesh as mesh_mod
+    from stereomatch_tpu_torch.parallel import transport
+    from stereomatch_tpu_torch.pyramid import PyramidPipeline
+    from stereomatch_tpu_torch.temporal import TemporalPipeline
+
+    built = _build.build()
+    require(built.seconds == 0.0, f"rank {rank} built the kernels; phase 2 "
+            f"builds them before the workers start")
+    _build.library()
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    parallel.initialize_distributed(
+        coordinator_address=address, num_processes=2, process_id=rank,
+        local_devices=[dev] * 2, initialization_timeout=DIST_TIMEOUT_S)
+    golden = np.load(GOLDEN)
+    p1, p2 = float(golden["penalty1"]), float(golden["penalty2"])
+    picks = []
+
+    class Picks(logging.Handler):
+        def emit(self, record):
+            picks.append(record.getMessage())
+
+    logger = logging.getLogger("stereomatch_tpu_torch.parallel.sharded")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(Picks())
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: sum(_build.LAUNCHES[e] for e in entries)
+                     for name, entries in COUNTERS.items()}
+
+    def compare(label, shards, want, n_shards=2):
+        """0 pixels between each shard and ``want`` at its index."""
+        require(len(shards) == n_shards, f"rank {rank} {label}: "
+                f"{len(shards)} shards, not {n_shards}")
+        n_diff = 0
+        for index, data in shards:
+            require(data.device == dev, f"{label}: a shard on {data.device}")
+            got = data.cpu().numpy()
+            require(got.shape == want[index].shape, f"{label}: shard "
+                    f"{got.shape} at {index}")
+            n_diff += int((got != want[index]).sum())
+        log(f"  pixels differing from the reference: {n_diff}")
+        require(n_diff == 0, f"rank {rank} {label} differs at {n_diff} "
+                f"pixels")
+        return n_diff
+
+    def per_frame(counts, frames):
+        return {n: c // frames for n, c in counts.items() if c}
+
+    def timed(fn, reps=DIST_REPS, warmup=DIST_WARMUP):
+        dist.barrier()
+        return time_ms(torch, fn, warmup=warmup, reps=reps)
+
+    h, w, d, k, seeds = DIST_HD
+    scenes = [stereo_pair(h, w, d, seed=s) for s in seeds]
+    left = np.stack([scene[0] for scene in scenes])
+    right = np.stack([scene[1] for scene in scenes])
+    frames = len(seeds)
+    mesh = parallel.make_mesh()
+    positions = [(0, 2 * rank), (0, 2 * rank + 1)]
+    require(mesh.shape == {"batch": 1, "tile": 4}
+            and mesh.processes == ((0, 0, 1, 1),)
+            and mesh.owned_positions() == positions,
+            f"rank {rank}: make_mesh() {mesh.shape} {mesh.processes}")
+    result = {"rank": rank, "device": str(dev), "hd": {}}
+    singles = {}
+    for reducer in ("wta", "dyn"):
+        pipe = cli_common.create_pipeline("ssd", reducer, "sgm",
+                                          max_disparity=d, penalty1=p1,
+                                          penalty2=p2)
+        pipe.cost.kernel_size = k
+        singles[reducer] = np.stack([
+            pipe.estimate(left[f], right[f], device=dev).cpu().numpy()
+            for f in range(frames)])
+        del pipe
+    one_process = parallel.make_mesh([dev] * 4, n_batch=1)
+
+    def sharded(where, **kw):
+        return parallel.ShardedPipeline(where, d, kernel_size=k,
+                                        penalty1=p1, penalty2=p2, **kw)
+
+    runs = dict(TILES_RUNS)
+    picks.clear()
+    sharded(mesh, sgm_mode="auto").estimate(left, right)
+    require(len(picks) == 1, f"sgm_mode=auto logged {picks}")
+    mode = picks[0].split("'")[1]
+    auto_kw, _, auto_launches = runs[next(
+        label for label in runs if label.startswith(mode))]
+    runs["auto"] = (dict(sgm_mode="auto"), "one-process", auto_launches)
+    for label, (kw, reference, launches) in runs.items():
+        log(f"[rank {rank}] {label} hd, tiles {2 * rank} and "
+            f"{2 * rank + 1} of make_mesh() (1, 4) on {dev}")
+        pipe_sh = sharded(mesh, **kw)
+        shards, counts = counted(lambda: pipe_sh.estimate(left, right))
+        if reference == "one-process":
+            want = sharded(one_process, **{**kw, **(
+                dict(sgm_mode=mode) if label == "auto" else {})}).estimate(
+                    left, right).cpu().numpy()
+        else:
+            want = singles[reference]
+        compare(f"{label} hd", shards, want)
+        counts = per_frame(counts, frames)
+        log(f"  launches a frame on rank {rank}: {counts}")
+        for name, n in launches.items():
+            require(counts.get(name, 0) == n, f"rank {rank} {label}: "
+                    f"{name} {counts.get(name, 0)} a frame, not {n}")
+        ms = timed(lambda: pipe_sh.estimate(left, right)) / frames
+        result["hd"][label] = {"ms": ms, "launches": counts,
+                               "reference": reference}
+        if label == "auto":
+            result["hd"][label].update(resolved=mode, log=picks[0])
+        del pipe_sh, shards
+        torch.cuda.empty_cache()
+
+    log(f"[rank {rank}] pyramid1 hd over make_mesh() (1, 4), against "
+        f"PyramidPipeline on the card")
+    single = PyramidPipeline(d, levels=1, penalty1=p1, penalty2=p2)
+    want = np.stack([single.estimate(left[f], right[f]).cpu().numpy()
+                     for f in range(frames)])
+    fn = parallel.make_pyramid_sharded_estimate(
+        mesh, max_disparity=d, levels=1, penalty1=p1, penalty2=p2)
+    shards, counts = counted(lambda: fn(left, right))
+    compare("pyramid1 hd", shards, want)
+    counts = per_frame(counts, frames)
+    log(f"  launches a frame on rank {rank}: {counts}")
+    require(counts.get("sgm_chunk") == 12 and counts.get("sgm_rows", 0) == 0
+            and counts.get("sgm_horizontal") == 4,
+            f"pyramid1 hd launches {counts}")
+    result["hd"]["pyramid1"] = {"ms": timed(lambda: fn(left, right))
+                                / frames, "launches": counts}
+    del single, fn, shards
+
+    log(f"[rank {rank}] tracked frame hd over make_mesh() (1, 4), against "
+        f"the single card's tracking step")
+    prev = singles["wta"]
+    tracker = TemporalPipeline(d, device=dev)
+    steps = [tracker._track(torch.from_numpy(left[f]).to(dev),
+                            torch.from_numpy(right[f]).to(dev),
+                            torch.from_numpy(prev[f]).to(dev))
+             for f in range(frames)]
+    want = np.stack([disp.cpu().numpy() for disp, _ in steps])
+    want_frac = np.stack([frac.cpu().numpy() for _, frac in steps])
+    fn = parallel.make_temporal_track_sharded(mesh, max_disparity=d)
+    (shards, fracs), counts = counted(lambda: fn(left, right, prev))
+    compare("tracked frame hd", shards, want)
+    for index, frac in fracs:
+        require(np.array_equal(frac.cpu().numpy(), want_frac[index]),
+                f"tracked frame hd: poor fraction {frac} at {index}, not "
+                f"{want_frac[index]}")
+    log(f"  poor fraction equal to the single card's on both shards; "
+        f"launches a frame: {per_frame(counts, frames)} (the band stage is "
+        f"plain PyTorch)")
+    result["hd"]["tracked frame"] = {
+        "ms": timed(lambda: fn(left, right, prev)) / frames,
+        "launches": per_frame(counts, frames)}
+    del tracker, steps, fn, shards, fracs
+    torch.cuda.empty_cache()
+
+    log(f"[rank {rank}] 2-D tiles (1, 2, 2) hd, overlap "
+        f"{TILES_2D_OVERLAP}, tile axis across the ranks, frame 0")
+    mesh_2d = parallel.make_mesh_2d(None, 1, 2, 2)
+    require(mesh_2d.processes == (((0, 0), (1, 1)),),
+            f"make_mesh_2d(None, 1, 2, 2): {mesh_2d.processes}")
+    fn = parallel.make_tiled2d_estimate(
+        mesh_2d, max_disparity=d, kernel_size=k, penalty1=p1, penalty2=p2,
+        overlap=TILES_2D_OVERLAP)
+    shards, counts = counted(lambda: fn(left[:1], right[:1]))
+    compare("2-D tiles hd", shards, singles["wta"][:1])
+    counts = per_frame(counts, 1)
+    log(f"  launches a frame on rank {rank}: {counts}")
+    require(counts.get("ssd") == 2 and counts.get("sgm_rows") == 12
+            and counts.get("sgm_horizontal") == 4,
+            f"2-D tiles hd launches {counts}")
+    del shards
+    result["hd"]["tiled2d (1, 2, 2)"] = {
+        "ms": timed(lambda: fn(left[:1], right[:1]), reps=1, warmup=0),
+        "launches": counts}
+    del fn, mesh_2d
+    torch.cuda.empty_cache()
+
+    log(f"[rank {rank}] disparity blocks hd, ssd+wta over make_disp_mesh() "
+        f"(4 blocks), frame 0")
+    single = cli_common.create_pipeline("ssd", "wta", None, max_disparity=d,
+                                        kernel_size=k)
+    want = single.estimate(left[0], right[0], device=dev).cpu().numpy()
+    fn = parallel.make_disp_sharded_wta(parallel.make_disp_mesh(),
+                                        max_disparity=d, kernel_size=k)
+    shards, counts = counted(lambda: fn(left[0], right[0]))
+    compare("disparity blocks hd", shards, want)
+    counts = per_frame(counts, 1)
+    log(f"  launches a frame on rank {rank}: {counts}")
+    require(counts.get("ssd") == 2, f"disparity blocks launches {counts}")
+    result["hd"]["disparity blocks"] = {
+        "ms": timed(lambda: fn(left[0], right[0])), "launches": counts}
+    del single, fn, shards
+    torch.cuda.empty_cache()
+
+    golden_cvf = np.load(GOLDEN_CVF)
+    radius, eps = int(golden_cvf["cvf_radius"]), float(golden_cvf["cvf_eps"])
+    window = int(golden_cvf["census_window"])
+    t_left, t_right, t_gt = stereo_pair(375, 450, 128, seed=int(
+        golden["seed"]))
+    # A (1, 1, 2) grid of one device of each rank: tile_w across them
+    # (375 rows do not split over two row tiles).
+    world = mesh_mod.world_devices()
+    mesh_w = parallel.Mesh([[[world[0][0], world[1][0]]]],
+                           axis_names=(parallel.BATCH_AXIS, parallel.TILE_AXIS,
+                                       parallel.TILE_W_AXIS),
+                           processes=[[[0, 1]]])
+    log(f"[rank {rank}] teddy census+cvf+wta over a (1, 1, 2) mesh of one "
+        f"device of each rank, tile_w across them, against the single-card "
+        f"masked filter")
+    masked = cli_common.create_pipeline("census", "wta", "cvf",
+                                        max_disparity=128,
+                                        census_window=window)
+    masked.aggregation = CostFilter(radius, eps, wedge_offset=None)
+    want = masked.estimate(t_left, t_right, device=dev).cpu().numpy()
+    fn = parallel.make_tiled2d_estimate(
+        mesh_w, max_disparity=128,
+        cost="census", census_window=window, aggregation="cvf",
+        cvf_radius=radius, cvf_eps=eps)
+    shards, counts = counted(lambda: fn(t_left[None], t_right[None]))
+    compare("2-D tiles census+cvf+wta teddy", shards, want[None], 1)
+    (index, data), = shards
+    got = data[0].cpu().numpy()
+    cols = index[2]
+    scored = np.zeros((375, 450), bool)
+    scored[:, 128:] = True
+    bad = (np.abs(got - t_gt[:, cols]) > 1) & scored[:, cols]
+    result["teddy cvf"] = {
+        "ms": timed(lambda: fn(t_left[None], t_right[None])),
+        "launches": per_frame(counts, 1),
+        "golden_diff": int((got != golden_cvf["census_cvf_wta"][:, cols])
+                           .sum()),
+        "bad": int(bad.sum()), "scored": int(scored[:, cols].sum())}
+    log(f"  launches a frame on rank {rank}: {per_frame(counts, 1)} (census "
+        f"and the 2-D masked filter are plain PyTorch)")
+    del masked, fn, shards, mesh_w
+
+    log(f"[rank {rank}] moves between the ranks, host-staged over gloo")
+    carry = (torch.rand((w, d), device=dev), torch.rand((w,), device=dev))
+    volume = torch.rand((64, w, d), device=dev)
+    link = {}
+    for name, blocks in (("carry", carry), ("halo", (volume,))):
+        reps = TILES_LINK_REPS[name]
+        here = [b if rank == 0 else transport.Remote(0, dev) for b in blocks]
+        dist.barrier()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(reps):
+            there = transport.move(here, transport.Remote(1, dev), name)
+            here = transport.move(there, transport.Remote(0, dev), name)
+        torch.cuda.synchronize()
+        one_way = (time.perf_counter() - start) / (2 * reps) * 1e3
+        n_bytes = sum(b.numel() * b.element_size() for b in blocks)
+        link[name] = {"ms": one_way, "bytes": n_bytes,
+                      "gbps": n_bytes / one_way / 1e6}
+        log(f"  {name} ({n_bytes} bytes) one way: {one_way!r} ms = "
+            f"{link[name]['gbps']!r} GB/s")
+        if rank == 0:
+            require(all(torch.equal(a, b) for a, b in zip(here, blocks)),
+                    f"the {name} came back changed")
+    result["link"] = link
+    dist.barrier()
+    dist.destroy_process_group()
+    require("jax" not in sys.modules, "jax was imported")
+    print("DISTRIBUTED_TILES_RESULT " + json.dumps(result), flush=True)
+    return 0
+
+
 def measure_link(torch, dev, shapes, p1, p2, card) -> dict:
     """The rates behind ``parallel/ici_model.py``'s defaults, with CUDA
     events (median of DIST_REPS after DIST_WARMUP), at teddy and HD:
@@ -2378,27 +2711,19 @@ def measure_link(torch, dev, shapes, p1, p2, card) -> dict:
     return out
 
 
-def check_distributed(torch, dev, shapes, p1, p2, card) -> dict:
-    """The batch axis over two processes: two worker processes of this
-    script (``distributed_worker``) joined in a gloo world on this card
-    (one card each where there are two), teddy over (2, 5) and HD over
-    (2, 4).  Fails unless both exit 0 within DIST_TIMEOUT_S with their
-    result lines, killing both on the first failure.  Then, with the
-    card free, ``measure_link``.  Returns both ranks' results and the
-    link measurements."""
-    from stereomatch_tpu_torch.parallel import ici_model
-
-    log(f"[distributed] two worker processes, a gloo world, teddy over "
-        f"(2, 5) and HD over (2, 4) on cuda:(rank % "
-        f"{torch.cuda.device_count()}); both ranks share the card")
+def spawn_workers(flag: str, marker: str) -> list:
+    """Two worker processes of this script (``flag RANK HOST:PORT``) in
+    one gloo world; fails unless both exit 0 within DIST_TIMEOUT_S with
+    their ``marker`` lines, killing both on the first failure.  Logs
+    their other lines and returns both results (rank order)."""
     sock = socket.socket()
     sock.bind(("localhost", 0))
     address = f"localhost:{sock.getsockname()[1]}"
     sock.close()
     logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
     procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()),
-         "--distributed-worker", str(rank), address],
+        [sys.executable, str(Path(__file__).resolve()), flag, str(rank),
+         address],
         stdout=logs[rank], stderr=subprocess.STDOUT, text=True, cwd=ROOT)
         for rank in range(2)]
     deadline = time.monotonic() + DIST_TIMEOUT_S
@@ -2420,15 +2745,31 @@ def check_distributed(torch, dev, shapes, p1, p2, card) -> dict:
     results = []
     for rank, (proc, text) in enumerate(zip(procs, outputs)):
         lines = [line for line in text.splitlines()
-                 if line.startswith("DISTRIBUTED_RESULT ")]
+                 if line.startswith(marker + " ")]
         for line in text.splitlines():
-            if not line.startswith("DISTRIBUTED_RESULT "):
+            if not line.startswith(marker + " "):
                 log(f"  {line}")
         require(proc.returncode == 0 and lines,
-                f"distributed worker {rank} exited {proc.returncode} "
-                f"(a timeout of {DIST_TIMEOUT_S} s or its partner's "
-                f"failure kills it)")
+                f"{flag[2:]} {rank} exited {proc.returncode} (a timeout of "
+                f"{DIST_TIMEOUT_S} s or its partner's failure kills it)")
         results.append(json.loads(lines[-1].split(" ", 1)[1]))
+    return results
+
+
+def check_distributed(torch, dev, shapes, p1, p2, card) -> dict:
+    """The batch axis over two processes: two worker processes of this
+    script (``distributed_worker``) joined in a gloo world on this card
+    (one card each where there are two), teddy over (2, 5) and HD over
+    (2, 4).  Fails unless both exit 0 within DIST_TIMEOUT_S with their
+    result lines, killing both on the first failure.  Then, with the
+    card free, ``measure_link``.  Returns both ranks' results and the
+    link measurements."""
+    from stereomatch_tpu_torch.parallel import ici_model
+
+    log(f"[distributed] two worker processes, a gloo world, teddy over "
+        f"(2, 5) and HD over (2, 4) on cuda:(rank % "
+        f"{torch.cuda.device_count()}); both ranks share the card")
+    results = spawn_workers("--distributed-worker", "DISTRIBUTED_RESULT")
     for result in results:
         for tag, (_, runs) in DIST_CELLS.items():
             for label in [*runs, "auto"]:
@@ -2444,6 +2785,51 @@ def check_distributed(torch, dev, shapes, p1, p2, card) -> dict:
     log(f"  ici_model defaults: carry {ici_model.CARRY_GBPS!r} GB/s, stage "
         f"{ici_model.STAGE_US!r} us, copy {ici_model.COPY_GBPS!r} GB/s")
     return {"ranks": results, "link": link}
+
+
+def check_distributed_tiles(card) -> dict:
+    """The tile axes across two processes (ROADMAP A.14e): two worker
+    processes of this script (``distributed_tiles_worker``) in a gloo
+    world, each bringing ``cuda:(rank % cards)`` twice, so that the
+    world's meshes lay their tile axes across the ranks: HD over
+    ``make_mesh()`` (1, 4) (exact with WTA and DP, overlap 64, auto, the
+    pyramid, the tracked frame), the 2-D tiles (1, 2, 2), the disparity
+    blocks (4) and teddy census+cvf+wta over a (1, 1, 2) mesh of one
+    device of each rank, every rank's
+    shards at 0 pixels against the single card (or the one-process
+    partitioner, for the warm-up modes), and the teddy run's two halves
+    together against ``golden_torch_cvf_teddy.npz`` (CVF_GOLDEN_MAX_DIFF
+    pixels).  Returns both ranks' times, launches and link times."""
+    log("[distributed tiles] two worker processes, a gloo world, each "
+        "bringing cuda:(rank % cards) twice: HD over make_mesh() (1, 4), "
+        "2-D tiles (1, 2, 2), disparity blocks (4), teddy over (1, 1, 2) "
+        "(one device of each rank); "
+        "both ranks share the card")
+    results = spawn_workers("--distributed-tiles-worker",
+                            "DISTRIBUTED_TILES_RESULT")
+    golden_cvf = np.load(GOLDEN_CVF)
+    cvf = [r["teddy cvf"] for r in results]
+    n_diff = sum(c["golden_diff"] for c in cvf)
+    bad = sum(c["bad"] for c in cvf) / sum(c["scored"] for c in cvf)
+    golden_bad = float(golden_cvf["bad_pixel_vs_gt"])
+    log(f"  teddy census+cvf+wta, both halves: {n_diff} pixels differ from "
+        f"golden census_cvf_wta (bound {CVF_GOLDEN_MAX_DIFF}); bad-pixel "
+        f"vs ground truth {bad!r} (golden {golden_bad!r})")
+    require(n_diff <= CVF_GOLDEN_MAX_DIFF, f"{n_diff} pixels differ from "
+            f"golden census_cvf_wta")
+    require(bad <= golden_bad + 1e-3, f"bad-pixel {bad} above the golden's")
+    for result in results:
+        for label, run in {**result["hd"],
+                           "teddy census+cvf+wta (1, 1, 2)":
+                               result["teddy cvf"]}.items():
+            log(f"  rank {result['rank']} {label}: {run['ms']!r} ms/frame "
+                f"(CUDA events, both ranks timing at once on the card, "
+                f"host images), launches a frame {run['launches']} [{card}]")
+        for name, link in result["link"].items():
+            log(f"  rank {result['rank']} {name} move, one way: "
+                f"{link['ms']!r} ms for {link['bytes']} bytes (host clock, "
+                f"{TILES_LINK_REPS[name]} round trips) [{card}]")
+    return {"ranks": results}
 
 
 def main() -> int:
@@ -2943,6 +3329,8 @@ def main() -> int:
     elapsed("the partitioners")
     distributed_out = check_distributed(torch, dev, shapes, p1, p2, card)
     elapsed("the meshes over two processes")
+    tiles_out = check_distributed_tiles(card)
+    elapsed("the tile axes over two processes")
 
     def paths(tag):
         """(label, pipeline factory) of each timed path at one geometry:
@@ -3257,6 +3645,7 @@ def main() -> int:
                     "serve": serve_out, "card": card}))
     log(json.dumps({"partitioners": partition_out, "card": card}))
     log(json.dumps({"distributed": distributed_out, "card": card}))
+    log(json.dumps({"distributed_tiles": tiles_out, "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {
@@ -3268,4 +3657,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--distributed-worker"]:
         sys.exit(distributed_worker(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--distributed-tiles-worker"]:
+        sys.exit(distributed_tiles_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -5,14 +5,18 @@ partitioners, the counterpart of ``stereomatch_tpu/parallel/``.
   that owns each: (batch, tile) for the row-sharded paths, ``batch``
   data-parallel over frames and ``tile`` over image rows.  Devices may
   repeat (several tiles on one card, or the CPU).
-  ``initialize_distributed`` joins a gloo ``torch.distributed`` world and
-  ``make_hybrid_mesh`` lays the batch axis over its processes, each
-  computing the frames of its own batch rows; a tile axis across
-  processes waits for ROADMAP A.14.
+  ``initialize_distributed`` joins a gloo ``torch.distributed`` world;
+  ``make_hybrid_mesh``, ``make_mesh``, ``make_mesh_2d`` and
+  ``make_disp_mesh`` lay any axis over its processes, each computing
+  only the tiles (or blocks) of its own devices and returning its
+  shards where a frame's tiles span processes.
+* ``transport`` — the moves between tiles: ``.to()`` within a process,
+  point-to-point sends and receives (staged through host memory)
+  between processes, and the gathers built from them.
 * ``ici_model`` — the interconnect model behind ``sgm_mode="auto"``,
   with the H100's measured rates.
 * ``halo``    — edge-slice exchange between neighbouring tiles along any
-  axis by cross-device copies, zero-filled at the ring ends.
+  axis through the transport, zero-filled at the ring ends.
 * ``sharded`` — the row-sharded pipeline: cost with image-row halos,
   8-path SGM with exact carry hand-off (the chunk kernel) or warm-up
   overlap, WTA or scanline DP, the post-processing.

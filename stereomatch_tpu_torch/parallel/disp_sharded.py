@@ -7,7 +7,8 @@ images (copied there: they are small against the volume), so no halo
 crosses blocks.  SGM and DP reduce over all of D at every step and stay
 whole-D (the row and 2-D tile partitioners); guided-filter aggregation
 is per disparity slice, so it composes.  The blocks' minima and arg
-minima cross to the mesh's first device, where
+minima cross to the mesh's first device (over processes, to each
+device's owner, for that device's rows), where
 
     global_min = min over blocks of local_min
     disparity  = min over blocks of (local_argmin + offset
@@ -25,8 +26,14 @@ single-card registry's wedge path restricted to the block.  On the CPU
 the filter is the plain masked path, as the JAX package filters each
 block (its ``guided_filter_aggregate`` with no ``wedge_offset``).
 Census, Birchfield and ZNCC have no kernel (plain PyTorch on any
-device).  One process drives every block; with one card a block, the
-blocks run concurrently.
+device).  In one process, one process drives every block; with one card
+a block, the blocks run concurrently.  Over processes (``make_disp_mesh``
+of the world's devices), each rank builds only its own blocks, the rows
+of every block's (minimum, argmin) that a device's output rows need move
+to that device's owner (``transport.exchange``: JAX's ``pmin``, whose
+result each device slices to its rows), are combined there in block
+order, and each rank returns its shards: its devices' rows of [H, W],
+as JAX's output spec ``P(disp, None)`` lays them out.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from ..aggregation import CostFilter
 from ..cost import _diff_cost_dispatch
 from ..ops import cost as cost_ops
 from ..pipeline import as_tensor
+from . import transport
 from .mesh import Mesh, world_layout
 from .sharded import _cost_dtype
 
@@ -52,7 +60,8 @@ def make_disp_mesh(devices: Optional[Sequence] = None,
     (this process's; devices may repeat, e.g. ``[torch.device("cpu")] *
     8``), by default of the world's devices (every visible card of one
     process).  With no card and no ``devices`` it raises: there is no CPU
-    fallback.  Blocks spread over processes are refused (ROADMAP A.14)."""
+    fallback.  In a world of several processes the default spans them,
+    each rank owning its own devices' blocks."""
     processes = None
     if devices is None:
         devices, processes = world_layout("make_disp_mesh()")
@@ -75,7 +84,10 @@ def make_disp_sharded_wta(mesh: Mesh, *, max_disparity: int,
     Returns ``fn(left, right) -> disparity``: two [H, W] images (numpy or
     tensors, any device) -> [H, W] int32 on the mesh's first device,
     equal to the single-device ``winner_takes_all(cost(...))`` (with
-    ``aggregation="cvf"``, of the filtered volume) bit for bit.  CUDA
+    ``aggregation="cvf"``, of the filtered volume) bit for bit.  Over
+    processes: this rank's shards, one ``(index, tensor)`` pair per mesh
+    device it owns, ``index`` = (its H / n_disp rows, ``slice(None)``),
+    the tensor on the device.  CUDA
     blocks run the kernels where they serve the shape (``backend="auto"``
     of the cost and filter classes), CPU blocks the plain versions.
     """
@@ -136,11 +148,33 @@ def make_disp_sharded_wta(mesh: Mesh, *, max_disparity: int,
                 f"disparity-sharded ncc needs max_disparity {max_disparity} "
                 f"<= W + 1 = {width + 1} (a block's offset would overrun "
                 "the [H, W+1] prefix plane)")
-        first = devices[0]
-        return global_argmin([
-            tuple(x.to(first) for x in
-                  local(left.to(dev), right.to(dev), i * block))
-            for i, dev in enumerate(devices)])
+        parts = [local(left.to(dev), right.to(dev), i * block)
+                 if mesh.owns((i,)) else transport.Remote(owner, dev)
+                 for i, (dev, owner) in enumerate(zip(devices,
+                                                      mesh.processes))]
+        if not mesh.spans_processes:
+            first = devices[0]
+            return global_argmin([tuple(x.to(first) for x in part)
+                                  for part in parts])
+        rows = height // n_disp
+        moves = []
+        for i, (dev, owner) in enumerate(zip(devices, mesh.processes)):
+            there = transport.Remote(owner, dev)
+            for part in parts:
+                for x in (part if transport.is_local(part) else (part,) * 2):
+                    if transport.is_local(x):
+                        x = x[i * rows:(i + 1) * rows]
+                    moves.append((x, there))
+        landed = transport.exchange(moves, "disp_minima")
+        shards = []
+        for i in range(n_disp):
+            if mesh.owns((i,)):
+                mine = landed[2 * n_disp * i:2 * n_disp * (i + 1)]
+                shards.append(((slice(i * rows, (i + 1) * rows),
+                                slice(None)),
+                               global_argmin(list(zip(mine[::2],
+                                                      mine[1::2])))))
+        return shards
 
     return fn
 

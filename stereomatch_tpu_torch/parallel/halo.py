@@ -2,25 +2,27 @@
 counterpart of ``stereomatch_tpu/parallel/halo.py``.
 
 Every function takes the list of one frame's per-tile blocks, in tile
-order, each on its tile's device, and returns one tensor per tile on
-that tile's device: rows move with ``.to(device)`` of the receiving
-tile.  Positions beyond the ring ends are zeros, as ``lax.ppermute``
+order, each on its tile's device (a ``transport.Remote`` placeholder for
+a tile another process owns), and returns one tensor per tile this
+process owns, on that tile's device (the placeholder for the others).
+Slices move as one exchange (``transport.exchange``): ``.to(device)`` of
+the receiving tile within a process, a send and a receive between
+processes.  Positions beyond the ring ends are zeros, as ``lax.ppermute``
 fills them there: the additive identity the clipped cost windows want,
 and the cold-start identity of the SGM warm-up scan (``sharded.py``).
+Every tile's block has the same length along ``axis``.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Sequence
 
 import torch
 
-Blocks = Sequence[torch.Tensor]
+from . import transport
+from .transport import each, first_local, is_local
 
-
-def _slab(block: torch.Tensor, start: int, count: int, axis: int,
-          device: torch.device) -> torch.Tensor:
-    return block.narrow(axis, start, count).to(device)
+Blocks = Sequence
 
 
 def _zeros(block: torch.Tensor, count: int, axis: int) -> torch.Tensor:
@@ -38,68 +40,75 @@ def _join(parts, block: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def _check_one_hop(blocks: Blocks, count: int, axis: int) -> None:
-    if any(count > b.shape[axis] for b in blocks):
+    if any(count > b.shape[axis] for b in blocks if is_local(b)):
         raise ValueError(f"a halo of {count} slices reaches past the "
                          "neighbouring tile; use the _multi form")
 
 
-def pull_from_prev(blocks: Blocks, count: int,
-                   axis: int = 0) -> List[torch.Tensor]:
+def pull_from_prev(blocks: Blocks, count: int, axis: int = 0) -> list:
     """For each tile, the last ``count`` slices (along ``axis``) of the
     previous tile's block; tile 0 receives zeros."""
     _check_one_hop(blocks, count, axis)
     return pull_from_prev_multi(blocks, count, axis)
 
 
-def pull_from_next(blocks: Blocks, count: int,
-                   axis: int = 0) -> List[torch.Tensor]:
+def pull_from_next(blocks: Blocks, count: int, axis: int = 0) -> list:
     """For each tile, the first ``count`` slices of the next tile's
     block; the last tile receives zeros."""
     _check_one_hop(blocks, count, axis)
     return pull_from_next_multi(blocks, count, axis)
 
 
-def pull_from_prev_multi(blocks: Blocks, count: int,
-                         axis: int = 0) -> List[torch.Tensor]:
+def _pull(blocks: Blocks, count: int, axis: int, forward: bool) -> list:
+    """Each tile's ``count`` slices before (``forward``: from its
+    predecessors, farthest first) or after it (from its successors,
+    nearest first), zeros beyond the ring ends, in one exchange."""
+    ref = first_local(blocks)
+    if ref is None:                       # no tile here: nothing to do
+        return list(blocks)
+    n, local = len(blocks), ref.shape[axis]
+    hops = -(-count // local) if count else 0
+    moves, layout = [], []
+    for i, block in enumerate(blocks):
+        pieces = []
+        steps = range(hops, 0, -1) if forward else range(1, hops + 1)
+        for j in steps:
+            width = min(local, count - (j - 1) * local)
+            src = i - j if forward else i + j
+            if not 0 <= src < n:
+                pieces.append(("zeros", width))
+                continue
+            start = local - width if forward else 0
+            part = blocks[src]
+            if is_local(part):
+                part = part.narrow(axis, start, width)
+            pieces.append(("moved", len(moves)))
+            moves.append((part, block))
+        layout.append(pieces)
+    landed = transport.exchange(moves, "halo")
+    out = []
+    for block, pieces in zip(blocks, layout):
+        if not is_local(block):
+            out.append(block)
+            continue
+        parts = [landed[v] if kind == "moved" else _zeros(block, v, axis)
+                 for kind, v in pieces]
+        out.append(_join(parts, block, axis))
+    return out
+
+
+def pull_from_prev_multi(blocks: Blocks, count: int, axis: int = 0) -> list:
     """For each tile, the ``count`` slices immediately BEFORE its block,
     from as many predecessors as needed (``count`` may exceed a block);
     positions before tile 0 are zeros.  Ordered as the global axis."""
-    out = []
-    for i, block in enumerate(blocks):
-        local = block.shape[axis]
-        hops = -(-count // local) if count else 0
-        parts = []
-        for j in range(hops, 0, -1):                 # farthest tile first
-            width = min(local, count - (j - 1) * local)
-            if i - j < 0:
-                parts.append(_zeros(block, width, axis))
-            else:
-                parts.append(_slab(blocks[i - j], local - width, width, axis,
-                                   block.device))
-        out.append(_join(parts, block, axis))
-    return out
+    return _pull(blocks, count, axis, forward=True)
 
 
-def pull_from_next_multi(blocks: Blocks, count: int,
-                         axis: int = 0) -> List[torch.Tensor]:
+def pull_from_next_multi(blocks: Blocks, count: int, axis: int = 0) -> list:
     """For each tile, the ``count`` slices immediately AFTER its block,
     from as many successors as needed; positions beyond the last tile
     are zeros."""
-    n = len(blocks)
-    out = []
-    for i, block in enumerate(blocks):
-        local = block.shape[axis]
-        hops = -(-count // local) if count else 0
-        parts = []
-        for j in range(1, hops + 1):                 # nearest tile first
-            width = min(local, count - (j - 1) * local)
-            if i + j >= n:
-                parts.append(_zeros(block, width, axis))
-            else:
-                parts.append(_slab(blocks[i + j], 0, width, axis,
-                                   block.device))
-        out.append(_join(parts, block, axis))
-    return out
+    return _pull(blocks, count, axis, forward=False)
 
 
 def out_of_image_mask(rank: int, n_shards: int, local_len: int, before: int,
@@ -118,11 +127,12 @@ def out_of_image_mask(rank: int, n_shards: int, local_len: int, before: int,
 
 
 def pad_with_halos(blocks: Blocks, before: int, after: int,
-                   axis: int = 0) -> List[torch.Tensor]:
+                   axis: int = 0) -> list:
     """Each tile's block with ``before`` slices of its predecessors and
     ``after`` of its successors around it along ``axis``; out-of-image
     positions are zeros.  ``before``/``after`` may be 0."""
     heads = pull_from_prev_multi(blocks, before, axis)
     tails = pull_from_next_multi(blocks, after, axis)
-    return [_join([p for p in (h, b, t) if p.shape[axis]], b, axis)
-            for h, b, t in zip(heads, blocks, tails)]
+    return each(lambda b, h, t: _join([p for p in (h, b, t)
+                                       if p.shape[axis]], b, axis),
+                blocks, heads, tails)

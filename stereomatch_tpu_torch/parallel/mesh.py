@@ -16,12 +16,14 @@ A device may repeat, so several tiles can share one card (or the CPU,
 as the tests run it); the same code runs over N cards unchanged.
 
 Over several processes (``initialize_distributed``, a gloo group of
-``torch.distributed``), only the batch axis may span them, as JAX's
-``make_hybrid_mesh`` lays it out: each process computes the frames of
-its own batch rows and no collective runs on the compute path.  A mesh
-whose tile axis (or any axis but ``batch``) spans processes is refused:
-that needs the halos and the carry over ``torch.distributed``
-(ROADMAP A.14).
+``torch.distributed``), any axis may span them, as JAX lays a global
+mesh over hosts: ``processes`` names the rank that owns each device.
+Each rank computes only the tiles (or blocks) whose devices it owns;
+what crosses a process boundary (halos, carries, the gathers of row
+sums, drift counts and block minima) travels as point-to-point moves
+over ``torch.distributed`` (``transport.py``).  Where only the batch
+axis spans processes, nothing crosses them: each rank computes the
+frames of its own batch rows.
 """
 
 from __future__ import annotations
@@ -140,8 +142,8 @@ class Mesh:
     the 2-D tile mesh (``make_mesh_2d``) a [batch][tile][tile_w] grid.
     ``shape`` is keyed by axis name like the JAX mesh's.  ``processes``,
     a grid of the same shape, holds the rank that owns each device (by
-    default this process, for every device); only the batch axis may
-    span processes.
+    default this process, for every device); any axis may span
+    processes.
     """
 
     def __init__(self, devices, axis_names=(BATCH_AXIS, TILE_AXIS),
@@ -179,27 +181,44 @@ class Mesh:
         if owners.shape != sizes:
             raise ValueError(f"processes {owners.shape} do not match the "
                              f"devices {sizes}")
-        for i, name in enumerate(self.axis_names):
-            if name != BATCH_AXIS and (owners != owners.take([0],
-                                                             axis=i)).any():
-                raise NotImplementedError(
-                    f"the mesh's {name!r} axis spans processes; only the "
-                    f"batch axis may (a {name} axis across processes needs "
-                    "its halos and carries over torch.distributed, ROADMAP "
-                    "A.14)")
 
     @property
     def spans_processes(self) -> bool:
         """Whether more than one process owns devices of this mesh."""
         return len(set(np.asarray(self.processes).flat)) > 1
 
+    @property
+    def splits_frames(self) -> bool:
+        """Whether an axis other than ``batch`` spans processes, so that
+        one frame's (or one image's) devices belong to several: then the
+        partitioners return each rank's shards."""
+        owners = np.asarray(self.processes)
+        if BATCH_AXIS not in self.axis_names:
+            return self.spans_processes
+        rows = owners.reshape(owners.shape[0], -1)
+        return bool((rows != rows[:, :1]).any())
+
+    def owns(self, position) -> bool:
+        """Whether this process owns the device at grid ``position`` (a
+        tuple of indices, one per axis)."""
+        return int(np.asarray(self.processes)[tuple(position)]) \
+            == process_index()
+
+    def owned_positions(self) -> List[tuple]:
+        """The grid positions of this process's devices, in grid order:
+        where its shards lie, as JAX's addressable shards."""
+        owners = np.asarray(self.processes)
+        return [tuple(int(i) for i in pos)
+                for pos in np.argwhere(owners == process_index())]
+
     def owned_rows(self) -> List[int]:
-        """The batch rows whose devices this process owns (every row in
-        one process), the counterpart of JAX's addressable shards."""
+        """The batch rows in which this process owns a device (every row
+        in one process): the rows whose frames it computes, alone or with
+        the other owners of the row's tiles."""
         here = process_index()
         owners = np.asarray(self.processes)
         return [b for b in range(owners.shape[0])
-                if owners[b].flat[0] == here]
+                if (owners[b] == here).any()]
 
     def frame_indices(self, n_frames: int) -> List[int]:
         """The global indices of this process's frames among ``n_frames``
@@ -255,8 +274,8 @@ def make_mesh(devices: Optional[Sequence] = None,
 def make_hybrid_mesh(n_batch_hosts: Optional[int] = None,
                      n_tile: Optional[int] = None,
                      devices: Optional[Sequence] = None) -> Mesh:
-    """(batch, tile) mesh for several processes: batch over processes,
-    tiles within one.
+    """(batch, tile) mesh for several processes: by default batch over
+    processes, tiles within one.
 
     In one process it is :func:`make_mesh` over ``devices`` (default:
     every visible card), the JAX package's single-host branch.  In a
@@ -264,8 +283,8 @@ def make_hybrid_mesh(n_batch_hosts: Optional[int] = None,
     recorded devices), gathered over the ranks (every rank calls this);
     ``n_tile`` defaults to the per-process count, the devices are ordered
     by (rank, local index) and the grid is ``(n_batch_hosts, n_tile)``,
-    as JAX lays it out.  A tile axis longer than one process's devices
-    is refused (ROADMAP A.14).
+    as JAX lays it out: a tile axis longer than one process's devices
+    spans processes, its halos and carries moving between them.
     """
     n_hosts = process_count()
     if n_hosts == 1:
@@ -314,8 +333,8 @@ def initialize_distributed(*, coordinator_address: Optional[str] = None,
     XLA's forced host device count gives a JAX process), else every
     visible card.
 
-    gloo, not NCCL: the batch axis carries no collectives, so the group
-    serves only this bootstrap; and NCCL refuses two ranks on one card.
+    gloo, not NCCL: NCCL refuses two ranks on one card; the blocks that
+    cross processes (``transport.py``) are staged through host memory.
     """
     global _WORLD
     if local_devices is not None and local_device_ids is not None:

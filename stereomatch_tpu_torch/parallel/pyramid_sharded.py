@@ -23,7 +23,9 @@ maps onto the row-sharding of ``parallel/sharded.py``:
 So ``sgm_mode="exact"`` equals the single-device pyramid bit for bit.
 ``sgm_mode="auto"`` resolves from the coarse level's geometry, where the
 SGM runs (``sharded.sgm_mode_resolver``).  Over processes each rank
-computes the frames of its own batch rows (``sharded.map_frames``).
+computes its own tiles of the frames of the batch rows it has a device
+in (``sharded.map_frames``), the halos and the coarse SGM's carry moving
+between ranks where the tile axis spans them.
 """
 
 from __future__ import annotations
@@ -40,9 +42,10 @@ from ..pyramid import (_cost_dtype, band_refine_census, downsample2,
                        upsample2_nearest)
 from . import halo
 from .mesh import TILE_AXIS, Mesh
-from .sharded import (_median3x3_rows, _speckle_rows, check_frames,
-                      join_tiles, local_cost, map_frames, sgm_mode_resolver,
+from .sharded import (_median3x3_rows, _speckle_rows, assemble,
+                      check_frames, local_cost, map_frames, sgm_mode_resolver,
                       sharded_semiglobal)
+from .transport import each, is_local
 
 
 def _band_sharded(lefts: Sequence[torch.Tensor],
@@ -55,13 +58,18 @@ def _band_sharded(lefts: Sequence[torch.Tensor],
     images with ``window_size // 2 + band_kernel_size // 2`` halo rows a
     side (zeros beyond the image), its anchors zero-padded there, the
     halo rows' outputs cropped.  Returns the per-tile results (with
-    ``return_best_cost``, (disparity, best cost) pairs)."""
+    ``return_best_cost``, (disparity, best cost) pairs; two placeholders
+    for another process's tile)."""
     h = window_size // 2 + band_kernel_size // 2
-    n, h_loc = len(lefts), lefts[0].shape[0]
+    n = len(lefts)
     lpad = halo.pad_with_halos(lefts, h, h)
     rpad = halo.pad_with_halos(rights, h, h)
     out = []
     for t, (lp, rp, pred) in enumerate(zip(lpad, rpad, predicted)):
+        if not is_local(lp):
+            out.append((lp, lp) if return_best_cost else lp)
+            continue
+        h_loc = pred.shape[0]
         pp = torch.nn.functional.pad(pred, (0, 0, h, h))
         row_valid = None
         if band_kernel_size > 1:
@@ -106,8 +114,9 @@ def make_pyramid_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     boundary).  ``sgm_mode`` "exact", "overlap" (``overlap`` warm-up
     rows) or "auto" (the interconnect model's pick for the coarse
     level).  Over processes each rank returns its own frames
-    (``mesh.frame_indices(B)``).  ``backend`` is the coarse SGM's ("auto",
-    "cuda" or "torch").
+    (``mesh.frame_indices(B)``), or its shards where the tile axis spans
+    processes (``sharded.frame_shards``).  ``backend`` is the coarse
+    SGM's ("auto", "cuda" or "torch").
     """
     if levels < 1:
         raise ValueError("levels must be >= 1")
@@ -133,19 +142,18 @@ def make_pyramid_sharded_estimate(mesh: Mesh, *, max_disparity: int,
         pyr = [(lefts, rights)]
         for _ in range(levels):
             ls, rs = pyr[-1]
-            pyr.append(([downsample2(x) for x in ls],
-                        [downsample2(x) for x in rs]))
+            pyr.append((each(downsample2, ls), each(downsample2, rs)))
         coarse_l, coarse_r = pyr[-1]
         vols = local_cost(coarse_l, coarse_r, census, window_size // 2,
                           window_size // 2)
         aggs = sharded_semiglobal(vols, coarse_l, penalty1=penalty1,
                                   penalty2=penalty2, mode=mode,
                                   overlap=overlap, backend=backend)
-        disps = [winner_takes_all(a) for a in aggs]
+        disps = each(winner_takes_all, aggs)
         for level in range(levels - 1, -1, -1):
             fine_l, fine_r = pyr[level]
             disps = _band_sharded(
-                fine_l, fine_r, [upsample2_nearest(d) for d in disps],
+                fine_l, fine_r, each(upsample2_nearest, disps),
                 band_radius=band_radius,
                 max_disparity=max_disparity // (2 ** level),
                 window_size=window_size, band_kernel_size=band_kernel_size,
@@ -155,14 +163,14 @@ def make_pyramid_sharded_estimate(mesh: Mesh, *, max_disparity: int,
         if speckle:
             disps = _speckle_rows(disps, max_diff=1.0, window=9,
                                   min_frac=0.25, fill=speckle_fill)
-        return join_tiles(mesh, disps)
+        return disps
 
-    def fn(left, right) -> torch.Tensor:
+    def fn(left, right):
         left, right = check_frames(left, right, mesh, n_tiles * 2 ** levels)
         b, h, w = left.shape
         scale = 2 ** levels
         mode = resolve(h // scale, w // scale, d_coarse, b)
-        return torch.stack(map_frames(
-            mesh, functools.partial(frame, mode=mode), left, right))
+        return assemble(mesh, map_frames(
+            mesh, functools.partial(frame, mode=mode), left, right), b)
 
     return fn

@@ -4,12 +4,15 @@
 
 Partitioning, as in the JAX package: each frame's [H, W, D] cost volume
 is split over image rows along the mesh's ``tile`` axis, and frames over
-its ``batch`` axis; W and D stay whole on every tile.  One process
-drives each frame: a frame is a list of per-tile blocks, each on its
-tile's device, and what crosses tiles moves with ``.to()`` of the
-receiving tile's device (``halo.py``).  Nothing here synchronises the
-host: with one card per tile, traversal t on tile r + 1 overlaps
-traversal t + 1 on tile r.
+its ``batch`` axis; W and D stay whole on every tile.  A frame is a list
+of per-tile blocks, each on its tile's device; every process that owns
+a tile of the frame walks the same tile loop, computing only its own
+tiles (another process's tile is a ``transport.Remote`` placeholder),
+and what crosses tiles moves through ``transport.exchange``: ``.to()``
+of the receiving tile's device within a process, a send and a receive
+between processes (``halo.py``).  Within a process nothing here
+synchronises the host: with one card per tile, traversal t on tile
+r + 1 overlaps traversal t + 1 on tile r.
 
 What crosses tile boundaries, and how:
 
@@ -79,10 +82,15 @@ of each frame shape, through ``ici_model.select_sgm_mode`` (the H100's
 measured rates) with the frames a batch row holds, as the JAX package
 resolves it at trace time.
 
-Over processes (a mesh from ``make_hybrid_mesh`` in a world of several),
-every rank is given the same global [B, H, W] stacks and computes only
-the frames of its own batch rows (``Mesh.frame_indices``); the others
-never reach a device, and nothing crosses processes.
+Over processes (a mesh from ``make_hybrid_mesh`` or ``make_mesh`` in a
+world of several), every rank is given the same global [B, H, W] stacks
+and computes only the tiles whose devices it owns, of the frames of the
+batch rows it has a device in (``Mesh.frame_indices``); the other tiles
+never reach a device.  Where the tile axis spans processes, the halos,
+the exact mode's carry (the chunk kernel's chain crosses the rank
+boundary), ZNCC's row sums and the smoother's Thomas hand-off travel
+between them, and each rank returns its shards (:func:`frame_shards`).
+Where only the batch axis spans them, nothing crosses processes.
 
 bf16 volumes (``cost_dtype="bfloat16"``): each tile's cost volume is
 bf16, the image halos float32; the kernels read the bf16 tiles, the
@@ -113,9 +121,10 @@ from ..pipeline import disparity_bins, tensor_from_numpy
 from ..utils.numeric import exp_f32, pairwise_sum_last
 from ..utils import profiling, validation
 from ..utils.backend import resolve_backend
-from . import halo
+from . import halo, transport
 from .ici_model import select_sgm_mode
 from .mesh import BATCH_AXIS, TILE_AXIS, Mesh
+from .transport import each, first_local, is_local
 
 _COSTS = ("ssd", "ssd-texture", "birchfield", "census", "sad", "ncc")
 _REDUCERS = ("wta", "dynamic_programming")
@@ -151,8 +160,8 @@ def local_cost(lefts: Sequence[torch.Tensor], rights: Sequence[torch.Tensor],
     block's rows (a contiguous view)."""
     lpad = halo.pad_with_halos(lefts, before, after)
     rpad = halo.pad_with_halos(rights, before, after)
-    return [cost_fn(lp, rp)[before:before + block.shape[0]]
-            for lp, rp, block in zip(lpad, rpad, lefts)]
+    return each(lambda block, lp, rp: cost_fn(lp, rp)[
+                    before:before + block.shape[0]], lefts, lpad, rpad)
 
 
 def local_zncc(lefts: Sequence[torch.Tensor], rights: Sequence[torch.Tensor],
@@ -162,29 +171,33 @@ def local_zncc(lefts: Sequence[torch.Tensor], rights: Sequence[torch.Tensor],
     ``ops.cost.zncc_cost_volume`` bit for bit: (k, k-1) image-row halos,
     the rows beyond the image marked invalid, and each image's sum from
     the tiles' per-row sums (``pairwise_sum_last``, whose association
-    depends on W alone) gathered into the [H] vector on the first tile's
-    device and summed there as one device sums it."""
+    depends on W alone) gathered into the [H] vector on this process's
+    first tile's device (from every tile, over processes too) and summed
+    there in tile order, as one device sums it."""
     k, n = kernel_size, len(lefts)
-    h_loc, width = lefts[0].shape
-    first = lefts[0].device
+    ref = first_local(lefts)
+    if ref is None:
+        return list(lefts)
+    h_loc, width = ref.shape
 
     def total(blocks):
-        rows = [pairwise_sum_last(b.to(torch.float32)).to(first)
-                for b in blocks]
+        rows = transport.gather(
+            each(lambda b: pairwise_sum_last(b.to(torch.float32)), blocks),
+            ref.device, "zncc_sums")
         return pairwise_sum_last(torch.cat(rows))
 
     totals = total(lefts), total(rights)
     lpad = halo.pad_with_halos(lefts, k, k - 1)
     rpad = halo.pad_with_halos(rights, k, k - 1)
-    return [cost_ops.zncc_cost_from_padded(
-                lp, rp, pad_before=k, pad_after=k - 1,
-                max_disparity=max_disparity, kernel_size=k,
-                cost_dtype=cost_dtype,
-                row_valid=~halo.out_of_image_mask(t, n, h_loc, k, k - 1,
-                                                  device=lp.device),
-                left_total=totals[0], right_total=totals[1],
-                image_size=n * h_loc * width)
-            for t, (lp, rp) in enumerate(zip(lpad, rpad))]
+    return each(lambda lp, rp, t: cost_ops.zncc_cost_from_padded(
+                    lp, rp, pad_before=k, pad_after=k - 1,
+                    max_disparity=max_disparity, kernel_size=k,
+                    cost_dtype=cost_dtype,
+                    row_valid=~halo.out_of_image_mask(t, n, h_loc, k, k - 1,
+                                                      device=lp.device),
+                    left_total=totals[0], right_total=totals[1],
+                    image_size=n * h_loc * width),
+                lpad, rpad, range(n))
 
 
 # --------------------------------------------------------------------------
@@ -215,8 +228,11 @@ def _exact_traversal(vols, imgs, outs, step, p1, p2, on_card, last):
     order = range(len(vols)) if step[0] > 0 else range(len(vols) - 1, -1, -1)
     carry = (None, None)
     for rank, t in enumerate(order):
-        device = vols[t].device
-        carry = tuple(c if c is None else c.to(device) for c in carry)
+        if rank:                 # the predecessor's carry (between ranks too)
+            carry = transport.move(carry, vols[t], "sgm_carry")
+        if not is_local(vols[t]):
+            carry = (vols[t], vols[t])
+            continue
         kw = dict(penalty1=p1, penalty2=p2, seed=rank == 0)
         if on_card:
             result = None
@@ -231,20 +247,30 @@ def _exact_traversal(vols, imgs, outs, step, p1, p2, on_card, last):
             outs[t] = _accumulate(outs[t], part)
 
 
-def _overlap_traversal(vols, imgs, outs, step, p1, p2, on_card, overlap):
+def _warmup_halos(vols, imgs, overlap) -> dict:
+    """The ``overlap`` warm-up rows of the volume and the image before
+    each tile (key 1, for the downward traversals) and after it (key -1),
+    pulled once for the three traversals of each direction."""
+    return {1: (halo.pull_from_prev_multi(vols, overlap),
+                halo.pull_from_prev_multi(imgs, overlap)),
+            -1: (halo.pull_from_next_multi(vols, overlap),
+                 halo.pull_from_next_multi(imgs, overlap))}
+
+
+def _overlap_traversal(vols, imgs, outs, step, p1, p2, on_card, overlap,
+                       halos):
     """One row traversal over every tile from a cold start ``overlap``
-    rows early in scan order, in parallel."""
+    rows early in scan order, in parallel (``halos``: _warmup_halos)."""
+    halo_v, halo_i = halos[step[0]]
     if step[0] > 0:        # warm-up rows precede the block
-        halo_v = halo.pull_from_prev_multi(vols, overlap)
-        halo_i = halo.pull_from_prev_multi(imgs, overlap)
         pieces = zip(halo_v, vols), zip(halo_i, imgs)
         start = overlap
     else:                  # they follow it
-        halo_v = halo.pull_from_next_multi(vols, overlap)
-        halo_i = halo.pull_from_next_multi(imgs, overlap)
         pieces = zip(vols, halo_v), zip(imgs, halo_i)
         start = 0
     for t, (vol_parts, img_parts) in enumerate(zip(*pieces)):
+        if not is_local(vols[t]):
+            continue
         vol_x, img_x = torch.cat(vol_parts), torch.cat(img_parts)
         rows = slice(start, start + vols[t].shape[0])
         if on_card:
@@ -279,28 +305,33 @@ def sharded_semiglobal(vols: Sequence[torch.Tensor],
     if mode not in ("exact", "overlap"):
         raise ValueError(f"unknown SGM sharding mode: {mode!r}")
     p1, p2 = float(penalty1), float(penalty2)
-    fits = sgm_cuda.fits(vols[0].shape)
-    on_card = resolve_backend(backend, vols[0], fits) == "cuda"
-    dtype = torch.bfloat16 if vols[0].dtype == torch.bfloat16 \
+    ref = first_local(vols)
+    if ref is None:
+        return list(vols)
+    fits = sgm_cuda.fits(ref.shape)
+    on_card = resolve_backend(backend, ref, fits) == "cuda"
+    dtype = torch.bfloat16 if ref.dtype == torch.bfloat16 \
         else torch.float32
-    vols = [v.to(dtype).contiguous() for v in vols]
-    imgs = [i.to(torch.float32).contiguous() for i in imgs]
-    overlap = _effective_overlap(overlap, vols[0].shape[0], len(vols))
+    vols = each(lambda v: v.to(dtype).contiguous(), vols)
+    imgs = each(lambda i: i.to(torch.float32).contiguous(), imgs)
+    overlap = _effective_overlap(overlap, ref.shape[0], len(vols))
+    halos = _warmup_halos(vols, imgs, overlap) if mode == "overlap" else None
     outs = [None] * len(vols)
     for i, step in enumerate(TRAVERSALS):
         if step[0] == 0:                         # horizontal: tile-local
             for t, (vol, img) in enumerate(zip(vols, imgs)):
-                outs[t] = _whole_traversal(vol, img, outs[t], step, p1, p2,
-                                           on_card)
+                if is_local(vol):
+                    outs[t] = _whole_traversal(vol, img, outs[t], step, p1,
+                                               p2, on_card)
         elif mode == "exact":
             _exact_traversal(vols, imgs, outs, step, p1, p2, on_card,
                              last=i == len(TRAVERSALS) - 1)
         else:
             _overlap_traversal(vols, imgs, outs, step, p1, p2, on_card,
-                               overlap)
+                               overlap, halos)
     # The one rounding of a bf16 tile's float32 sum, where the chunk
     # kernel did not already store it rounded (overlap mode, the CPU).
-    return [o.to(dtype) for o in outs]
+    return each(lambda v, o: o.to(dtype), vols, outs)
 
 
 # --------------------------------------------------------------------------
@@ -314,22 +345,26 @@ def sharded_cvf(vols: Sequence[torch.Tensor], imgs: Sequence[torch.Tensor],
     and cropped.  Equal to ``ops.cvf.guided_filter_aggregate(volume,
     guide, wedge_offset=None)`` of the whole frame bit for bit, in the
     volumes' dtype."""
-    rows, n, h_loc = 2 * radius, len(vols), imgs[0].shape[0]
+    ref = first_local(imgs)
+    if ref is None:
+        return list(vols)
+    rows, n, h_loc = 2 * radius, len(vols), ref.shape[0]
     if rows > h_loc:
         raise ValueError(
             f"cvf radius {radius} needs {rows} halo rows but tiles are only "
             f"{h_loc} rows tall; use fewer tiles or a smaller radius")
     vpad = halo.pad_with_halos(vols, rows, rows)
     gpad = halo.pad_with_halos(imgs, rows, rows)
-    out = []
-    for t, (vp, gp) in enumerate(zip(vpad, gpad)):
+
+    def filtered(vp, gp, t):
         outside = halo.out_of_image_mask(t, n, h_loc, rows, device=vp.device)
         vp = torch.where(outside[:, None, None],
                          torch.full((), float("inf"), dtype=vp.dtype,
                                     device=vp.device), vp)
-        out.append(guided_filter_from_padded(vp, gp, rows, rows,
-                                             radius=radius, eps=eps))
-    return out
+        return guided_filter_from_padded(vp, gp, rows, rows, radius=radius,
+                                         eps=eps)
+
+    return each(filtered, vpad, gpad, range(n))
 
 
 # --------------------------------------------------------------------------
@@ -340,26 +375,27 @@ def _halo_padded(blocks: Sequence[torch.Tensor], rows: int,
                  beyond: float) -> List[torch.Tensor]:
     """Each tile's block with ``rows`` rows of its neighbours above and
     below, the rows beyond the image set to ``beyond``."""
-    n, h_loc = len(blocks), blocks[0].shape[0]
-    out = []
-    for t, padded in enumerate(halo.pad_with_halos(blocks, rows, rows)):
-        outside = halo.out_of_image_mask(t, n, h_loc, rows,
-                                         device=padded.device)
-        out.append(torch.where(outside[:, None], beyond, padded))
-    return out
+    n = len(blocks)
+    padded = halo.pad_with_halos(blocks, rows, rows)
+    return each(lambda p, t: torch.where(
+                    halo.out_of_image_mask(t, n, p.shape[0] - 2 * rows, rows,
+                                           device=p.device)[:, None],
+                    beyond, p), padded, range(n))
 
 
 def _median3x3_rows(disps):
     """3x3 median over row tiles: one halo row a side, the image's first
     and last rows replicated beyond it, as ``refine.median_filter_3x3``
     pads (edge mode)."""
-    x = [d.to(torch.float32) for d in disps]
+    x = each(lambda d: d.to(torch.float32), disps)
     padded = halo.pad_with_halos(x, 1, 1)
-    padded[0][0] = padded[0][1]
-    padded[-1][-1] = padded[-1][-2]
-    return [refine.median3x3_from_padded(
-                F.pad(p[None, None], (1, 1, 0, 0), mode="replicate")[0, 0]
-            ).to(d.dtype) for p, d in zip(padded, disps)]
+    if is_local(padded[0]):
+        padded[0][0] = padded[0][1]
+    if is_local(padded[-1]):
+        padded[-1][-1] = padded[-1][-2]
+    return each(lambda p, d: refine.median3x3_from_padded(
+                    F.pad(p[None, None], (1, 1, 0, 0), mode="replicate")[0, 0]
+                ).to(d.dtype), padded, disps)
 
 
 def _wmf_rows(disps, guides, *, window, sigma, n_bins):
@@ -368,14 +404,16 @@ def _wmf_rows(disps, guides, *, window, sigma, n_bins):
     as ``refine.weighted_median_filter`` pads."""
     r = window // 2
     inf = float("inf")
-    bins = [d.to(torch.float32).round().clamp(0, n_bins - 1) for d in disps]
-    g = [i.to(torch.float32) for i in guides]
-    b_pad = [F.pad(b, (r, r)).to(torch.int32)
-             for b in _halo_padded(bins, r, 0.0)]
-    g_pad = [F.pad(x, (r, r), value=inf) for x in _halo_padded(g, r, inf)]
-    return [refine._wmf_from_padded(bp, gp, gl, window=window, sigma=sigma,
-                                    n_bins=n_bins).to(d.dtype)
-            for bp, gp, gl, d in zip(b_pad, g_pad, g, disps)]
+    bins = each(lambda d: d.to(torch.float32).round().clamp(0, n_bins - 1),
+                disps)
+    g = each(lambda i: i.to(torch.float32), guides)
+    b_pad = each(lambda b: F.pad(b, (r, r)).to(torch.int32),
+                 _halo_padded(bins, r, 0.0))
+    g_pad = each(lambda x: F.pad(x, (r, r), value=inf),
+                 _halo_padded(g, r, inf))
+    return each(lambda bp, gp, gl, d: refine._wmf_from_padded(
+                    bp, gp, gl, window=window, sigma=sigma,
+                    n_bins=n_bins).to(d.dtype), b_pad, g_pad, g, disps)
 
 
 def _speckle_rows(disps, *, max_diff, window, min_frac, fill):
@@ -384,13 +422,14 @@ def _speckle_rows(disps, *, max_diff, window, min_frac, fill):
     background fill never leaves a row."""
     r = window // 2
     nan = float("nan")
-    d = [x.to(torch.float32) for x in disps]
-    padded = [F.pad(p, (r, r), value=nan) for p in _halo_padded(d, r, nan)]
-    masks = [refine._windowed_support(p, c, max_diff=max_diff,
-                                      window=window, min_frac=min_frac)
-             for p, c in zip(padded, d)]
-    return [refine._apply_speckle_fill(x, m, fill)
-            for x, m in zip(disps, masks)]
+    d = each(lambda x: x.to(torch.float32), disps)
+    padded = each(lambda p: F.pad(p, (r, r), value=nan),
+                  _halo_padded(d, r, nan))
+    masks = each(lambda p, c: refine._windowed_support(
+                     p, c, max_diff=max_diff, window=window,
+                     min_frac=min_frac), padded, d)
+    return each(lambda x, m: refine._apply_speckle_fill(x, m, fill),
+                disps, masks)
 
 
 def _fgs_rows(disps, guides, confidences, *, lam, sigma_color, iterations):
@@ -404,47 +443,64 @@ def _fgs_rows(disps, guides, confidences, *, lam, sigma_color, iterations):
     each from the first solution row of the one below: the single-device
     recurrence, step for step."""
     n = len(disps)
-    u = [d.to(torch.float32) for d in disps]
-    g = [i.to(torch.float32) for i in guides]
-    c = [refine._fgs_confidence(ui, ci) for ui, ci in zip(u, confidences)]
+    ref = first_local(disps)
+    if ref is None:
+        return list(disps)
+    u = each(lambda d: d.to(torch.float32), disps)
+    g = each(lambda i: i.to(torch.float32), guides)
+    c = each(refine._fgs_confidence, u, confidences)
     inv_sigma = float(np.float32(-1.0) / np.float32(sigma_color))
 
     def weights(x):
         return exp_f32((x[..., 1:] - x[..., :-1]).abs() * inv_sigma)
 
-    a_h = [weights(x) for x in g]
+    a_h = each(weights, g)
     # a_ext[i]: the weight between halo-extended rows i and i + 1, i.e.
     # between local rows i - 1 and i; 0 across the image's top and bottom.
-    a_ext = [weights(x.T).T for x in halo.pad_with_halos(g, 1, 1)]
-    a_ext[0][0] = 0.0
-    a_ext[-1][-1] = 0.0
-    a_up = [a[:-1].T for a in a_ext]        # toward y - 1, [W, Hl]
-    a_down = [a[1:].T for a in a_ext]       # toward y + 1
+    a_ext = each(lambda x: weights(x.T).T, halo.pad_with_halos(g, 1, 1))
+    if is_local(a_ext[0]):
+        a_ext[0][0] = 0.0
+    if is_local(a_ext[-1]):
+        a_ext[-1][-1] = 0.0
+    a_up = each(lambda a: a[:-1].T, a_ext)        # toward y - 1, [W, Hl]
+    a_down = each(lambda a: a[1:].T, a_ext)       # toward y + 1
 
     def vertical(u, lam_t):
-        systems = [refine._fgs_system(ui.T, ci.T, up, down,
-                                      lam_t.to(ui.device))
-                   for ui, ci, up, down in zip(u, c, a_up, a_down)]
-        zero = torch.zeros(u[0].shape[1], dtype=torch.float32,
-                           device=u[0].device)
-        cp, dp, forward = zero, zero, []
-        for system in systems:
+        systems = each(lambda ui, ci, up, down: refine._fgs_system(
+                           ui.T, ci.T, up, down, lam_t.to(ui.device)),
+                       u, c, a_up, a_down)
+        zero = torch.zeros(ref.shape[1], dtype=torch.float32,
+                           device=ref.device)
+        carry, forward = (zero, zero), list(systems)
+        for t, system in enumerate(systems):
+            if t:              # the Thomas forward carry, down the tiles
+                carry = transport.move(carry, u[t], "fgs_forward")
+            if not is_local(system):
+                carry = (system, system)
+                continue
             dev = system[0].device
-            cps, dps = refine._thomas_forward(*system, cp.to(dev), dp.to(dev))
-            forward.append((cps, dps))
-            cp, dp = cps[..., -1], dps[..., -1]
-        out, u_next = [None] * n, zero
+            cps, dps = refine._thomas_forward(
+                *system, *(x.to(dev) for x in carry))
+            forward[t] = (cps, dps)
+            carry = (cps[..., -1], dps[..., -1])
+        out, u_next = list(u), (zero,)
         for t in range(n - 1, -1, -1):
+            if t < n - 1:      # the first solution row, up the tiles
+                u_next = transport.move(u_next, u[t], "fgs_backward")
+            if not is_local(u[t]):
+                u_next = (u[t],)
+                continue
             cps, dps = forward[t]
-            v = refine._thomas_backward(cps, dps, u_next.to(cps.device))
-            out[t], u_next = v.T, v[..., 0]
+            v = refine._thomas_backward(cps, dps, u_next[0].to(cps.device))
+            out[t], u_next = v.T, (v[..., 0],)
         return out
 
-    lam = torch.tensor(lam, dtype=torch.float32, device=u[0].device)
+    lam = torch.tensor(lam, dtype=torch.float32, device=ref.device)
     for t in range(1, iterations + 1):
         lam_t = refine._fgs_lambda_schedule(lam, iterations, t)
-        u = [refine._fgs_pass(ui, ci, ai, lam_t.to(ui.device))
-             for ui, ci, ai in zip(u, c, a_h)]
+        u = each(lambda ui, ci, ai: refine._fgs_pass(ui, ci, ai,
+                                                     lam_t.to(ui.device)),
+                 u, c, a_h)
         u = vertical(u, lam_t)
     return u
 
@@ -478,27 +534,65 @@ def check_frames(left, right, mesh: Mesh, row_multiple: int):
     return left, right
 
 
-def map_frames(mesh: Mesh, fn: Callable, *stacks) -> list:
-    """``fn(tiles_a, tiles_b, ...)`` on each of this process's frames of
-    the [B, H, W] stacks (``mesh.frame_indices(B)``; all of them in one
-    process): frame f's row tiles, each on its device of batch row f //
-    (B / n_batch) of the mesh.  Returns ``fn``'s results in frame
-    order."""
+def map_frames(mesh: Mesh, fn: Callable, *stacks) -> dict:
+    """``fn(tiles_a, tiles_b, ...)`` on each frame of the [B, H, W] stacks
+    in which this process owns a tile (``mesh.frame_indices(B)``; all of
+    them in one process): frame f's row tiles of batch row f //
+    (B / n_batch) of the mesh, each this process owns on its device, the
+    others ``transport.Remote`` placeholders (never uploaded).  Returns
+    ``{frame: fn's result}`` in frame order."""
     per_row = stacks[0].shape[0] // mesh.shape[BATCH_AXIS]
 
-    def tiles(frame, devices):
+    def tiles(frame, row):
+        devices = mesh.devices[row]
         h_loc = frame.shape[0] // len(devices)
         return [frame[t * h_loc:(t + 1) * h_loc].to(d)
+                if mesh.owns((row, t))
+                else transport.Remote(mesh.processes[row][t], d)
                 for t, d in enumerate(devices)]
 
-    return [fn(*[tiles(s[f], mesh.devices[f // per_row]) for s in stacks])
-            for f in mesh.frame_indices(stacks[0].shape[0])]
+    return {f: fn(*[tiles(s[f], f // per_row) for s in stacks])
+            for f in mesh.frame_indices(stacks[0].shape[0])}
 
 
-def join_tiles(mesh: Mesh, tiles: Sequence[torch.Tensor]) -> torch.Tensor:
-    """One frame's row tiles as one tensor on this process's first device
-    of the mesh."""
-    return torch.cat([t.to(mesh.local_device) for t in tiles])
+def frame_shards(mesh: Mesh, results: dict, n_frames: int) -> list:
+    """This process's shards of a [B, ...] output whose frames
+    ``results`` holds as grids of blocks (indexed as a batch row of the
+    mesh's devices: [tile] or [tile][tile_w]): one ``(index, tensor)``
+    per mesh device it owns, in grid order, JAX's addressable shards
+    (``shard.index``, ``shard.data``).  The tensor stacks the block of
+    each frame of the device's batch row, on the device; ``index`` holds
+    the frames' slice, each tile axis's slice of the next dims, and
+    ``slice(None)`` for the rest."""
+    per_row = n_frames // mesh.shape[BATCH_AXIS]
+    shards = []
+    for b, *position in mesh.owned_positions():
+        blocks = []
+        for f in range(b * per_row, (b + 1) * per_row):
+            block = results[f]
+            for i in position:
+                block = block[i]
+            blocks.append(block)
+        data = torch.stack(blocks)
+        index = [slice(b * per_row, (b + 1) * per_row)]
+        for axis, i in enumerate(position):
+            size = data.shape[1 + axis]
+            index.append(slice(i * size, (i + 1) * size))
+        index += [slice(None)] * (data.ndim - len(index))
+        shards.append((tuple(index), data))
+    return shards
+
+
+def assemble(mesh: Mesh, results: dict, n_frames: int):
+    """A partitioner's output from its frames' tiles: this process's
+    frames, in frame order, stacked on its first device (one process,
+    or only the batch axis over processes), or, where a frame's tiles
+    span processes, this process's shards (:func:`frame_shards`)."""
+    if mesh.splits_frames:
+        return frame_shards(mesh, results, n_frames)
+    first = mesh.local_device
+    return torch.stack([torch.cat([t.to(first) for t in tiles])
+                        for tiles in results.values()])
 
 
 def sgm_mode_resolver(mesh: Mesh, sgm_mode: str, *, overlap: int,
@@ -561,7 +655,10 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     with B divisible by the batch axis and H by the tile axis.  Frames
     ``b * B/n_batch ..`` run on batch row ``b``; each tile's rows go to
     its device.  Over processes each rank returns its own frames
-    (``mesh.frame_indices(B)``) on its first device.  ``sgm_mode``:
+    (``mesh.frame_indices(B)``) on its first device where only the batch
+    axis spans them, and its shards (``(index, tensor)`` pairs, one per
+    mesh device it owns: :func:`frame_shards`) where the tile axis does.
+    ``sgm_mode``:
     "exact", "overlap" or "auto" (resolved per frame geometry by
     :func:`sgm_mode_resolver`).  ``backend`` takes the port's names: "auto" (kernels on
     CUDA tiles, plain versions on CPU tiles), "cuda" or "torch".
@@ -658,39 +755,37 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                                    eps=float(cvf_eps))
         with profiling.annotate("stm/disparity_reduce"):
             if reducer == "wta":
-                return vols, [winner_takes_all(v) for v in vols]
-            return vols, [dp(v) for v in vols]
+                return vols, each(winner_takes_all, vols)
+            return vols, each(dp, vols)
 
     def refined(vols, disps, lefts, disps_r):
         """The post-processing stages, in estimate_refined's order."""
         if lr_check:
             if disps_r is None:
-                disps_r = [refine.right_disparity_from_volume(v)
-                           for v in vols]
-            masks = [refine.left_right_consistency(
-                         d, dr, lr_max_diff, max_disparity=max_disparity)
-                     for d, dr in zip(disps, disps_r)]
-            disps = [refine.fill_inconsistent(d, m)
-                     for d, m in zip(disps, masks)]
+                disps_r = each(refine.right_disparity_from_volume, vols)
+            masks = each(lambda d, dr: refine.left_right_consistency(
+                             d, dr, lr_max_diff, max_disparity=max_disparity),
+                         disps, disps_r)
+            disps = each(refine.fill_inconsistent, disps, masks)
         if weighted_median:
             disps = _wmf_rows(disps, lefts, window=wmf_window,
                               sigma=wmf_sigma, n_bins=max_disparity)
         if median:
             disps = _median3x3_rows(disps)
         if subpixel:
-            disps = [refine.subpixel_refine(v, disparity_bins(d,
-                                                              max_disparity))
-                     for v, d in zip(vols, disps)]
+            disps = each(lambda v, d: refine.subpixel_refine(
+                             v, disparity_bins(d, max_disparity)),
+                         vols, disps)
         if fgs_lambda is not None:
-            confs = ([m.to(torch.float32) for m in masks] if lr_check
+            confs = (each(lambda m: m.to(torch.float32), masks) if lr_check
                      else [None] * len(disps))
             disps = _fgs_rows(disps, lefts, confs, lam=fgs_lambda,
                               sigma_color=fgs_sigma, iterations=3)
         if min_confidence is not None:
-            disps = [torch.where(refine.confidence_pkrn(v) >= min_confidence,
-                                 d, torch.zeros((), dtype=d.dtype,
-                                                device=d.device))
-                     for v, d in zip(vols, disps)]
+            disps = each(lambda v, d: torch.where(
+                             refine.confidence_pkrn(v) >= min_confidence, d,
+                             torch.zeros((), dtype=d.dtype, device=d.device)),
+                         vols, disps)
         if speckle:
             disps = _speckle_rows(disps, max_diff=1.0, window=9,
                                   min_frac=0.25, fill=speckle_fill)
@@ -701,19 +796,19 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
         if lr_check and lr_mode == "mirror":
             # Right-to-left matching is left-to-right matching on the
             # mirrored pair (refine.right_disparity); W is never split.
-            mirrored = core([r.flip(-1) for r in rights],
-                            [x.flip(-1) for x in lefts], mode)[1]
-            disps_r = [d.flip(-1) for d in mirrored]
+            flip = functools.partial(torch.flip, dims=(-1,))
+            mirrored = core(each(flip, rights), each(flip, lefts), mode)[1]
+            disps_r = each(flip, mirrored)
         vols, disps = core(lefts, rights, mode)
-        return join_tiles(mesh, refined(vols, disps, lefts, disps_r))
+        return refined(vols, disps, lefts, disps_r)
 
-    def fn(left, right) -> torch.Tensor:
+    def fn(left, right):
         left, right = check_frames(left, right, mesh, n_tiles)
         b, h, w = left.shape
         mode = resolve(h, w, max_disparity, b) if aggregation == "sgm" \
             else None
-        return torch.stack(map_frames(
-            mesh, functools.partial(frame, mode=mode), left, right))
+        return assemble(mesh, map_frames(
+            mesh, functools.partial(frame, mode=mode), left, right), b)
 
     return fn
 
@@ -729,12 +824,14 @@ class ShardedPipeline:
         self._fn = make_sharded_estimate(mesh, max_disparity=max_disparity,
                                          **kwargs)
 
-    def estimate(self, left, right) -> torch.Tensor:
+    def estimate(self, left, right):
         """[B, H, W] (or [H, W], auto-batched) -> [B, H, W] int32 (float32
         after sub-pixel, LR fill or the smoother) on the mesh's first
         device.  Over processes: this process's frames, in frame order,
-        on its first device; ``mesh.frame_indices(B)`` gives their
-        global indices."""
+        on its first device (``mesh.frame_indices(B)`` gives their global
+        indices) where only the batch axis spans them; where the tile axis
+        does, this process's shards, ``(index, tensor)`` pairs (of frame 0
+        for an [H, W] pair, the batch slice dropped)."""
         left, right = _as_frames(left), _as_frames(right)
         squeeze = left.ndim == 2
         if squeeze:
@@ -742,4 +839,9 @@ class ShardedPipeline:
             left = left.expand((n_batch,) + tuple(left.shape))
             right = right.expand((n_batch,) + tuple(right.shape))
         out = self._fn(left, right)
-        return out[0] if squeeze else out
+        if not squeeze:
+            return out
+        if isinstance(out, list):          # shards: those of frame 0
+            return [(index[1:], data[0]) for index, data in out
+                    if index[0].start == 0]
+        return out[0]

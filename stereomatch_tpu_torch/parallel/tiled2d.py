@@ -2,20 +2,25 @@
 ``stereomatch_tpu/parallel/tiled2d.py``: image rows split over ``tile``,
 columns over ``tile_w``, frames over ``batch``.
 
-One process drives each frame (over processes, each rank the frames of
-its own batch rows, ``Mesh.frame_indices``; the tile and tile_w axes stay
-within a process).  A frame is a [n_tile][n_tile_w] grid of blocks, each
-on its device; what crosses blocks moves with ``.to()`` of
-the receiving block's device (``halo.pad_with_halos``, zero beyond the
-image, as ``lax.ppermute`` fills the ring ends).  Halos go along the
-tile axis first, then along tile_w on the row-extended blocks, so the
-column halos carry the corners.
+A frame is a [n_tile][n_tile_w] grid of blocks, each on its device.
+Every process that owns a block of the frame walks the same grid in the
+same order and computes only its own blocks (another process's block is
+a ``transport.Remote`` placeholder); over processes any axis may span
+them (each rank computes the frames of the batch rows it has a device
+in, ``Mesh.frame_indices``).  What crosses blocks moves through
+``transport.exchange``: ``.to()`` of the receiving block's device within
+a process, a send and a receive between processes
+(``halo.pad_with_halos``, zero beyond the image, as ``lax.ppermute``
+fills the ring ends).  Halos go along the tile axis first, then along
+tile_w on the row-extended blocks, so the column halos carry the
+corners.  Where a frame's blocks span processes, each rank returns its
+shards (``sharded.frame_shards``).
 
-* Cost: each block's image rows, gathered to full width along tile_w,
-  take the row halos of the row-sharded cost (``sharded.local_cost``;
-  ZNCC through ``sharded.local_zncc``, whose per-row sums over every
-  tile keep it bit-equal to one device; census window//2 rows;
-  Birchfield none), then the block keeps its columns.  On the card the
+* Cost: each block's image rows, gathered to full width along tile_w
+  (JAX's ``all_gather``), take the row halos of the row-sharded cost
+  (``sharded.local_cost``; ZNCC through ``sharded.local_zncc``, whose
+  per-row sums over every tile keep it bit-equal to one device; census
+  window//2 rows; Birchfield none), then the block keeps its columns.  On the card the
   SSD/SAD volume of the band is one launch of the SSD kernel (K1).
 * SGM: every block extends its volume and image by ``overlap`` on all
   four sides (at most a block's height and width) and runs the
@@ -29,7 +34,8 @@ column halos carry the corners.
   finite support).  The +inf pattern is not a wedge, so this is the
   plain masked path on every device.
 * DP: exact over tile_w: the forward accumulator [Hl, D] passes left to
-  right through ``ops.disparity.dp_forward_chunk``, the rightmost block
+  right (a chain of moves) through ``ops.disparity.dp_forward_chunk``,
+  the rightmost block
   takes the scanline argmin, and the decided column passes back right to
   left through ``dp_backward_chunk`` (the JAX package runs this in XLA,
   not Pallas: plain PyTorch here on every device).
@@ -60,9 +66,10 @@ from ..ops.disparity import (dp_backward_chunk, dp_end_disparities,
                              dp_forward_chunk, winner_takes_all)
 from ..pipeline import disparity_bins
 from ..utils import profiling
-from . import halo
+from . import halo, transport
 from .mesh import BATCH_AXIS, TILE_AXIS, Mesh, world_layout
-from .sharded import _as_frames, local_cost, local_zncc
+from .sharded import _as_frames, frame_shards, local_cost, local_zncc
+from .transport import each, first_local, is_local
 
 TILE_W_AXIS = "tile_w"
 _COSTS = ("ssd", "ssd-texture", "birchfield", "census", "sad", "ncc")
@@ -75,8 +82,8 @@ def make_mesh_2d(devices: Optional[Sequence] = None, n_batch: int = 1,
     """A (batch, tile, tile_w) mesh over the first n_batch * n_tile *
     n_tile_w of ``devices`` (this process's; devices may repeat, e.g.
     ``[torch.device("cpu")] * 8``), by default of the world's devices in
-    (rank, local index) order (``mesh.make_mesh``'s default), where only
-    the batch axis may span processes."""
+    (rank, local index) order (``mesh.make_mesh``'s default), where any
+    axis may span processes."""
     processes = None
     if devices is None:
         devices, processes = world_layout("make_mesh_2d()")
@@ -114,8 +121,13 @@ def _from_lines(lines, axis: int) -> Grid:
 
 
 def _map(fn: Callable, *grids) -> Grid:
-    """``fn`` on each block (and the blocks beside it in ``grids``)."""
-    return [[fn(*blocks) for blocks in zip(*rows)] for rows in zip(*grids)]
+    """``fn`` on each block this process owns (and the blocks beside it
+    in ``grids``); another process's block stays its placeholder."""
+    return [each(fn, *rows) for rows in zip(*grids)]
+
+
+def _first(grid: Grid) -> Optional[torch.Tensor]:
+    return first_local([block for row in grid for block in row])
 
 
 def _pad(grid: Grid, count: int, axis: int, beyond=0.0) -> Grid:
@@ -125,9 +137,12 @@ def _pad(grid: Grid, count: int, axis: int, beyond=0.0) -> Grid:
     or "edge" (``count`` 1: the image's edge slice repeated)."""
     out = []
     for line in _lines(grid, axis):
-        n, local = len(line), line[0].shape[axis]
+        n = len(line)
         padded = halo.pad_with_halos(line, count, count, axis)
         for i, p in enumerate(padded):
+            if not is_local(p):
+                continue
+            local = p.shape[axis] - 2 * count
             if beyond == "edge":
                 if i == 0:
                     p.narrow(axis, 0, 1).copy_(p.narrow(axis, 1, 1))
@@ -163,20 +178,31 @@ def _dp_tiled_w(vols: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Exact scanline DP of one row of blocks (left to right).  The first
     block starts from a zero accumulator with pointer column 0 cleared,
     as the JAX package seeds it."""
-    ptrs, acc = [], None
+    n = len(vols)
+    ptrs, acc = list(vols), None
     for s, vol in enumerate(vols):
+        if s:                  # the accumulator, from the block to the left
+            acc, = transport.move((acc,), vol, "dp_forward")
+        if not is_local(vol):
+            acc = vol
+            continue
         if acc is None:
             acc = torch.zeros((vol.shape[0], vol.shape[2]),
                               dtype=torch.float32, device=vol.device)
         ptr, acc = dp_forward_chunk(vol, acc.to(vol.device))
         if s == 0:
             ptr[:, 0] = 0
-        ptrs.append(ptr)
-    cur = dp_end_disparities(acc)
-    out = [None] * len(vols)
-    for s in range(len(vols) - 1, -1, -1):
+        ptrs[s] = ptr
+    cur = dp_end_disparities(acc) if is_local(acc) else acc
+    out = list(vols)
+    for s in range(n - 1, -1, -1):
+        if s < n - 1:          # the decided column, from the block right
+            cur, = transport.move((cur,), vols[s], "dp_backward")
+        if not is_local(vols[s]):
+            cur = vols[s]
+            continue
         out[s], cur = dp_backward_chunk(ptrs[s], cur.to(ptrs[s].device),
-                                        emit_current=s == len(vols) - 1)
+                                        emit_current=s == n - 1)
     return out
 
 
@@ -184,14 +210,19 @@ def _chained_fill(vals, ok):
     """Per block of a row (left to right), the last valid value at or
     left of each column, the blocks' scans stitched by a [Hl] carry;
     NaN where no block to the left holds one."""
-    out, carry = [], None
-    for v, k in zip(vals, ok):
+    out, carry = list(vals), None
+    for i, (v, k) in enumerate(zip(vals, ok)):
+        if i:                  # the carry, from the block to the left
+            carry, = transport.move((carry,), v, "fill")
+        if not is_local(v):
+            carry = v
+            continue
         filled = refine.propagate_last_valid(v, k)
         if carry is None:
             carry = torch.full(v.shape[:-1], float("nan"),
                                dtype=filled.dtype, device=v.device)
         carry = carry.to(v.device)
-        out.append(torch.where(torch.isnan(filled), carry[..., None], filled))
+        out[i] = torch.where(torch.isnan(filled), carry[..., None], filled)
         carry = torch.where(k.any(dim=-1), filled[..., -1], carry)
     return out
 
@@ -200,17 +231,18 @@ def _fill_inconsistent_tiled_w(disps, valids) -> List[torch.Tensor]:
     """``refine.fill_inconsistent`` over a row of blocks: both scanline
     scans chained across the blocks (selections only: bit-identical to
     the whole row)."""
-    d_f = [d.to(torch.float32) for d in disps]
-    ok = [v.to(torch.bool) for v in valids]
+    flip = functools.partial(torch.flip, dims=(-1,))
+    d_f = each(lambda d: d.to(torch.float32), disps)
+    ok = each(lambda v: v.to(torch.bool), valids)
     left = _chained_fill(d_f, ok)
-    right = _chained_fill([d.flip(-1) for d in d_f[::-1]],
-                          [v.flip(-1) for v in ok[::-1]])
-    right = [r.flip(-1) for r in right[::-1]]
-    out = []
-    for d, v, lf, rf in zip(d_f, ok, left, right):
-        filled = torch.where(v, d, torch.fmin(lf, rf))
-        out.append(torch.where(torch.isnan(filled), d, filled))
-    return out
+    right = _chained_fill(each(flip, d_f[::-1]), each(flip, ok[::-1]))
+    right = each(flip, right[::-1])
+
+    def filled(d, v, lf, rf):
+        out = torch.where(v, d, torch.fmin(lf, rf))
+        return torch.where(torch.isnan(out), d, out)
+
+    return each(filled, d_f, ok, left, right)
 
 
 def _lr_check_tiled_w(aggs, disps, *, max_diff: int) -> List[torch.Tensor]:
@@ -219,34 +251,38 @@ def _lr_check_tiled_w(aggs, disps, *, max_diff: int) -> List[torch.Tensor]:
     the image), the consistency test on a (D-1)-column disparity halo
     from the left (never agreeing beyond the image), then the chained
     background fill."""
-    n, w_loc, max_disp = len(aggs), aggs[0].shape[1], aggs[0].shape[2]
+    ref = first_local(aggs)
+    if ref is None:                       # no block of this row here
+        return list(disps)
+    n, w_loc, max_disp = len(aggs), ref.shape[1], ref.shape[2]
     d_halo = max_disp - 1
-    right = []
     if d_halo:
-        tails = halo.pull_from_next_multi(aggs, d_halo, 1)
-        for s, (agg, tail) in enumerate(zip(aggs, tails)):
+        def right_disparity(agg, tail, s):
             ext = torch.cat([agg, tail], dim=1)
             outside = halo.out_of_image_mask(s, n, w_loc, 0, d_halo,
                                              device=ext.device)
             ext = torch.where(outside[None, :, None],
                               torch.full((), float("inf"), dtype=ext.dtype,
                                          device=ext.device), ext)
-            right.append(winner_takes_all(
-                refine.right_volume_from_padded(ext, width=w_loc)))
-        heads = halo.pull_from_prev_multi(right, d_halo, 1)
-        padded = []
-        for s, (head, d_r) in enumerate(zip(heads, right)):
+            return winner_takes_all(
+                refine.right_volume_from_padded(ext, width=w_loc))
+
+        def far_padded(d_r, head, s):
             p = torch.cat([head, d_r], dim=1)
             outside = halo.out_of_image_mask(s, n, w_loc, d_halo, 0,
                                              device=p.device)
-            padded.append(torch.where(outside[None, :], refine._FAR, p))
+            return torch.where(outside[None, :], refine._FAR, p)
+
+        right = each(right_disparity, aggs,
+                     halo.pull_from_next_multi(aggs, d_halo, 1), range(n))
+        padded = each(far_padded, right,
+                      halo.pull_from_prev_multi(right, d_halo, 1), range(n))
     else:
-        padded = [winner_takes_all(refine.right_volume_from_padded(
-            a, width=w_loc)) for a in aggs]
-    valid = [refine.consistency_from_padded(d, p, pad=d_halo,
-                                            n_planes=max_disp,
-                                            max_diff=max_diff)
-             for d, p in zip(disps, padded)]
+        padded = each(lambda a: winner_takes_all(
+            refine.right_volume_from_padded(a, width=w_loc)), aggs)
+    valid = each(lambda d, p: refine.consistency_from_padded(
+                     d, p, pad=d_halo, n_planes=max_disp, max_diff=max_diff),
+                 disps, padded)
     return _fill_inconsistent_tiled_w(disps, valid)
 
 
@@ -330,7 +366,10 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
     Returns ``fn(left, right) -> disparity``: [B, H, W] stacks (numpy or
     tensors, any device) with B, H, W divisible by the batch, tile and
     tile_w axes -> [B, H, W] on the mesh's first device, int32 (float32
-    after the LR fill, sub-pixel or a background speckle fill).
+    after the LR fill, sub-pixel or a background speckle fill); where the
+    tile or tile_w axis spans processes, this rank's shards, one
+    ``(index, tensor)`` pair per mesh device it owns
+    (``sharded.frame_shards``).
     ``backend`` takes the port's names: "auto" (the kernels on CUDA
     blocks, the plain versions on CPU blocks), "cuda" or "torch".
     ``lr_check`` supports ``lr_mode="volume"`` only: the mirrored run's
@@ -380,8 +419,12 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
     def volumes(lefts: Grid, rights: Grid, w_loc: int) -> Grid:
         """Each block's cost volume, from its full-width image rows."""
         def full(row):
-            return [torch.cat([b.to(blk.device) for b in row], dim=1)
-                    for blk in row]
+            # Every block of the row moved to each block (all_gather).
+            n = len(row)
+            landed = transport.exchange([(b, blk) for blk in row
+                                         for b in row], "band")
+            return [torch.cat(landed[s * n:(s + 1) * n], dim=1)
+                    if is_local(blk) else blk for s, blk in enumerate(row)]
         lf = [full(row) for row in lefts]
         rf = [full(row) for row in rights]
         lines = []
@@ -395,7 +438,8 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
                 lines.append(local_cost(lcol, rcol, cost_fn, *halo_rows))
         vols = _from_lines(lines, 0)
         return [[v[:, s * w_loc:(s + 1) * w_loc].to(torch.float32)
-                 for s, v in enumerate(row)] for row in vols]
+                 if is_local(v) else v for s, v in enumerate(row)]
+                for row in vols]
 
     def aggregate(vols: Grid, lefts: Grid, h_loc: int, w_loc: int) -> Grid:
         if aggregation == "sgm":
@@ -418,7 +462,7 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
         return vols
 
     def frame(lefts: Grid, rights: Grid) -> Grid:
-        h_loc, w_loc = lefts[0][0].shape
+        h_loc, w_loc = _first(lefts).shape
         with profiling.annotate("stm/cost"):
             vols = volumes(lefts, rights, w_loc)
         with profiling.annotate("stm/aggregation"):
@@ -461,19 +505,25 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
                 f"mesh axes {(n_batch, n_tile, n_tile_w)}")
         h_loc, w_loc = h // n_tile, w // n_tile_w
         per_row = b // n_batch
-        first = mesh.local_device
-        out = []
+        results = {}
         for f in mesh.frame_indices(b):
-            devices = mesh.devices[f // per_row]
+            row = f // per_row
 
             def split(image):
                 return [[image[t * h_loc:(t + 1) * h_loc,
-                               s * w_loc:(s + 1) * w_loc].to(devices[t][s])
+                               s * w_loc:(s + 1) * w_loc].to(
+                                   mesh.devices[row][t][s])
+                         if mesh.owns((row, t, s)) else transport.Remote(
+                             mesh.processes[row][t][s],
+                             mesh.devices[row][t][s])
                          for s in range(n_tile_w)] for t in range(n_tile)]
 
-            disps = frame(split(left[f]), split(right[f]))
-            out.append(torch.cat([torch.cat([d.to(first) for d in row],
-                                            dim=1) for row in disps]))
-        return torch.stack(out)
+            results[f] = frame(split(left[f]), split(right[f]))
+        if mesh.splits_frames:
+            return frame_shards(mesh, results, b)
+        first = mesh.local_device
+        return torch.stack([torch.cat([torch.cat([d.to(first) for d in row],
+                                                 dim=1) for row in disps])
+                            for disps in results.values()])
 
     return fn

@@ -73,7 +73,8 @@ class TemporalPipeline:
         over the batch axis ([B, H, W] stacks in and out), image rows over
         the tile axis (``parallel/temporal_sharded.py``).  The keyframe
         schedule is shared: a drift keyframe fires when any stream's poor
-        fraction exceeds the threshold.
+        fraction exceeds the threshold.  One process's mesh: a mesh over
+        several raises NotImplementedError.
       device: where a frame runs without a mesh: the card unless
         ``"cpu"`` is asked for.
     """
@@ -105,6 +106,15 @@ class TemporalPipeline:
         self.median = median
         self.mesh = mesh
         self.device = device
+        if mesh is not None and mesh.spans_processes:
+            raise NotImplementedError(
+                "TemporalPipeline over a mesh of several processes: its "
+                "keyframe decision reads every stream's drift fraction on "
+                "this host each frame (the JAX package's TemporalPipeline "
+                "fetches it with np.asarray, which refuses an array "
+                "spanning another process's devices); call "
+                "parallel.make_temporal_track_sharded, which returns each "
+                "process's shards, or give each process its own mesh")
         if keyframe is None:
             if mesh is not None:
                 from .parallel import ShardedPipeline

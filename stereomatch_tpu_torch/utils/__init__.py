@@ -1,3 +1,4 @@
-from . import backend, numeric, profiling, validation, viz
+from . import backend, benchmarking, numeric, profiling, validation, viz
 
-__all__ = ["backend", "numeric", "profiling", "validation", "viz"]
+__all__ = ["backend", "benchmarking", "numeric", "profiling", "validation",
+           "viz"]

@@ -9,10 +9,10 @@ through torch's ``env://`` variables, and run the partitioners over a
 Each rank's frames (its batch row's two) must equal, bit for bit, the
 same frames of JAX's ``ShardedPipeline`` (and pyramid and 2-D tile
 partitioners) on one process over the 8-device CPU mesh, and of JAX's
-single-device pipeline where the mode is exact.  The refusals of a mesh
-over processes (an axis other than batch across them, the tracker, the
-stream) are held too.  Every wait on a worker has a timeout, after which
-both are killed.
+single-device pipeline where the mode is exact.  The meshes whose tile
+axes span the ranks are laid out (their owners held), and the stream's
+refusal over processes is held.  Every wait on a worker has a timeout,
+after which both are killed.
 """
 
 import ast
@@ -180,22 +180,31 @@ def test_auto_resolves_per_batch_row_and_logs_it(run):
         assert "'batch': 2, 'tiles': 4" in report["auto_log"][0]
 
 
+# The meshes once refused over processes, now laid out across both ranks
+# (shape, owners), and the refusal that stays.
+ACCEPTED = {
+    "tile_axis": [{"batch": 1, "tile": 8}, [[0] * 4 + [1] * 4]],
+    "tile_w_axis": [{"batch": 1, "tile": 1, "tile_w": 8},
+                    [[[0] * 4 + [1] * 4]]],
+    "disp_mesh": [{"disp": 8}, [0] * 4 + [1] * 4],
+    "temporal": [{"batch": 2, "tile": 4}, [[0] * 4, [1] * 4]],
+}
 REFUSALS = {
-    "tile_axis": ("'tile' axis spans processes", "ROADMAP A.14"),
-    "tile_w_axis": ("'tile_w' axis spans processes", "ROADMAP A.14"),
-    "disp_mesh": ("'disp' axis spans processes", "ROADMAP A.14"),
-    "temporal": ("drift fraction", "ROADMAP A.14"),
     "stream": ("fetched whole", "np.asarray"),
 }
 
 
-@pytest.mark.parametrize("name", REFUSALS)
+@pytest.mark.parametrize("name", [*ACCEPTED, *REFUSALS])
 def test_refusals_over_processes(run, name):
-    """An axis other than batch across processes (a tile axis longer
-    than a process's devices, 2-D tiles across them, disparity blocks of
-    the world), the tracker and the stream over processes raise
-    NotImplementedError on both ranks, saying why."""
+    """A tile axis longer than a process's devices, 2-D tiles across
+    processes, disparity blocks of the world and the tracker over the
+    hybrid mesh are accepted on both ranks, each mesh's devices owned in
+    (rank, local index) order; the stream over processes still raises
+    NotImplementedError, saying why."""
     for report in run[0]:
+        if name in ACCEPTED:
+            assert report["accepted"][name] == ACCEPTED[name]
+            continue
         message = report["refusals"][name]
         for part in REFUSALS[name]:
             assert part in message, message

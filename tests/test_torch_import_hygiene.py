@@ -45,9 +45,11 @@ def test_import_leaves_jax_out():
         "import stereomatch_tpu_torch.utils.backend\n"
         "import stereomatch_tpu_torch.utils.numeric\n"
         "import stereomatch_tpu_torch.utils.profiling\n"
+        "import stereomatch_tpu_torch.utils.benchmarking\n"
         "import stereomatch_tpu_torch.parallel\n"
         "import stereomatch_tpu_torch.parallel.mesh\n"
         "import stereomatch_tpu_torch.parallel.halo\n"
+        "import stereomatch_tpu_torch.parallel.transport\n"
         "import stereomatch_tpu_torch.parallel.sharded\n"
         "import stereomatch_tpu_torch.parallel.pyramid_sharded\n"
         "import stereomatch_tpu_torch.parallel.temporal_sharded\n"

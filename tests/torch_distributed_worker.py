@@ -8,8 +8,9 @@ rank 1 through torch's ``env://`` variables; each brings four CPU
 devices.  Every rank builds the same global [4, 32, 48] stacks from the
 seeded synthetic scene, runs the partitioners over a (batch=2, tile=4)
 hybrid mesh (and a (2, 2, 2) 2-D tile mesh), and writes its own frames
-(``OUT_DIR/rank{RANK}.npz``) and what it saw of the world and of the
-refusals (one ``TORCH_DISTRIBUTED_OK {json}`` line on stdout) for
+(``OUT_DIR/rank{RANK}.npz``) and what it saw of the world, of the
+meshes whose tile axes span both ranks and of the refusal that stays
+(one ``TORCH_DISTRIBUTED_OK {json}`` line on stdout) for
 ``tests/test_torch_distributed.py``, which holds them against the JAX
 package.  Imports torch, numpy and the port only.
 """
@@ -39,6 +40,11 @@ def _refused(fn) -> str:
     except NotImplementedError as err:
         return str(err)
     return ""
+
+
+def _layout(mesh) -> list:
+    """A mesh's shape and the rank owning each of its devices."""
+    return [mesh.shape, mesh.processes]
 
 
 def main(rank: int, address: str, out_dir: Path) -> dict:
@@ -116,15 +122,17 @@ def main(rank: int, address: str, out_dir: Path) -> dict:
         mesh_2d, max_disparity=D, kernel_size=K)(left, right).numpy()
     np.savez(out_dir / f"rank{rank}.npz", **outputs)
 
-    # What a mesh over processes refuses (every rank makes the same
-    # collective calls in the same order: make_hybrid_mesh gathers).
+    # What a mesh over processes lays out, and what it still refuses
+    # (every rank makes the same collective calls in the same order:
+    # make_hybrid_mesh gathers).
+    track = make_temporal_track_sharded(mesh, max_disparity=D)
+    info["accepted"] = {
+        "tile_axis": _layout(make_hybrid_mesh(n_tile=8, devices=cpu4)),
+        "tile_w_axis": _layout(make_mesh_2d(None, 1, 1, 8)),
+        "disp_mesh": _layout(make_disp_mesh()),
+        "temporal": _layout(mesh) if callable(track) else None,
+    }
     info["refusals"] = {
-        "tile_axis": _refused(lambda: make_hybrid_mesh(n_tile=8,
-                                                       devices=cpu4)),
-        "tile_w_axis": _refused(lambda: make_mesh_2d(None, 1, 1, 8)),
-        "disp_mesh": _refused(lambda: make_disp_mesh()),
-        "temporal": _refused(lambda: make_temporal_track_sharded(
-            mesh, max_disparity=D)),
         "stream": _refused(lambda: StreamingEstimator(D, mesh=mesh,
                                                       device="cpu")),
     }
