@@ -12,6 +12,14 @@ hand-made pointer volumes of those shapes), drives the paths
 through the entry points a user calls at the golden teddy scene, each
 with the launch counts set to 0 just before it and read just after:
 
+* (first, ``check_soak``) each kernel against its plain version at the
+  JAX package's soak geometries (``tests/torch_shapes.py``: 16 seeded
+  random H, W, D, k and penalties, float32 and bf16, the integer matrix
+  on the SSD kernel, the CVF draws at wedge offsets 0-2), the
+  padded-band SSD/SAD (``ops.cost.ssd_cost_from_padded``) at teddy and
+  HD against the whole frame's rows with one launch a band, a
+  ``utils.profiling.trace`` file of teddy frames naming the kernels and
+  the ``stm/*`` spans, and the CUDA start watchdog silent with CUDA up;
 * the main path, SSD -> 8-path SGM -> WTA, against golden ``"wta"``;
 * SSD -> SGM -> scanline DP, against golden ``"dp"``;
 * census -> guided-filter aggregation (CVF) -> WTA, against
@@ -311,6 +319,24 @@ TILES_LINK_REPS = {"carry": 20, "halo": 3}
 # pair; the card's copy rate on COPY_BYTES.
 LINK_COPIES, LINK_STAGES = 100, 100
 COPY_BYTES = 1 << 30
+
+
+# The soak phase (check_soak): the padded-band cells (H, W, D, k, band
+# rows, the scene's seed: main's teddy and HD images; the halos are
+# (k, k - 1) inside the frame), each band timed over
+# SOAK_BAND_REPS calls (CUDA events, median) beside the whole frame; the
+# frames of the ``profiling.trace`` capture and the names its file must
+# hold; the kernels the soak must launch.
+SOAK_BANDS = {"teddy": (375, 450, 128, 7, 75, 2026),
+              "hd": (1024, 1280, 256, 7, 256, 11)}
+SOAK_BAND_REPS = 20
+TRACE_FRAMES = 5
+TRACE_NAMES = ("ssd_kernel", "sgm_rows_kernel", "sgm_horizontal_kernel",
+               "stm/cost", "stm/aggregation", "stm/disparity_reduce")
+SOAK_KERNELS = ("ssd", "ssd_bf16", "sgm_rows", "sgm_rows_bf16",
+                "sgm_horizontal", "sgm_horizontal_bf16", "dp_forward",
+                "dp_forward_bf16", "dp_backward", "cvf", "cvf_filter",
+                "cvf_bf16", "cvf_filter_bf16")
 
 
 class SmokeFailure(RuntimeError):
@@ -913,6 +939,9 @@ def check_image_cli(torch, shapes, card) -> dict:
                         timeout=600)
                     rc = proc.returncode
                     require(rc == 0, f"stm-image failed: {proc.stderr}")
+                    require("still initializing" not in proc.stderr,
+                            f"stm-image printed the watchdog's line: "
+                            f"{proc.stderr}")
                 else:
                     rc = image.main([*args, "--device", "cpu"])
                     require(rc == 0, "stm-image --device cpu failed")
@@ -936,8 +965,8 @@ def check_image_cli(torch, shapes, card) -> dict:
         stages = {"decode": [], "estimate": [], "encode": []}
         for _ in range(6):
             t0 = time.perf_counter()
-            lg = load_image(lp, "L").astype(np.float32)
-            rg = load_image(rp, "L").astype(np.float32)
+            lg = load_image(lp, mode="L").astype(np.float32)
+            rg = load_image(rp, mode="L").astype(np.float32)
             t1 = time.perf_counter()
             disp = pipe.estimate(lg, rg).cpu().numpy()
             t2 = time.perf_counter()
@@ -1573,6 +1602,236 @@ def teddy_video(golden, n_scenes=STREAM_SCENES):
 def launch_counts(counters, launches) -> dict:
     return {name: sum(launches[e] for e in entries)
             for name, entries in counters.items()}
+
+
+def check_soak(torch, dev, card) -> dict:
+    """The kernels at the JAX package's soak geometries, the padded-band
+    cost, ``profiling.trace`` and the CUDA start watchdog, on the card.
+
+    At every ``SOAK_SEEDS`` geometry (``tests/torch_shapes.py``, drawn as
+    ``tests/test_differential_soak.py`` draws them) each kernel equals its
+    plain version bit for bit, in float32 and bf16: K1 SSD and SAD; the
+    K3 and K2 families on the SSD volume (bf16: K2 through the whole
+    aggregation, which rounds the sum once); K7/K8 on the aggregated
+    volume; K9 on the CVF draw's volume at wedge offsets 0-2 with its
+    radius and eps, and on the fused-layout draws.  K1 also over the
+    integer matrix (uint8/int16 images, int32/float32 cost, int32 max on
+    the wedge).  Then ``ops.cost.ssd_cost_from_padded`` (and SAD) over
+    the row bands of SOAK_BANDS, one K1 launch a band, each equal to the
+    rows of the whole-frame K1 volume, the middle band timed beside the
+    whole frame; a ``profiling.trace`` file of teddy frames naming
+    TRACE_NAMES; the watchdog silent once CUDA is up.  It makes its own
+    images, so that it runs alone after a build too."""
+    import contextlib
+
+    from stereomatch_tpu_torch import cli_common
+    from stereomatch_tpu_torch.io.synthetic import stereo_pair
+    from stereomatch_tpu_torch.ops import (_build, cvf_cuda, dp_cuda,
+                                           sgm_cuda, ssd_cuda)
+    from stereomatch_tpu_torch.ops import aggregation as agg_ops
+    from stereomatch_tpu_torch.ops import cost as cost_ops
+    from stereomatch_tpu_torch.ops import cvf as cvf_ops
+    from stereomatch_tpu_torch.ops import disparity as disp_ops
+    from stereomatch_tpu_torch.utils import profiling
+    from stereomatch_tpu_torch.utils.backend import (
+        warn_if_backend_init_stalls)
+    from tests.torch_shapes import (SOAK_CVF_LAYOUT_SEEDS, SOAK_INT_SEEDS,
+                                    SOAK_SEEDS, soak_cvf_layout,
+                                    soak_geometry, soak_int_geometry)
+
+    bf16 = torch.bfloat16
+    started = time.perf_counter()
+    held = 0
+
+    def same(name, ref, out):
+        nonlocal held
+        compare(name, ref, out, 0, 0, exact=True, quiet=True)
+        held += 1
+
+    def on(array):
+        return torch.from_numpy(array).to(dev)
+
+    log(f"[soak] {len(SOAK_SEEDS)} soak geometries, float32 and bf16; the "
+        f"integer matrix at seeds {SOAK_INT_SEEDS}; "
+        f"{len(SOAK_CVF_LAYOUT_SEEDS)} fused-CVF layout draws")
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    for seed in SOAK_SEEDS:
+        c = soak_geometry(seed)
+        left, right = on(c.left), on(c.right)
+        kw = dict(max_disparity=c.max_disp, kernel_size=c.k)
+        tag = f"seed {seed} {c.height}x{c.width} D={c.max_disp} k={c.k}"
+        for dtype in (torch.float32, bf16):
+            for absolute in (False, True):
+                same(f"K1 {'sad' if absolute else 'ssd'} {dtype} {tag}",
+                     cost_ops._diff_cost_volume(left, right, cost_dtype=dtype,
+                                                absolute=absolute, **kw),
+                     ssd_cuda.diff_cost_volume_cuda(
+                         left, right, cost_dtype=dtype, absolute=absolute,
+                         **kw))
+            vol = cost_ops.ssd_cost_volume(left, right, cost_dtype=dtype,
+                                           **kw)
+            families = (("K3", agg_ops.TRAVERSALS[:2]),
+                        ("K2", agg_ops.TRAVERSALS[2:]))
+            for fam, steps in families[:1] if dtype == bf16 else families:
+                plain = None
+                for step in steps:
+                    part = agg_ops.sweep(vol, left, c.p1, c.p2, step)
+                    plain = part if plain is None else plain + part
+                kern = torch.empty(vol.shape, device=dev)
+                for i, step in enumerate(steps):
+                    sgm_cuda.traverse_cuda(vol, left, kern, step, c.p1, c.p2,
+                                           accumulate=i > 0)
+                same(f"{fam} family {dtype} {tag}", plain, kern)
+            agg = agg_ops.semiglobal_aggregate(vol, left, penalty1=c.p1,
+                                               penalty2=c.p2)
+            same(f"SGM {dtype} {tag}", agg,
+                 sgm_cuda.semiglobal_aggregate_cuda(vol, left, penalty1=c.p1,
+                                                    penalty2=c.p2))
+            ptr_ref, final_ref = disp_ops.dp_forward(agg)
+            ptr, final = dp_cuda.dp_forward_cuda(agg)
+            same(f"K7 pointers {dtype} {tag}", ptr_ref, ptr)
+            same(f"K7 final costs {dtype} {tag}", final_ref, final)
+            same(f"K8 {dtype} {tag}",
+                 disp_ops.dp_backward(ptr_ref,
+                                      disp_ops.dp_end_disparities(final_ref)),
+                 dp_cuda.dp_backward_cuda(ptr_ref, final_ref))
+        c = soak_geometry(seed, cvf=True)
+        left, right = on(c.left), on(c.right)
+        for off in (0, 1, 2):
+            cvf_kw = dict(radius=c.radius, eps=c.eps, wedge_offset=off)
+            for dtype in (torch.float32, bf16):
+                vol = cost_ops.ssd_cost_volume(
+                    left, right, max_disparity=c.max_disp, kernel_size=c.k,
+                    cost_dtype=dtype, disparity_offset=off)
+                same(f"K9 {dtype} seed {seed} r={c.radius} offset {off}",
+                     cvf_ops.guided_filter_aggregate(vol, left, **cvf_kw),
+                     cvf_cuda.guided_filter_aggregate_cuda(vol, left,
+                                                           **cvf_kw))
+    for seed in SOAK_INT_SEEDS:
+        for image_dtype in (np.uint8, np.int16):
+            lnp, rnp, d, k = soak_int_geometry(seed, image_dtype)
+            left, right = on(lnp), on(rnp)
+            wedge = (torch.arange(lnp.shape[1], device=dev)[:, None]
+                     < torch.arange(d, device=dev)[None, :])
+            for dtype in (torch.int32, torch.float32):
+                for absolute in (False, True):
+                    out = ssd_cuda.diff_cost_volume_cuda(
+                        left, right, max_disparity=d, kernel_size=k,
+                        cost_dtype=dtype, absolute=absolute)
+                    same(f"K1 {image_dtype.__name__} -> {dtype} seed {seed}",
+                         cost_ops._diff_cost_volume(
+                             left, right, max_disparity=d, kernel_size=k,
+                             cost_dtype=dtype, absolute=absolute), out)
+                    if dtype == torch.int32:
+                        require(bool((out[:, wedge] ==
+                                      torch.iinfo(torch.int32).max).all()),
+                                f"K1 int32 seed {seed}: a wedge cell is not "
+                                f"int32 max")
+    for seed in SOAK_CVF_LAYOUT_SEEDS:
+        vol, guide, radius, off = soak_cvf_layout(seed)
+        cvf_kw = dict(radius=radius, eps=1e-4, wedge_offset=off)
+        for dtype in (torch.float32, bf16):
+            v, g = on(vol).to(dtype), on(guide)
+            same(f"K9 {dtype} layout draw {seed} r={radius} offset {off}",
+                 cvf_ops.guided_filter_aggregate(v, g, **cvf_kw),
+                 cvf_cuda.guided_filter_aggregate_cuda(v, g, **cvf_kw))
+    torch.cuda.synchronize()
+    counts = launch_counts(COUNTERS, _build.LAUNCHES)
+    for name in SOAK_KERNELS:
+        require(counts[name] > 0, f"the soak launched {name} no time")
+    soak_s = time.perf_counter() - started
+    log(f"  {held} kernel outputs bit-equal to their plain versions, "
+        f"{sum(counts.values())} launches in {soak_s!r} s: {counts} "
+        f"[{card}]")
+    out = {"held": held, "launches": counts, "seconds": soak_s, "bands": {}}
+
+    log("[padded bands] ops.cost.ssd_cost_from_padded / sad_cost_from_padded "
+        "against the whole-frame K1 volume")
+    scenes = {}
+    for tag, (h, w, d, k, rows, seed) in SOAK_BANDS.items():
+        left, right = map(on, stereo_pair(h, w, d, seed=seed)[:2])
+        scenes[tag] = left, right
+        kw = dict(max_disparity=d, kernel_size=k)
+        bands = []
+        for a in range(0, h, rows):
+            b = min(a + rows, h)
+            bands.append((a, b, min(k, a), min(k - 1, h - b)))
+        for absolute, padded in ((False, cost_ops.ssd_cost_from_padded),
+                                 (True, cost_ops.sad_cost_from_padded)):
+            whole = ssd_cuda.diff_cost_volume_cuda(
+                left, right, cost_dtype=torch.float32, absolute=absolute,
+                **kw)
+            for a, b, pb, pa in bands:
+                torch.cuda.synchronize()
+                _build.LAUNCHES.clear()
+                band = padded(left[a - pb:b + pa], right[a - pb:b + pa],
+                              pad_before=pb, pad_after=pa, **kw)
+                torch.cuda.synchronize()
+                require(dict(_build.LAUNCHES) == {"stm_ssd_f32": 1},
+                        f"{padded.__name__} {tag} rows {a}-{b} launched "
+                        f"{dict(_build.LAUNCHES)}")
+                require(band.is_contiguous() and torch.equal(band,
+                                                             whole[a:b]),
+                        f"{padded.__name__} {tag} rows {a}-{b} differs from "
+                        f"the whole frame's")
+            del whole
+        log(f"  {tag} {h}x{w} D={d} k={k}: {len(bands)} bands of {rows} "
+            f"rows, halos (k, k - 1) inside the frame, SSD and SAD each "
+            f"equal to the whole-frame rows, one K1 launch a band")
+        a, b, pb, pa = bands[len(bands) // 2]
+        lp = left[a - pb:b + pa].contiguous()
+        rp = right[a - pb:b + pa].contiguous()
+        band_ms = time_ms(torch, lambda: cost_ops.ssd_cost_from_padded(
+            lp, rp, pad_before=pb, pad_after=pa, **kw),
+            reps=SOAK_BAND_REPS)
+        whole_ms = time_ms(torch, lambda: ssd_cuda.diff_cost_volume_cuda(
+            left, right, cost_dtype=torch.float32, absolute=False, **kw),
+            reps=SOAK_BAND_REPS)
+        out["bands"][tag] = {"band_rows": rows, "halos": [pb, pa],
+                             "band_ms": band_ms, "whole_frame_ms": whole_ms}
+        log(f"  {tag}: band of {rows} rows + ({pb}, {pa}) halos "
+            f"{band_ms!r} ms, whole frame {whole_ms!r} ms (CUDA events, "
+            f"median of {SOAK_BAND_REPS}) [{card}]")
+        torch.cuda.empty_cache()
+
+    log(f"[trace] profiling.trace around {TRACE_FRAMES} teddy frames of "
+        f"ssd -> sgm -> wta")
+    (left, right), (_, _, d, k, _, _) = scenes["teddy"], SOAK_BANDS["teddy"]
+    pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=d)
+    pipe.cost.kernel_size = k
+    pipe.estimate(left, right)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            for _ in range(TRACE_FRAMES):
+                pipe.estimate(left, right)
+            torch.cuda.synchronize()
+        files = sorted(Path(tmp).glob("*.json"))
+        require(len(files) == 1, f"profiling.trace wrote {files}")
+        names = [str(e.get("name", "")) for e in json.loads(
+            files[0].read_text()).get("traceEvents", [])]
+        missing = [n for n in TRACE_NAMES
+                   if not any(n in name for name in names)]
+        require(not missing, f"the trace file lacks {missing}")
+        size = files[0].stat().st_size
+    log(f"  one trace file, {size} bytes, {len(names)} events, naming "
+        f"{list(TRACE_NAMES)}")
+    out["trace_events"] = len(names)
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        timer = warn_if_backend_init_stalls(seconds=0.1)
+        require(timer is not None, "the watchdog armed nothing on cuda")
+        timer.join()
+    require(err.getvalue() == "", f"the watchdog spoke with CUDA up: "
+                                  f"{err.getvalue()!r}")
+    require(warn_if_backend_init_stalls(device="cpu") is None,
+            "the watchdog armed a timer for --device cpu")
+    log("  watchdog: silent with CUDA up, nothing armed for the CPU")
+    out["seconds_all"] = time.perf_counter() - started
+    log(f"  the soak phase took {out['seconds_all']!r} s")
+    return out
 
 
 def check_stream(torch, dev, golden, counters, card) -> dict:
@@ -3037,6 +3296,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     elapsed("the kernels against their plain versions")
+    soak_out = check_soak(torch, dev, card)
+    elapsed("the soak")
 
     # Phase 4: the paths, through the entry points a user calls; the
     # launch counts are set to 0 just before each and read just after.
@@ -3646,6 +3907,7 @@ def main() -> int:
     log(json.dumps({"partitioners": partition_out, "card": card}))
     log(json.dumps({"distributed": distributed_out, "card": card}))
     log(json.dumps({"distributed_tiles": tiles_out, "card": card}))
+    log(json.dumps({"soak": soak_out, "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {

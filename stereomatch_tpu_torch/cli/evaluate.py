@@ -193,11 +193,13 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from ..cli_common import create_pipeline
+    from ..cli_common import create_pipeline, start_device
     from ..io.data import MiddleburyDataset
     from ..metrics import evaluate, metrics_markdown_table
     from ..pipeline import host_array
     from ..utils.numeric import next_power_of_2
+
+    start_device(args.device)
 
     configs = (parse_configs(args.configs) if args.configs
                else DEFAULT_CONFIGS)

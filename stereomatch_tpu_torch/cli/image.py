@@ -182,10 +182,11 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from ..cli_common import create_pipeline
+    from ..cli_common import create_pipeline, start_device
     from ..io.data import load_image, save_image
     from ..pipeline import host_array
 
+    start_device(args.device)
     if args.pyramid > 0:
         from ..pyramid import PyramidPipeline
         pipeline = PyramidPipeline(
@@ -206,8 +207,8 @@ def main(argv=None) -> int:
                                    volume_dtype=args.dtype,
                                    device=args.device)
 
-    left = load_image(args.left_image, "L").astype(np.float32)
-    right = load_image(args.right_image, "L").astype(np.float32)
+    left = load_image(args.left_image, mode="L").astype(np.float32)
+    right = load_image(args.right_image, mode="L").astype(np.float32)
 
     if args.pyramid > 0 and args.refine:
         disparity = pipeline.estimate_refined(left, right)
@@ -227,8 +228,8 @@ def main(argv=None) -> int:
     disparity = host_array(disparity)
     inputs = None
     if args.figure:
-        inputs = (load_image(args.left_image, "RGB"),
-                  load_image(args.right_image, "RGB"))
+        inputs = (load_image(args.left_image, mode="RGB"),
+                  load_image(args.right_image, mode="RGB"))
     canvas = render_panels(disparity, inputs=inputs)
     save_image(args.output_depthmap, canvas)
 
@@ -247,7 +248,7 @@ def main(argv=None) -> int:
         if args.point_cloud:
             points = reproject_disparity(disparity, intr)
             n = write_ply(args.point_cloud, points,
-                          colors=load_image(args.left_image, "RGB"),
+                          colors=load_image(args.left_image, mode="RGB"),
                           max_depth=args.max_depth)
             print(f"{args.point_cloud}: {n} points", file=sys.stderr)
 

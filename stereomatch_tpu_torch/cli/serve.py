@@ -880,6 +880,8 @@ def main(argv=None) -> int:
         print("--fgs is incompatible with --pyramid (no flat "
               "post-processing stage there).", file=sys.stderr)
         return 2
+    from ..cli_common import start_device
+    start_device(args.device)
     # Orchestrators stop containers with SIGTERM: treat it like Ctrl-C so
     # in-flight handlers finish and the socket closes cleanly.  The banner
     # tells a supervisor the server is up, so a SIGTERM sent on seeing it

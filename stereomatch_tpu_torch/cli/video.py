@@ -450,6 +450,8 @@ def main(argv=None) -> int:
     if refusal:
         print(refusal, file=sys.stderr)
         return 2
+    from ..cli_common import start_device
+    start_device(args.device)
 
     from ..io.calibration import StereoRectifier
     from ..pipeline import host_array

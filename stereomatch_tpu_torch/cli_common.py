@@ -34,6 +34,24 @@ STREAM_REDUCERS = {"wta": "wta", "dyn": "dynamic_programming"}
 MESH_CPU_DEVICES = 8
 
 
+def start_device(device):
+    """Arm the CUDA start watchdog for ``device``
+    (``utils.backend.warn_if_backend_init_stalls``) and, off the CPU,
+    start CUDA at once, so that a runtime still down when the timer fires
+    is stuck and not waiting on host work.  A failed start cancels the
+    timer and raises.  Returns the timer, or None under ``--device
+    cpu``."""
+    from .utils.backend import warn_if_backend_init_stalls
+    timer = warn_if_backend_init_stalls(device=device)
+    if timer is not None:
+        try:
+            torch.cuda.init()
+        except BaseException:
+            timer.cancel()
+            raise
+    return timer
+
+
 def mesh_devices(device) -> list:
     """The devices a CLI's ``--mesh`` lays out: every visible card under
     ``--device cuda``, ``MESH_CPU_DEVICES`` CPU devices under ``--device

@@ -6,9 +6,10 @@
     workflow mutates it per scene).
   * ``cost_volume=`` is accepted for source compatibility with the
     reference and ignored: the caching allocator reuses the buffers.
-  * ``backend``: "auto" launches the CUDA kernel (``ops/ssd_cuda.py``)
-    for CUDA tensors whose shape it serves (``ssd_cuda.fits``) and runs
-    the plain PyTorch version otherwise, on the images' own device;
+  * ``backend`` (routed by ``ops.cost.diff_cost_dispatch``): "auto"
+    launches the CUDA kernel (``ops/ssd_cuda.py``) for CUDA tensors
+    whose shape it serves (``ssd_cuda.fits``) and runs the plain
+    PyTorch version otherwise, on the images' own device;
     "cuda" demands the kernel and raises on CPU tensors and on shapes it
     does not serve; "torch" runs the plain version on the images' own
     device.
@@ -21,28 +22,8 @@ from typing import Optional
 import torch
 
 from .ops import cost as cost_ops
-from .ops import ssd_cuda
 from .texture import TextureImage
 from .utils import validation
-from .utils.backend import resolve_backend
-
-
-def _diff_cost_dispatch(left, right, *, max_disparity, kernel_size,
-                        cost_dtype, absolute, backend, disparity_offset=0):
-    if cost_dtype not in validation.COST_DTYPES:
-        raise validation.DTypeError(
-            f"cost_volume_dtype must be one of "
-            f"{[str(d) for d in validation.COST_DTYPES]}, got {cost_dtype}")
-    fits = ssd_cuda.fits(left.shape[0], kernel_size)
-    if resolve_backend(backend, left, fits) == "cuda":
-        return ssd_cuda.diff_cost_volume_cuda(
-            left, right, max_disparity=max_disparity,
-            kernel_size=kernel_size, cost_dtype=cost_dtype,
-            absolute=absolute, disparity_offset=disparity_offset)
-    fn = cost_ops.sad_cost_volume if absolute else cost_ops.ssd_cost_volume
-    return fn(left, right, max_disparity=max_disparity,
-              kernel_size=kernel_size, cost_dtype=cost_dtype,
-              disparity_offset=disparity_offset)
 
 
 class _DiffCost:
@@ -61,12 +42,10 @@ class _DiffCost:
     def __call__(self, left_image: torch.Tensor, right_image: torch.Tensor,
                  cost_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
         validation.check_stereo_pair(left_image, right_image)
-        return _diff_cost_dispatch(left_image, right_image,
-                                   max_disparity=self.max_disparity,
-                                   kernel_size=self.kernel_size,
-                                   cost_dtype=self.cost_volume_dtype,
-                                   absolute=self.absolute,
-                                   backend=self.backend)
+        return cost_ops.diff_cost_dispatch(
+            left_image, right_image, max_disparity=self.max_disparity,
+            kernel_size=self.kernel_size, cost_dtype=self.cost_volume_dtype,
+            absolute=self.absolute, backend=self.backend)
 
 
 class SSD(_DiffCost):
@@ -156,11 +135,10 @@ class SSDTexture:
     def __call__(self, left_image: TextureImage, right_image: TextureImage,
                  cost_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
         left, right = cost_ops.texture_grids(left_image, right_image)
-        return _diff_cost_dispatch(left, right,
-                                   max_disparity=self.max_disparity,
-                                   kernel_size=self.kernel_size,
-                                   cost_dtype=torch.float32, absolute=False,
-                                   backend=self.backend)
+        return cost_ops.diff_cost_dispatch(
+            left, right, max_disparity=self.max_disparity,
+            kernel_size=self.kernel_size, cost_dtype=torch.float32,
+            absolute=False, backend=self.backend)
 
 
 class NCC:

@@ -184,15 +184,27 @@ def _pil_image(path):
     return Image
 
 
-def load_image(path, mode: Optional[str] = None) -> np.ndarray:
+def load_image(path, grayscale: bool = False, *,
+               mode: Optional[str] = None) -> np.ndarray:
     """Load an image as ``np.array(PIL.Image.open(path))`` gives it, or,
     with ``mode`` "L" or "RGB", as PIL's ``convert(mode)`` does.
 
-    PNG goes through the port's codec (``io/png.py``) and PGM/PPM
-    through the native codec or :func:`read_pnm`, with or without PIL; other formats (JPEG,
-    BMP, TIFF) through PIL, where it is installed.  The Middlebury 2003
-    sets (teddy/cones) ship PGM/PPM, the 2014/2021 sets and KITTI PNG.
+    ``grayscale=True`` is the JAX package's call and gives what
+    ``mode="L"`` gives; passing it with ``mode`` raises.  PNG goes
+    through the port's codec (``io/png.py``) and PGM/PPM through the
+    native codec or :func:`read_pnm`, with or without PIL; other formats
+    (JPEG, BMP, TIFF) through PIL, where it is installed.  The Middlebury
+    2003 sets (teddy/cones) ship PGM/PPM, the 2014/2021 sets and KITTI PNG.
     """
+    if isinstance(grayscale, str):
+        raise TypeError(
+            f"load_image: grayscale is a bool, got {grayscale!r}; pass "
+            f"mode={grayscale!r} by keyword")
+    if grayscale:
+        if mode is not None:
+            raise ValueError(
+                f"load_image: grayscale=True and mode={mode!r} both given")
+        mode = "L"
     if mode not in (None, "L", "RGB"):
         raise ValueError(f"load_image: mode None, 'L' or 'RGB', got {mode!r}")
     suffix = Path(path).suffix.lower()

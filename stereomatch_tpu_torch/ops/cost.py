@@ -2,13 +2,17 @@
 
 Port of ``stereomatch_tpu/ops/cost.py`` (``shifted_right_stack``,
 ``_box_sum``, ``_diff_cost_volume``, ``ssd_cost_volume``,
-``sad_cost_volume``, ``census_transform``,
+``sad_cost_volume``, ``ssd_cost_from_padded``, ``sad_cost_from_padded``,
+``census_transform``,
 ``census_hamming_cost_volume``, ``birchfield_cost_volume``,
 ``zncc_cost_volume``, ``zncc_cost_from_padded``,
 ``ssd_texture_cost_volume``) and the texture grids that
 ``cost.SSDTexture`` compares.  These run on any device.  The SSD/SAD
 volumes are the oracle of the CUDA kernel in ``ops/ssd_cuda.py``;
-``cost.SSD``/``cost.SAD``/``cost.SSDTexture`` choose between the two.
+:func:`diff_cost_dispatch` chooses between the two, for
+``cost.SSD``/``cost.SAD``/``cost.SSDTexture``, the padded-band
+``ssd_cost_from_padded``/``sad_cost_from_padded`` and the disparity-block
+partitioner.
 Census, Birchfield and ZNCC have no kernel of their own (the JAX package
 computes them in XLA, with no Pallas kernel), so they run as plain
 PyTorch on the card too.
@@ -50,19 +54,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import validation
+from ..utils.backend import resolve_backend
 from ..utils.numeric import fma, pairwise_sum_last, prefix_sum_w, sqrt_f32
-
-
-def _inf_value(dtype: torch.dtype):
-    """+inf for float dtypes, the max value for integer dtypes."""
-    if dtype.is_floating_point:
-        return float("inf")
-    return torch.iinfo(dtype).max
-
-
-def compute_dtype(cost_dtype: torch.dtype) -> torch.dtype:
-    """Accumulation dtype of the window sums for a cost dtype."""
-    return torch.float32 if cost_dtype.is_floating_point else torch.int32
+from ..utils.validation import compute_dtype, inf_value
+from . import ssd_cuda
 
 
 def shifted_right_stack(right: torch.Tensor, max_disparity: int,
@@ -134,7 +130,7 @@ def _diff_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
                                                 device=left.device))
     cost = _box_sum(term, kernel_size, axes=(0, 1))
     return torch.where(valid, cost.to(cost_dtype),
-                       torch.full((), _inf_value(cost_dtype), dtype=cost_dtype,
+                       torch.full((), inf_value(cost_dtype), dtype=cost_dtype,
                                   device=left.device))
 
 
@@ -167,6 +163,92 @@ def sad_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
                              kernel_size=kernel_size, cost_dtype=cost_dtype,
                              absolute=True,
                              disparity_offset=disparity_offset)
+
+
+def diff_cost_dispatch(left: torch.Tensor, right: torch.Tensor, *,
+                       max_disparity: int, kernel_size: int,
+                       cost_dtype: torch.dtype, absolute: bool, backend: str,
+                       disparity_offset: int = 0) -> torch.Tensor:
+    """SSD (``absolute=False``) or SAD volume, routed by ``backend``:
+    "auto" launches the CUDA kernel (``ssd_cuda.diff_cost_volume_cuda``)
+    on a CUDA tensor whose shape it serves (``ssd_cuda.fits``) and runs
+    this module's plain version otherwise, on the images' own device;
+    "cuda" demands the kernel; "torch" runs the plain version.  The
+    routing of ``cost.SSD``/``cost.SAD``, the padded bands below and the
+    disparity-block partitioner."""
+    if cost_dtype not in validation.COST_DTYPES:
+        raise validation.DTypeError(
+            f"cost_volume_dtype must be one of "
+            f"{[str(d) for d in validation.COST_DTYPES]}, got {cost_dtype}")
+    fits = ssd_cuda.fits(left.shape[0], kernel_size)
+    if resolve_backend(backend, left, fits) == "cuda":
+        return ssd_cuda.diff_cost_volume_cuda(
+            left, right, max_disparity=max_disparity,
+            kernel_size=kernel_size, cost_dtype=cost_dtype,
+            absolute=absolute, disparity_offset=disparity_offset)
+    fn = sad_cost_volume if absolute else ssd_cost_volume
+    return fn(left, right, max_disparity=max_disparity,
+              kernel_size=kernel_size, cost_dtype=cost_dtype,
+              disparity_offset=disparity_offset)
+
+
+def _diff_cost_from_padded(left_padded: torch.Tensor,
+                           right_padded: torch.Tensor, *, pad_before: int,
+                           pad_after: int, max_disparity: int,
+                           kernel_size: int, cost_dtype: torch.dtype,
+                           absolute: bool, backend: str) -> torch.Tensor:
+    """Shared body of the halo-consuming SSD / SAD band costs."""
+    if pad_before > kernel_size or pad_after > kernel_size - 1:
+        raise ValueError("halos wider than the window change the semantics")
+    cost = diff_cost_dispatch(left_padded, right_padded,
+                               max_disparity=max_disparity,
+                               kernel_size=kernel_size,
+                               cost_dtype=cost_dtype, absolute=absolute,
+                               backend=backend)
+    height = left_padded.shape[0] - pad_before - pad_after
+    return cost[pad_before:pad_before + height].contiguous()
+
+
+def ssd_cost_from_padded(left_padded: torch.Tensor,
+                         right_padded: torch.Tensor, *, pad_before: int,
+                         pad_after: int, max_disparity: int,
+                         kernel_size: int = 7,
+                         cost_dtype: torch.dtype = torch.float32,
+                         backend: str = "auto") -> torch.Tensor:
+    """SSD cost of a row band carrying ``pad_before``/``pad_after`` halo
+    rows, cropped to the band: [Hp - pad_before - pad_after, W, D].
+
+    The building block of a caller that tiles a frame by rows itself: the
+    halos are the neighbours' rows, or nothing at the image's edge (the
+    window's zero padding fills what a band does not carry, the additive
+    identity of the clipped window sum).  With (k, k-1) halos it equals
+    the band's rows of :func:`ssd_cost_volume` bit for bit, +inf (int32
+    max) where d > c included.  ``backend`` as ``cost.SSD`` takes it:
+    "auto" launches the CUDA kernel once on the padded band of a CUDA
+    tensor it serves (``ssd_cuda.fits``) and runs the plain version
+    otherwise."""
+    return _diff_cost_from_padded(left_padded, right_padded,
+                                  pad_before=pad_before, pad_after=pad_after,
+                                  max_disparity=max_disparity,
+                                  kernel_size=kernel_size,
+                                  cost_dtype=cost_dtype, absolute=False,
+                                  backend=backend)
+
+
+def sad_cost_from_padded(left_padded: torch.Tensor,
+                         right_padded: torch.Tensor, *, pad_before: int,
+                         pad_after: int, max_disparity: int,
+                         kernel_size: int = 7,
+                         cost_dtype: torch.dtype = torch.float32,
+                         backend: str = "auto") -> torch.Tensor:
+    """SAD band cost with explicit row halos (see
+    :func:`ssd_cost_from_padded`)."""
+    return _diff_cost_from_padded(left_padded, right_padded,
+                                  pad_before=pad_before, pad_after=pad_after,
+                                  max_disparity=max_disparity,
+                                  kernel_size=kernel_size,
+                                  cost_dtype=cost_dtype, absolute=True,
+                                  backend=backend)
 
 
 def census_transform(image: torch.Tensor, window_size: int = 5
@@ -260,7 +342,7 @@ def census_hamming_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
     # integers of at most 32 bits a word, exact in float32, so rounding
     # them straight to bf16 equals XLA's cast through float32.
     return torch.where(valid, cost.to(cost_dtype),
-                       torch.full((), _inf_value(cost_dtype), dtype=cost_dtype,
+                       torch.full((), inf_value(cost_dtype), dtype=cost_dtype,
                                   device=left.device))
 
 
@@ -333,8 +415,7 @@ def birchfield_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
 # ZNCC
 # --------------------------------------------------------------------------
 
-# The variance floor of ZNCC (the JAX package's ``eps`` default, which no
-# caller there changes).
+# The default variance floor of ZNCC (the JAX package's ``eps`` default).
 ZNCC_EPS = 1e-6
 
 
@@ -349,19 +430,18 @@ def _zncc_stack(left_f: torch.Tensor, shifted: torch.Tensor,
                         shifted * shifted, left_f[:, :, None] * shifted])
 
 
-def _zncc_combine(sums, valid: torch.Tensor,
-                  cost_dtype: torch.dtype) -> torch.Tensor:
+def _zncc_combine(sums, valid: torch.Tensor, cost_dtype: torch.dtype,
+                  eps: float) -> torch.Tensor:
     """Window statistics -> ZNCC cost ``1 - ncc`` in [0, 2], +inf outside
     ``valid``.  A window whose variance product's root is at most
-    ``ZNCC_EPS`` has the neutral cost 1."""
+    ``eps`` has the neutral cost 1."""
     n, s_l, s_ll, s_r, s_rr, s_lr = sums
     n_safe = torch.clamp_min(n, 1.0)
     cov = s_lr - s_l * s_r / n_safe
     var_l = torch.clamp_min(s_ll - s_l * s_l / n_safe, 0.0)
     var_r = torch.clamp_min(s_rr - s_r * s_r / n_safe, 0.0)
     denom = sqrt_f32(var_l * var_r)
-    ncc = torch.where(denom > ZNCC_EPS,
-                      cov / torch.clamp_min(denom, ZNCC_EPS),
+    ncc = torch.where(denom > eps, cov / torch.clamp_min(denom, eps),
                       torch.zeros((), device=denom.device))
     cost = 1.0 - ncc
     return torch.where(valid, cost.to(cost_dtype),
@@ -429,7 +509,7 @@ def _window_ends(plane: torch.Tensor, kernel_size: int):
 def _zncc_prefix_volume(left: tuple, right: tuple,
                         rows_n: torch.Tensor, *, max_disparity: int,
                         kernel_size: int, disparity_offset: int,
-                        cost_dtype: torch.dtype) -> torch.Tensor:
+                        cost_dtype: torch.dtype, eps: float) -> torch.Tensor:
     """The prefix-plane ZNCC of centred images with ``rows_n`` [H] window
     rows a row.  ``left`` and ``right`` are pairs of [H, W] float32
     planes, rows outside the image zero: the image centred for the prefix
@@ -481,7 +561,7 @@ def _zncc_prefix_volume(left: tuple, right: tuple,
     shifted = shifted_right_stack(right_c, d, off)
     s_lr = _box_sum(left_c[:, :, None] * shifted, k, axes=(0, 1))
     return _zncc_combine((n, s_l, s_ll, s_r, s_rr, s_lr), valid,
-                         cost_dtype)
+                         cost_dtype, eps)
 
 
 def _check_float(cost_dtype: torch.dtype) -> None:
@@ -493,11 +573,14 @@ def _check_float(cost_dtype: torch.dtype) -> None:
 def zncc_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
                      max_disparity: int, kernel_size: int = 7,
                      cost_dtype: torch.dtype = torch.float32,
-                     disparity_offset: int = 0) -> torch.Tensor:
+                     disparity_offset: int = 0,
+                     eps: float = ZNCC_EPS) -> torch.Tensor:
     """Zero-mean normalised cross-correlation cost volume [H, W, D]:
     ``1 - zncc`` over the SSD window (clipped [i-k, i+k) rows, columns
     [max(c-k, d), min(c+k, W))), +inf where d + offset > c.  Computes
-    float32 and casts once to ``cost_dtype`` (float32 or bfloat16).
+    float32 and casts once to ``cost_dtype`` (float32 or bfloat16).  A
+    window whose variance product's root is at most ``eps`` (a flat
+    patch on either side) has the neutral cost 1.
 
     Both images are centred by their global means first (the sums of
     :func:`image_sum`, centred as XLA compiles it: :func:`_centred`); the
@@ -516,7 +599,7 @@ def zncc_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
         valid = _valid_wedge(width, max_disparity, disparity_offset,
                              left.device)
         sums = _box_sum(_zncc_stack(left_f, shifted, valid), k, axes=(1, 2))
-        return _zncc_combine(sums, valid, cost_dtype)
+        return _zncc_combine(sums, valid, cost_dtype, eps)
     size, fused = height * width, _cumsum_pads(width)
     pairs = [tuple(_centred(img, image_sum(img), size, fused=f)
                    for f in (fused, False)) for img in (left_f, right_f)]
@@ -526,7 +609,7 @@ def zncc_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
     return _zncc_prefix_volume(*pairs, rows_n,
                                max_disparity=max_disparity, kernel_size=k,
                                disparity_offset=disparity_offset,
-                               cost_dtype=cost_dtype)
+                               cost_dtype=cost_dtype, eps=eps)
 
 
 def zncc_cost_from_padded(left_padded: torch.Tensor,
@@ -536,8 +619,8 @@ def zncc_cost_from_padded(left_padded: torch.Tensor,
                           row_valid: torch.Tensor,
                           left_total: torch.Tensor,
                           right_total: torch.Tensor, image_size: int,
-                          cost_dtype: torch.dtype = torch.float32
-                          ) -> torch.Tensor:
+                          cost_dtype: torch.dtype = torch.float32,
+                          eps: float = ZNCC_EPS) -> torch.Tensor:
     """ZNCC of a row band carrying ``pad_before``/``pad_after`` halo rows,
     cropped to the band: [Hp - pad_before - pad_after, W, D].
 
@@ -579,7 +662,7 @@ def zncc_cost_from_padded(left_padded: torch.Tensor,
     rows_n = _box_sum(rows_real, k, axes=(0,))
     cost = _zncc_prefix_volume(*pairs, rows_n, max_disparity=max_disparity,
                                kernel_size=k, disparity_offset=0,
-                               cost_dtype=cost_dtype)
+                               cost_dtype=cost_dtype, eps=eps)
     return cost[pad_before:pad_before + height]
 
 

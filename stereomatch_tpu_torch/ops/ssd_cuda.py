@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .cost import _inf_value, compute_dtype
+from ..utils.validation import compute_dtype, inf_value
 
 _ENTRIES = {torch.float32: "stm_ssd_f32", torch.int32: "stm_ssd_i32",
             torch.bfloat16: "stm_ssd_bf16"}
@@ -95,7 +95,7 @@ def diff_cost_volume_cuda(left: torch.Tensor, right: torch.Tensor, *,
         _launch(left_c, right_c, out, kernel_size, cost_dtype, absolute)
     if not off:
         return out
-    wedge = torch.full((height, off, max_disparity), _inf_value(cost_dtype),
+    wedge = torch.full((height, off, max_disparity), inf_value(cost_dtype),
                        dtype=cost_dtype, device=left.device)
     return torch.cat([wedge, out], dim=1)
 

@@ -43,8 +43,8 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..aggregation import CostFilter
-from ..cost import _diff_cost_dispatch
 from ..ops import cost as cost_ops
+from ..ops.cost import diff_cost_dispatch
 from ..pipeline import as_tensor
 from . import transport
 from .mesh import Mesh, world_layout
@@ -109,7 +109,7 @@ def make_disp_sharded_wta(mesh: Mesh, *, max_disparity: int,
     def volume(left, right, offset):
         kw = dict(max_disparity=block, disparity_offset=offset)
         if cost in ("ssd", "ssd-texture", "sad"):
-            return _diff_cost_dispatch(
+            return diff_cost_dispatch(
                 left, right, kernel_size=kernel_size, cost_dtype=dtype,
                 absolute=cost == "sad", backend="auto", **kw)
         if cost == "ncc":

@@ -1,4 +1,5 @@
-"""Backend selection shared by every op that has a CUDA kernel.
+"""Backend selection shared by every op that has a CUDA kernel, and the
+CLIs' watchdog on the CUDA runtime's start.
 
 Every such op has two implementations: a hand-written CUDA kernel
 (``"cuda"``) and its plain PyTorch version (``"torch"``), which is the
@@ -18,9 +19,42 @@ a kernel is caught here.
 
 from __future__ import annotations
 
+import sys
+import threading
+from typing import Optional
+
 import torch
 
 _VALID = ("cuda", "torch")
+
+
+def warn_if_backend_init_stalls(seconds: float = 30.0,
+                                device="cuda") -> Optional[threading.Timer]:
+    """Print a hint if the CUDA runtime has not come up after ``seconds``.
+
+    A driver or card that does not answer blocks the first CUDA call
+    without a word.  The CLIs arm this one-shot daemon timer after their
+    arguments are checked and then start CUDA at once
+    (``cli_common.start_device``), so a runtime still down when the timer
+    fires is stuck, not busy with host work: the timer then prints one
+    line to stderr naming ``--device cpu``.  When CUDA is up it prints
+    nothing.  With a CPU ``device`` nothing can stall: it arms nothing
+    and returns None; otherwise it returns the started timer.
+    """
+    if torch.device(device).type == "cpu":
+        return None
+
+    def check():
+        if not torch.cuda.is_initialized():
+            print(f"still initializing the CUDA runtime after "
+                  f"{seconds:g} s; the driver or the card may not be "
+                  f"answering; pass --device cpu to run on the host",
+                  file=sys.stderr, flush=True)
+
+    timer = threading.Timer(seconds, check)
+    timer.daemon = True
+    timer.start()
+    return timer
 
 
 def resolve_backend(backend: str, tensor: torch.Tensor,

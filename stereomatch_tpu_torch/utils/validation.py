@@ -21,6 +21,19 @@ IMAGE_DTYPES = (torch.uint8, torch.int16, torch.float32, torch.bfloat16)
 COST_DTYPES = (torch.int32, torch.float32, torch.bfloat16)
 
 
+def compute_dtype(cost_dtype: torch.dtype) -> torch.dtype:
+    """Accumulation dtype of the window sums for a cost dtype."""
+    return torch.float32 if cost_dtype.is_floating_point else torch.int32
+
+
+def inf_value(dtype: torch.dtype):
+    """The cost of an invalid cell: +inf for float dtypes, the max value
+    for integer dtypes."""
+    if dtype.is_floating_point:
+        return float("inf")
+    return torch.iinfo(dtype).max
+
+
 class ShapeError(ValueError):
     """Raised when an op receives tensors of the wrong rank/shape."""
 

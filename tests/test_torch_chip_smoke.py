@@ -254,3 +254,19 @@ def test_tune_eval_args_give_the_rows_check_tune_reads(tmp_path):
     assert [r["name"] for r in rows] == ["census-wta-sgm-tuned", "pyramid1"]
     assert rows[0]["penalty1"] > 0 and "penalty1" not in rows[1]
     assert chip_smoke.TUNE_RTOL == HISTORY_RTOL
+
+
+def test_soak_phase_cells():
+    """The padded bands tile each frame in equal bands (teddy 5 of 75
+    rows on the golden scene's seed, HD 4 of 256 on main's seed 11), the
+    soak's kernels are counted entry points, and
+    the trace must name the three stage spans and the main path's
+    kernels."""
+    assert chip_smoke.SOAK_BANDS == {"teddy": (375, 450, 128, 7, 75, 2026),
+                                     "hd": (1024, 1280, 256, 7, 256, 11)}
+    for h, _, _, _, rows, _ in chip_smoke.SOAK_BANDS.values():
+        assert h % rows == 0
+    assert set(chip_smoke.SOAK_KERNELS) <= set(chip_smoke.COUNTERS)
+    assert {"stm/cost", "stm/aggregation", "stm/disparity_reduce",
+            "ssd_kernel", "sgm_rows_kernel",
+            "sgm_horizontal_kernel"} == set(chip_smoke.TRACE_NAMES)

@@ -254,7 +254,7 @@ COMPUTED = {
     "pyramid": {"sweep_chunk_with_carry": (24, 96)},
     "tiled_wta": {"winner_takes_all": (4, 64)},
     "tiled_w4_wta": {"winner_takes_all": (4, 128)},
-    "disp_ssd": {"_diff_cost_dispatch": (2, 64)},
+    "disp_ssd": {"diff_cost_dispatch": (2, 64)},
 }
 
 

@@ -73,5 +73,5 @@ def test_fetch_teddy2003(tmp_path):
     for name in fetch._2003_FILES:
         assert (dest / "teddy" / name).read_bytes() == \
             (mirror / name).read_bytes()
-    assert data.load_image(dest / "teddy" / "im2.ppm", "L").shape == (8, 10)
+    assert data.load_image(dest / "teddy" / "im2.ppm", mode="L").shape == (8, 10)
     assert len(data.MiddleburyDataset(dest)) == 1

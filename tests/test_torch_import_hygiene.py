@@ -154,6 +154,33 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
                 if m.split(".")[0] in ("jax", "jaxlib", "stereomatch_tpu")]
 
 
+def test_chip_smoke_test_helpers_leave_jax_out():
+    """``chip_smoke.py`` takes the soak geometries from
+    ``tests/torch_shapes.py``: every ``tests`` module it imports names
+    neither JAX nor the JAX package, and importing them with the
+    port's modules that the soak phase runs leaves both out of
+    ``sys.modules``."""
+    helpers = sorted(m for m in _imported_modules(ROOT / "chip_smoke.py")
+                     if m.startswith("tests."))
+    assert "tests.torch_shapes" in helpers
+    for name in helpers:
+        modules = _imported_modules(ROOT / (name.replace(".", "/") + ".py"))
+        assert not [m for m in modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "optax",
+                                           "stereomatch_tpu")], name
+    code = ("import sys, json\n"
+            + "".join(f"import {name}\n" for name in helpers)
+            + "import stereomatch_tpu_torch.utils.profiling\n"
+              "import stereomatch_tpu_torch.utils.backend\n"
+              "import stereomatch_tpu_torch.ops.cost\n"
+              "print(json.dumps(sorted(m for m in sys.modules if m == 'jax'\n"
+              "    or m.startswith(('jax.', 'stereomatch_tpu.')))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("shape,seed", [((375, 450, 128), 2026),
                                         ((37, 53, 24), 5)])
 def test_synthetic_scene_byte_identical(shape, seed):

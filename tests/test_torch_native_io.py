@@ -103,9 +103,9 @@ def test_load_image_native_and_python_paths_agree(built, tmp_path, rng,
     color = (rng.random((23, 31, 3)) * 255).astype(np.uint8)
     native.write_pnm(tmp_path / "c.ppm", color)
     modes = (None, "L", "RGB")
-    via_native = [data.load_image(tmp_path / "c.ppm", m) for m in modes]
+    via_native = [data.load_image(tmp_path / "c.ppm", mode=m) for m in modes]
     monkeypatch.setattr(native, "available", lambda: False)
-    via_python = [data.load_image(tmp_path / "c.ppm", m) for m in modes]
+    via_python = [data.load_image(tmp_path / "c.ppm", mode=m) for m in modes]
     for a, b in zip(via_native, via_python):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(

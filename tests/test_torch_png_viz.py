@@ -184,7 +184,7 @@ def test_load_image_reads_png_without_pil(name, tmp_path, monkeypatch):
     want_gray = np.array(Image.open(path).convert("L"))
     _hide_pil(monkeypatch)
     np.testing.assert_array_equal(data.load_image(path), want)
-    np.testing.assert_array_equal(data.load_image(path, "L"), want_gray)
+    np.testing.assert_array_equal(data.load_image(path, mode="L"), want_gray)
 
 
 def test_load_image_equals_pil_in_every_mode(tmp_path):
@@ -195,10 +195,10 @@ def test_load_image_equals_pil_in_every_mode(tmp_path):
                                       np.array(Image.open(path)))
         for mode in ("L", "RGB"):
             np.testing.assert_array_equal(
-                data.load_image(path, mode),
+                data.load_image(path, mode=mode),
                 np.array(Image.open(path).convert(mode)))
     with pytest.raises(ValueError, match="mode"):
-        data.load_image(path, "RGBA")
+        data.load_image(path, mode="RGBA")
 
 
 @pytest.mark.parametrize("suffix", [".ppm", ".pgm", ".bmp", ".tiff"])
@@ -211,7 +211,7 @@ def test_load_and_save_image_in_other_formats(suffix, tmp_path):
     for mode in (None, "L", "RGB"):
         want = Image.open(path)
         np.testing.assert_array_equal(
-            data.load_image(path, mode),
+            data.load_image(path, mode=mode),
             np.array(want if mode is None else want.convert(mode)))
     out = tmp_path / f"y{suffix}"
     data.save_image(out, np.array(src))

@@ -115,7 +115,7 @@ def test_offset_blocks_in_the_other_dtypes(dtype):
     # An offset past the width leaves every cell beyond the wedge.
     far = port_cost.ssd_cost_volume(left, right, max_disparity=2,
                                     disparity_offset=40, cost_dtype=dtype)
-    inf = port_cost._inf_value(dtype)
+    inf = port_cost.inf_value(dtype)
     assert bool((far == inf).all())
 
 

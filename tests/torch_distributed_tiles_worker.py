@@ -156,7 +156,7 @@ def run(rank: int, address: str, out_dir: Path) -> dict:
     counts.wrap(sharded, "sweep_chunk_with_carry")
     counts.wrap(sharded, "winner_takes_all")
     counts.wrap(tiled2d, "winner_takes_all")
-    counts.wrap(disp_sharded, "_diff_cost_dispatch")
+    counts.wrap(disp_sharded, "diff_cost_dispatch")
 
     left, right, prev = stacks()
     mesh = make_mesh()

@@ -1,8 +1,12 @@
 """Shapes shared by the card tests of the port's kernels
 (``test_torch_kernels_cuda.py``) and the CPU tests that hold the plain
 versions of those kernels against the JAX package at the same shapes
-(``test_torch_cost.py``, ``test_torch_sgm_chunk.py``, ``test_torch_dp.py``).
+(``test_torch_cost.py``, ``test_torch_sgm_chunk.py``, ``test_torch_dp.py``),
+and the JAX package's soak geometries, which ``chip_smoke.py`` and
+``test_torch_soak.py`` share.
 """
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -63,3 +67,83 @@ def ramp_cost_volume(height, width, max_disp, seed):
     d = np.arange(max_disp)
     vol = np.abs(d[None, None, :] - minima[:, :, None]).astype(np.float32)
     return vol + 0.25 * rng.random(vol.shape, np.float32)
+
+
+# The seeds of the JAX package's differential soak
+# (``tests/test_differential_soak.py``); ``chip_smoke.py`` holds the
+# kernels at their geometries on the card, ``test_torch_soak.py`` the
+# plain chain against the oracles and JAX on the CPU.
+SOAK_SEEDS = [3, 11, 17, 23, 29, 37, 43, 53, 61, 71, 79, 83, 89, 97,
+              101, 107]
+# The seeds of the soak's integer matrix (uint8/int16 images x
+# int32/float32 cost) and of its fused-CVF layout draws (1000 + seed).
+SOAK_INT_SEEDS = [5, 19, 47, 73]
+SOAK_CVF_LAYOUT_SEEDS = list(range(8))
+
+
+class SoakCase(NamedTuple):
+    height: int
+    width: int
+    max_disp: int
+    k: int
+    p1: Optional[float]        # the chain's SGM penalties
+    p2: Optional[float]
+    radius: Optional[int]      # the CVF draw's radius and eps
+    eps: Optional[float]
+    left: np.ndarray
+    right: np.ndarray
+
+
+def soak_geometry(seed: int, cvf: bool = False) -> SoakCase:
+    """The soak's random geometry and images at ``seed``, drawn in the
+    order the JAX package's soak draws them: H, W, D, k, then the SGM
+    penalties P1, P2 (``test_differential_chain``) or, with ``cvf``, the
+    radius and eps (``test_cvf_differential``), then the two float32
+    images."""
+    rng = np.random.default_rng(seed)
+    height = int(rng.integers(6, 24))
+    width = int(rng.integers(10, 32))
+    max_disp = int(rng.integers(2, min(width, 16)))
+    k = int(rng.integers(1, 4))
+    p1 = p2 = radius = eps = None
+    if cvf:
+        radius = int(rng.integers(1, 5))
+        eps = float(rng.uniform(1e-5, 1e-2))
+    else:
+        p1 = float(rng.uniform(0.01, 0.5))
+        p2 = float(rng.uniform(p1, 1.5))
+    left = rng.random((height, width)).astype(np.float32)
+    right = rng.random((height, width)).astype(np.float32)
+    return SoakCase(height, width, max_disp, k, p1, p2, radius, eps, left,
+                    right)
+
+
+def soak_int_geometry(seed: int, image_dtype) -> tuple:
+    """(left, right, D, k) of the soak's integer matrix at ``seed``
+    (``test_integer_chain``): images in [0, 250) of ``image_dtype``."""
+    rng = np.random.default_rng(seed)
+    height = int(rng.integers(8, 20))
+    width = int(rng.integers(12, 28))
+    max_disp = int(rng.integers(2, 12))
+    k = int(rng.integers(1, 4))
+    left = rng.integers(0, 250, (height, width)).astype(image_dtype)
+    right = rng.integers(0, 250, (height, width)).astype(image_dtype)
+    return left, right, max_disp, k
+
+
+def soak_cvf_layout(seed: int) -> tuple:
+    """(volume, guide, radius, wedge_offset) of the soak's fused-CVF
+    layout draw at ``seed`` (``test_fused_cvf_layouts_differential``,
+    rng seed 1000 + seed): a random float32 volume, +inf where
+    x < d + wedge_offset, and a float32 guide."""
+    rng = np.random.default_rng(1000 + seed)
+    height = int(rng.integers(10, 40))
+    width = int(rng.integers(14, 48))
+    max_disp = int(rng.integers(2, min(width, 20)))
+    radius = int(rng.integers(1, 6))
+    off = int(rng.integers(0, 3))
+    vol = rng.random((height, width, max_disp)).astype(np.float32)
+    x, d = np.meshgrid(np.arange(width), np.arange(max_disp), indexing="ij")
+    vol[:, x < d + off] = np.inf
+    guide = rng.random((height, width)).astype(np.float32)
+    return vol, guide, radius, off
