@@ -1,0 +1,8 @@
+"""aggregation_ms: device ms a frame of the aggregation stage of the
+pipeline the stream replays, from the profiler's trace of a chain of
+eager calls on the cell's frames after the window
+(``portbench/stages.py``)."""
+
+
+def read(record):
+    return (record.get("stages_ms") or {}).get("aggregation")
