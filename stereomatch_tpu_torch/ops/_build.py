@@ -46,6 +46,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 _SSD = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 _SGM = (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P)
@@ -90,7 +91,18 @@ _SIGNATURES = {
     # (a0, b0, guide, q, H, W, D, r, off, stream)
     "stm_cvf_filter_f32": _CVF_FILTER,
     "stm_cvf_filter_bf16": _CVF_FILTER,
+    # csrc/trace.cu (TRACE_ENTRIES).  (ring, state, mask, stage, stream)
+    "stm_stamp": (_P, _P, _L, _I, _P),
+    # (bytes, host out, device out)
+    "stm_stamp_ring_alloc": (_L, _P, _P),
+    # (graph, counts out [4])
+    "stm_graph_nodes": (_P, _P),
 }
+
+
+# The entry points of csrc/trace.cu, for utils/profiling.py: tracing, not
+# the pipeline's work, so LAUNCHES never counts them.
+TRACE_ENTRIES = ("stm_stamp", "stm_stamp_ring_alloc", "stm_graph_nodes")
 
 
 class BuildResult(NamedTuple):
@@ -186,10 +198,15 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
+def check_status(name: str, status: int) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA call failed with cudaError_t "
+                           f"{status}")
+
+
 def check_launch(name: str, status: int) -> None:
     """Raise if a C entry point reported a CUDA error for its launch, else
     count the launch in ``LAUNCHES[name]``."""
-    if status != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
-                           f"{status}")
+    check_status(name, status)
     LAUNCHES[name] += 1

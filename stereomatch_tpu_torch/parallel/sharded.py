@@ -736,8 +736,11 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                                 logger=logging.getLogger(__name__))
 
     def core(lefts, rights, mode):
-        """One frame's per-tile (aggregated volumes, disparities)."""
-        with profiling.annotate("stm/cost"):
+        """One frame's per-tile (aggregated volumes, disparities).  The
+        stage stamps time the first local tile's card."""
+        ref = first_local(lefts)
+        device = None if ref is None else ref.device
+        with profiling.stage("cost", device):
             if cost == "ncc":
                 vols = local_zncc(lefts, rights,
                                   max_disparity=max_disparity,
@@ -745,15 +748,15 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
             else:
                 vols = local_cost(lefts, rights, cost_fn, *halo_rows)
         if aggregation == "sgm":
-            with profiling.annotate("stm/aggregation"):
+            with profiling.stage("aggregation", device):
                 vols = sharded_semiglobal(vols, lefts, penalty1=penalty1,
                                           penalty2=penalty2, mode=mode,
                                           overlap=overlap, backend=backend)
         elif aggregation == "cvf":
-            with profiling.annotate("stm/aggregation"):
+            with profiling.stage("aggregation", device):
                 vols = sharded_cvf(vols, lefts, radius=int(cvf_radius),
                                    eps=float(cvf_eps))
-        with profiling.annotate("stm/disparity_reduce"):
+        with profiling.stage("disparity_reduce", device):
             if reducer == "wta":
                 return vols, each(winner_takes_all, vols)
             return vols, each(dp, vols)

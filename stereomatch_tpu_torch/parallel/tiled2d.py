@@ -462,12 +462,15 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
         return vols
 
     def frame(lefts: Grid, rights: Grid) -> Grid:
-        h_loc, w_loc = _first(lefts).shape
-        with profiling.annotate("stm/cost"):
+        # The stage stamps time the first local tile's card.
+        ref = _first(lefts)
+        h_loc, w_loc = ref.shape
+        device = ref.device
+        with profiling.stage("cost", device):
             vols = volumes(lefts, rights, w_loc)
-        with profiling.annotate("stm/aggregation"):
+        with profiling.stage("aggregation", device):
             aggs = aggregate(vols, lefts, h_loc, w_loc)
-        with profiling.annotate("stm/disparity_reduce"):
+        with profiling.stage("disparity_reduce", device):
             if reducer == "dynamic_programming":
                 disps = [_dp_tiled_w(row) for row in aggs]
             else:

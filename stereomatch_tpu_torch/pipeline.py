@@ -119,23 +119,26 @@ class Pipeline:
         self._cost_volume = None
         self._aggregation_volume = None
         self._disparity_image = None
-        # The stage the last run entered ("cost", "aggregation",
-        # "disparity_reduce"): a failed CUDA graph capture names it.
-        self._stage = None
+
+    @property
+    def _stage(self) -> Optional[str]:
+        """The stage this thread's last run entered ("cost",
+        "aggregation", "disparity_reduce"): a failed CUDA graph capture
+        names it."""
+        return profiling.last_stage()
 
     def _run(self, left_image: torch.Tensor, right_image: torch.Tensor):
-        # Stage spans show up in torch.profiler captures.
-        self._stage = "cost"
-        with profiling.annotate("stm/cost"):
+        # Stage spans show up in torch.profiler captures, and stamps on
+        # the card while one records (utils/profiling.py).
+        device = left_image.device
+        with profiling.stage("cost", device):
             cost_volume = self.cost(left_image, right_image)
         if self.aggregation is not None:
-            self._stage = "aggregation"
-            with profiling.annotate("stm/aggregation"):
+            with profiling.stage("aggregation", device):
                 aggregation_volume = self.aggregation(cost_volume, left_image)
         else:
             aggregation_volume = cost_volume
-        self._stage = "disparity_reduce"
-        with profiling.annotate("stm/disparity_reduce"):
+        with profiling.stage("disparity_reduce", device):
             disparity = self.disparity_reduce(aggregation_volume)
         return cost_volume, aggregation_volume, disparity
 
@@ -259,14 +262,30 @@ class Pipeline:
 
 class _Graph(NamedTuple):
     """One captured frame: its static inputs and output, the launches of
-    the hand-written kernels it holds (``_build.LAUNCHES`` keys), and the
-    device memory its private pool reserved."""
+    the hand-written kernels it holds (``_build.LAUNCHES`` keys), the
+    device memory its private pool reserved, its nodes by type
+    ("kernel", "memcpy", "memset", "other"), and the stamps among its
+    kernel nodes (0 in a plain graph)."""
     graph: "torch.cuda.CUDAGraph"
     left: torch.Tensor
     right: torch.Tensor
     disparity: torch.Tensor
     launches: collections.Counter
     memory_bytes: int
+    nodes: collections.Counter
+    stamps: int
+
+    @property
+    def device_ops(self) -> int:
+        """The device operations of a replay that are the program's own
+        work: kernel, memcpy and memset nodes, stamps left out."""
+        return (self.nodes["kernel"] + self.nodes["memcpy"]
+                + self.nodes["memset"] - self.stamps)
+
+
+# Device operations of a call around its replay: the two images copied
+# into the static inputs, and the disparity copied out.
+_CALL_COPIES = 3
 
 
 class CompiledPipeline:
@@ -281,11 +300,20 @@ class CompiledPipeline:
     disparity.  A capture that fails raises ``RuntimeError`` naming the
     stage it failed in; nothing falls back to the eager frame.
 
+    While a profiler records (``utils/profiling.py``), a call replays
+    instead a second graph of the key, ``stamped[key]``, captured at the
+    first such call: the same frame on the same static inputs, with a
+    stamp before the cost stage and after each stage.  ``graphs[key]``
+    never holds a stamp, so with no profiler recording the replay is the
+    plain frame's.  The stamped graph keeps a memory pool of its own.
+
     A replay makes no host call, so ``_build.LAUNCHES`` does not count
     it: ``graphs[key].launches`` holds the kernel launches the capture
     recorded (one eager frame's).  Each graph keeps its volumes in its
     own memory pool (``graphs[key].memory_bytes``) for as long as this
-    object lives.
+    object lives.  ``device_ops`` counts the device operations the calls
+    on the card enqueued for the frame: each replay's graph nodes, stamps
+    left out, and the copies in and out.
 
     Replays of one graph share its static buffers, so calls from several
     threads or on several streams replay one at a time: a lock orders
@@ -296,6 +324,8 @@ class CompiledPipeline:
     def __init__(self, pipeline: Pipeline):
         self.pipeline = pipeline
         self.graphs: Dict[Tuple, _Graph] = {}
+        self.stamped: Dict[Tuple, _Graph] = {}
+        self.device_ops = 0
         self._fn = pipeline.estimate_fn()
         self._lock = threading.Lock()
         self._done: Dict[Tuple, "torch.cuda.Event"] = {}
@@ -319,45 +349,68 @@ class CompiledPipeline:
             if entry is None:
                 entry = self.graphs[key] = self._capture(left_image,
                                                          right_image)
+            replay = entry
+            if profiling.recording():
+                replay = self.stamped.get(key)
+                if replay is None:
+                    replay = self.stamped[key] = self._capture(
+                        left_image, right_image, plain=entry)
             stream = torch.cuda.current_stream(left_image.device)
             if key in self._done:
                 stream.wait_event(self._done[key])
             entry.left.copy_(left_image)
             entry.right.copy_(right_image)
-            entry.graph.replay()
-            result = (entry.disparity.clone() if out is None
-                      else out.copy_(entry.disparity))
+            replay.graph.replay()
+            if replay.stamps:
+                profiling.stamp_ring(left_image.device).replayed(
+                    replay.stamps)
+            result = (replay.disparity.clone() if out is None
+                      else out.copy_(replay.disparity))
             self._done[key] = torch.cuda.Event()
             self._done[key].record(stream)
+            self.device_ops += entry.device_ops + _CALL_COPIES
         return result
 
-    def _capture(self, left_image: torch.Tensor,
-                 right_image: torch.Tensor) -> _Graph:
+    def _capture(self, left_image: torch.Tensor, right_image: torch.Tensor,
+                 plain: Optional[_Graph] = None) -> _Graph:
+        """The key's plain graph, or, given it as ``plain``, its stamped
+        graph on the same static inputs."""
         device = left_image.device
-        static_left = left_image.clone()
-        static_right = right_image.clone()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            self._fn(static_left, static_right)
-        torch.cuda.current_stream(device).wait_stream(side)
+        if plain is None:
+            static_left = left_image.clone()
+            static_right = right_image.clone()
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side), profiling.stamping(False):
+                self._fn(static_left, static_right)
+            torch.cuda.current_stream(device).wait_stream(side)
+        else:
+            static_left, static_right = plain.left, plain.right
+            profiling.stamp_ring(device)      # a capture cannot make it
         torch.cuda.synchronize(device)
         # The capture empties the allocator's cache as it starts; empty it
         # first, so that what the capture reserves is the graph's pool.
         torch.cuda.empty_cache()
-        graph = torch.cuda.CUDAGraph()
+        # Kept after the capture, to count its nodes; instantiated below.
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         counted = collections.Counter(_build.LAUNCHES)
         reserved = torch.cuda.memory_reserved(device)
         try:
             # "thread_local": a server's other threads may wait on events
             # or pin host memory while this thread captures.
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with profiling.stamping(plain is not None), torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
                 disparity = self._fn(static_left, static_right)
         except Exception as err:
             raise RuntimeError(
                 f"capturing the frame as a CUDA graph failed in the "
                 f"{self.pipeline._stage!r} stage: {err}") from err
+        nodes = collections.Counter(profiling.graph_nodes(
+            graph.raw_cuda_graph()))
+        graph.instantiate()
         torch.cuda.synchronize(device)
         return _Graph(graph, static_left, static_right, disparity,
                       collections.Counter(_build.LAUNCHES) - counted,
-                      torch.cuda.memory_reserved(device) - reserved)
+                      torch.cuda.memory_reserved(device) - reserved, nodes,
+                      0 if plain is None
+                      else nodes["kernel"] - plain.nodes["kernel"])

@@ -44,7 +44,7 @@ import contextlib
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +52,7 @@ import torch
 from .cli_common import STREAM_REDUCERS, VOLUME_DTYPES, create_pipeline
 from .ops import _build
 from .pipeline import Device
-from .utils import validation
+from .utils import profiling, validation
 
 # Reducer names of the stream and ``parallel`` -> the registry's.
 _REGISTRY_REDUCERS = {v: k for k, v in STREAM_REDUCERS.items()}
@@ -77,22 +77,47 @@ def narrow_for_fetch(out: torch.Tensor, max_disparity: int) -> torch.Tensor:
 
 @dataclass
 class StreamStats:
-    """One ``run``'s counts and its host-clock stage split: decode =
-    ``capture.read_next`` and the grayscale split; dispatch = staging,
-    upload and enqueueing a batch's frames; fetch = the time ``run``
-    waited for a batch's result.  The rest of ``seconds`` is the
-    consumer's.  ``launches`` counts the hand-written kernels' launches
-    of the frames run (padding included: ``frames_run``), a replayed
-    frame counting its graph's captured launches."""
+    """One ``run``'s counts and its host-clock stage split, each stage
+    the sum of its ``stm/stream/*`` spans (``utils/profiling.py``):
+
+    * decode = ``capture.read_next`` and the grayscale split (``read``);
+    * dispatch = staging, upload and enqueueing a batch's frames and its
+      fetch (``stage``, ``upload``, ``frames``, ``fetch``); ``stage_s``
+      is the part spent filling the pinned staging buffer, the wait on
+      its slot's event included, the rest is the enqueue;
+    * fetch = the time ``run`` waited for a batch's result (``wait``);
+      ``handoff_s`` is the part of it after the fetch thread returned
+      from the batch's event (the widening on the host and the hand-off
+      between the threads).
+
+    The rest of ``seconds`` is the consumer's.  ``launches`` counts the
+    hand-written kernels' launches of the frames run (padding included:
+    ``frames_run``), a replayed frame counting its graph's captured
+    launches.  ``device_ops`` counts the device operations enqueued for
+    them: each replay's graph nodes and its copies in and out, and each
+    batch's uploads, widenings, narrowing and copy to the host; None
+    once a frame ran eagerly or over a mesh, where the count would miss
+    PyTorch's operations.  It leaves out the stage stamps that a
+    recording profiler adds, four a frame (``stamps``); of those,
+    ``stage_device_s`` sums the device seconds of each stage over the
+    ``frames_stamped`` frames whose stamps read back whole."""
     frames: int = 0
     batches: int = 0
     seconds: float = 0.0
     decode_s: float = 0.0
     dispatch_s: float = 0.0
     fetch_s: float = 0.0
+    stage_s: float = 0.0
+    handoff_s: float = 0.0
     frames_run: int = 0
     launches: collections.Counter = field(
         default_factory=collections.Counter, repr=False)
+    device_ops: Optional[int] = 0
+    stamps: int = 0
+    frames_stamped: int = 0
+    stage_device_s: Dict[str, float] = field(
+        default_factory=lambda: dict.fromkeys(
+            profiling.STAGE_KEYS.values(), 0.0))
     _start: Optional[float] = field(default=None, repr=False)
 
     @property
@@ -107,6 +132,20 @@ class StreamStats:
             ("decode", self.decode_s), ("dispatch", self.dispatch_s),
             ("fetch", self.fetch_s), ("other", other),
             ("total", self.seconds)]}
+
+
+# The stats of the last ``run`` to finish in this process (any
+# estimator's), kept after its estimator is freed.
+LAST_STATS: Optional[StreamStats] = None
+
+
+class _Fetched(NamedTuple):
+    """A batch as its fetch thread hands it over: the host disparities,
+    the host clock when its event had completed, and what its stamps
+    read (stage seconds, frames stamped, stamps), or None."""
+    disparities: np.ndarray
+    synced: float
+    stamps: Optional[Tuple[Dict[str, float], int, int]]
 
 
 class _Staging:
@@ -261,6 +300,9 @@ class StreamingEstimator:
         # (batch shape, dtype) -> [ring of depth + 1 staging buffers,
         # next position].
         self._rings: Dict[tuple, list] = {}
+        # (first slot, end slot, frames) of the stage stamps of the batch
+        # last dispatched (utils/profiling.py).
+        self._stamp_spans: List[Tuple[int, int, int]] = []
         self.stats = StreamStats()
 
     # -- one batch ------------------------------------------------------
@@ -269,18 +311,40 @@ class StreamingEstimator:
         return (torch.cuda.stream(self._stream) if self._stream is not None
                 else contextlib.nullcontext())
 
-    def _stage(self, lefts, rights, pad: int = 0):
+    def _stage(self, lefts, rights, pad: int = 0, batch=None):
         """The batch on the device, in its storage dtype: host frames go
         through the next pinned staging buffer (waiting for the copy that
         last read it), tensors are moved as they are."""
         if isinstance(lefts, torch.Tensor):
-            return (lefts.to(self.device, non_blocking=True),
-                    rights.to(self.device, non_blocking=True))
-        first = np.asarray(lefts[0])
+            with profiling.annotate("stm/stream/upload", batch):
+                left = lefts.to(self.device, non_blocking=True)
+                right = rights.to(self.device, non_blocking=True)
+            if left.is_cuda:
+                self._count_ops((left is not lefts) + (right is not rights))
+            return left, right
+        t = time.perf_counter()
+        with profiling.annotate("stm/stream/stage", batch):
+            left, right, slot = self._fill(lefts, rights, pad)
+        self.stats.stage_s += time.perf_counter() - t
+        with profiling.annotate("stm/stream/upload", batch):
+            if slot is None:
+                return left, right
+            left = left.to(self.device, non_blocking=True)
+            right = right.to(self.device, non_blocking=True)
+            slot.event = torch.cuda.Event()
+            slot.event.record(self._stream)
+        self._count_ops(2)
+        return left, right
+
+    def _fill(self, lefts, rights, pad: int):
+        """The batch on the host, (left, right, staging buffer): the next
+        pinned staging buffer of its shape, filled once the copy that last
+        read it has completed; on the CPU, stacks and no buffer."""
         if self._stream is None:
             left = np.stack(list(lefts) + [lefts[-1]] * pad)
             right = np.stack(list(rights) + [rights[-1]] * pad)
-            return torch.from_numpy(left), torch.from_numpy(right)
+            return torch.from_numpy(left), torch.from_numpy(right), None
+        first = np.asarray(lefts[0])
         shape = (len(lefts) + pad,) + first.shape
         dtype = torch.from_numpy(first[:0]).dtype
         ring = self._rings.get((shape, dtype))
@@ -297,11 +361,12 @@ class StreamingEstimator:
             for i, frame in enumerate(frames):
                 host[i] = frame
             host[len(frames):] = host[len(frames) - 1]
-        left = slot.left.to(self.device, non_blocking=True)
-        right = slot.right.to(self.device, non_blocking=True)
-        slot.event = torch.cuda.Event()
-        slot.event.record(self._stream)
-        return left, right
+        return slot.left, slot.right, slot
+
+    def _count_ops(self, n: int) -> None:
+        """``n`` device operations enqueued on the card."""
+        if self.stats.device_ops is not None:
+            self.stats.device_ops += n
 
     def _frame(self, left: torch.Tensor, right: torch.Tensor
                ) -> torch.Tensor:
@@ -321,46 +386,68 @@ class StreamingEstimator:
             disp = filter_speckles(disp, fill=self._speckle_fill)
         return disp
 
-    def _count_frame(self, counted: collections.Counter, key) -> None:
-        graph = (self._compiled.graphs.get(key)
-                 if self._compiled is not None else None)
-        if graph is not None:
-            # A replay launches what the capture recorded, uncounted.
-            self.stats.launches.update(graph.launches)
-        else:
-            self.stats.launches.update(collections.Counter(_build.LAUNCHES)
-                                       - counted)
-
     def _run_batch(self, left: torch.Tensor, right: torch.Tensor
                    ) -> torch.Tensor:
-        left = left.to(torch.float32)
-        right = right.to(torch.float32)
-        counted = collections.Counter(_build.LAUNCHES)
+        wide = left.to(torch.float32), right.to(torch.float32)
+        if left.is_cuda:
+            self._count_ops((wide[0] is not left) + (wide[1] is not right))
+        left, right = wide
         if self._sharded is not None:
+            counted = collections.Counter(_build.LAUNCHES)
+            mark = self._stamp_mark()
             out = self._sharded(left, right)
-            self._count_frame(counted, None)
+            self.stats.launches.update(collections.Counter(_build.LAUNCHES)
+                                       - counted)
+            self.stats.device_ops = None
+            self._note_stamps(mark, left.shape[0])
             self.stats.frames_run += left.shape[0]
             return out
         # The graph's frames are int32 (no post-processing): each replay's
         # static output is copied into its slot before the next replay.
         out = (torch.empty(left.shape, dtype=torch.int32, device=left.device)
                if self._compiled is not None else None)
+        replays = out is not None and left.is_cuda
         outs = []
         key = (tuple(left.shape[1:]), left.dtype, left.device)
         for i in range(left.shape[0]):
-            counted = collections.Counter(_build.LAUNCHES)
-            if out is not None:
+            mark = self._stamp_mark()
+            if replays:
+                # A replay launches what the capture recorded, uncounted.
+                ops = self._compiled.device_ops
                 self._compiled(left[i], right[i], out=out[i])
+                self.stats.launches.update(self._compiled.graphs[key].launches)
+                self._count_ops(self._compiled.device_ops - ops)
             else:
-                outs.append(self._frame(left[i], right[i]))
-            self._count_frame(counted, key)
+                counted = collections.Counter(_build.LAUNCHES)
+                if out is not None:
+                    self._compiled(left[i], right[i], out=out[i])
+                else:
+                    outs.append(self._frame(left[i], right[i]))
+                self.stats.launches.update(
+                    collections.Counter(_build.LAUNCHES) - counted)
+                self.stats.device_ops = None
+            self._note_stamps(mark, 1)
             self.stats.frames_run += 1
         return out if out is not None else torch.stack(outs)
 
-    def _dispatch(self, lefts, rights, pad: int = 0) -> torch.Tensor:
+    def _stamp_mark(self) -> int:
+        return (profiling.stamp_mark(self.device)
+                if self._stream is not None else 0)
+
+    def _note_stamps(self, mark: int, frames: int) -> None:
+        """Keep the slots of the stamps that ``frames`` frames launched
+        since ``mark``, for the batch's fetch to read."""
+        end = self._stamp_mark()
+        if end != mark:
+            self._stamp_spans.append((mark, end, frames))
+
+    def _dispatch(self, lefts, rights, pad: int = 0,
+                  batch=None) -> torch.Tensor:
+        self._stamp_spans = []
         with self._on_stream():
-            left, right = self._stage(lefts, rights, pad)
-            return self._run_batch(left, right)
+            left, right = self._stage(lefts, rights, pad, batch)
+            with profiling.annotate("stm/stream/frames", batch):
+                return self._run_batch(left, right)
 
     def estimate_batch(self, left, right) -> torch.Tensor:
         """[B, H, W] pair stacks (numpy, uint8 or float, or tensors) ->
@@ -378,24 +465,52 @@ class StreamingEstimator:
             out.record_stream(current)
         return out
 
-    def _fetch_async(self, out: torch.Tensor):
+    def _fetch_async(self, out: torch.Tensor, batch=None):
         """Narrow ``out`` and start its copy to pinned host memory; returns
         (host tensor, event after the copy) (the event None on the CPU)."""
-        with self._on_stream():
-            out = narrow_for_fetch(out, self.max_disparity)
+        with self._on_stream(), profiling.annotate("stm/stream/fetch",
+                                                   batch):
+            narrow = narrow_for_fetch(out, self.max_disparity)
             if self._stream is None:
-                return out, None
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
+                return narrow, None
+            host = torch.empty(narrow.shape, dtype=narrow.dtype,
+                               pin_memory=True)
+            host.copy_(narrow, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self._stream)
-            return host, event
+        self._count_ops((narrow is not out) + 1)
+        return host, event
 
-    @staticmethod
-    def _fetch_wait(host: torch.Tensor, event) -> np.ndarray:
-        if event is not None:
-            event.synchronize()
-        return _widen_host(host.numpy())
+    def _fetch_wait(self, host: torch.Tensor, event, batch,
+                    spans: List[Tuple[int, int, int]]) -> _Fetched:
+        """On a fetch thread: wait for the batch's event, widen its
+        disparities on the host, and read its stamps."""
+        with profiling.annotate("stm/stream/sync", batch):
+            if event is not None:
+                event.synchronize()
+            synced = time.perf_counter()
+            disparities = _widen_host(host.numpy())
+        return _Fetched(disparities, synced,
+                        self._read_stamps(spans) if spans else None)
+
+    def _read_stamps(self, spans: List[Tuple[int, int, int]]
+                     ) -> Tuple[Dict[str, float], int, int]:
+        """(stage seconds, frames stamped, stamps) of a batch whose stamps
+        have all run: ``spans`` holds (first slot, end slot, frames)."""
+        ring = profiling.stamp_ring(self.device)
+        total = dict.fromkeys(profiling.STAGE_KEYS.values(), 0.0)
+        frames = stamps = 0
+        for first, end, weight in spans:
+            stamps += end - first
+            rows = ring.read(first, end)
+            if rows is None:
+                continue
+            seconds, complete = profiling.stage_seconds(rows)
+            if complete:
+                frames += weight
+                for k, v in seconds.items():
+                    total[k] += v
+        return total, frames, stamps
 
     # -- the stream -----------------------------------------------------
 
@@ -409,8 +524,10 @@ class StreamingEstimator:
         last batch is padded by repeating its last frame, and the padding
         cut.  Abandoning the generator (``close()``, or dropping it)
         cancels the queued fetches, waits for the running one and joins
-        the fetch threads.
+        the fetch threads.  The finished run's ``stats`` are left in
+        ``LAST_STATS`` too.
         """
+        global LAST_STATS
         self.stats = StreamStats()
         self.stats._start = time.perf_counter()
         fetcher = ThreadPoolExecutor(
@@ -421,37 +538,44 @@ class StreamingEstimator:
         finally:
             fetcher.shutdown(wait=True, cancel_futures=True)
             self.stats.seconds = time.perf_counter() - self.stats._start
+            LAST_STATS = self.stats
 
     def _run_loop(self, capture, max_frames, fetcher):
+        # No span stays open across a yield: the consumer's time between
+        # two frames is its own.
         pending = collections.deque()
         lefts_buf: List[np.ndarray] = []
         rights_buf: List[np.ndarray] = []
         done = False
         while not done:
+            batch = self.stats.batches
             t = time.perf_counter()
-            ok, img = capture.read_next()
-            if ok:
-                gray = img if not hasattr(img, "to_grayscale") else \
-                    img.to_grayscale()
-                lefts_buf.append(np.asarray(gray.left))
-                rights_buf.append(np.asarray(gray.right))
-                self.stats.frames += 1
-                if max_frames is not None and self.stats.frames >= max_frames:
+            with profiling.annotate("stm/stream/read", batch):
+                ok, img = capture.read_next()
+                if ok:
+                    gray = img if not hasattr(img, "to_grayscale") else \
+                        img.to_grayscale()
+                    lefts_buf.append(np.asarray(gray.left))
+                    rights_buf.append(np.asarray(gray.right))
+                    self.stats.frames += 1
+                    if (max_frames is not None
+                            and self.stats.frames >= max_frames):
+                        done = True
+                else:
                     done = True
-            else:
-                done = True
             self.stats.decode_s += time.perf_counter() - t
 
             if len(lefts_buf) == self.batch or (done and lefts_buf):
                 n = len(lefts_buf)
                 t = time.perf_counter()
                 out = self._dispatch(lefts_buf, rights_buf,
-                                     pad=self.batch - n)
-                host, event = self._fetch_async(out[:n] if n < self.batch
-                                                else out)
+                                     pad=self.batch - n, batch=batch)
+                host, event = self._fetch_async(
+                    out[:n] if n < self.batch else out, batch)
                 self.stats.dispatch_s += time.perf_counter() - t
-                pending.append((lefts_buf, fetcher.submit(
-                    self._fetch_wait, host, event)))
+                pending.append((lefts_buf, batch, fetcher.submit(
+                    self._fetch_wait, host, event, batch,
+                    self._stamp_spans)))
                 self.stats.batches += 1
                 lefts_buf, rights_buf = [], []
                 # At most ``depth`` batches in flight; the stats count
@@ -462,9 +586,19 @@ class StreamingEstimator:
             yield from self._drain_one(pending)
 
     def _drain_one(self, pending):
-        ready_lefts, fut = pending.popleft()
+        ready_lefts, batch, fut = pending.popleft()
         t = time.perf_counter()
-        host = fut.result()
-        self.stats.fetch_s += time.perf_counter() - t
-        for i, disp in enumerate(host):
+        with profiling.annotate("stm/stream/wait", batch):
+            fetched = fut.result()
+            held = time.perf_counter()
+        stats = self.stats
+        stats.fetch_s += held - t
+        stats.handoff_s += max(held - max(fetched.synced, t), 0.0)
+        if fetched.stamps is not None:
+            seconds, frames, stamps = fetched.stamps
+            for k, v in seconds.items():
+                stats.stage_device_s[k] += v
+            stats.frames_stamped += frames
+            stats.stamps += stamps
+        for i, disp in enumerate(fetched.disparities):
             yield ready_lefts[i], disp

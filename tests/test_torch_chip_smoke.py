@@ -179,11 +179,19 @@ def test_cost_family_paths_and_gates_follow_the_golden_test():
 
 
 def test_every_entry_point_names_the_kernel_a_replay_profile_shows():
-    """Each C entry point maps to the ``__global__`` kernel it launches,
-    whose name the script looks for in the profile of a graph replay."""
+    """Each C entry point of the pipeline's kernels maps to the
+    ``__global__`` kernel it launches, whose name the script looks for in
+    the profile of a graph replay; the tracing entry points (stamps, node
+    counts) are csrc/trace.cu's alone."""
     from stereomatch_tpu_torch.ops import _build
     sources = "".join(p.read_text() for p in _build.CSRC_DIR.glob("*.cu"))
-    for entry in _build._SIGNATURES:
+    trace_cu = (_build.CSRC_DIR / "trace.cu").read_text()
+    for entry in _build.TRACE_ENTRIES:
+        assert entry in _build._SIGNATURES
+        assert f'extern "C" int {entry}(' in trace_cu
+        assert not any(entry.startswith(prefix)
+                       for prefix in chip_smoke.KERNEL_OF_ENTRY)
+    for entry in set(_build._SIGNATURES) - set(_build.TRACE_ENTRIES):
         kernels = [k for prefix, k in chip_smoke.KERNEL_OF_ENTRY.items()
                    if entry.startswith(prefix)]
         assert len(kernels) == 1, entry
