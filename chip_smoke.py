@@ -20,6 +20,10 @@ with the launch counts set to 0 just before it and read just after:
   HD against the whole frame's rows with one launch a band, a
   ``utils.profiling.trace`` file of teddy frames naming the kernels and
   the ``stm/*`` spans, and the CUDA start watchdog silent with CUDA up;
+* the two forms of the SGM aggregation (``check_sgm_forms``), serial
+  and side by side, at teddy and HD on float32 and bf16 volumes:
+  bit-equal, each launch counted, each timed beside the other, and the
+  form the rule takes at each shape;
 * the main path, SSD -> 8-path SGM -> WTA, against golden ``"wta"``;
 * SSD -> SGM -> scanline DP, against golden ``"dp"``;
 * census -> guided-filter aggregation (CVF) -> WTA, against
@@ -184,18 +188,17 @@ EVAL_ARGS = ("--synthetic", "2", "--synthetic-size", "375x450x128",
              "--configs", "ssd:wta:sgm+refine,ssd:dyn:sgm")
 FAR_D = 600                 # past the SGM and DP kernels' 512
 # The Birchfield, ZNCC and SSD-over-textures paths: name -> ((cost,
-# reducer, aggregation), the kernels each must launch).  Their costs are
-# plain PyTorch on the card (no TPU kernel computes them), except
-# ssd-texture, whose float32 SSD is the SSD kernel's.
+# reducer, aggregation), the kernels each must launch; "sgm" stands for
+# the SGM kernels of the form semiglobal_aggregate_cuda takes at the
+# path's shape, sgm_form).  Their costs are plain PyTorch on the card (no
+# TPU kernel computes them), except ssd-texture, whose float32 SSD is the
+# SSD kernel's.
 FAMILY_PATHS = {
-    "birchfield_sgm_wta": (("birchfield", "wta", "sgm"),
-                           ("sgm_rows", "sgm_horizontal")),
-    "ncc_sgm_wta": (("ncc", "wta", "sgm"), ("sgm_rows", "sgm_horizontal")),
-    "ssd_texture_sgm_wta": (("ssd-texture", "wta", "sgm"),
-                            ("ssd", "sgm_rows", "sgm_horizontal")),
+    "birchfield_sgm_wta": (("birchfield", "wta", "sgm"), ("sgm",)),
+    "ncc_sgm_wta": (("ncc", "wta", "sgm"), ("sgm",)),
+    "ssd_texture_sgm_wta": (("ssd-texture", "wta", "sgm"), ("ssd", "sgm")),
     "birchfield_sgm_dyn": (("birchfield", "dyn", "sgm"),
-                           ("sgm_rows", "sgm_horizontal", "dp_forward",
-                            "dp_backward")),
+                           ("sgm", "dp_forward", "dp_backward")),
     "ncc_cvf_wta": (("ncc", "wta", "cvf"), ("cvf", "cvf_filter")),
 }
 # Pixels of 168,750 that each path may differ from its golden: the count
@@ -254,6 +257,8 @@ COUNTERS = {"ssd": ("stm_ssd_f32", "stm_ssd_i32"),
             "sgm_rows": ("stm_sgm_rows_f32",),
             "sgm_chunk": ("stm_sgm_chunk_f32",),
             "sgm_horizontal": ("stm_sgm_horizontal_f32",),
+            "sgm_side": ("stm_sgm_side_by_side_f32",),
+            "sgm_fold": ("stm_sgm_fold_f32",),
             "dp_forward": ("stm_dp_forward_f32",),
             "dp_backward": ("stm_dp_backward",),
             "cvf": ("stm_cvf_stats_f32",),
@@ -262,6 +267,8 @@ COUNTERS = {"ssd": ("stm_ssd_f32", "stm_ssd_i32"),
             "sgm_rows_bf16": ("stm_sgm_rows_bf16",),
             "sgm_chunk_bf16": ("stm_sgm_chunk_bf16",),
             "sgm_horizontal_bf16": ("stm_sgm_horizontal_bf16",),
+            "sgm_side_bf16": ("stm_sgm_side_by_side_bf16",),
+            "sgm_fold_bf16": ("stm_sgm_fold_bf16",),
             "dp_forward_bf16": ("stm_dp_forward_bf16",),
             "cvf_bf16": ("stm_cvf_stats_bf16",),
             "cvf_filter_bf16": ("stm_cvf_filter_bf16",)}
@@ -331,16 +338,60 @@ SOAK_BANDS = {"teddy": (375, 450, 128, 7, 75, 2026),
               "hd": (1024, 1280, 256, 7, 256, 11)}
 SOAK_BAND_REPS = 20
 TRACE_FRAMES = 5
-TRACE_NAMES = ("ssd_kernel", "sgm_rows_kernel", "sgm_horizontal_kernel",
+TRACE_NAMES = ("ssd_kernel", "sgm_side_by_side_kernel", "sgm_fold_kernel",
                "stm/cost", "stm/aggregation", "stm/disparity_reduce")
 SOAK_KERNELS = ("ssd", "ssd_bf16", "sgm_rows", "sgm_rows_bf16",
-                "sgm_horizontal", "sgm_horizontal_bf16", "dp_forward",
+                "sgm_horizontal", "sgm_horizontal_bf16", "sgm_side",
+                "sgm_side_bf16", "sgm_fold", "sgm_fold_bf16", "dp_forward",
                 "dp_forward_bf16", "dp_backward", "cvf", "cvf_filter",
                 "cvf_bf16", "cvf_filter_bf16")
+
+# The two forms of the whole-image SGM aggregation (check_sgm_forms): the
+# counters of each, and the kernel each counter's entry points launch.
+SGM_FORMS = {"serial": ("sgm_rows", "sgm_horizontal"),
+             "side_by_side": ("sgm_side", "sgm_fold")}
+SGM_KERNEL_NAMES = {"sgm_rows": "sgm_rows_kernel",
+                    "sgm_horizontal": "sgm_horizontal_kernel",
+                    "sgm_side": "sgm_side_by_side_kernel",
+                    "sgm_fold": "sgm_fold_kernel"}
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def sgm_form(h, w, d, sfx=""):
+    """{counter: launches} of one whole-image SGM aggregation of [h, w, d],
+    in the form ``sgm_cuda.semiglobal_aggregate_cuda``'s rule takes
+    there (``sfx`` "_bf16" for a bf16 volume's entry points)."""
+    from stereomatch_tpu_torch.ops import sgm_cuda
+    if sgm_cuda._takes_side_by_side(h, w, d):
+        return {f"sgm_side{sfx}": 1, f"sgm_fold{sfx}": 1}
+    return {f"sgm_rows{sfx}": 6, f"sgm_horizontal{sfx}": 2}
+
+
+def expand_sgm(kernels, h, w, d):
+    """``kernels`` with "sgm" ("sgm_bf16") replaced by the counters of
+    :func:`sgm_form` at [h, w, d]."""
+    out = []
+    for name in kernels:
+        if name in ("sgm", "sgm_bf16"):
+            out.extend(sgm_form(h, w, d, name[3:]))
+        else:
+            out.append(name)
+    return tuple(out)
+
+
+def sgm_aggregations(counts, sfx="") -> int:
+    """Whole-image SGM aggregations in ``counts`` (a {counter: launches}
+    dict, counters of 0 launches possibly left out), in either form;
+    raises where the launches are not whole aggregations."""
+    rows, horizontal, side, fold = (
+        counts.get(f"{name}{sfx}", 0)
+        for name in ("sgm_rows", "sgm_horizontal", "sgm_side", "sgm_fold"))
+    require(rows == 3 * horizontal and side == fold,
+            f"SGM launches {counts} are not whole aggregations")
+    return horizontal // 2 + side
 
 
 def require(ok: bool, message: str) -> None:
@@ -406,7 +457,12 @@ def kernel_work(h, w, d, k, r, tiles, volume_bytes=4):
     onto and writing out back (18 volumes, 6 images; a bf16 volume's
     last traversal writes its bf16 result instead); sgm_horizontal: the
     family's first launch writes out without reading it (5 volumes, 2
-    images); sgm_chunk: sgm_rows' traffic plus the carries; cvf: the
+    images); sgm_side, the whole aggregation in the side-by-side form:
+    its first launch reads the cost and the image and writes an L volume
+    for each of seven traversals, the fold reads the cost, the image, out
+    and the six partials and writes out (or the bf16 result), the bytes
+    of sgm_rows and sgm_horizontal together; sgm_chunk: sgm_rows'
+    traffic plus the carries; cvf: the
     stats kernel reads its tiles of the volume and the guide with their
     halos (:func:`cvf_tile_reads`) and the guide planes and writes a0 and
     b0, the filter kernel reads its tiles of a0 and b0 and the guide and
@@ -433,6 +489,8 @@ def kernel_work(h, w, d, k, r, tiles, volume_bytes=4):
                       rows + carries),
         "sgm_horizontal": (vol * (v + f) + img * f, vol * 9 * 2,
                            (2 * v + 3 * f) * vol + 2 * img * f),
+        "sgm_side": (2 * vol * v + img * f, vol * 9 * 8,
+                     (9 * v + 14 * f) * vol + 8 * img * f),
         "cvf": (2 * vol * v + 5 * img * f + 2 * hd, vol * (16 * r + 25),
                 cvf_tile_reads(h, w, d, r, 16, 2) * (d * v + f)
                 + (2 * cvf_tile_reads(h, w, d, r, 8, 3) * d + 2 * vol
@@ -699,7 +757,7 @@ def check_post_processing(torch, dev, shapes, run_path, mesh5, sharded_kw,
         out, _ = run_path(
             f"refined {name}",
             lambda: pipe.estimate_refined(left_np, right_np, **flags),
-            ("ssd", "sgm_rows", "sgm_horizontal"), dtype=torch.float32)
+            ("ssd", "sgm"), dtype=torch.float32)
         n_diff = int((out != golden[name]).sum())
         log(f"  pixels differing from golden refined {name}: {n_diff} of "
             f"{out.size}")
@@ -743,7 +801,8 @@ def check_post_processing(torch, dev, shapes, run_path, mesh5, sharded_kw,
         lambda: far["auto"].estimate(far_left, far_right), ("ssd",),
         shape=(64, 704), d=FAR_D)
     require(all(counts[name] == 0 for name in
-                ("sgm_rows", "sgm_horizontal", "dp_forward", "dp_backward")),
+                ("sgm_rows", "sgm_horizontal", "sgm_side", "sgm_fold",
+                 "dp_forward", "dp_backward")),
             f"D={FAR_D} launched a kernel past its limit: {counts}")
     plain = far["torch"].estimate(far_left, far_right).cpu().numpy()
     require(np.array_equal(out, plain), "auto past the kernels differs from "
@@ -1071,6 +1130,8 @@ def time_post_processing(torch, shapes, p1, p2, card) -> dict:
 KERNEL_OF_ENTRY = {"stm_ssd": "ssd_kernel", "stm_sgm_rows": "sgm_rows_kernel",
                    "stm_sgm_horizontal": "sgm_horizontal_kernel",
                    "stm_sgm_chunk": "sgm_chunk_kernel",
+                   "stm_sgm_side_by_side": "sgm_side_by_side_kernel",
+                   "stm_sgm_fold": "sgm_fold_kernel",
                    "stm_dp_forward": "dp_forward_kernel",
                    "stm_dp_backward": "dp_backward_kernel",
                    "stm_cvf": "cvf_kernel"}
@@ -1315,7 +1376,8 @@ def check_pyramid_temporal(torch, dev, shapes, run_path, card) -> dict:
       coarse volumes: 0 pixels off ``tests/data/
       golden_torch_pyramid_teddy.npz`` (estimate, and estimate_refined
       in float32), equal to ``backend="torch"`` on the card, the SGM
-      kernels launched 6 (rows) and 2 (horizontal) times a frame;
+      kernels launched once a frame at the coarse level, in the form
+      the rule takes there (:func:`sgm_form`);
     * ``parallel.make_pyramid_sharded_estimate`` over 4 tiles at HD
       (levels 1 and 2) and 5 tiles at 380x450 (level 1): equal to the
       single card, the chunk kernel launched 6 times a tile; the single
@@ -1345,12 +1407,16 @@ def check_pyramid_temporal(torch, dev, shapes, run_path, card) -> dict:
             label = f"pyramid{levels} {dtype}"
             log(f"[pyramid] {label}, teddy 375x450 D=128")
             pipe = PyramidPipeline(d, levels=levels, cost_dtype=dtype)
+            scale = 2 ** levels
+            coarse = sgm_form(-(-left.shape[0] // scale),
+                              -(-left.shape[1] // scale), d // scale, sfx)
             disp_np, counts = run_path(
                 label, lambda: pipe.estimate(left.cpu().numpy(),
                                              right.cpu().numpy()),
-                (f"sgm_rows{sfx}", f"sgm_horizontal{sfx}"))
-            require(counts[f"sgm_rows{sfx}"] == 6
-                    and counts[f"sgm_horizontal{sfx}"] == 2
+                tuple(coarse))
+            require(all(counts[n] == coarse.get(n, 0)
+                        for f in SGM_FORMS.values() for n in
+                        (f[0] + sfx, f[1] + sfx))
                     and counts["sgm_chunk"] == 0,
                     f"{label} launches {counts}")
             key = pyramid_golden_key(levels, dtype)
@@ -1418,8 +1484,9 @@ def check_pyramid_temporal(torch, dev, shapes, run_path, card) -> dict:
     h, w = int(golden["height"]), int(golden["width"])
     video = pyramid_video(golden)
     interval = int(golden["keyframe_interval"])
+    (key_single, key_single_n), _ = sgm_form(h, w, d).items()
     for label, kw, key_kernel, key_launches in (
-            ("temporal", {}, "sgm_rows", 6),
+            ("temporal", {}, key_single, key_single_n),
             ("sharded temporal, 5 tiles",
              dict(mesh=parallel.make_mesh([dev] * 5, n_batch=1)),
              "sgm_chunk", 30)):
@@ -1604,6 +1671,85 @@ def launch_counts(counters, launches) -> dict:
             for name, entries in counters.items()}
 
 
+def check_sgm_forms(torch, dev, shapes, p1, p2, card) -> dict:
+    """The two forms of ``sgm_cuda.semiglobal_aggregate_cuda`` beside each
+    other at teddy, at HD (D = 256) and at HD with D = 128, on float32
+    and bf16 SSD volumes: the serial form (eight launches,
+    ``stm_sgm_rows_*`` and ``stm_sgm_horizontal_*``) and the side-by-side
+    form (one ``stm_sgm_side_by_side_*`` launch of the first seven
+    traversals, one ``stm_sgm_fold_*`` of the last), each launch counted,
+    the two bit-equal, each timed (CUDA events, median of REPS) in the
+    turns serial, side by side, side by side, serial, the lower median
+    kept; the device memory each call holds at its peak beyond its input
+    (out, the result, the side-by-side form's partials); and the form
+    the rule takes at each shape, through the public call.  Both move
+    the same bytes (23 volume passes a frame, 22 and a bf16 result for a
+    bf16 volume): their design floor is the same."""
+    from stereomatch_tpu_torch.ops import _build, sgm_cuda
+    from stereomatch_tpu_torch.ops import cost as cost_ops
+
+    forms = {"serial": sgm_cuda._aggregate_serial,
+             "side_by_side": sgm_cuda._aggregate_side_by_side}
+    out = {}
+    log("[sgm forms] serial against side by side")
+    for tag, source, d in (("teddy", "teddy", None), ("hd", "hd", None),
+                           ("hd_d128", "hd", 128)):
+        left, right, _, shape_d, k = shapes[source]
+        d = d or shape_d
+        h, w = left.shape
+        rule = ("side_by_side" if sgm_cuda._takes_side_by_side(h, w, d)
+                else "serial")
+        for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            vol = cost_ops.ssd_cost_volume(left, right, max_disparity=d,
+                                           kernel_size=k, cost_dtype=dtype)
+            results, counts, peak = {}, {}, {}
+            for form, run in forms.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev)
+                _build.LAUNCHES.clear()
+                results[form] = run(vol, left, p1, p2)
+                torch.cuda.synchronize()
+                peak[form] = torch.cuda.max_memory_allocated(dev) - held
+                counts[form] = {n: c for n, c in launch_counts(
+                    COUNTERS, _build.LAUNCHES).items() if c}
+                want = {n + sfx: 1 if form == "side_by_side" else
+                        6 if n == "sgm_rows" else 2
+                        for n in SGM_FORMS[form]}
+                require(counts[form] == want, f"the {form} form at {tag} "
+                        f"launched {counts[form]}, not {want}")
+            compare(f"sgm side by side {tag}{sfx}", results["serial"],
+                    results["side_by_side"], 0, 0, exact=True)
+            del results
+            _build.LAUNCHES.clear()
+            sgm_cuda.semiglobal_aggregate_cuda(vol, left, penalty1=p1,
+                                               penalty2=p2)
+            torch.cuda.synchronize()
+            main = {n: c for n, c in launch_counts(
+                COUNTERS, _build.LAUNCHES).items() if c}
+            require(main == counts[rule], f"semiglobal_aggregate_cuda at "
+                    f"{tag}{sfx} launched {main}, not the {rule} form")
+            ms = {form: [] for form in forms}
+            for form in ("serial", "side_by_side", "side_by_side",
+                         "serial"):
+                ms[form].append(time_ms(
+                    torch, lambda run=forms[form]: run(vol, left, p1, p2)))
+            faster = min(forms, key=lambda f: min(ms[f]))
+            key = f"{tag}{sfx}"
+            out[key] = {"shape": [h, w, d], "ms": ms, "launches": counts,
+                        "main_launches": main, "rule": rule,
+                        "faster": faster, "peak_bytes": peak,
+                        "scratch_bytes":
+                            sgm_cuda._side_by_side_scratch_bytes(h, w, d)}
+            log(f"  {key} {h}x{w} D={d}: serial {ms['serial']} ms, side by "
+                f"side {ms['side_by_side']} ms; bit-equal; launches "
+                f"{counts}; peak bytes beyond the volume {peak}; the rule "
+                f"takes {rule}, faster here {faster} [{card}]")
+            del vol
+            torch.cuda.empty_cache()
+    return out
+
+
 def check_soak(torch, dev, card) -> dict:
     """The kernels at the JAX package's soak geometries, the padded-band
     cost, ``profiling.trace`` and the CUDA start watchdog, on the card.
@@ -1612,7 +1758,9 @@ def check_soak(torch, dev, card) -> dict:
     ``tests/test_differential_soak.py`` draws them) each kernel equals its
     plain version bit for bit, in float32 and bf16: K1 SSD and SAD; the
     K3 and K2 families on the SSD volume (bf16: K2 through the whole
-    aggregation, which rounds the sum once); K7/K8 on the aggregated
+    aggregation, which rounds the sum once); the whole aggregation in
+    both forms (serial, and side by side with the folding last
+    traversal); K7/K8 on the aggregated
     volume; K9 on the CVF draw's volume at wedge offsets 0-2 with its
     radius and eps, and on the fused-layout draws.  K1 also over the
     integer matrix (uint8/int16 images, int32/float32 cost, int32 max on
@@ -1685,9 +1833,11 @@ def check_soak(torch, dev, card) -> dict:
                 same(f"{fam} family {dtype} {tag}", plain, kern)
             agg = agg_ops.semiglobal_aggregate(vol, left, penalty1=c.p1,
                                                penalty2=c.p2)
-            same(f"SGM {dtype} {tag}", agg,
-                 sgm_cuda.semiglobal_aggregate_cuda(vol, left, penalty1=c.p1,
-                                                    penalty2=c.p2))
+            for form, aggregate in (
+                    ("serial", sgm_cuda._aggregate_serial),
+                    ("side by side", sgm_cuda._aggregate_side_by_side)):
+                same(f"SGM {form} {dtype} {tag}", agg,
+                     aggregate(vol, left, c.p1, c.p2))
             ptr_ref, final_ref = disp_ops.dp_forward(agg)
             ptr, final = dp_cuda.dp_forward_cuda(agg)
             same(f"K7 pointers {dtype} {tag}", ptr_ref, ptr)
@@ -1859,15 +2009,18 @@ def check_stream(torch, dev, golden, counters, card) -> dict:
     p1, p2 = float(golden["penalty1"]), float(golden["penalty2"])
     out = {"runs": []}
 
-    def reference(d, options, kernel_size):
+    def reference(d, options, kernel_size, shape):
         """(frame function on uint8 pair -> card tensor, the kernels the
-        path launches)."""
+        path launches at [H, W] ``shape``)."""
         sfx = "_bf16" if options.get("cost_dtype") == "bfloat16" else ""
-        flat = (f"ssd{sfx}", f"sgm_rows{sfx}", f"sgm_horizontal{sfx}")
+        flat = (f"ssd{sfx}", *sgm_form(*shape, d, sfx))
         if options.get("pyramid_levels"):
-            pyr = PyramidPipeline(d, levels=options["pyramid_levels"],
-                                  penalty1=p1, penalty2=p2)
-            return pyr.estimate, ("sgm_rows", "sgm_horizontal")
+            levels = options["pyramid_levels"]
+            pyr = PyramidPipeline(d, levels=levels, penalty1=p1, penalty2=p2)
+            scale = 2 ** levels
+            return pyr.estimate, tuple(sgm_form(-(-shape[0] // scale),
+                                                -(-shape[1] // scale),
+                                                d // scale))
         dyn = options.get("reducer") == "dynamic_programming"
         pipe = cli_common.create_pipeline(
             "ssd", "dyn" if dyn else "wta", "sgm", max_disparity=d,
@@ -1890,7 +2043,9 @@ def check_stream(torch, dev, golden, counters, card) -> dict:
             label = (f"{tag} batch {batch} depth {depth} "
                      f"{options or 'ssd+sgm+wta'}")
             log(f"[stream] {label}")
-            frame_fn, kernels = reference(d, options, kernel_size)
+            frame_fn, kernels = reference(
+                d, options, kernel_size,
+                (scenes[0].shape[0], scenes[0].shape[1] // 2))
             pairs = [on_card(f) for f in scenes]
             refs = [frame_fn(*p).cpu().numpy() for p in pairs]
             torch.cuda.synchronize()
@@ -2171,7 +2326,7 @@ def check_serve(torch, golden, counters, card) -> dict:
         require(len(latencies) == SERVE_REQUESTS and not responses,
                 f"stm-serve {label}: {len(latencies)} responses")
         require(not left, f"stm-serve {label}: threads left {left}")
-        for name in ("ssd", "sgm_rows", "sgm_horizontal"):
+        for name in ("ssd", *sgm_form(375, 450, 128)):
             require(counts[name] > 0, f"stm-serve {label} launched {name} "
                     f"no time")
         lat = sorted(latencies)
@@ -2330,13 +2485,11 @@ def check_partitioners(torch, dev, shapes, run_path, golden, p1, p2,
         fn = parallel.make_tiled2d_estimate(mesh4, **tile_kw, **kw)
         frames = (left[None], right[None])
         got, counts = run_path(f"2-D tiles {label}",
-                               lambda: fn(*frames)[0],
-                               ("ssd", "sgm_rows", "sgm_horizontal"),
+                               lambda: fn(*frames)[0], ("ssd",),
                                shape=(1024, 1280), d=hd_d, dtype=dtype)
-        require(counts["ssd"] == 4 and counts["sgm_rows"] == 24
-                and counts["sgm_horizontal"] == 8,
-                f"2-D tiles {label}: launches {counts}, not one SSD and 8 "
-                f"SGM traversals a tile")
+        require(counts["ssd"] == 4 and sgm_aggregations(counts) == 4,
+                f"2-D tiles {label}: launches {counts}, not one SSD and one "
+                f"SGM aggregation a tile")
         if kw["overlap"] == 48:
             share = float(np.mean(got != want))
             log(f"  share of pixels off the single card at overlap 48: "
@@ -2347,8 +2500,8 @@ def check_partitioners(torch, dev, shapes, run_path, golden, p1, p2,
             equal(f"2-D tiles {label}", got, want)
         if label == "ssd+sgm+wta":
             profiled("2-D tiles", lambda: fn(*frames),
-                     ("ssd_kernel", "sgm_rows_kernel",
-                      "sgm_horizontal_kernel"))
+                     ("ssd_kernel", *(k for n, k in SGM_KERNEL_NAMES.items()
+                                      if counts[n])))
         reps = 1 if "dyn" in label or "lr" in label else None
         key = f"tiled2d {label}"
         ms = (time_ms(torch, lambda: fn(*frames), warmup=0, reps=reps)
@@ -2357,7 +2510,7 @@ def check_partitioners(torch, dev, shapes, run_path, golden, p1, p2,
             log(f"  {key}: {ms!r} ms/frame (CUDA events, one frame: plain "
                 f"Python loops) [{card}]")
         out[key] = {"ms": ms, "launches": {
-            n: counts[n] for n in ("ssd", "sgm_rows", "sgm_horizontal")}}
+            n: counts[n] for n in ("ssd", *SGM_KERNEL_NAMES)}}
         del fn
         torch.cuda.empty_cache()
     del single_wta, single_dyn, single_refined
@@ -2800,8 +2953,7 @@ def distributed_tiles_worker(rank: int, address: str) -> int:
     compare("2-D tiles hd", shards, singles["wta"][:1])
     counts = per_frame(counts, 1)
     log(f"  launches a frame on rank {rank}: {counts}")
-    require(counts.get("ssd") == 2 and counts.get("sgm_rows") == 12
-            and counts.get("sgm_horizontal") == 4,
+    require(counts.get("ssd") == 2 and sgm_aggregations(counts) == 2,
             f"2-D tiles hd launches {counts}")
     del shards
     result["hd"]["tiled2d (1, 2, 2)"] = {
@@ -3193,12 +3345,18 @@ def main() -> int:
             errors[f"{fam}_{tag}"] = compare(f"{fam} family {tag}", plain,
                                              kern, 0, 0, exact=True)
             del plain, kern
-        compare(f"semiglobal_aggregate {tag}",
-                agg_ops.semiglobal_aggregate(ref, left, penalty1=p1,
-                                             penalty2=p2),
-                sgm_cuda.semiglobal_aggregate_cuda(ref, left, penalty1=p1,
-                                                   penalty2=p2),
-                0, 0, exact=True)
+        # The whole aggregation in each form (the serial form's families
+        # are held above; sgm_side is the side-by-side form's).
+        agg = agg_ops.semiglobal_aggregate(ref, left, penalty1=p1,
+                                           penalty2=p2)
+        compare(f"semiglobal_aggregate serial {tag}", agg,
+                sgm_cuda._aggregate_serial(ref, left, p1, p2), 0, 0,
+                exact=True)
+        errors[f"sgm_side_{tag}"] = compare(
+            f"semiglobal_aggregate side by side {tag}", agg,
+            sgm_cuda._aggregate_side_by_side(ref, left, p1, p2), 0, 0,
+            exact=True)
+        del agg
         # The chunk kernel (K5; at HD also K6's discharge) on the chunks
         # of the sharded path's row tiles.
         errors[f"sgm_chunk_{tag}"] = check_chunks(tag, ref, left, p1, p2)
@@ -3267,14 +3425,19 @@ def main() -> int:
             f"sgm_horizontal family bf16 {tag}", plain, kern, 0, 0,
             exact=True)
         del plain, kern
+        agg16 = agg_ops.semiglobal_aggregate(ref16, left, penalty1=p1,
+                                             penalty2=p2)
         errors[f"sgm_rows_bf16_{tag}"] = compare(
-            f"semiglobal_aggregate bf16 {tag} (the row family rounding the "
-            f"sum once)",
-            agg_ops.semiglobal_aggregate(ref16, left, penalty1=p1,
-                                         penalty2=p2),
-            sgm_cuda.semiglobal_aggregate_cuda(ref16, left, penalty1=p1,
-                                               penalty2=p2),
-            0, 0, exact=True)
+            f"semiglobal_aggregate serial bf16 {tag} (the row family "
+            f"rounding the sum once)", agg16,
+            sgm_cuda._aggregate_serial(ref16, left, p1, p2), 0, 0,
+            exact=True)
+        errors[f"sgm_side_bf16_{tag}"] = compare(
+            f"semiglobal_aggregate side by side bf16 {tag} (the fold "
+            f"rounding the sum once)", agg16,
+            sgm_cuda._aggregate_side_by_side(ref16, left, p1, p2), 0, 0,
+            exact=True)
+        del agg16
         errors[f"sgm_chunk_bf16_{tag}"] = check_chunks(tag, ref16, left, p1,
                                                        p2)
         ptr_ref, final_ref = disp_ops.dp_forward(ref16)
@@ -3296,6 +3459,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     elapsed("the kernels against their plain versions")
+    forms_out = check_sgm_forms(torch, dev, shapes, p1, p2, card)
+    elapsed("the two SGM forms")
     soak_out = check_soak(torch, dev, card)
     elapsed("the soak")
 
@@ -3305,7 +3470,7 @@ def main() -> int:
     # The float32 kernels a bf16 path must not launch: no cast of a bf16
     # volume to float32 in front of them.
     f32_only = ("ssd", "sgm_rows", "sgm_chunk", "sgm_horizontal",
-                "dp_forward", "cvf", "cvf_filter")
+                "sgm_side", "sgm_fold", "dp_forward", "cvf", "cvf_filter")
 
     def run_path(label, run, kernels, shape=(375, 450), d=128,
                  dtype=torch.int32):
@@ -3316,7 +3481,7 @@ def main() -> int:
         counts = {name: sum(_build.LAUNCHES[e] for e in entries)
                   for name, entries in counters.items()}
         log(f"  launches: {counts}")
-        for name in kernels:
+        for name in expand_sgm(kernels, *shape, d):
             require(counts[name] > 0, f"{label} launched {name} no time")
         require(disp.is_cuda and disp.dtype == dtype
                 and tuple(disp.shape) == shape,
@@ -3335,7 +3500,7 @@ def main() -> int:
     disp_np, launches = run_path(
         "the main path",
         lambda: pipe.estimate(left_np, right_np, device="cuda"),
-        ("ssd", "sgm_rows", "sgm_horizontal"))
+        ("ssd", "sgm"))
     check_golden("wta", disp_np, golden["wta"], gt, d, GOLDEN_MAX_DIFF,
                  float(golden["bad_pixel_vs_gt"]), 1e-4)
 
@@ -3354,7 +3519,7 @@ def main() -> int:
     pipe_dyn.cost.kernel_size = k
     disp_np, dyn_counts = run_path(
         "ssd -> sgm -> dyn", lambda: pipe_dyn.estimate(left_np, right_np),
-        ("ssd", "sgm_rows", "sgm_horizontal", "dp_forward", "dp_backward"))
+        ("ssd", "sgm", "dp_forward", "dp_backward"))
     golden_dp_bad = float(np.mean((np.abs(golden["dp"] - gt) > 1)[:, d:]))
     check_golden("dp", disp_np, golden["dp"], gt, d, GOLDEN_MAX_DIFF,
                  golden_dp_bad, 1e-4)
@@ -3385,11 +3550,9 @@ def main() -> int:
     # versions and the kernels equal bit for bit: 0 pixels may differ.
     golden16 = np.load(GOLDEN_BF16)
     for name, (cost, reducer, aggr), kernels in (
-            ("ssd_sgm_wta", ("ssd", "wta", "sgm"),
-             ("ssd_bf16", "sgm_rows_bf16", "sgm_horizontal_bf16")),
+            ("ssd_sgm_wta", ("ssd", "wta", "sgm"), ("ssd_bf16", "sgm_bf16")),
             ("ssd_sgm_dyn", ("ssd", "dyn", "sgm"),
-             ("ssd_bf16", "sgm_rows_bf16", "sgm_horizontal_bf16",
-              "dp_forward_bf16", "dp_backward")),
+             ("ssd_bf16", "sgm_bf16", "dp_forward_bf16", "dp_backward")),
             ("census_cvf_wta", ("census", "wta", "cvf"),
              ("cvf_bf16", "cvf_filter_bf16"))):
         log(f"[bf16 path] {cost} -> {aggr} -> {reducer}, teddy 375x450 "
@@ -3412,7 +3575,9 @@ def main() -> int:
                 f"{pipe16._aggregation_volume.dtype}")
         check_golden(f"bf16 {name}", disp_np, golden16[name], gt, d, 0,
                      float(golden16[f"bad_pixel_{name}"]), 0.0)
-        launches.update((n, counts[n]) for n in kernels if n.endswith("bf16"))
+        launches.update((n, counts[n])
+                        for n in expand_sgm(kernels, 375, 450, d)
+                        if n.endswith("bf16"))
 
     # The row-sharded pipeline: 5 row tiles of 75 rows on one card.
     mesh5 = parallel.make_mesh([dev] * 5, n_batch=1)
@@ -3657,7 +3822,7 @@ def main() -> int:
                 left, right, cost_dtype=dtype, absolute=False, **kw)
 
         def family_kernel(steps, volume, result=None):
-            """One family's traversals as the main path launches them:
+            """One family's traversals as the serial form launches them:
             the horizontal family writes out first, the row family adds
             onto it (a bf16 volume's last traversal rounding into
             ``result``)."""
@@ -3680,6 +3845,14 @@ def main() -> int:
                 return acc.to(volume.dtype)
             return run
 
+        def side_by_side(volume):
+            """The whole aggregation in the side-by-side form, and its
+            plain version."""
+            return (lambda: sgm_cuda._aggregate_side_by_side(
+                        volume, image, p1, p2),
+                    lambda: agg_ops.semiglobal_aggregate(
+                        volume, image, penalty1=p1, penalty2=p2))
+
         def chunks(volume, kernel, result=None):
             return lambda: chunked_rows(volume, image, out, p1, p2,
                                         CHUNK_CUTS[tag], kernel=kernel,
@@ -3692,6 +3865,7 @@ def main() -> int:
             "sgm_rows": (family_kernel(rows, vol), family_plain(rows, vol)),
             "sgm_horizontal": (family_kernel(horiz, vol),
                                family_plain(horiz, vol)),
+            "sgm_side": side_by_side(vol),
             "sgm_chunk": (chunks(vol, True), chunks(vol, False)),
             "dp_forward": (lambda: dp_cuda.dp_forward_cuda(vol),
                            lambda: disp_ops.dp_forward(vol)),
@@ -3709,6 +3883,7 @@ def main() -> int:
                               family_plain(rows, vol16)),
             "sgm_horizontal_bf16": (family_kernel(horiz, vol16),
                                     family_plain(horiz, vol16)),
+            "sgm_side_bf16": side_by_side(vol16),
             "sgm_chunk_bf16": (chunks(vol16, True, result16),
                                chunks(vol16, False, result16)),
             "dp_forward_bf16": (lambda: dp_cuda.dp_forward_cuda(vol16),
@@ -3841,6 +4016,8 @@ def main() -> int:
                             "stereomatch_tpu/ops/sgm_pallas.py:323"),
                "sgm_horizontal": ("stereomatch_tpu_torch/csrc/sgm.cu",
                                   "stereomatch_tpu/ops/sgm_pallas.py:150"),
+               "sgm_side": ("stereomatch_tpu_torch/csrc/sgm.cu",
+                            "stereomatch_tpu/ops/sgm_pallas.py:323"),
                "dp_forward": ("stereomatch_tpu_torch/csrc/dp.cu",
                               "stereomatch_tpu/ops/dp_pallas.py:40"),
                "dp_backward": ("stereomatch_tpu_torch/csrc/dp.cu",
@@ -3851,8 +4028,8 @@ def main() -> int:
                              "stereomatch_tpu/ops/sgm_pallas.py:552")}
     # The bf16 instantiations of the same kernels, in the same sources;
     # the DP walk reads no costs and has none.
-    for name in ("ssd", "sgm_rows", "sgm_horizontal", "dp_forward", "cvf",
-                 "sgm_chunk"):
+    for name in ("ssd", "sgm_rows", "sgm_horizontal", "sgm_side",
+                 "dp_forward", "cvf", "sgm_chunk"):
         sources[f"{name}_bf16"] = sources[name]
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -3876,6 +4053,23 @@ def main() -> int:
             # The two launches alone, on precomputed guide planes.
             entry["kernel_ms"] = times[(f"{name}_kernels", "teddy")]
             entry["hd_kernel_ms"] = times[(f"{name}_kernels", "hd")]
+        if name.startswith(("sgm_rows", "sgm_horizontal", "sgm_side")):
+            # The whole-image SGM aggregation takes one of two forms by
+            # the shape (check_sgm_forms): launches are those of the main
+            # path at teddy, hd_launches those of semiglobal_aggregate_cuda
+            # at HD; the serial form's ms are its families' launches, the
+            # side-by-side form's the whole aggregation's two.
+            form = "side_by_side" if name.startswith("sgm_side") else "serial"
+            sfx = "_bf16" if name.endswith("_bf16") else ""
+            hd_main = forms_out[f"hd{sfx}"]["main_launches"]
+            entry["form"] = form
+            entry["hd_launches"] = hd_main.get(name, 0)
+        if name.startswith("sgm_side"):
+            # K2 and K3 together, both launches of the form.
+            entry["also_replaces"] = "stereomatch_tpu/ops/sgm_pallas.py:150"
+            fold = name.replace("sgm_side", "sgm_fold")
+            entry["launches_fold_kernel"] = launches[fold]
+            entry["hd_launches_fold_kernel"] = hd_main.get(fold, 0)
         if name.startswith("sgm_chunk"):
             # K6, the W-on-grid form of the same TPU kernel, at HD; the
             # launches are those of the sharded exact path (teddy, 5
@@ -3908,6 +4102,7 @@ def main() -> int:
     log(json.dumps({"distributed": distributed_out, "card": card}))
     log(json.dumps({"distributed_tiles": tiles_out, "card": card}))
     log(json.dumps({"soak": soak_out, "card": card}))
+    log(json.dumps({"sgm_forms": forms_out, "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -30,8 +30,18 @@
 // Every operation is one IEEE-rounded sub/add/div (explicit _rn
 // intrinsics, -fmad=false) or an exact min/max that lets NaN through like
 // jnp.minimum/torch.minimum, so L equals the plain version bit for bit.
-// One launch per traversal, in the plain version's order, fixes the order
-// of the accumulation into out.
+// The sum over the traversals is formed in the plain version's order, in
+// one of two launch structures (ops/sgm_cuda.py picks one by the shape;
+// the traversals' steps come from TRAVERSALS there):
+//   serial: one launch per traversal, in order, each adding its L onto out
+//     in place (sgm_rows_kernel, sgm_horizontal_kernel);
+//   side by side: sgm_side_by_side_kernel walks the first seven traversals
+//     at once, traversal 0 writing its L into out and traversal t > 0 its
+//     L, P_t, into partial volume t - 1; sgm_fold_kernel walks the last and
+//     forms ((out + P_1) + ... + P_6) + L, each addition rounded on its
+//     own.  No traversal reads another's L, so that order is all that ties
+//     them, and both structures make the same IEEE operations in the same
+//     order.
 //
 // The chunk kernel (plain version: ops/aggregation.py::
 // sweep_chunk_with_carry): a path that enters through the chunk's first
@@ -51,20 +61,27 @@
 // step's min over D (five shuffle rounds, each feeding a NaN-aware min) and
 // band are a chain of dependent shuffles and selects, about 0.3 us a step
 // (PERF.md), and a traversal has only W, H or W+H-1 paths (375-824 warps at
-// teddy, about one per scheduler), so nothing else hides that latency.  A
-// step's cost and out rows come from device memory, about a microsecond away
-// under load; fetched one step ahead, that round trip would add to every
-// step.  So each warp keeps a ring of kRingStages (8) steps in shared memory
-// (ring_path): at step s the warp takes stage s, starts cp.async copies of
-// step s + 7 and runs the recurrence, so the loads of 7 steps are in flight
-// behind it, and P2' (a division) is computed 32 steps at a time off the
-// chain.  At teddy what is left is the step chain of the longest path; at
-// HD (1280-2303 warps of D = 256) the bytes of the launch structure, three
-// volumes a traversal.  One-warp blocks spread teddy's paths over all 132
-// SMs.  The chunk kernel's W or W+Hc-1 warps walk paths of at most Hc steps
-// (75 at teddy in 5 row tiles): the same latency bound over fewer steps,
-// paid once per chunk in launch and ramp-up; a chunk shorter than the ring
-// only fetches fewer live steps.
+// teddy, at most a fifth of the card's 132 x 32 one-warp block slots), so in
+// the serial structure nothing else hides that latency: each launch lasts
+// its longest path's step chain.  A step's cost and out rows come from
+// device memory, about a microsecond away under load; fetched one step
+// ahead, that round trip would add to every step.  So each warp keeps a ring
+// of kRingStages (8) steps in shared memory (ring_path): at step s the warp
+// takes stage s, starts cp.async copies of step s + 7 and runs the
+// recurrence, so the loads of 7 steps are in flight behind it, and P2' (a
+// division) is computed 32 steps at a time off the chain.  The side-by-side
+// structure puts seven traversals' paths on the card at once (4,122 warps
+// at teddy), so their step chains overlap and the walk is bound by bytes:
+// the same 23 volume passes as the serial structure (14 in the side-by-side
+// launch, 9 in the fold, whose ring stages carry eight rows a step), plus
+// six volumes of scratch, which ops/sgm_cuda.py bounds at 4 GiB.  Past that
+// bound, at HD D = 256 (1280-2303 warps), one traversal already fills the
+// card, the serial structure is bound by the bytes of its launches, three
+// volumes a traversal, and it is the faster.  One-warp blocks spread the
+// paths over all 132 SMs.  The chunk kernel's W or W+Hc-1 warps walk paths
+// of at most Hc steps (75 at teddy in 5 row tiles): the same latency bound
+// over fewer steps, paid once per chunk in launch and ramp-up; a chunk
+// shorter than the ring only fetches fewer live steps.
 //
 // bfloat16 storage (the JAX package's bf16 volumes; its XLA scan widens the
 // cost to float32 once, sums the eight traversals in float32 and rounds the
@@ -206,6 +223,21 @@ struct Carry {
 };
 constexpr Carry kNoCarry{nullptr, nullptr, nullptr, true};
 
+// The partial volumes the folding launch adds in (sgm_fold_kernel): NF
+// float32 volumes of `plane` elements each, back to back from `partials`.
+// The other kernels take none (Fold{}).
+struct Fold {
+  const float* partials = nullptr;
+  long plane = 0;
+};
+
+// The side-by-side launch walks the first kSideBySide traversals of
+// TRAVERSALS (ops/aggregation.py) at once, each into a volume of its own;
+// the folding launch walks the last and adds the kFolded partial volumes
+// of traversals 1 .. kSideBySide - 1 in order.
+constexpr int kSideBySide = 7;
+constexpr int kFolded = kSideBySide - 1;
+
 // The ring's depth and the warps of a block.  Of 4, 8 and 16 stages and
 // 1, 2 and 4 warps, measured at teddy (VPL 4) and HD (VPL 8) on an H100
 // (PERF.md), 8 stages and one warp were the best or within noise of it at
@@ -225,10 +257,12 @@ constexpr int kCostSlotBytes =
     kIsF32<T> ? 4 * 32 * VPL : stm::kRowSlotBytes<32 * VPL, VEC>;
 
 // Bytes of one warp's ring: per stage the cost slot, then (when
-// accumulating) the float32 out row, 32 * VPL floats in d order.
-template <typename T, int VPL, bool VEC, bool ACC>
+// accumulating) the float32 out row and the NF partial rows folded into
+// it, each 32 * VPL floats in d order.
+template <typename T, int VPL, bool VEC, bool ACC, int NF = 0>
 constexpr int kRingBytes =
-    kRingStages * (kCostSlotBytes<T, VPL, VEC> + (ACC ? 4 * 32 * VPL : 0));
+    kRingStages *
+    (kCostSlotBytes<T, VPL, VEC> + (ACC ? (1 + NF) * 4 * 32 * VPL : 0));
 
 // The walk of all three kernels: a ring of S = kRingStages steps in shared
 // memory, filled by cp.async S - 1 steps ahead of the recurrence.
@@ -272,6 +306,14 @@ constexpr int kRingBytes =
 // order writes its L into carry.out.  The whole-image kernels pass
 // kNoCarry.
 //
+// Fold (NF > 0, the folding launch): each stage also holds the rows of
+// the NF partial volumes at the step's pixel, and take adds them onto the
+// out row in order, each with its own rounding and independent of the
+// recurrence; store then adds L last.  So out + P_1 + ... + P_NF + L is
+// formed in the order that NF + 1 accumulating launches form it.
+// The partials are only read, at the pixel the step reads, so fetching
+// them S - 1 steps early is safe as fetching out is.
+//
 // P2' leaves the step chain: lane k computes it for step t0 + k of each
 // block of 32 steps from intensities loaded a block ahead, and step t
 // takes it by one shuffle, so the division runs once per 32 steps.  The
@@ -282,18 +324,20 @@ constexpr int kRingBytes =
 // bf16 also needs D % 8 == 0, so that every row starts on a 16-byte
 // boundary), and 8-byte stores of four bf16 sums into an 8-byte-aligned
 // result; otherwise 4-byte copies and element stores.
-template <typename T, int VPL, bool VEC, bool ACC, bool FINAL>
+template <typename T, int VPL, bool VEC, bool ACC, bool FINAL, int NF = 0>
 __device__ void ring_path(const T* __restrict__ cost,
                           const float* __restrict__ image,
                           float* __restrict__ out,
                           __nv_bfloat16* __restrict__ result, int H, int W,
                           int D, int dy, int dx, float p1, float p2,
-                          int path, const Carry& carry, unsigned char* ring) {
+                          int path, const Carry& carry, const Fold& fold,
+                          unsigned char* ring) {
   static_assert(kRingStages >= 4 && (kRingStages & (kRingStages - 1)) == 0,
                 "kRingStages is a power of two of at least 4");
   static_assert(!VEC || VPL % 4 == 0, "16-byte pieces need VPL % 4 == 0");
   static_assert(!FINAL || (ACC && !kIsF32<T>),
                 "a final launch rounds a bf16 volume's accumulated sum");
+  static_assert(NF == 0 || ACC, "partials are folded into an out row");
   constexpr int kRow = 32 * VPL;
   constexpr int kPiece = VEC ? 4 : 1;           // floats a copy moves
   constexpr int kPieces = VPL / kPiece;         // copies a lane a row
@@ -308,6 +352,8 @@ __device__ void ring_path(const T* __restrict__ cost,
   float* const cost_ring = reinterpret_cast<float*>(ring);
   float* const out_ring =
       reinterpret_cast<float*>(ring + kRingStages * kSlot);
+  // Stage s's partial row k at fold_ring + (s * NF + k) * kRow.
+  float* const fold_ring = out_ring + kRingStages * kRow;
   // Piece i of a row starts at float e[i]; in[i]: it lies inside D.
   int e[kPieces];
   bool in[kPieces];
@@ -324,6 +370,10 @@ __device__ void ring_path(const T* __restrict__ cost,
       if (d0 + j >= D) {
         if constexpr (kIsF32<T>) cost_ring[slot * kRow + d0 + j] = inf_f();
         if constexpr (ACC) out_ring[slot * kRow + d0 + j] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < NF; ++k) {
+          fold_ring[(slot * NF + k) * kRow + d0 + j] = 0.0f;
+        }
       }
     }
   }
@@ -358,6 +408,19 @@ __device__ void ring_path(const T* __restrict__ cost,
           copy16(odst, osrc + e[i], live && in[i]);
         } else {
           copy4(odst, osrc + e[i], live && in[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      const float* const fsrc = fold.partials + k * fold.plane + ahead;
+#pragma unroll
+      for (int i = 0; i < kPieces; ++i) {
+        float* const fdst = fold_ring + (slot * NF + k) * kRow + e[i];
+        if constexpr (VEC) {
+          copy16(fdst, fsrc + e[i], live && in[i]);
+        } else {
+          copy4(fdst, fsrc + e[i], live && in[i]);
         }
       }
     }
@@ -398,6 +461,13 @@ __device__ void ring_path(const T* __restrict__ cost,
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
       o[j] = ACC ? out_ring[slot * kRow + d0 + j] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        o[j] = __fadd_rn(o[j], fold_ring[(slot * NF + k) * kRow + d0 + j]);
+      }
     }
   };
   // out (+)= L at the pixel `at` (FINAL: result = bf16(out + L)); prev
@@ -523,6 +593,7 @@ __device__ void ring_path(const T* __restrict__ cost,
     if (path >= path_count(H, W, dy, dx)) return; /* whole warp leaves */  \
     ring_path<T, VPL, VEC, ACC, FINAL>(                                     \
         cost, image, out, result, H, W, D, dy, dx, p1, p2, path, carry,     \
+        Fold{},                                                             \
         reinterpret_cast<unsigned char*>(ring) +                            \
             warp * kRingBytes<T, VPL, VEC, ACC>);                           \
   }
@@ -530,6 +601,61 @@ STM_SGM_KERNEL(sgm_rows_kernel)        // dy = +-1, the whole image
 STM_SGM_KERNEL(sgm_horizontal_kernel)  // dy = 0
 STM_SGM_KERNEL(sgm_chunk_kernel)       // dy = +-1, a chunk of rows
 #undef STM_SGM_KERNEL
+
+// The side-by-side launch: traversal t of the first kSideBySide, with
+// step (dy[t], dx[t]), writes its L into dst[t]; its blocks are
+// [first[t], first[t + 1]).
+struct Side {
+  float* dst[kSideBySide];
+  int dy[kSideBySide];
+  int dx[kSideBySide];
+  int first[kSideBySide + 1];
+};
+
+template <typename T, int VPL, bool VEC>
+__global__ void sgm_side_by_side_kernel(const T* __restrict__ cost,
+                                        const float* __restrict__ image,
+                                        Side side, int H, int W, int D,
+                                        float p1, float p2) {
+  extern __shared__ __align__(16) float ring[];
+  int t = 0;
+#pragma unroll 1
+  while (t + 1 < kSideBySide && static_cast<int>(blockIdx.x) >=
+                                    side.first[t + 1]) {
+    ++t;
+  }
+  const int dy = side.dy[t];
+  const int dx = side.dx[t];
+  const int warp = threadIdx.x >> 5;
+  const int path = (static_cast<int>(blockIdx.x) - side.first[t]) *
+                       kRingWarpsPerBlock + warp;
+  if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
+  ring_path<T, VPL, VEC, false, false>(
+      cost, image, side.dst[t], nullptr, H, W, D, dy, dx, p1, p2, path,
+      Carry{nullptr, nullptr, nullptr, true}, Fold{},
+      reinterpret_cast<unsigned char*>(ring) +
+          warp * kRingBytes<T, VPL, VEC, false>);
+}
+
+// The folding launch: the last traversal, adding the kFolded partials and
+// its L onto out (FINAL: into result, rounded to bf16).
+template <typename T, int VPL, bool VEC, bool FINAL>
+__global__ void sgm_fold_kernel(const T* __restrict__ cost,
+                                const float* __restrict__ image,
+                                float* __restrict__ out,
+                                __nv_bfloat16* __restrict__ result, Fold fold,
+                                int H, int W, int D, int dy, int dx, float p1,
+                                float p2) {
+  extern __shared__ __align__(16) float ring[];
+  const int warp = threadIdx.x >> 5;
+  const int path = blockIdx.x * kRingWarpsPerBlock + warp;
+  if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
+  ring_path<T, VPL, VEC, true, FINAL, kFolded>(
+      cost, image, out, result, H, W, D, dy, dx, p1, p2, path,
+      Carry{nullptr, nullptr, nullptr, true}, fold,
+      reinterpret_cast<unsigned char*>(ring) +
+          warp * kRingBytes<T, VPL, VEC, true, kFolded>);
+}
 
 enum class Kind { kRows, kHorizontal, kChunk };
 
@@ -545,6 +671,41 @@ struct Launch {
   Carry carry;
 };
 
+// Launches `kernel` over `blocks` blocks with `smem` bytes of dynamic
+// shared memory, opting in past the default 48 KB.
+template <typename Kernel, typename... Args>
+int launch_blocks(Kernel kernel, size_t smem, int blocks, cudaStream_t stream,
+                  Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<blocks, 32 * kRingWarpsPerBlock, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f(std::integral_constant<int, VPL>{}) for the VPL that serves D.
+template <typename F>
+int by_vpl(int D, F&& f) {
+  if (D <= 32) return f(std::integral_constant<int, 1>{});
+  if (D <= 64) return f(std::integral_constant<int, 2>{});
+  if (D <= 128) return f(std::integral_constant<int, 4>{});
+  if (D <= 256) return f(std::integral_constant<int, 8>{});
+  return f(std::integral_constant<int, 16>{});
+}
+
+// go(std::true_type{}) where 16-byte pieces serve (VPL % 4 == 0 and
+// `vec`), else go(std::false_type{}).
+template <int VPL, typename F>
+int by_vec(bool vec, F&& go) {
+  if constexpr (VPL % 4 == 0) {
+    if (vec) return go(std::true_type{});
+  }
+  return go(std::false_type{});
+}
+
 template <typename T, int VPL, bool VEC, bool ACC, bool FINAL>
 int launch_kernel(Kind kind, const Launch& a, cudaStream_t stream) {
   using Kernel = decltype(&sgm_rows_kernel<T, VPL, VEC, ACC, FINAL>);
@@ -559,20 +720,13 @@ int launch_kernel(Kind kind, const Launch& a, cudaStream_t stream) {
                  ? &sgm_horizontal_kernel<T, VPL, VEC, ACC, FINAL>
                  : &sgm_chunk_kernel<T, VPL, VEC, ACC, FINAL>;
   }
-  constexpr size_t kSmem = static_cast<size_t>(kRingWarpsPerBlock) *
-                           kRingBytes<T, VPL, VEC, ACC>;
-  if constexpr (kSmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const int paths = path_count(a.H, a.W, a.dy, a.dx);
-  const int blocks = (paths + kRingWarpsPerBlock - 1) / kRingWarpsPerBlock;
-  kernel<<<blocks, 32 * kRingWarpsPerBlock, kSmem, stream>>>(
+  return launch_blocks(
+      kernel,
+      static_cast<size_t>(kRingWarpsPerBlock) * kRingBytes<T, VPL, VEC, ACC>,
+      (paths + kRingWarpsPerBlock - 1) / kRingWarpsPerBlock, stream,
       static_cast<const T*>(a.cost), a.image, a.out, a.result, a.H, a.W, a.D,
       a.dy, a.dx, a.p1, a.p2, a.carry);
-  return static_cast<int>(cudaGetLastError());
 }
 
 bool aligned(const void* p, std::uintptr_t bytes) {
@@ -626,11 +780,9 @@ int dispatch(Kind kind, const void* cost, const void* image, void* out,
                  H, W, D, dy, dx, p1, p2, carry};
   const auto s = static_cast<cudaStream_t>(stream);
   const bool acc = accumulate != 0;
-  if (D <= 32) return launch_ring<T, 1>(kind, a, acc, s);
-  if (D <= 64) return launch_ring<T, 2>(kind, a, acc, s);
-  if (D <= 128) return launch_ring<T, 4>(kind, a, acc, s);
-  if (D <= 256) return launch_ring<T, 8>(kind, a, acc, s);
-  return launch_ring<T, 16>(kind, a, acc, s);
+  return by_vpl(D, [&](auto vpl) {
+    return launch_ring<T, decltype(vpl)::value>(kind, a, acc, s);
+  });
 }
 
 // One row traversal (dy = +-1) over a chunk of H rows with carry hand-off:
@@ -653,6 +805,93 @@ int dispatch_chunk(const void* cost, const void* image, const void* carry,
                        static_cast<float*>(carry_out), seed != 0};
   return dispatch<T>(Kind::kChunk, cost, image, out, result, H, W, D, dy, dx,
                      p1, p2, accumulate, hand_off, stream);
+}
+
+// The side-by-side launch (the header of this file): the first
+// kSideBySide traversals of TRAVERSALS at once, traversal t with step
+// (steps[2t], steps[2t + 1]) (host ints, in TRAVERSALS order: the caller
+// passes them, so the order lives in ops/aggregation.py alone), traversal
+// 0 writing its L into out and traversal t > 0 into partial volume t - 1.
+// 16-byte pieces where launch_vec would take them for every destination.
+template <typename T>
+int dispatch_side(const void* cost, const void* image, void* out,
+                  void* partials, const int* steps, int H, int W, int D,
+                  float p1, float p2, void* stream) {
+  if (out == nullptr || partials == nullptr || steps == nullptr || D < 1 ||
+      D > 32 * 16 || H < 1 || W < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long plane = static_cast<long>(H) * W * D;
+  Side side;
+  side.first[0] = 0;
+  for (int t = 0; t < kSideBySide; ++t) {
+    const int dy = steps[2 * t];
+    const int dx = steps[2 * t + 1];
+    if (dy < -1 || dy > 1 || dx < -1 || dx > 1 || (dy == 0 && dx == 0)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    side.dst[t] = t == 0 ? static_cast<float*>(out)
+                         : static_cast<float*>(partials) + (t - 1) * plane;
+    side.dy[t] = dy;
+    side.dx[t] = dx;
+    const int paths = path_count(H, W, dy, dx);
+    side.first[t + 1] = side.first[t] +
+                        (paths + kRingWarpsPerBlock - 1) / kRingWarpsPerBlock;
+  }
+  const bool vec = D % (kIsF32<T> ? 4 : 8) == 0 && aligned(cost, 16) &&
+                   aligned(out, 16) && aligned(partials, 16);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const T*>(cost);
+  const auto* img = static_cast<const float*>(image);
+  return by_vpl(D, [&](auto vpl) {
+    constexpr int VPL = decltype(vpl)::value;
+    return by_vec<VPL>(vec, [&](auto v) {
+      constexpr bool VEC = decltype(v)::value;
+      return launch_blocks(&sgm_side_by_side_kernel<T, VPL, VEC>,
+                           static_cast<size_t>(kRingWarpsPerBlock) *
+                               kRingBytes<T, VPL, VEC, false>,
+                           side.first[kSideBySide], s, c, img, side, H, W, D,
+                           p1, p2);
+    });
+  });
+}
+
+// The folding launch: the row traversal (dy, dx) = the last of TRAVERSALS,
+// adding the kFolded partial volumes and its L onto out, or (bf16, with a
+// result) storing that sum rounded into result.
+template <typename T>
+int dispatch_fold(const void* cost, const void* image, void* out,
+                  const void* partials, void* result, int H, int W, int D,
+                  int dy, int dx, float p1, float p2, void* stream) {
+  const bool final_ok = kIsF32<T> ? result == nullptr : result != nullptr;
+  if (!(dy == 1 || dy == -1) || dx < -1 || dx > 1 || !final_ok ||
+      out == nullptr || partials == nullptr || D < 1 || D > 32 * 16 ||
+      H < 1 || W < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Fold fold{static_cast<const float*>(partials),
+                  static_cast<long>(H) * W * D};
+  const bool vec = D % (kIsF32<T> ? 4 : 8) == 0 && aligned(cost, 16) &&
+                   aligned(out, 16) && aligned(partials, 16) &&
+                   (kIsF32<T> || aligned(result, 8));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const T*>(cost);
+  const auto* img = static_cast<const float*>(image);
+  auto* o = static_cast<float*>(out);
+  auto* r = static_cast<__nv_bfloat16*>(result);
+  const int paths = path_count(H, W, dy, dx);
+  const int blocks = (paths + kRingWarpsPerBlock - 1) / kRingWarpsPerBlock;
+  return by_vpl(D, [&](auto vpl) {
+    constexpr int VPL = decltype(vpl)::value;
+    return by_vec<VPL>(vec, [&](auto v) {
+      constexpr bool VEC = decltype(v)::value;
+      return launch_blocks(&sgm_fold_kernel<T, VPL, VEC, !kIsF32<T>>,
+                           static_cast<size_t>(kRingWarpsPerBlock) *
+                               kRingBytes<T, VPL, VEC, true, kFolded>,
+                           blocks, s, c, img, o, r, fold, H, W, D, dy, dx, p1,
+                           p2);
+    });
+  });
 }
 
 }  // namespace
@@ -725,4 +964,45 @@ extern "C" int stm_sgm_chunk_bf16(const void* cost, const void* image,
   return dispatch_chunk<__nv_bfloat16>(cost, image, carry, carry_image, out,
                                        result, carry_out, H, W, D, dy, dx,
                                        p1, p2, seed, accumulate, stream);
+}
+
+// The side-by-side form of the whole aggregation, float32 and bf16 cost
+// volumes: dispatch_side, then dispatch_fold on the same stream.  out and
+// partials ([6, H, W, D]) are float32; steps holds the seven (dy, dx)
+// pairs of the side-by-side launch, host ints.
+extern "C" int stm_sgm_side_by_side_f32(const void* cost, const void* image,
+                                        void* out, void* partials,
+                                        const int* steps, int H, int W, int D,
+                                        float p1, float p2, void* stream) {
+  return dispatch_side<float>(cost, image, out, partials, steps, H, W, D, p1,
+                              p2, stream);
+}
+
+extern "C" int stm_sgm_side_by_side_bf16(const void* cost, const void* image,
+                                         void* out, void* partials,
+                                         const int* steps, int H, int W,
+                                         int D, float p1, float p2,
+                                         void* stream) {
+  return dispatch_side<__nv_bfloat16>(cost, image, out, partials, steps, H,
+                                      W, D, p1, p2, stream);
+}
+
+// The last traversal (dy = +-1), folding the partials: out = ((out + P_1)
+// + ... + P_6) + L.
+extern "C" int stm_sgm_fold_f32(const void* cost, const void* image,
+                                void* out, const void* partials, int H, int W,
+                                int D, int dy, int dx, float p1, float p2,
+                                void* stream) {
+  return dispatch_fold<float>(cost, image, out, partials, nullptr, H, W, D,
+                              dy, dx, p1, p2, stream);
+}
+
+// As stm_sgm_fold_f32, the sum stored rounded to bf16 into result (out is
+// only read).
+extern "C" int stm_sgm_fold_bf16(const void* cost, const void* image,
+                                 void* out, const void* partials,
+                                 void* result, int H, int W, int D, int dy,
+                                 int dx, float p1, float p2, void* stream) {
+  return dispatch_fold<__nv_bfloat16>(cost, image, out, partials, result, H,
+                                      W, D, dy, dx, p1, p2, stream);
 }

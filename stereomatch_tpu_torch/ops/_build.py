@@ -50,6 +50,8 @@ _L = ctypes.c_longlong
 
 _SSD = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 _SGM = (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P)
+_SIDE = (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)
+_FOLD = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P)
 _DP_FORWARD = (_P, _P, _P, _I, _I, _I, _P)
 _CVF_STATS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
               _P)
@@ -79,6 +81,14 @@ _SIGNATURES = {
     #  dy, dx, p1, p2, seed, accumulate, stream)
     "stm_sgm_chunk_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _F, _F, _I, _I, _P),
+    # The side-by-side form: (cost, image, out, partials, steps (seven
+    # (dy, dx) pairs, host ints), H, W, D, p1, p2, stream), then the fold
+    # (cost, image, out, partials, H, W, D, dy, dx, p1, p2, stream), the
+    # bf16 fold with result after partials.
+    "stm_sgm_side_by_side_f32": _SIDE,
+    "stm_sgm_side_by_side_bf16": _SIDE,
+    "stm_sgm_fold_f32": _FOLD,
+    "stm_sgm_fold_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     # (cost, ptr, final_costs, H, W, D, stream)
     "stm_dp_forward_f32": _DP_FORWARD,
     "stm_dp_forward_bf16": _DP_FORWARD,

@@ -10,7 +10,29 @@ oracles, are ``ops/aggregation.py::semiglobal_aggregate`` and
 ``::sweep_chunk_with_carry``; on the same inputs each kernel equals its
 plain version bit for bit: the recurrence is only IEEE-rounded
 sub/add/div and exact min/max, and the traversals accumulate in the
-plain version's order, one launch each.
+plain version's order.
+
+:func:`semiglobal_aggregate_cuda` has two forms of the whole aggregation.
+The serial form launches the traversals of ``TRAVERSALS`` one after
+another, each adding its path costs L into ``out`` in place.  The
+side-by-side form runs them in two launches: ``sgm_side_by_side_kernel``
+walks the first seven traversals at once, traversal 0 writing its L
+into ``out`` and each of the others into a float32 partial volume of
+its own; ``sgm_fold_kernel`` then walks the last traversal, brings the
+six partial rows of each pixel beside its cost and ``out`` rows, and
+forms ``out + P1 + ... + P6 + L`` in that order.  No traversal reads
+another's L, so only the order of the additions ties them together, and
+the fold keeps that order and each rounding: both forms give the same
+bits, NaN and +-inf included.  Both move the same bytes (23 volume
+passes a frame); the side-by-side form puts the seven traversals' paths
+on the card at once where one traversal's paths (one warp each) leave
+most of it idle, and pays six volumes of scratch for it.
+``_takes_side_by_side``, a function of the shape alone, picks the
+side-by-side form wherever its scratch stays within
+``SIDE_BY_SIDE_SCRATCH_BYTES``.  The row-sharded, disparity-block and
+process-mesh paths call :func:`traverse_cuda` and
+:func:`sweep_chunk_with_carry_cuda` themselves and keep the serial
+chain: their carries cross tiles.
 
 All three kernels walk their paths the same way: operands come through a
 ring of asynchronous copies eight steps deep, one path per one-warp
@@ -24,11 +46,13 @@ last traversal stores ``out + L`` rounded once to bf16 into a separate
 ``result``, as the plain version (and XLA) round the float32 sum once.
 
 ``_build.LAUNCHES`` counts the launches of each entry point
-(``stm_sgm_{rows,horizontal,chunk}_{f32,bf16}``), so a run can show that
-it went through them.
+(``stm_sgm_{rows,horizontal,chunk,side_by_side,fold}_{f32,bf16}``), so a
+run can show that it went through them, and in which form.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -38,6 +62,12 @@ from .aggregation import TRAVERSALS
 VOLUME_DTYPES = (torch.float32, torch.bfloat16)
 
 MAX_DISPARITY = 512         # 32 lanes x 16 registers per lane
+
+# The most scratch the side-by-side form of semiglobal_aggregate_cuda may
+# take: its six float32 partial volumes, 24 bytes a cell of the volume.
+# 4 GiB, a twentieth of an H100's memory: HD 1024x1280 at D = 128 (3.75
+# GiB) fits, at D = 256 (7.5 GiB) it does not (_takes_side_by_side).
+SIDE_BY_SIDE_SCRATCH_BYTES = 4 << 30
 
 
 def fits(shape) -> bool:
@@ -121,17 +151,31 @@ def traverse_cuda(cost: torch.Tensor, image: torch.Tensor,
     _build.check_launch(name, status)
 
 
-def semiglobal_aggregate_cuda(cost_volume: torch.Tensor,
-                              left_image: torch.Tensor, *,
-                              penalty1: float = 0.1,
-                              penalty2: float = 0.2) -> torch.Tensor:
-    """8-direction SGM aggregation [H, W, D] on the card, in the cost's
-    dtype: the traversals of ``TRAVERSALS`` in order, accumulated in place
-    into a float32 volume; for a bf16 cost the last traversal rounds the
-    sum into the bf16 result."""
-    cost = cost_volume.contiguous()
-    image = left_image.to(torch.float32).contiguous()
-    _check(cost, image)
+def _side_by_side_scratch_bytes(height: int, width: int,
+                                max_disp: int) -> int:
+    """Bytes of the partial volumes the side-by-side form allocates at
+    [height, width, max_disp]: one float32 volume for each traversal
+    between the first and the last."""
+    return (len(TRAVERSALS) - 2) * height * width * max_disp * 4
+
+
+def _takes_side_by_side(height: int, width: int, max_disp: int) -> bool:
+    """Whether :func:`semiglobal_aggregate_cuda` takes the side-by-side
+    form at [height, width, max_disp]: wherever its partial volumes fit
+    in ``SIDE_BY_SIDE_SCRATCH_BYTES``.  Of the shapes timed in both forms
+    on an H100 (PERF.md §6), the side-by-side form was faster at every
+    one inside that bound (teddy, 0.79 against 1.04 ms; 1024x1280 at
+    D = 128, 5.99 against 6.27) and slower at the one float32 shape
+    beyond it (1024x1280 at D = 256, 12.20 against 11.77)."""
+    return (_side_by_side_scratch_bytes(height, width, max_disp)
+            <= SIDE_BY_SIDE_SCRATCH_BYTES)
+
+
+def _aggregate_serial(cost: torch.Tensor, image: torch.Tensor,
+                      penalty1: float, penalty2: float) -> torch.Tensor:
+    """The serial form: the traversals of ``TRAVERSALS`` one launch each,
+    in order, accumulated in place into a float32 volume; for a bf16 cost
+    the last traversal rounds the sum into the bf16 result."""
     out = torch.empty(cost.shape, dtype=torch.float32, device=cost.device)
     result = None
     if cost.dtype == torch.bfloat16:
@@ -141,6 +185,63 @@ def semiglobal_aggregate_cuda(cost_volume: torch.Tensor,
         traverse_cuda(cost, image, out, step, penalty1, penalty2,
                       accumulate=i > 0, result=result if i == last else None)
     return out if result is None else result
+
+
+def _aggregate_side_by_side(cost: torch.Tensor, image: torch.Tensor,
+                            penalty1: float, penalty2: float
+                            ) -> torch.Tensor:
+    """The side-by-side form: one launch walks the first seven traversals
+    at once, the first into ``out`` and the others each into a float32
+    partial volume of its own; a second walks the last and forms
+    ``out + P1 + ... + P6 + L`` in that order (bf16: rounded once into
+    the result).  Bit-equal to :func:`_aggregate_serial`."""
+    height, width, max_disp = cost.shape
+    out = torch.empty(cost.shape, dtype=torch.float32, device=cost.device)
+    if cost.numel() == 0:
+        return out.to(cost.dtype)
+    partials = torch.empty((len(TRAVERSALS) - 2, *cost.shape),
+                           dtype=torch.float32, device=cost.device)
+    bf16 = cost.dtype == torch.bfloat16
+    sfx = "bf16" if bf16 else "f32"
+    lib = _build.library()
+    p1, p2 = float(penalty1), float(penalty2)
+    # (dy, dx) of each traversal the first launch walks, in order.
+    steps = (ctypes.c_int * (2 * len(TRAVERSALS) - 2))(
+        *(v for step in TRAVERSALS[:-1] for v in step))
+    with torch.cuda.device(cost.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        name = f"stm_sgm_side_by_side_{sfx}"
+        _build.check_launch(name, getattr(lib, name)(
+            cost.data_ptr(), image.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), ctypes.addressof(steps), height, width,
+            max_disp, p1, p2, stream))
+        dy, dx = TRAVERSALS[-1]
+        name = f"stm_sgm_fold_{sfx}"
+        args = [cost.data_ptr(), image.data_ptr(), out.data_ptr(),
+                partials.data_ptr()]
+        result = None
+        if bf16:
+            result = torch.empty_like(cost)
+            args.append(result.data_ptr())
+        _build.check_launch(name, getattr(lib, name)(
+            *args, height, width, max_disp, dy, dx, p1, p2, stream))
+    return out if result is None else result
+
+
+def semiglobal_aggregate_cuda(cost_volume: torch.Tensor,
+                              left_image: torch.Tensor, *,
+                              penalty1: float = 0.1,
+                              penalty2: float = 0.2) -> torch.Tensor:
+    """8-direction SGM aggregation [H, W, D] on the card, in the cost's
+    dtype (a bf16 cost's sum is formed in float32 and rounded once), in
+    the form :func:`_takes_side_by_side` picks for the shape: both give
+    the plain version's volume bit for bit."""
+    cost = cost_volume.contiguous()
+    image = left_image.to(torch.float32).contiguous()
+    _check(cost, image)
+    if _takes_side_by_side(*cost.shape):
+        return _aggregate_side_by_side(cost, image, penalty1, penalty2)
+    return _aggregate_serial(cost, image, penalty1, penalty2)
 
 
 def sweep_chunk_with_carry_cuda(cost: torch.Tensor, image: torch.Tensor,

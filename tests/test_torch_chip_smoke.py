@@ -39,6 +39,25 @@ def test_sgm_design_bytes(tag):
         assert work[name][0] == 2 * volume + image
 
 
+@pytest.mark.parametrize("volume_bytes", (4, 2))
+@pytest.mark.parametrize("tag", GEOMETRIES)
+def test_sgm_side_by_side_moves_the_serial_forms_bytes(tag, volume_bytes):
+    """sgm_side, the whole aggregation in the side-by-side form: seven L
+    volumes written beside seven cost reads, then the fold's cost, out
+    and six partial reads and one write; the same bytes as the serial
+    form's two families, and their operations together."""
+    h, w, d, k, r, tiles = GEOMETRIES[tag]
+    vol, image = h * w * d, h * w * 4
+    v = volume_bytes
+    work = chip_smoke.kernel_work(h, w, d, k, r, tiles, volume_bytes=v)
+    side, rows, horiz = (work[n] for n in ("sgm_side", "sgm_rows",
+                                           "sgm_horizontal"))
+    assert side[2] == (7 * (v + 4) + 2 * v + 7 * 4) * vol + 8 * image
+    assert side[2] == rows[2] + horiz[2]
+    assert side[0] == rows[0] == 2 * v * vol + image
+    assert side[1] == rows[1] + horiz[1]
+
+
 @pytest.mark.parametrize("tag,rows_ms,horizontal_ms", [
     ("teddy", 0.4654, 0.1294), ("hd", 7.2211, 2.0064)])
 def test_design_floor_ms(tag, rows_ms, horizontal_ms):
@@ -269,12 +288,12 @@ def test_soak_phase_cells():
     rows on the golden scene's seed, HD 4 of 256 on main's seed 11), the
     soak's kernels are counted entry points, and
     the trace must name the three stage spans and the main path's
-    kernels."""
+    kernels (teddy's SGM in the side-by-side form)."""
     assert chip_smoke.SOAK_BANDS == {"teddy": (375, 450, 128, 7, 75, 2026),
                                      "hd": (1024, 1280, 256, 7, 256, 11)}
     for h, _, _, _, rows, _ in chip_smoke.SOAK_BANDS.values():
         assert h % rows == 0
     assert set(chip_smoke.SOAK_KERNELS) <= set(chip_smoke.COUNTERS)
     assert {"stm/cost", "stm/aggregation", "stm/disparity_reduce",
-            "ssd_kernel", "sgm_rows_kernel",
-            "sgm_horizontal_kernel"} == set(chip_smoke.TRACE_NAMES)
+            "ssd_kernel", "sgm_side_by_side_kernel",
+            "sgm_fold_kernel"} == set(chip_smoke.TRACE_NAMES)

@@ -182,3 +182,67 @@ def test_sgm_launchers_refuse_cpu_tensors_for_every_traversal(counters,
                                                  penalty1=0.1, penalty2=0.2,
                                                  seed=True)
     assert _all_zero()
+
+
+# The two forms of sgm_cuda.semiglobal_aggregate_cuda, float32 on an
+# H100 (CUDA events, median of 20; PERF.md §6): [H, W, D] -> (serial,
+# side by side) ms.  The rule must take the faster at each.
+SGM_FORM_TIMES = {(375, 450, 128): (1.0352, 0.7933),
+                  (375, 450, 256): (1.6854, 1.5900),
+                  (480, 640, 128): (1.5451, 1.3848),
+                  (375, 1242, 128): (2.2957, 1.9985),
+                  (540, 960, 128): (2.4101, 2.2344),
+                  (720, 1280, 128): (4.3734, 4.1839),
+                  (1024, 1280, 128): (6.2734, 5.9916),
+                  (1024, 1280, 256): (11.7737, 12.1983)}
+
+
+def test_sgm_form_rule_takes_side_by_side_at_teddy():
+    """Teddy's six partial volumes, 518 MB, fit the bound."""
+    assert sgm_cuda._takes_side_by_side(375, 450, 128)
+
+
+def test_sgm_form_rule_takes_serial_at_hd():
+    """At 1024x1280 D=256 the partials would take 7.5 GiB, and the serial
+    form measured faster."""
+    assert not sgm_cuda._takes_side_by_side(1024, 1280, 256)
+
+
+@pytest.mark.parametrize("shape", sorted(SGM_FORM_TIMES), ids=str)
+def test_sgm_form_rule_takes_the_form_measured_faster(shape):
+    serial_ms, side_ms = SGM_FORM_TIMES[shape]
+    assert sgm_cuda._takes_side_by_side(*shape) == (side_ms < serial_ms)
+
+
+SGM_RULE_CASES = [(h, w, d) for h, w in ((1, 1), (48, 80), (375, 450),
+                                         (1024, 1280), (2160, 3840))
+                  for d in (1, 16, 33, 128, 256, 512)]
+
+
+def test_sgm_form_rule_reads_nothing_but_the_shape(monkeypatch):
+    """The rule asks no device, environment or state: the same shape gives
+    the same form, with every device query broken; a larger frame never
+    turns a serial shape side by side."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the rule queried the device")
+    monkeypatch.setattr(torch.cuda, "get_device_properties", refuse)
+    monkeypatch.setattr(torch.cuda, "is_available", refuse)
+    first = [sgm_cuda._takes_side_by_side(*c) for c in SGM_RULE_CASES]
+    assert first == [sgm_cuda._takes_side_by_side(*c)
+                     for c in SGM_RULE_CASES]
+    for (h, w, d), side in zip(SGM_RULE_CASES, first):
+        if not side:
+            assert not sgm_cuda._takes_side_by_side(2 * h, w, d)
+            assert not sgm_cuda._takes_side_by_side(h, 2 * w, d)
+            assert not sgm_cuda._takes_side_by_side(h, w, 2 * d)
+
+
+@pytest.mark.parametrize("shape", SGM_RULE_CASES, ids=str)
+def test_sgm_form_rule_bounds_the_scratch(shape):
+    """The side-by-side form is taken exactly where its six float32
+    partial volumes fit ``SIDE_BY_SIDE_SCRATCH_BYTES``."""
+    h, w, d = shape
+    scratch = 6 * h * w * d * 4
+    assert sgm_cuda._side_by_side_scratch_bytes(h, w, d) == scratch
+    assert sgm_cuda._takes_side_by_side(h, w, d) == (
+        scratch <= sgm_cuda.SIDE_BY_SIDE_SCRATCH_BYTES)

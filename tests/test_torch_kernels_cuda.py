@@ -117,16 +117,61 @@ SGM_SHAPES = SHAPES + [(9, 14, 1, 2), (23, 31, 37, 3), (17, 29, 129, 2),
                        (12, 3, 40, 2), (20, 26, 128, 3)]
 
 
+# The two forms of semiglobal_aggregate_cuda: eight launches in TRAVERSALS
+# order, or seven traversals side by side and the last folding their sum.
+SGM_FORMS = {"serial": sgm_cuda._aggregate_serial,
+             "side_by_side": sgm_cuda._aggregate_side_by_side}
+
+
+def _sgm_launches(launches, sfx="f32"):
+    """The launches of the whole-image SGM entry points."""
+    return {name: launches[f"stm_sgm_{name}_{sfx}"]
+            for name in ("rows", "horizontal", "side_by_side", "fold")}
+
+
+def _sgm_counts(shape, frames=1):
+    """What :func:`_sgm_launches` reads after ``frames`` aggregations of
+    [H, W, D] ``shape``: the form the rule picks there."""
+    if sgm_cuda._takes_side_by_side(*shape):
+        return dict(rows=0, horizontal=0, side_by_side=frames, fold=frames)
+    return dict(rows=6 * frames, horizontal=2 * frames, side_by_side=0,
+                fold=0)
+
+
+@pytest.mark.parametrize("form", SGM_FORMS)
 @pytest.mark.parametrize("shape", SGM_SHAPES, ids=str)
-def test_sgm_kernels_bit_equal(device, shape):
+def test_sgm_kernels_bit_equal(device, shape, form):
     h, w, d, k = shape
     left, right = _images(h, w, 2 * h + w, device)
     vol = cost_ops.ssd_cost_volume(left, right, max_disparity=d,
                                    kernel_size=k)
     ref = agg_ops.semiglobal_aggregate(vol, left, penalty1=0.2, penalty2=0.9)
-    out = sgm_cuda.semiglobal_aggregate_cuda(vol, left, penalty1=0.2,
-                                             penalty2=0.9)
+    out = SGM_FORMS[form](vol, left, 0.2, 0.9)
     assert torch.equal(out, ref)
+
+
+def test_sgm_forms_equal_at_teddy(device, launches):
+    """Both forms at the teddy shape, float32 and bf16: torch.equal, each
+    through its own entry points, and the rule takes the side-by-side
+    form there."""
+    left, right = _images(375, 450, 21, device)
+    for dtype, sfx in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        vol = cost_ops.ssd_cost_volume(left, right, max_disparity=128,
+                                       kernel_size=7, cost_dtype=dtype)
+        launches.clear()
+        serial = sgm_cuda._aggregate_serial(vol, left, 0.1, 0.2)
+        assert _sgm_launches(launches, sfx) == dict(
+            rows=6, horizontal=2, side_by_side=0, fold=0)
+        launches.clear()
+        side = sgm_cuda._aggregate_side_by_side(vol, left, 0.1, 0.2)
+        assert _sgm_launches(launches, sfx) == dict(
+            rows=0, horizontal=0, side_by_side=1, fold=1)
+        assert side.dtype == dtype and torch.equal(side, serial)
+        launches.clear()
+        assert torch.equal(sgm_cuda.semiglobal_aggregate_cuda(
+            vol, left, penalty1=0.1, penalty2=0.2), serial)
+        assert _sgm_launches(launches, sfx) == _sgm_counts(vol.shape)
+        assert launches[f"stm_sgm_side_by_side_{sfx}"] == 1
 
 
 def _family_sums(vol, image):
@@ -142,7 +187,8 @@ def _family_sums(vol, image):
     return out
 
 
-def test_sgm_ring_misaligned_volume_takes_element_copies(device):
+@pytest.mark.parametrize("form", SGM_FORMS)
+def test_sgm_ring_misaligned_volume_takes_element_copies(device, form):
     """A volume 4 bytes off a 16-byte boundary (D % 4 == 0) cannot take
     16-byte copies; the kernels copy element by element and agree."""
     left, right = _images(19, 27, 8, device)
@@ -155,33 +201,45 @@ def test_sgm_ring_misaligned_volume_takes_element_copies(device):
     for got, want in zip(_family_sums(shifted, left),
                          _family_sums(vol, left)):
         assert torch.equal(got, want)
-    assert torch.equal(
-        sgm_cuda.semiglobal_aggregate_cuda(shifted, left),
-        agg_ops.semiglobal_aggregate(vol, left))
+    assert torch.equal(SGM_FORMS[form](shifted, left, 0.1, 0.2),
+                       agg_ops.semiglobal_aggregate(vol, left))
 
 
-def test_sgm_kernel_nan_and_inf_like_plain(device):
+@pytest.mark.parametrize("form", SGM_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sgm_kernel_nan_and_inf_like_plain(device, form, dtype):
     """A pixel whose costs are all +inf gives inf - inf in the band; the
-    kernels must produce what the plain version produces, NaN included."""
+    kernels must produce what the plain version produces, NaN included
+    (and every NaN's bits: the same operations in the same order)."""
     left, right = _images(9, 14, 1, device)
     vol = cost_ops.ssd_cost_volume(left, right, max_disparity=6,
-                                   kernel_size=2)
+                                   kernel_size=2, cost_dtype=dtype)
     vol[4, 7, :] = float("inf")
+    vol[2, 3, 1] = float("-inf")
     ref = agg_ops.semiglobal_aggregate(vol, left)
-    out = sgm_cuda.semiglobal_aggregate_cuda(vol, left)
+    out = SGM_FORMS[form](vol, left, 0.1, 0.2)
+    assert torch.isnan(ref).any() and torch.isinf(ref).any()
     assert torch.equal(torch.isnan(out), torch.isnan(ref))
     keep = ~torch.isnan(ref)
     assert torch.equal(out[keep], ref[keep])
+    if form == "side_by_side":
+        serial = sgm_cuda._aggregate_serial(vol, left, 0.1, 0.2)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(out.view(bits), serial.view(bits))
 
 
 def test_main_path_goes_through_kernels(device, launches):
+    """At 48x80 D=16 the rule takes the side-by-side form: one launch of
+    the first seven traversals and one of the folding last."""
     left, right, _ = stereo_pair(48, 80, 16, seed=7)
+    assert sgm_cuda._takes_side_by_side(48, 80, 16)
     pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=16)
     disp = pipe.estimate(left, right, device=device)
     assert disp.is_cuda
     assert launches["stm_ssd_f32"] == 1
-    assert launches["stm_sgm_rows_f32"] == 6
-    assert launches["stm_sgm_horizontal_f32"] == 2
+    assert _sgm_launches(launches) == dict(rows=0, horizontal=0,
+                                           side_by_side=1, fold=1)
     plain = pipe.estimate(left, right, device="cpu")
     assert torch.equal(disp.cpu(), plain)
 
@@ -587,27 +645,28 @@ def _bf16_ssd(h, w, d, k, seed, device):
                                           kernel_size=k, cost_dtype=BF16)
 
 
+@pytest.mark.parametrize("form", SGM_FORMS)
 @pytest.mark.parametrize("shape", SGM_SHAPES, ids=str)
-def test_sgm_kernels_bf16_bit_equal(device, shape):
+def test_sgm_kernels_bf16_bit_equal(device, shape, form):
     """Seven traversals into the float32 partial sum, the eighth rounding
     it into the bf16 result: equal to the plain version's one rounding."""
     h, w, d, k = shape
     left, vol = _bf16_ssd(h, w, d, k, 2 * h + w, device)
     ref = agg_ops.semiglobal_aggregate(vol, left, penalty1=0.2, penalty2=0.9)
-    out = sgm_cuda.semiglobal_aggregate_cuda(vol, left, penalty1=0.2,
-                                             penalty2=0.9)
+    out = SGM_FORMS[form](vol, left, 0.2, 0.9)
     assert out.dtype == BF16 and torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("form", SGM_FORMS)
 @pytest.mark.parametrize("elements", [1, 2, 3])
 @pytest.mark.parametrize("d", [96, 37])
-def test_sgm_kernels_bf16_on_misaligned_views(device, elements, d):
+def test_sgm_kernels_bf16_on_misaligned_views(device, elements, d, form):
     """bf16 rows at every 2-byte offset: the ring copies the aligned
     16-byte pieces that hold them."""
     left, vol = _bf16_ssd(19, 27, d, 3, 8, device)
     shifted = _offset_view(vol, elements)
     ref = agg_ops.semiglobal_aggregate(vol, left)
-    assert torch.equal(sgm_cuda.semiglobal_aggregate_cuda(shifted, left), ref)
+    assert torch.equal(SGM_FORMS[form](shifted, left, 0.1, 0.2), ref)
 
 
 def test_sgm_kernels_bf16_at_hd(device):
@@ -757,8 +816,8 @@ def test_bf16_paths_go_through_the_bf16_kernels(device, launches, cost,
     assert not any(name.endswith(("_f32", "_i32")) for name in launches
                    if launches[name])
     assert launches["stm_ssd_bf16"] == (cost != "census")
-    assert launches["stm_sgm_rows_bf16"] == (6 if aggr == "sgm" else 0)
-    assert launches["stm_sgm_horizontal_bf16"] == (2 if aggr == "sgm" else 0)
+    assert _sgm_launches(launches, "bf16") == _sgm_counts(
+        (48, 80, 16), frames=int(aggr == "sgm"))
     assert launches["stm_dp_forward_bf16"] == (reducer == "dyn")
     assert launches["stm_cvf_stats_bf16"] == (aggr == "cvf")
     assert launches["stm_cvf_filter_bf16"] == (aggr == "cvf")
@@ -919,7 +978,7 @@ def test_refined_pipeline_on_card_equals_cpu(device, launches, flags):
     pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=24)
     pipe.cost.kernel_size = 3
     out = pipe.estimate_refined(left, right, **flags)
-    assert out.is_cuda and launches["stm_sgm_rows_f32"] > 0
+    assert out.is_cuda and launches["stm_sgm_side_by_side_f32"] > 0
     conf = pipe.last_confidence()
     ref = pipe.estimate_refined(left, right, device="cpu", **flags)
     assert torch.equal(out.cpu(), ref)
@@ -962,7 +1021,7 @@ def test_cost_families_on_the_card_equal_the_cpu(device, launches, cost, h,
     vol = pipe._cost_volume
     assert disp.is_cuda and vol.is_cuda
     assert launches["stm_ssd_f32"] == (1 if cost == "ssd-texture" else 0)
-    assert launches["stm_sgm_rows_f32"] == 6
+    assert _sgm_launches(launches) == _sgm_counts((h, w, d))
     assert torch.equal(disp.cpu(), pipe.estimate(left, right, device="cpu"))
     assert torch.equal(vol.cpu(), pipe._cost_volume)
 
@@ -1111,8 +1170,7 @@ def test_pyramid_on_the_card_equals_cpu(device, launches, levels, dtype):
     out = pipe.estimate(left, right)
     sfx = "bf16" if dtype == "bfloat16" else "f32"
     assert out.is_cuda and out.dtype == torch.int32
-    assert launches[f"stm_sgm_rows_{sfx}"] == 6
-    assert launches[f"stm_sgm_horizontal_{sfx}"] == 2
+    assert _sgm_launches(launches, sfx) == _sgm_counts((45, 67, 32))
     assert torch.equal(out.cpu(), pipe.estimate(left, right, device="cpu"))
     refined = pipe.estimate_refined(left, right)
     assert torch.equal(refined.cpu(),
@@ -1357,8 +1415,8 @@ def test_disparity_blocks_launch_their_kernels(device, launches):
 
 def test_2d_tiles_launch_their_kernels(device, launches):
     """ssd+sgm+wta over (1, 2, 2) tiles on one card at a covering
-    overlap: one SSD launch and the SGM families on each tile, equal to
-    the single-card path."""
+    overlap: one SSD launch and one SGM aggregation on each tile, equal
+    to the single-card path."""
     from stereomatch_tpu_torch.parallel import (make_mesh_2d,
                                                 make_tiled2d_estimate)
     left, right, _ = stereo_pair(64, 96, 32, seed=3)
@@ -1366,8 +1424,8 @@ def test_2d_tiles_launch_their_kernels(device, launches):
                                max_disparity=32, kernel_size=3, overlap=96)
     out = fn(left[None], right[None])[0]
     assert launches["stm_ssd_f32"] == 4
-    assert launches["stm_sgm_rows_f32"] == 24
-    assert launches["stm_sgm_horizontal_f32"] == 8
+    # Each tile is no larger than the frame, whose form the rule picks.
+    assert _sgm_launches(launches) == _sgm_counts((64, 96, 32), frames=4)
     pipe = cli_common.create_pipeline("ssd", "wta", "sgm", max_disparity=32,
                                       kernel_size=3)
     assert torch.equal(out, pipe.estimate(left, right, device="cuda"))
