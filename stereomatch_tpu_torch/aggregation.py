@@ -17,7 +17,9 @@ from .utils.backend import resolve_backend
 class Semiglobal:
     """Semiglobal-matching aggregation (Hirschmuller 2005) over 8 path
     directions with an image-gradient-adaptive second penalty
-    (reference: stereomatch/aggregation.py:12-57).
+    (reference: stereomatch/aggregation.py:12-57), or with the constant
+    one of Hirschmuller's standard form (``adaptive_p2=False``, the
+    port's own: the JAX package has only the adaptive one).
 
     ``sga_volume=`` is accepted for source compatibility and ignored.
     The cost volume must be float32 or bfloat16 (the result has its
@@ -27,12 +29,14 @@ class Semiglobal:
     """
 
     def __init__(self, penalty1: float = 0.1, penalty2: float = 0.2,
-                 backend: str = "auto"):
+                 adaptive_p2: bool = True, backend: str = "auto"):
         """
         Args:
             penalty1: cost penalty for changing disparity by one level.
             penalty2: base penalty for larger disparity jumps, scaled by the
               inverse image gradient (P2_adj = max(P1, P2 / |dI|)).
+            adaptive_p2: False takes P2_adj = max(P1, P2) at every step
+              (the constant P2 of KITTI's census + SGM deployments).
             backend: "auto" (the CUDA kernels for CUDA tensors of a D
               they serve, ``sgm_cuda.fits``; the plain version for the
               rest, on the tensors' own device), "cuda" (the kernels;
@@ -42,6 +46,7 @@ class Semiglobal:
         """
         self.penalty1 = penalty1
         self.penalty2 = penalty2
+        self.adaptive_p2 = adaptive_p2
         self.backend = backend
 
     def __call__(self, cost_volume: torch.Tensor, left_image: torch.Tensor,
@@ -58,10 +63,12 @@ class Semiglobal:
         if resolve_backend(self.backend, cost_volume, fits) == "cuda":
             return sgm_cuda.semiglobal_aggregate_cuda(
                 cost_volume, left_image, penalty1=float(self.penalty1),
-                penalty2=float(self.penalty2))
+                penalty2=float(self.penalty2),
+                adaptive_p2=bool(self.adaptive_p2))
         return semiglobal_aggregate(cost_volume, left_image,
                                     penalty1=float(self.penalty1),
-                                    penalty2=float(self.penalty2))
+                                    penalty2=float(self.penalty2),
+                                    adaptive_p2=bool(self.adaptive_p2))
 
 
 class CostFilter:

@@ -28,6 +28,7 @@ DEFAULT_CONFIGS = [
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from ..cli_common import add_census_sgm_options
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("dataset_dir", nargs="?", default=None,
                         help="Middlebury-format dataset dir (omit with "
@@ -114,6 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--census-window", type=int, default=5,
                         help="census configs: code window (odd; >5 packs "
                              "several int32 words).")
+    add_census_sgm_options(parser)
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="Where the pipelines run: the card (default) "
                              "or the CPU.")
@@ -193,7 +195,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from ..cli_common import create_pipeline, start_device
+    from ..cli_common import census_sgm_refusal, create_pipeline, start_device
     from ..io.data import MiddleburyDataset
     from ..metrics import evaluate, metrics_markdown_table
     from ..pipeline import host_array
@@ -203,6 +205,13 @@ def main(argv=None) -> int:
 
     configs = (parse_configs(args.configs) if args.configs
                else DEFAULT_CONFIGS)
+    # The tuner and the pyramid run a square census and the adaptive P2.
+    refusal = census_sgm_refusal(args, "--tune") if args.tune else None
+    if refusal is None and any(c[1] is None for c in configs):
+        refusal = census_sgm_refusal(args, "a pyramidN config")
+    if refusal:
+        print(refusal, file=sys.stderr)
+        return 2
     if args.synthetic:
         from ..io.synthetic import stereo_pair_occluded
         h, w, d = (int(v) for v in args.synthetic_size.split("x"))
@@ -312,6 +321,8 @@ def main(argv=None) -> int:
                                        cvf_radius=args.cvf_radius,
                                        cvf_eps=args.cvf_eps,
                                        census_window=args.census_window,
+                                       census_height=args.census_height,
+                                       adaptive_p2=not args.constant_p2,
                                        device=args.device, **penalty_kwargs)
         per_scene = []
         for item in items:

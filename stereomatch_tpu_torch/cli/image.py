@@ -26,7 +26,7 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     from ..cli_common import (AGGREGATION_METHODS, COST_METHODS,
-                              DISPARITY_METHODS)
+                              DISPARITY_METHODS, add_census_sgm_options)
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("left_image", metavar="left-image", help="Left image")
     parser.add_argument("right_image", metavar="right-image",
@@ -54,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="SGM penalty for +-1 disparity changes.")
     parser.add_argument("--p2", type=float, default=0.2,
                         help="SGM base penalty for larger jumps "
-                             "(adaptively scaled by image gradient).")
+                             "(adaptively scaled by image gradient, unless "
+                             "--constant-p2).")
     parser.add_argument("--cvf-radius", type=int, default=8,
                         help="-am cvf: box window half-size (use smaller "
                              "radii on small images).")
@@ -70,6 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="-cm census: code window (odd; >5 packs "
                              "several int32 words, e.g. 7 or 9 for the "
                              "larger production census windows).")
+    add_census_sgm_options(parser)
     parser.add_argument("--backend", choices=("auto", "cuda", "torch"),
                         default="auto",
                         help="Kernels or plain versions for the stages "
@@ -147,7 +149,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refusal(args):
     """The message of a refused combination of options, or None."""
+    from ..cli_common import census_sgm_refusal
     if args.pyramid > 0:
+        refusal = census_sgm_refusal(args, "--pyramid")
+        if refusal:
+            return refusal
         # --refine is served: the final band stage takes the sub-pixel
         # vertex from the winner's neighbour costs.
         incompatible = [flag for flag, on in [
@@ -205,7 +211,9 @@ def main(argv=None) -> int:
                                    census_window=args.census_window,
                                    backend=args.backend,
                                    volume_dtype=args.dtype,
-                                   device=args.device)
+                                   device=args.device,
+                                   census_height=args.census_height,
+                                   adaptive_p2=not args.constant_p2)
 
     left = load_image(args.left_image, mode="L").astype(np.float32)
     right = load_image(args.right_image, mode="L").astype(np.float32)

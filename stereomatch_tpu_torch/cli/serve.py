@@ -64,7 +64,7 @@ PNM_MAGICS = (b"P5", b"P6")
 
 def build_parser() -> argparse.ArgumentParser:
     from ..cli_common import (AGGREGATION_METHODS, COST_METHODS,
-                              DISPARITY_METHODS)
+                              DISPARITY_METHODS, add_census_sgm_options)
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("max_disparity", metavar="max-disparity", type=int)
     parser.add_argument("--host", default="127.0.0.1")
@@ -99,6 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "(8-bit scale).")
     parser.add_argument("--census-window", type=int, default=5,
                         help="-cm census: code window (odd).")
+    add_census_sgm_options(parser)
     parser.add_argument("--cvf-radius", type=int, default=8,
                         help="-am cvf: box window half-size.")
     parser.add_argument("--cvf-eps", type=float, default=1e-4,
@@ -278,6 +279,7 @@ class _Engine:
         return StreamingEstimator(
             a.max_disparity, cost=a.cost_method,
             cost_dtype=a.dtype, census_window=a.census_window,
+            census_height=a.census_height, adaptive_p2=not a.constant_p2,
             aggregation=a.aggregation_method,
             reducer=STREAM_REDUCERS[a.disparity_method],
             penalty1=a.p1, penalty2=a.p2, cvf_radius=a.cvf_radius,
@@ -880,7 +882,11 @@ def main(argv=None) -> int:
         print("--fgs is incompatible with --pyramid (no flat "
               "post-processing stage there).", file=sys.stderr)
         return 2
-    from ..cli_common import start_device
+    from ..cli_common import census_sgm_refusal, start_device
+    refusal = census_sgm_refusal(args, "--pyramid") if args.pyramid else None
+    if refusal:
+        print(refusal, file=sys.stderr)
+        return 2
     start_device(args.device)
     # Orchestrators stop containers with SIGTERM: treat it like Ctrl-C so
     # in-flight handlers finish and the socket closes cleanly.  The banner

@@ -50,7 +50,7 @@ def _print_instructions() -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     from ..cli_common import (AGGREGATION_METHODS, COST_METHODS,
-                              DISPARITY_METHODS)
+                              DISPARITY_METHODS, add_census_sgm_options)
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("input_mode",
                         choices=["dev", "file", "imgdir", "y4m"],
@@ -112,6 +112,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--census-window", type=int, default=5,
                         help="-cm census: code window (odd; >5 packs "
                              "several int32 words).")
+    add_census_sgm_options(parser)
     parser.add_argument("--backend", choices=("auto", "cuda", "torch"),
                         default="auto",
                         help="Kernels or plain versions for the stages "
@@ -179,7 +180,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refusal(args):
     """The message of a refused combination of options, or None (the JAX
-    CLI's checks, in its order)."""
+    CLI's checks, in its order, then the port's own)."""
+    from ..cli_common import census_sgm_refusal
     if args.wmf and args.pyramid > 0:
         return ("--wmf is incompatible with --pyramid (the band stage has "
                 "no integer disparity/bin range to median over).")
@@ -197,6 +199,8 @@ def _refusal(args):
         return ("--temporal is a stateful per-frame path; it is "
                 "incompatible with --batch/--refine (row-shard each frame "
                 "with --mesh).")
+    if args.pyramid > 0 or args.temporal:
+        return census_sgm_refusal(args, "--pyramid/--temporal")
     return None
 
 
@@ -348,6 +352,7 @@ def _run_batched(args, capture, rectifier, headless, out_dir) -> int:
         aggregation=args.aggregation_method,
         reducer=STREAM_REDUCERS[args.disparity_method], penalty1=args.p1,
         penalty2=args.p2, census_window=args.census_window,
+        census_height=args.census_height, adaptive_p2=not args.constant_p2,
         cvf_radius=args.cvf_radius, cvf_eps=args.cvf_eps,
         backend=args.backend, cost_dtype=args.dtype,
         pyramid_levels=args.pyramid,
@@ -430,7 +435,9 @@ def _build_pipeline(args, mesh=None):
                                    census_window=args.census_window,
                                    backend=args.backend,
                                    volume_dtype=args.dtype,
-                                   device=args.device)
+                                   device=args.device,
+                                   census_height=args.census_height,
+                                   adaptive_p2=not args.constant_p2)
     if args.temporal:
         from ..temporal import TemporalPipeline
         pipeline = TemporalPipeline(

@@ -64,6 +64,34 @@ def mesh_devices(device) -> list:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def add_census_sgm_options(parser) -> None:
+    """The CLIs' ``--census-height`` and ``--constant-p2``, the port's own
+    options (the JAX CLIs have neither): ``create_pipeline``'s and
+    ``StreamingEstimator``'s ``census_height`` and ``adaptive_p2``."""
+    parser.add_argument("--census-height", type=int, default=None,
+                        help="-cm census: code window height (odd; default "
+                             "--census-window, a square window), e.g. 7 "
+                             "with --census-window 9 for the 9x7 census of "
+                             "KITTI deployments.")
+    parser.add_argument("--constant-p2", action="store_true",
+                        help="-am sgm: the constant second penalty P2' = "
+                             "max(P1, P2) at every step, in place of P2 "
+                             "scaled by the inverse image gradient.")
+
+
+def census_sgm_refusal(args, mode: str) -> Optional[str]:
+    """The message refusing ``--census-height``/``--constant-p2`` beside
+    ``mode`` (the pyramid, the temporal tracker: a square census and the
+    adaptive P2), or None where neither is given."""
+    given = [flag for flag, on in [
+        ("--census-height", args.census_height is not None),
+        ("--constant-p2", args.constant_p2)] if on]
+    if not given:
+        return None
+    return (f"{mode} is incompatible with {' '.join(given)} (its census "
+            "window is square and its SGM takes the adaptive P2).")
+
+
 def _lookup(kind: str, name, registry: dict):
     if name in registry:
         return registry[name]
@@ -126,12 +154,18 @@ def create_pipeline(cost_method: str, disp_method: str,
                     backend: str = "auto",
                     volume_dtype: str = "float32",
                     device: Device = "cuda",
-                    kernel_size: Optional[int] = None) -> Pipeline:
+                    kernel_size: Optional[int] = None,
+                    census_height: Optional[int] = None,
+                    adaptive_p2: bool = True) -> Pipeline:
     """Create a pipeline from method names.
 
-    ``penalty1``/``penalty2`` configure SGM, ``cvf_radius``/``cvf_eps``/
-    ``cvf_subsample`` the guided filter, and ``census_window`` the census
-    code window (each ignored by the other methods); ``backend`` ("auto",
+    ``penalty1``/``penalty2`` configure SGM (``adaptive_p2=False``: the
+    constant P2' = max(P1, P2) in place of the adaptive one),
+    ``cvf_radius``/``cvf_eps``/``cvf_subsample`` the guided filter, and
+    ``census_window``/``census_height`` the census code window's width
+    and height (None: square) (each ignored by the other methods;
+    ``census_height`` and ``adaptive_p2`` are the port's own, the JAX
+    factory has neither); ``backend`` ("auto",
     "cuda" or "torch") selects kernels or plain versions for the stages
     that have both; ``volume_dtype`` is the cost volume's dtype
     ("float32"; "bfloat16", volumes stored in half the bytes with float32
@@ -152,6 +186,8 @@ def create_pipeline(cost_method: str, disp_method: str,
         aggregation_cls = _lookup("aggregation method", aggr_method,
                                   AGGREGATION_METHODS)
         kwargs = dict(penalty1=penalty1, penalty2=penalty2, backend=backend)
+        if aggregation_cls is Semiglobal:
+            kwargs.update(adaptive_p2=adaptive_p2)
         if aggregation_cls is CostFilter:
             kwargs.update(radius=cvf_radius, eps=cvf_eps,
                           subsample=cvf_subsample)
@@ -172,7 +208,7 @@ def create_pipeline(cost_method: str, disp_method: str,
                          "volume_dtype int32 is not supported")
     if cost_cls is Census:
         cost = Census(max_disparity, window_size=census_window,
-                      cost_volume_dtype=dtype)
+                      cost_volume_dtype=dtype, window_height=census_height)
     elif cost_cls in (SSD, SAD):
         cost = cost_cls(max_disparity, cost_volume_dtype=dtype,
                         backend=backend)

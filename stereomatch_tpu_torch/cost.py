@@ -23,7 +23,7 @@ import torch
 
 from .ops import cost as cost_ops
 from .texture import TextureImage
-from .utils import validation
+from .utils import profiling, validation
 
 
 class _DiffCost:
@@ -77,12 +77,18 @@ class Census:
     counterpart of the JAX package's ``Census``.
 
     Plain PyTorch on every device: the JAX package computes it in XLA,
-    with no Pallas kernel, so the port has no CUDA kernel for it.
+    with no Pallas kernel, so the port has no CUDA kernel for it.  Inside
+    the cost stage it enters the spans ``stm/cost/census_codes`` and
+    ``stm/cost/census_hamming``, and stamps the card after the codes
+    where the stage stamps (``utils/profiling.py``).
 
     Attributes:
         max_disparity: number of disparity hypotheses.
-        window_size: census window (odd; 5x5 -> one 24-bit code word,
-            larger windows pack several int32 words).
+        window_size: census window width (odd; 5x5 -> one 24-bit code
+            word, larger windows pack several int32 words).
+        window_height: census window height (odd), or None for the
+            square ``window_size`` window; a rectangle (KITTI's 9x7) is
+            the port's own, the JAX package's census is square.
         kernel_size: optional clipped box-sum window over the Hamming
             costs (1 = pixelwise, the usual choice before aggregation).
         cost_volume_dtype: torch.float32, torch.bfloat16 (integers up to
@@ -92,9 +98,12 @@ class Census:
 
     def __init__(self, max_disparity: int, window_size: int = 5,
                  kernel_size: int = 1,
-                 cost_volume_dtype: torch.dtype = torch.float32):
+                 cost_volume_dtype: torch.dtype = torch.float32,
+                 window_height: Optional[int] = None):
         validation.check_positive("max_disparity", max_disparity)
         validation.check_positive("window_size", window_size)
+        if window_height is not None:
+            validation.check_positive("window_height", window_height)
         validation.check_positive("kernel_size", kernel_size)
         if cost_volume_dtype not in validation.COST_DTYPES:
             raise validation.DTypeError(
@@ -103,16 +112,23 @@ class Census:
                 f"{cost_volume_dtype}")
         self.max_disparity = max_disparity
         self.window_size = window_size
+        self.window_height = window_height
         self.kernel_size = kernel_size
         self.cost_volume_dtype = cost_volume_dtype
 
     def __call__(self, left_image: torch.Tensor, right_image: torch.Tensor,
                  cost_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
         validation.check_stereo_pair(left_image, right_image)
-        return cost_ops.census_hamming_cost_volume(
-            left_image, right_image, max_disparity=self.max_disparity,
-            window_size=self.window_size, kernel_size=self.kernel_size,
-            cost_dtype=self.cost_volume_dtype)
+        window = (self.window_size, self.window_height)
+        with profiling.annotate("stm/cost/census_codes"):
+            codes = (cost_ops.census_transform(left_image, *window),
+                     cost_ops.census_transform(right_image, *window))
+        profiling.point("census_codes", left_image.device)
+        with profiling.annotate("stm/cost/census_hamming"):
+            return cost_ops.census_hamming_from_codes(
+                *codes, max_disparity=self.max_disparity,
+                kernel_size=self.kernel_size,
+                cost_dtype=self.cost_volume_dtype)
 
 
 class SSDTexture:

@@ -25,6 +25,8 @@
 //   at a path start (its predecessor lies outside the image): L = C;
 //   elsewhere, with prev = L at the predecessor and m = min_d prev:
 //     P2' = max(P1, P2 / |I(p) - I(pred)|)      (|dI| = 0 gives +inf)
+//       or, where the launch's `adaptive` is 0 (the constant form of
+//       Hirschmuller's SGM, the port's own), P2' = max(P1, P2)
 //     n   = prev - m
 //     L   = C + min(n[d], n[d-1] + P1, n[d+1] + P1, P2')  (+inf off-band)
 // Every operation is one IEEE-rounded sub/add/div (explicit _rn
@@ -179,8 +181,12 @@ __device__ __forceinline__ float warp_min(const float (&prev)[VPL]) {
   return m;
 }
 
+// P2' of a step: adaptive, max(P1, P2 / |dI|); else max(P1, P2).  A
+// launch's `adaptive` is one value for every warp, and P2' is computed a
+// block of 32 steps at a time off the step chain (ring_path's block_p2).
 __device__ __forceinline__ float p2_of(float intensity, float prev_int,
-                                       float p1, float p2) {
+                                       float p1, float p2, bool adaptive) {
+  if (!adaptive) return nan_max(p1, p2);
   const float grad = fabsf(__fsub_rn(intensity, prev_int));
   return nan_max(p1, __fdiv_rn(p2, grad));
 }
@@ -330,8 +336,8 @@ __device__ void ring_path(const T* __restrict__ cost,
                           float* __restrict__ out,
                           __nv_bfloat16* __restrict__ result, int H, int W,
                           int D, int dy, int dx, float p1, float p2,
-                          int path, const Carry& carry, const Fold& fold,
-                          unsigned char* ring) {
+                          bool adaptive, int path, const Carry& carry,
+                          const Fold& fold, unsigned char* ring) {
   static_assert(kRingStages >= 4 && (kRingStages & (kRingStages - 1)) == 0,
                 "kRingStages is a power of two of at least 4");
   static_assert(!VEC || VPL % 4 == 0, "16-byte pieces need VPL % 4 == 0");
@@ -533,7 +539,7 @@ __device__ void ring_path(const T* __restrict__ cost,
   auto block_p2 = [&]() {
     float before = __shfl_up_sync(kFullMask, block_int, 1);
     if (lane == 0) before = last_int;
-    const float p2s = p2_of(block_int, before, p1, p2);
+    const float p2s = p2_of(block_int, before, p1, p2, adaptive);
     last_int = __shfl_sync(kFullMask, block_int, 31);
     return p2s;
   };
@@ -586,14 +592,14 @@ __device__ void ring_path(const T* __restrict__ cost,
                        float* __restrict__ out,                             \
                        __nv_bfloat16* __restrict__ result, int H, int W,    \
                        int D, int dy, int dx, float p1, float p2,           \
-                       Carry carry) {                                       \
+                       int adaptive, Carry carry) {                         \
     extern __shared__ __align__(16) float ring[];                          \
     const int warp = threadIdx.x >> 5;                                      \
     const int path = blockIdx.x * kRingWarpsPerBlock + warp;                \
     if (path >= path_count(H, W, dy, dx)) return; /* whole warp leaves */  \
     ring_path<T, VPL, VEC, ACC, FINAL>(                                     \
-        cost, image, out, result, H, W, D, dy, dx, p1, p2, path, carry,     \
-        Fold{},                                                             \
+        cost, image, out, result, H, W, D, dy, dx, p1, p2, adaptive != 0,   \
+        path, carry, Fold{},                                                \
         reinterpret_cast<unsigned char*>(ring) +                            \
             warp * kRingBytes<T, VPL, VEC, ACC>);                           \
   }
@@ -616,7 +622,7 @@ template <typename T, int VPL, bool VEC>
 __global__ void sgm_side_by_side_kernel(const T* __restrict__ cost,
                                         const float* __restrict__ image,
                                         Side side, int H, int W, int D,
-                                        float p1, float p2) {
+                                        float p1, float p2, int adaptive) {
   extern __shared__ __align__(16) float ring[];
   int t = 0;
 #pragma unroll 1
@@ -631,8 +637,8 @@ __global__ void sgm_side_by_side_kernel(const T* __restrict__ cost,
                        kRingWarpsPerBlock + warp;
   if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
   ring_path<T, VPL, VEC, false, false>(
-      cost, image, side.dst[t], nullptr, H, W, D, dy, dx, p1, p2, path,
-      Carry{nullptr, nullptr, nullptr, true}, Fold{},
+      cost, image, side.dst[t], nullptr, H, W, D, dy, dx, p1, p2,
+      adaptive != 0, path, Carry{nullptr, nullptr, nullptr, true}, Fold{},
       reinterpret_cast<unsigned char*>(ring) +
           warp * kRingBytes<T, VPL, VEC, false>);
 }
@@ -645,14 +651,14 @@ __global__ void sgm_fold_kernel(const T* __restrict__ cost,
                                 float* __restrict__ out,
                                 __nv_bfloat16* __restrict__ result, Fold fold,
                                 int H, int W, int D, int dy, int dx, float p1,
-                                float p2) {
+                                float p2, int adaptive) {
   extern __shared__ __align__(16) float ring[];
   const int warp = threadIdx.x >> 5;
   const int path = blockIdx.x * kRingWarpsPerBlock + warp;
   if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
   ring_path<T, VPL, VEC, true, FINAL, kFolded>(
-      cost, image, out, result, H, W, D, dy, dx, p1, p2, path,
-      Carry{nullptr, nullptr, nullptr, true}, fold,
+      cost, image, out, result, H, W, D, dy, dx, p1, p2, adaptive != 0,
+      path, Carry{nullptr, nullptr, nullptr, true}, fold,
       reinterpret_cast<unsigned char*>(ring) +
           warp * kRingBytes<T, VPL, VEC, true, kFolded>);
 }
@@ -668,6 +674,7 @@ struct Launch {
   __nv_bfloat16* result;
   int H, W, D, dy, dx;
   float p1, p2;
+  int adaptive;
   Carry carry;
 };
 
@@ -726,7 +733,7 @@ int launch_kernel(Kind kind, const Launch& a, cudaStream_t stream) {
       static_cast<size_t>(kRingWarpsPerBlock) * kRingBytes<T, VPL, VEC, ACC>,
       (paths + kRingWarpsPerBlock - 1) / kRingWarpsPerBlock, stream,
       static_cast<const T*>(a.cost), a.image, a.out, a.result, a.H, a.W, a.D,
-      a.dy, a.dx, a.p1, a.p2, a.carry);
+      a.dy, a.dx, a.p1, a.p2, a.adaptive, a.carry);
 }
 
 bool aligned(const void* p, std::uintptr_t bytes) {
@@ -763,7 +770,8 @@ int launch_ring(Kind kind, const Launch& a, bool accumulate,
 template <typename T>
 int dispatch(Kind kind, const void* cost, const void* image, void* out,
              void* result, int H, int W, int D, int dy, int dx, float p1,
-             float p2, int accumulate, Carry carry, void* stream) {
+             float p2, int adaptive, int accumulate, Carry carry,
+             void* stream) {
   const bool ok = kind == Kind::kHorizontal
                       ? dy == 0 && (dx == 1 || dx == -1)
                       : (dy == 1 || dy == -1) && dx >= -1 && dx <= 1;
@@ -777,7 +785,7 @@ int dispatch(Kind kind, const void* cost, const void* image, void* out,
                  static_cast<const float*>(image),
                  static_cast<float*>(out),
                  static_cast<__nv_bfloat16*>(result),
-                 H, W, D, dy, dx, p1, p2, carry};
+                 H, W, D, dy, dx, p1, p2, adaptive, carry};
   const auto s = static_cast<cudaStream_t>(stream);
   const bool acc = accumulate != 0;
   return by_vpl(D, [&](auto vpl) {
@@ -793,7 +801,7 @@ template <typename T>
 int dispatch_chunk(const void* cost, const void* image, const void* carry,
                    const void* carry_image, void* out, void* result,
                    void* carry_out, int H, int W, int D, int dy, int dx,
-                   float p1, float p2, int seed, int accumulate,
+                   float p1, float p2, int adaptive, int seed, int accumulate,
                    void* stream) {
   // A chunk that does not seed needs the incoming carry.
   if (carry_out == nullptr ||
@@ -804,7 +812,7 @@ int dispatch_chunk(const void* cost, const void* image, const void* carry,
                        static_cast<const float*>(carry_image),
                        static_cast<float*>(carry_out), seed != 0};
   return dispatch<T>(Kind::kChunk, cost, image, out, result, H, W, D, dy, dx,
-                     p1, p2, accumulate, hand_off, stream);
+                     p1, p2, adaptive, accumulate, hand_off, stream);
 }
 
 // The side-by-side launch (the header of this file): the first
@@ -816,7 +824,7 @@ int dispatch_chunk(const void* cost, const void* image, const void* carry,
 template <typename T>
 int dispatch_side(const void* cost, const void* image, void* out,
                   void* partials, const int* steps, int H, int W, int D,
-                  float p1, float p2, void* stream) {
+                  float p1, float p2, int adaptive, void* stream) {
   if (out == nullptr || partials == nullptr || steps == nullptr || D < 1 ||
       D > 32 * 16 || H < 1 || W < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -851,7 +859,7 @@ int dispatch_side(const void* cost, const void* image, void* out,
                            static_cast<size_t>(kRingWarpsPerBlock) *
                                kRingBytes<T, VPL, VEC, false>,
                            side.first[kSideBySide], s, c, img, side, H, W, D,
-                           p1, p2);
+                           p1, p2, adaptive);
     });
   });
 }
@@ -862,7 +870,8 @@ int dispatch_side(const void* cost, const void* image, void* out,
 template <typename T>
 int dispatch_fold(const void* cost, const void* image, void* out,
                   const void* partials, void* result, int H, int W, int D,
-                  int dy, int dx, float p1, float p2, void* stream) {
+                  int dy, int dx, float p1, float p2, int adaptive,
+                  void* stream) {
   const bool final_ok = kIsF32<T> ? result == nullptr : result != nullptr;
   if (!(dy == 1 || dy == -1) || dx < -1 || dx > 1 || !final_ok ||
       out == nullptr || partials == nullptr || D < 1 || D > 32 * 16 ||
@@ -889,31 +898,36 @@ int dispatch_fold(const void* cost, const void* image, void* out,
                            static_cast<size_t>(kRingWarpsPerBlock) *
                                kRingBytes<T, VPL, VEC, true, kFolded>,
                            blocks, s, c, img, o, r, fold, H, W, D, dy, dx, p1,
-                           p2);
+                           p2, adaptive);
     });
   });
 }
 
 }  // namespace
 
+// The entry points.  Every one takes, after p1 and p2, `adaptive`: 1 for
+// the adaptive P2' = max(P1, P2 / |dI|), 0 for the constant max(P1, P2).
+
 // The float32 entry points: cost, out and carries float32.
 
 // One traversal of the vertical or a diagonal family (step dy = +-1).
 extern "C" int stm_sgm_rows_f32(const void* cost, const void* image,
                                 void* out, int H, int W, int D, int dy,
-                                int dx, float p1, float p2, int accumulate,
-                                void* stream) {
+                                int dx, float p1, float p2, int adaptive,
+                                int accumulate, void* stream) {
   return dispatch<float>(Kind::kRows, cost, image, out, nullptr, H, W, D, dy,
-                         dx, p1, p2, accumulate, kNoCarry, stream);
+                         dx, p1, p2, adaptive, accumulate, kNoCarry, stream);
 }
 
 // One traversal of the horizontal family (step dy = 0, dx = +-1).
 extern "C" int stm_sgm_horizontal_f32(const void* cost, const void* image,
                                       void* out, int H, int W, int D, int dy,
                                       int dx, float p1, float p2,
-                                      int accumulate, void* stream) {
+                                      int adaptive, int accumulate,
+                                      void* stream) {
   return dispatch<float>(Kind::kHorizontal, cost, image, out, nullptr, H, W,
-                         D, dy, dx, p1, p2, accumulate, kNoCarry, stream);
+                         D, dy, dx, p1, p2, adaptive, accumulate, kNoCarry,
+                         stream);
 }
 
 // One row traversal over a chunk of rows with carry hand-off
@@ -922,10 +936,11 @@ extern "C" int stm_sgm_chunk_f32(const void* cost, const void* image,
                                  const void* carry, const void* carry_image,
                                  void* out, void* carry_out, int H, int W,
                                  int D, int dy, int dx, float p1, float p2,
-                                 int seed, int accumulate, void* stream) {
+                                 int adaptive, int seed, int accumulate,
+                                 void* stream) {
   return dispatch_chunk<float>(cost, image, carry, carry_image, out, nullptr,
-                               carry_out, H, W, D, dy, dx, p1, p2, seed,
-                               accumulate, stream);
+                               carry_out, H, W, D, dy, dx, p1, p2, adaptive,
+                               seed, accumulate, stream);
 }
 
 // The bf16-volume entry points: the cost volume bf16, out (the partial
@@ -937,19 +952,20 @@ extern "C" int stm_sgm_chunk_f32(const void* cost, const void* image,
 extern "C" int stm_sgm_rows_bf16(const void* cost, const void* image,
                                  void* out, void* result, int H, int W,
                                  int D, int dy, int dx, float p1, float p2,
-                                 int accumulate, void* stream) {
+                                 int adaptive, int accumulate, void* stream) {
   return dispatch<__nv_bfloat16>(Kind::kRows, cost, image, out, result, H, W,
-                                 D, dy, dx, p1, p2, accumulate, kNoCarry,
-                                 stream);
+                                 D, dy, dx, p1, p2, adaptive, accumulate,
+                                 kNoCarry, stream);
 }
 
 // One traversal of the horizontal family (step dy = 0, dx = +-1).
 extern "C" int stm_sgm_horizontal_bf16(const void* cost, const void* image,
                                        void* out, int H, int W, int D,
                                        int dy, int dx, float p1, float p2,
-                                       int accumulate, void* stream) {
+                                       int adaptive, int accumulate,
+                                       void* stream) {
   return dispatch<__nv_bfloat16>(Kind::kHorizontal, cost, image, out,
-                                 nullptr, H, W, D, dy, dx, p1, p2,
+                                 nullptr, H, W, D, dy, dx, p1, p2, adaptive,
                                  accumulate, kNoCarry, stream);
 }
 
@@ -959,11 +975,12 @@ extern "C" int stm_sgm_chunk_bf16(const void* cost, const void* image,
                                   const void* carry, const void* carry_image,
                                   void* out, void* result, void* carry_out,
                                   int H, int W, int D, int dy, int dx,
-                                  float p1, float p2, int seed,
+                                  float p1, float p2, int adaptive, int seed,
                                   int accumulate, void* stream) {
   return dispatch_chunk<__nv_bfloat16>(cost, image, carry, carry_image, out,
                                        result, carry_out, H, W, D, dy, dx,
-                                       p1, p2, seed, accumulate, stream);
+                                       p1, p2, adaptive, seed, accumulate,
+                                       stream);
 }
 
 // The side-by-side form of the whole aggregation, float32 and bf16 cost
@@ -973,18 +990,19 @@ extern "C" int stm_sgm_chunk_bf16(const void* cost, const void* image,
 extern "C" int stm_sgm_side_by_side_f32(const void* cost, const void* image,
                                         void* out, void* partials,
                                         const int* steps, int H, int W, int D,
-                                        float p1, float p2, void* stream) {
+                                        float p1, float p2, int adaptive,
+                                        void* stream) {
   return dispatch_side<float>(cost, image, out, partials, steps, H, W, D, p1,
-                              p2, stream);
+                              p2, adaptive, stream);
 }
 
 extern "C" int stm_sgm_side_by_side_bf16(const void* cost, const void* image,
                                          void* out, void* partials,
                                          const int* steps, int H, int W,
                                          int D, float p1, float p2,
-                                         void* stream) {
+                                         int adaptive, void* stream) {
   return dispatch_side<__nv_bfloat16>(cost, image, out, partials, steps, H,
-                                      W, D, p1, p2, stream);
+                                      W, D, p1, p2, adaptive, stream);
 }
 
 // The last traversal (dy = +-1), folding the partials: out = ((out + P_1)
@@ -992,9 +1010,9 @@ extern "C" int stm_sgm_side_by_side_bf16(const void* cost, const void* image,
 extern "C" int stm_sgm_fold_f32(const void* cost, const void* image,
                                 void* out, const void* partials, int H, int W,
                                 int D, int dy, int dx, float p1, float p2,
-                                void* stream) {
+                                int adaptive, void* stream) {
   return dispatch_fold<float>(cost, image, out, partials, nullptr, H, W, D,
-                              dy, dx, p1, p2, stream);
+                              dy, dx, p1, p2, adaptive, stream);
 }
 
 // As stm_sgm_fold_f32, the sum stored rounded to bf16 into result (out is
@@ -1002,7 +1020,8 @@ extern "C" int stm_sgm_fold_f32(const void* cost, const void* image,
 extern "C" int stm_sgm_fold_bf16(const void* cost, const void* image,
                                  void* out, const void* partials,
                                  void* result, int H, int W, int D, int dy,
-                                 int dx, float p1, float p2, void* stream) {
+                                 int dx, float p1, float p2, int adaptive,
+                                 void* stream) {
   return dispatch_fold<__nv_bfloat16>(cost, image, out, partials, result, H,
-                                      W, D, dy, dx, p1, p2, stream);
+                                      W, D, dy, dx, p1, p2, adaptive, stream);
 }

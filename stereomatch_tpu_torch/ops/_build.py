@@ -49,9 +49,9 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 
 _SSD = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
-_SGM = (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P)
-_SIDE = (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)
-_FOLD = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P)
+_SGM = (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P)
+_SIDE = (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P)
+_FOLD = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P)
 _DP_FORWARD = (_P, _P, _P, _I, _I, _I, _P)
 _CVF_STATS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
               _P)
@@ -65,30 +65,34 @@ _SIGNATURES = {
     "stm_ssd_f32": _SSD,
     "stm_ssd_i32": _SSD,
     "stm_ssd_bf16": _SSD,
-    # (cost, image, out, H, W, D, dy, dx, p1, p2, accumulate, stream)
+    # The SGM entries take, after p1 and p2, adaptive: 1 for the
+    # adaptive P2, 0 for the constant max(P1, P2).
+    # (cost, image, out, H, W, D, dy, dx, p1, p2, adaptive, accumulate,
+    #  stream)
     "stm_sgm_rows_f32": _SGM,
     "stm_sgm_horizontal_f32": _SGM,
     "stm_sgm_horizontal_bf16": _SGM,
-    # (cost, image, out, result, H, W, D, dy, dx, p1, p2, accumulate,
-    #  stream)
+    # (cost, image, out, result, H, W, D, dy, dx, p1, p2, adaptive,
+    #  accumulate, stream)
     "stm_sgm_rows_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
-                          _P),
+                          _I, _P),
     # (cost, image, carry, carry_image, out, carry_out, H, W, D, dy, dx,
-    #  p1, p2, seed, accumulate, stream)
+    #  p1, p2, adaptive, seed, accumulate, stream)
     "stm_sgm_chunk_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                          _I, _I, _P),
+                          _I, _I, _I, _P),
     # (cost, image, carry, carry_image, out, result, carry_out, H, W, D,
-    #  dy, dx, p1, p2, seed, accumulate, stream)
+    #  dy, dx, p1, p2, adaptive, seed, accumulate, stream)
     "stm_sgm_chunk_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _F, _F, _I, _I, _P),
+                           _F, _F, _I, _I, _I, _P),
     # The side-by-side form: (cost, image, out, partials, steps (seven
-    # (dy, dx) pairs, host ints), H, W, D, p1, p2, stream), then the fold
-    # (cost, image, out, partials, H, W, D, dy, dx, p1, p2, stream), the
-    # bf16 fold with result after partials.
+    # (dy, dx) pairs, host ints), H, W, D, p1, p2, adaptive, stream), then
+    # the fold (cost, image, out, partials, H, W, D, dy, dx, p1, p2,
+    # adaptive, stream), the bf16 fold with result after partials.
     "stm_sgm_side_by_side_f32": _SIDE,
     "stm_sgm_side_by_side_bf16": _SIDE,
     "stm_sgm_fold_f32": _FOLD,
-    "stm_sgm_fold_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    "stm_sgm_fold_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+                          _P),
     # (cost, ptr, final_costs, H, W, D, stream)
     "stm_dp_forward_f32": _DP_FORWARD,
     "stm_dp_forward_bf16": _DP_FORWARD,

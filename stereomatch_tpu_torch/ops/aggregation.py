@@ -17,11 +17,14 @@ as the XLA scan runs it:
     n = prev - min_d prev
     L(p, d) = C(p, d) + min(n[d], n[d-1] + P1, n[d+1] + P1, P2_adj)
     P2_adj  = max(P1, P2 / |I(p) - I(p-1)|)   (|dI| = 0 gives +inf)
-with +inf beyond the band, L = C at every path start (the first step of
-the scan, and the column a diagonal enters through), and the traversals
-summed in the order of ``TRAVERSALS``.  Every step is elementwise IEEE
-arithmetic in the XLA scan's association, so the result equals
-``stereomatch_tpu.ops.aggregation.semiglobal_aggregate`` bit for bit.
+or, with ``adaptive_p2=False`` (Hirschmuller's constant form, the port's
+own: the JAX package has only the adaptive one), P2_adj = max(P1, P2)
+at every step; with +inf beyond the band, L = C at every path start (the
+first step of the scan, and the column a diagonal enters through), and
+the traversals summed in the order of ``TRAVERSALS``.  Every step is
+elementwise IEEE arithmetic in the XLA scan's association, so the result
+equals ``stereomatch_tpu.ops.aggregation.semiglobal_aggregate`` bit for
+bit.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ TRAVERSALS = ((0, 1), (0, -1), (1, 0), (-1, 0),
               (1, 1), (-1, -1), (1, -1), (-1, 1))
 
 
-def sgm_band(prev, prev_int, intensity, p1, p2, inf_col, grad_floor=None):
+def sgm_band(prev, prev_int, intensity, p1, p2, inf_col, grad_floor=None,
+             adaptive_p2: bool = True):
     """The band term of one SGM step: ``min(n[d], n[d-1] + P1,
     n[d+1] + P1, P2_adj)`` over the normalised carry ``n``.
 
@@ -45,13 +49,17 @@ def sgm_band(prev, prev_int, intensity, p1, p2, inf_col, grad_floor=None):
     first makes the P2 candidate P2_adj itself, with no trailing "- min"
     (the XLA scan's association).  ``grad_floor``, where given, floors
     |dI| so that the division has a finite backward pass
-    (``ops/soft.py``).
+    (``ops/soft.py``).  ``adaptive_p2=False`` takes P2_adj = max(P1, P2)
+    and reads no intensity.
     """
     prev_min = prev.amin(dim=-1, keepdim=True)                   # [..., 1]
-    grad = (intensity - prev_int).abs()                          # [...]
-    if grad_floor is not None:
-        grad = torch.maximum(grad, grad_floor)
-    p2_adj = torch.maximum(p1, p2 / grad)[..., None]             # [..., 1]
+    if adaptive_p2:
+        grad = (intensity - prev_int).abs()                      # [...]
+        if grad_floor is not None:
+            grad = torch.maximum(grad, grad_floor)
+        p2_adj = torch.maximum(p1, p2 / grad)[..., None]         # [..., 1]
+    else:
+        p2_adj = torch.maximum(p1, p2)
     prevn = prev - prev_min
     up = torch.cat([inf_col, prevn[..., :-1]], dim=-1)           # d - 1
     down = torch.cat([prevn[..., 1:], inf_col], dim=-1)          # d + 1
@@ -61,7 +69,8 @@ def sgm_band(prev, prev_int, intensity, p1, p2, inf_col, grad_floor=None):
 
 def sgm_scan_with_carry(cost_sv: torch.Tensor, image_sv: torch.Tensor,
                         penalty1: float, penalty2: float, carry_shift: int,
-                        init_carry=None, seed_first: bool = True):
+                        init_carry=None, seed_first: bool = True,
+                        adaptive_p2: bool = True):
     """Run one SGM sweep over scan-major inputs, exposing the carry.
 
     Args:
@@ -76,6 +85,7 @@ def sgm_scan_with_carry(cost_sv: torch.Tensor, image_sv: torch.Tensor,
         preceding chunk of a split scan axis; None means path start.
       seed_first: whether step 0 is a true path start that re-seeds from
         the raw cost; False for continuation chunks.
+      adaptive_p2: the adaptive P2 (True) or the constant max(P1, P2).
 
     Returns:
       ((final_prev [N, D], final_intensity [N]), contributions [S, N, D]),
@@ -118,7 +128,8 @@ def sgm_scan_with_carry(cost_sv: torch.Tensor, image_sv: torch.Tensor,
         prev = shift_n(prev, inf)
         prev_int = shift_n(prev_int, zero)
 
-        sgm = cost + sgm_band(prev, prev_int, intensity, p1, p2, inf_col)
+        sgm = cost + sgm_band(prev, prev_int, intensity, p1, p2, inf_col,
+                              adaptive_p2=adaptive_p2)
 
         start = edge_start | (s == 0 and seed_first)
         prev = torch.where(start, cost, sgm)
@@ -127,62 +138,65 @@ def sgm_scan_with_carry(cost_sv: torch.Tensor, image_sv: torch.Tensor,
     return (prev, prev_int), torch.stack(contributions)
 
 
-def _sgm_scan(cost_sv, image_sv, p1, p2, carry_shift):
+def _sgm_scan(cost_sv, image_sv, p1, p2, carry_shift, adaptive_p2):
     """One full-axis sweep; returns the contributions only."""
-    return sgm_scan_with_carry(cost_sv, image_sv, p1, p2, carry_shift)[1]
+    return sgm_scan_with_carry(cost_sv, image_sv, p1, p2, carry_shift,
+                               adaptive_p2=adaptive_p2)[1]
 
 
-def _sweep_horizontal(cost, image, p1, p2, reverse):
+def _sweep_horizontal(cost, image, p1, p2, reverse, adaptive_p2):
     vol = cost.transpose(0, 1)                # [W, H, D]: scan over W
     img = image.transpose(0, 1)
     if reverse:
         vol, img = vol.flip(0), img.flip(0)
-    out = _sgm_scan(vol, img, p1, p2, carry_shift=0)
+    out = _sgm_scan(vol, img, p1, p2, 0, adaptive_p2)
     if reverse:
         out = out.flip(0)
     return out.transpose(0, 1)
 
 
-def _sweep_vertical(cost, image, p1, p2, reverse):
+def _sweep_vertical(cost, image, p1, p2, reverse, adaptive_p2):
     vol, img = cost, image                    # [H, W, D]: scan over H
     if reverse:
         vol, img = vol.flip(0), img.flip(0)
-    out = _sgm_scan(vol, img, p1, p2, carry_shift=0)
+    out = _sgm_scan(vol, img, p1, p2, 0, adaptive_p2)
     if reverse:
         out = out.flip(0)
     return out
 
 
-def _sweep_diagonal(cost, image, p1, p2, down_right, reverse):
+def _sweep_diagonal(cost, image, p1, p2, down_right, reverse, adaptive_p2):
     """Scan over H with a carry shift along W; the inverse traversal is
     the same scan over the volume rotated by 180 degrees."""
     vol, img = cost, image
     if reverse:
         vol, img = vol.flip(0, 1), img.flip(0, 1)
-    out = _sgm_scan(vol, img, p1, p2, carry_shift=1 if down_right else -1)
+    out = _sgm_scan(vol, img, p1, p2, 1 if down_right else -1, adaptive_p2)
     if reverse:
         out = out.flip(0, 1)
     return out
 
 
 def sweep(cost: torch.Tensor, image: torch.Tensor, penalty1: float,
-          penalty2: float, step: tuple) -> torch.Tensor:
+          penalty2: float, step: tuple,
+          adaptive_p2: bool = True) -> torch.Tensor:
     """Path costs L [H, W, D] of the one traversal of ``TRAVERSALS`` whose
     pixel step is ``step`` = (dy, dx)."""
     dy, dx = step
     if dy == 0:
-        return _sweep_horizontal(cost, image, penalty1, penalty2,
-                                 reverse=dx < 0)
+        return _sweep_horizontal(cost, image, penalty1, penalty2, dx < 0,
+                                 adaptive_p2)
     if dx == 0:
-        return _sweep_vertical(cost, image, penalty1, penalty2,
-                               reverse=dy < 0)
-    return _sweep_diagonal(cost, image, penalty1, penalty2,
-                           down_right=dy == dx, reverse=dy < 0)
+        return _sweep_vertical(cost, image, penalty1, penalty2, dy < 0,
+                               adaptive_p2)
+    return _sweep_diagonal(cost, image, penalty1, penalty2, dy == dx,
+                           dy < 0, adaptive_p2)
 
 
 def sweep_chunk_with_carry(cost: torch.Tensor, image: torch.Tensor,
                            step: tuple, carry=None, carry_image=None, *,
-                           penalty1: float, penalty2: float, seed: bool):
+                           penalty1: float, penalty2: float, seed: bool,
+                           adaptive_p2: bool = True):
     """One row traversal (``step`` = (dy, dx), dy = +-1) over a chunk of
     rows, continuing the paths of the row before the chunk.
 
@@ -201,6 +215,7 @@ def sweep_chunk_with_carry(cost: torch.Tensor, image: torch.Tensor,
       carry_image: [W] intensities of that row.
       seed: the chunk's first row in scan order is the image's: every
         path starts there with L = C and the carry is not read.
+      adaptive_p2: the adaptive P2 (True) or the constant max(P1, P2).
 
     Returns:
       (contributions [Hc, W, D], (carry [W, D], intensities [W]) of the
@@ -227,7 +242,7 @@ def sweep_chunk_with_carry(cost: torch.Tensor, image: torch.Tensor,
             init = (init[0].flip(0), init[1].flip(0))
     (final, final_image), out = sgm_scan_with_carry(
         vol, img, penalty1, penalty2, shift, init_carry=init,
-        seed_first=seed)
+        seed_first=seed, adaptive_p2=adaptive_p2)
     if dy < 0:
         out = out.flip(dims)
         if dx != 0:
@@ -237,10 +252,12 @@ def sweep_chunk_with_carry(cost: torch.Tensor, image: torch.Tensor,
 
 def semiglobal_aggregate(cost_volume: torch.Tensor, left_image: torch.Tensor,
                          *, penalty1: float = 0.1,
-                         penalty2: float = 0.2) -> torch.Tensor:
+                         penalty2: float = 0.2,
+                         adaptive_p2: bool = True) -> torch.Tensor:
     """Aggregate a float32 or bf16 [H, W, D] cost volume along the 8 SGM
     path directions (reference ``src/semiglobal.cpp:167-197``), plain
-    PyTorch.
+    PyTorch, with the adaptive P2 or (``adaptive_p2=False``) the
+    constant max(P1, P2).
 
     The traversals are summed in float32 in the order of ``TRAVERSALS``;
     a bf16 volume is widened first and the sum rounded once to bf16 at
@@ -254,6 +271,7 @@ def semiglobal_aggregate(cost_volume: torch.Tensor, left_image: torch.Tensor,
     image = left_image.to(torch.float32)
     out = None
     for step in TRAVERSALS:
-        contribution = sweep(cost, image, penalty1, penalty2, step)
+        contribution = sweep(cost, image, penalty1, penalty2, step,
+                             adaptive_p2)
         out = contribution if out is None else out + contribution
     return out.to(cost_volume.dtype)

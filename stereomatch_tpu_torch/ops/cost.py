@@ -51,6 +51,8 @@ first.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -251,32 +253,41 @@ def sad_cost_from_padded(left_padded: torch.Tensor,
                                   backend=backend)
 
 
-def census_transform(image: torch.Tensor, window_size: int = 5
-                     ) -> torch.Tensor:
+def census_transform(image: torch.Tensor, window_size: int = 5,
+                     window_height: Optional[int] = None) -> torch.Tensor:
     """Census descriptor per pixel: one bit per window neighbour, set when
     neighbour < centre, in row-major window order from bit 0.
 
-    ``window_size`` must be odd.  Up to 5x5 (24 bits) the result is an
-    [H, W] int32 code plane; larger windows give [H, W, n_words] stacked
-    int32 planes (7x7 -> 48 bits -> 2 words).  Out-of-image neighbours
-    read as 0.  Bit 31 of a word is its sign bit.
+    The window is ``window_size`` columns by ``window_height`` rows
+    (None: ``window_size``, the square window), both odd.  Up to 32 bits
+    (5x5: 24) the result is an [H, W] int32 code plane; larger windows
+    give [H, W, n_words] stacked int32 planes (7x7 -> 48 bits -> 2
+    words; 9 columns by 7 rows -> 62 bits -> 2 words).  Out-of-image
+    neighbours read as 0.  Bit 31 of a word is its sign bit.  A
+    rectangular window is the port's own: the JAX package's census is
+    square.
 
     All neighbours are compared at once (a handful of launches on the
     card, not one per neighbour); the bits of a word are distinct powers
     of two, so their int32 sum is their OR and cannot overflow.
     """
-    if window_size % 2 == 0:
-        raise ValueError(f"window_size must be odd (got {window_size})")
+    height_w = window_size if window_height is None else window_height
+    for name, side in (("window_size", window_size),
+                       ("window_height", height_w)):
+        if side % 2 == 0 or side < 1:
+            raise ValueError(f"{name} must be odd and positive (got {side})")
     img = image.to(torch.float32)
     height, width = img.shape
-    half = window_size // 2
-    if half == 0:
+    half_w, half_h = window_size // 2, height_w // 2
+    if half_w == 0 and half_h == 0:
         return torch.zeros((height, width), dtype=torch.int32,
                            device=image.device)
-    padded = torch.nn.functional.pad(img, (half, half, half, half))
+    padded = torch.nn.functional.pad(img, (half_w, half_w, half_h, half_h))
     neighbors = torch.stack(
-        [padded[half + dy:half + dy + height, half + dx:half + dx + width]
-         for dy in range(-half, half + 1) for dx in range(-half, half + 1)
+        [padded[half_h + dy:half_h + dy + height,
+                half_w + dx:half_w + dx + width]
+         for dy in range(-half_h, half_h + 1)
+         for dx in range(-half_w, half_w + 1)
          if dy or dx], dim=-1)                          # [H, W, n_bits]
     bits = (neighbors < img[:, :, None]).to(torch.int32)
     n_bits = bits.shape[-1]
@@ -311,16 +322,31 @@ def census_hamming_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
                                max_disparity: int, window_size: int = 5,
                                kernel_size: int = 1,
                                cost_dtype: torch.dtype = torch.float32,
-                               disparity_offset: int = 0) -> torch.Tensor:
+                               disparity_offset: int = 0,
+                               window_height: Optional[int] = None
+                               ) -> torch.Tensor:
     """Hamming distance between census codes as an [H, W, D] volume.
 
     cost[y, x, d] = popcount(census(L)[y, x] XOR census(R)[y, x - d]),
     summed over the code words, box-summed over the SSD window when
     ``kernel_size > 1``; +inf (int32 max) where d > x.  Slice d holds
     disparity d + ``disparity_offset``, as in :func:`ssd_cost_volume`.
+    The census window is ``window_size`` columns by ``window_height``
+    rows (None: square), as :func:`census_transform` takes them.
     """
-    cl = census_transform(left, window_size)
-    cr = census_transform(right, window_size)
+    cl = census_transform(left, window_size, window_height)
+    cr = census_transform(right, window_size, window_height)
+    return census_hamming_from_codes(
+        cl, cr, max_disparity=max_disparity, kernel_size=kernel_size,
+        cost_dtype=cost_dtype, disparity_offset=disparity_offset)
+
+
+def census_hamming_from_codes(cl: torch.Tensor, cr: torch.Tensor, *,
+                              max_disparity: int, kernel_size: int = 1,
+                              cost_dtype: torch.dtype = torch.float32,
+                              disparity_offset: int = 0) -> torch.Tensor:
+    """The Hamming volume of :func:`census_hamming_cost_volume` from the
+    two images' census codes (:func:`census_transform`'s planes)."""
     if cl.ndim == 2:
         cl, cr = cl[..., None], cr[..., None]
 
@@ -331,10 +357,10 @@ def census_hamming_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
         pc = popcount32(cl[..., w][:, :, None] ^ shifted)
         ham = pc if ham is None else ham + pc
 
-    valid = _valid_wedge(left.shape[1], max_disparity, disparity_offset,
-                         left.device)
+    valid = _valid_wedge(cl.shape[1], max_disparity, disparity_offset,
+                         cl.device)
     cost = torch.where(valid, ham, torch.zeros((), dtype=ham.dtype,
-                                               device=left.device))
+                                               device=cl.device))
     if kernel_size > 1:
         cost = _box_sum(cost.to(compute_dtype(cost_dtype)), kernel_size,
                         axes=(0, 1))
@@ -343,7 +369,7 @@ def census_hamming_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
     # them straight to bf16 equals XLA's cast through float32.
     return torch.where(valid, cost.to(cost_dtype),
                        torch.full((), inf_value(cost_dtype), dtype=cost_dtype,
-                                  device=left.device))
+                                  device=cl.device))
 
 
 # --------------------------------------------------------------------------

@@ -45,6 +45,11 @@ carries and the partial sum ``out`` in float32, and the launch of the
 last traversal stores ``out + L`` rounded once to bf16 into a separate
 ``result``, as the plain version (and XLA) round the float32 sum once.
 
+Every launcher takes ``adaptive_p2`` (default True, the adaptive P2):
+False gives every launch the constant P2' = max(P1, P2), a runtime
+argument of the same kernels, computed off the step chain as the
+adaptive one is.
+
 ``_build.LAUNCHES`` counts the launches of each entry point
 (``stm_sgm_{rows,horizontal,chunk,side_by_side,fold}_{f32,bf16}``), so a
 run can show that it went through them, and in which form.
@@ -120,7 +125,8 @@ def _check(cost: torch.Tensor, image: torch.Tensor) -> None:
 def traverse_cuda(cost: torch.Tensor, image: torch.Tensor,
                   out: torch.Tensor, step: tuple, penalty1: float,
                   penalty2: float, accumulate: bool,
-                  result: torch.Tensor = None) -> None:
+                  result: torch.Tensor = None,
+                  adaptive_p2: bool = True) -> None:
     """One traversal with pixel step ``step`` = (dy, dx): writes its path
     costs into ``out`` (float32; ``accumulate=False``) or adds them in
     place.  For a bf16 ``cost``, ``result`` (bf16) takes the accumulated
@@ -146,7 +152,7 @@ def traverse_cuda(cost: torch.Tensor, image: torch.Tensor,
     height, width, max_disp = cost.shape
     with torch.cuda.device(cost.device):
         status = fn(*args, height, width, max_disp, dy, dx, float(penalty1),
-                    float(penalty2), int(accumulate),
+                    float(penalty2), int(bool(adaptive_p2)), int(accumulate),
                     torch.cuda.current_stream().cuda_stream)
     _build.check_launch(name, status)
 
@@ -172,7 +178,8 @@ def _takes_side_by_side(height: int, width: int, max_disp: int) -> bool:
 
 
 def _aggregate_serial(cost: torch.Tensor, image: torch.Tensor,
-                      penalty1: float, penalty2: float) -> torch.Tensor:
+                      penalty1: float, penalty2: float,
+                      adaptive_p2: bool = True) -> torch.Tensor:
     """The serial form: the traversals of ``TRAVERSALS`` one launch each,
     in order, accumulated in place into a float32 volume; for a bf16 cost
     the last traversal rounds the sum into the bf16 result."""
@@ -183,13 +190,14 @@ def _aggregate_serial(cost: torch.Tensor, image: torch.Tensor,
     last = len(TRAVERSALS) - 1
     for i, step in enumerate(TRAVERSALS):
         traverse_cuda(cost, image, out, step, penalty1, penalty2,
-                      accumulate=i > 0, result=result if i == last else None)
+                      accumulate=i > 0, result=result if i == last else None,
+                      adaptive_p2=adaptive_p2)
     return out if result is None else result
 
 
 def _aggregate_side_by_side(cost: torch.Tensor, image: torch.Tensor,
-                            penalty1: float, penalty2: float
-                            ) -> torch.Tensor:
+                            penalty1: float, penalty2: float,
+                            adaptive_p2: bool = True) -> torch.Tensor:
     """The side-by-side form: one launch walks the first seven traversals
     at once, the first into ``out`` and the others each into a float32
     partial volume of its own; a second walks the last and forms
@@ -204,7 +212,7 @@ def _aggregate_side_by_side(cost: torch.Tensor, image: torch.Tensor,
     bf16 = cost.dtype == torch.bfloat16
     sfx = "bf16" if bf16 else "f32"
     lib = _build.library()
-    p1, p2 = float(penalty1), float(penalty2)
+    p1, p2, adaptive = float(penalty1), float(penalty2), int(bool(adaptive_p2))
     # (dy, dx) of each traversal the first launch walks, in order.
     steps = (ctypes.c_int * (2 * len(TRAVERSALS) - 2))(
         *(v for step in TRAVERSALS[:-1] for v in step))
@@ -214,7 +222,7 @@ def _aggregate_side_by_side(cost: torch.Tensor, image: torch.Tensor,
         _build.check_launch(name, getattr(lib, name)(
             cost.data_ptr(), image.data_ptr(), out.data_ptr(),
             partials.data_ptr(), ctypes.addressof(steps), height, width,
-            max_disp, p1, p2, stream))
+            max_disp, p1, p2, adaptive, stream))
         dy, dx = TRAVERSALS[-1]
         name = f"stm_sgm_fold_{sfx}"
         args = [cost.data_ptr(), image.data_ptr(), out.data_ptr(),
@@ -224,24 +232,28 @@ def _aggregate_side_by_side(cost: torch.Tensor, image: torch.Tensor,
             result = torch.empty_like(cost)
             args.append(result.data_ptr())
         _build.check_launch(name, getattr(lib, name)(
-            *args, height, width, max_disp, dy, dx, p1, p2, stream))
+            *args, height, width, max_disp, dy, dx, p1, p2, adaptive,
+            stream))
     return out if result is None else result
 
 
 def semiglobal_aggregate_cuda(cost_volume: torch.Tensor,
                               left_image: torch.Tensor, *,
                               penalty1: float = 0.1,
-                              penalty2: float = 0.2) -> torch.Tensor:
+                              penalty2: float = 0.2,
+                              adaptive_p2: bool = True) -> torch.Tensor:
     """8-direction SGM aggregation [H, W, D] on the card, in the cost's
     dtype (a bf16 cost's sum is formed in float32 and rounded once), in
     the form :func:`_takes_side_by_side` picks for the shape: both give
-    the plain version's volume bit for bit."""
+    the plain version's volume bit for bit, with the adaptive P2 or
+    (``adaptive_p2=False``) the constant max(P1, P2)."""
     cost = cost_volume.contiguous()
     image = left_image.to(torch.float32).contiguous()
     _check(cost, image)
     if _takes_side_by_side(*cost.shape):
-        return _aggregate_side_by_side(cost, image, penalty1, penalty2)
-    return _aggregate_serial(cost, image, penalty1, penalty2)
+        return _aggregate_side_by_side(cost, image, penalty1, penalty2,
+                                       adaptive_p2)
+    return _aggregate_serial(cost, image, penalty1, penalty2, adaptive_p2)
 
 
 def sweep_chunk_with_carry_cuda(cost: torch.Tensor, image: torch.Tensor,
@@ -249,7 +261,8 @@ def sweep_chunk_with_carry_cuda(cost: torch.Tensor, image: torch.Tensor,
                                 penalty1: float, penalty2: float, seed: bool,
                                 out: torch.Tensor = None,
                                 accumulate: bool = False,
-                                result: torch.Tensor = None):
+                                result: torch.Tensor = None,
+                                adaptive_p2: bool = True):
     """One row traversal over a chunk of rows with carry hand-off, on the
     card: the counterpart of ``ops/aggregation.py::sweep_chunk_with_carry``
     (same arguments and results), plus ``out``/``accumulate``/``result``
@@ -302,7 +315,8 @@ def sweep_chunk_with_carry_cuda(cost: torch.Tensor, image: torch.Tensor,
         status = getattr(_build.library(), name)(
             cost.data_ptr(), image.data_ptr(), carry_ptr, image_ptr, *args,
             carry_out.data_ptr(), height, width, max_disp, dy, dx,
-            float(penalty1), float(penalty2), int(seed), int(accumulate),
+            float(penalty1), float(penalty2), int(bool(adaptive_p2)),
+            int(seed), int(accumulate),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(name, status)
     return done, (carry_out, last)

@@ -209,19 +209,21 @@ def _accumulate(out: Optional[torch.Tensor],
     return part if out is None else out + part
 
 
-def _whole_traversal(vol, img, out, step, p1, p2, on_card):
+def _whole_traversal(vol, img, out, step, p1, p2, on_card, adaptive):
     """One traversal of a whole block, added to ``out`` (float32; None:
     the first)."""
     if not on_card:
-        return _accumulate(out, sweep(vol, img, p1, p2, step))
+        return _accumulate(out, sweep(vol, img, p1, p2, step, adaptive))
     first = out is None
     if first:
         out = torch.empty(vol.shape, dtype=torch.float32, device=vol.device)
-    sgm_cuda.traverse_cuda(vol, img, out, step, p1, p2, accumulate=not first)
+    sgm_cuda.traverse_cuda(vol, img, out, step, p1, p2, accumulate=not first,
+                           adaptive_p2=adaptive)
     return out
 
 
-def _exact_traversal(vols, imgs, outs, step, p1, p2, on_card, last):
+def _exact_traversal(vols, imgs, outs, step, p1, p2, on_card, last,
+                     adaptive):
     """One row traversal over every tile in scan order, each continuing
     from its predecessor's carry.  ``last``: the final traversal, whose
     chunk launches round a bf16 tile's sum into its bf16 result."""
@@ -233,7 +235,8 @@ def _exact_traversal(vols, imgs, outs, step, p1, p2, on_card, last):
         if not is_local(vols[t]):
             carry = (vols[t], vols[t])
             continue
-        kw = dict(penalty1=p1, penalty2=p2, seed=rank == 0)
+        kw = dict(penalty1=p1, penalty2=p2, seed=rank == 0,
+                  adaptive_p2=adaptive)
         if on_card:
             result = None
             if last and vols[t].dtype == torch.bfloat16:
@@ -258,7 +261,7 @@ def _warmup_halos(vols, imgs, overlap) -> dict:
 
 
 def _overlap_traversal(vols, imgs, outs, step, p1, p2, on_card, overlap,
-                       halos):
+                       halos, adaptive):
     """One row traversal over every tile from a cold start ``overlap``
     rows early in scan order, in parallel (``halos``: _warmup_halos)."""
     halo_v, halo_i = halos[step[0]]
@@ -277,19 +280,20 @@ def _overlap_traversal(vols, imgs, outs, step, p1, p2, on_card, overlap,
             ext = torch.empty(vol_x.shape, dtype=torch.float32,
                               device=vol_x.device)
             sgm_cuda.traverse_cuda(vol_x, img_x, ext, step, p1, p2,
-                                   accumulate=False)
+                                   accumulate=False, adaptive_p2=adaptive)
             part = ext[rows]
             outs[t] = part.clone() if outs[t] is None else outs[t].add_(part)
         else:
-            outs[t] = _accumulate(outs[t],
-                                  sweep(vol_x, img_x, p1, p2, step)[rows])
+            outs[t] = _accumulate(outs[t], sweep(vol_x, img_x, p1, p2, step,
+                                                 adaptive)[rows])
 
 
 def sharded_semiglobal(vols: Sequence[torch.Tensor],
                        imgs: Sequence[torch.Tensor], *, penalty1: float,
                        penalty2: float, mode: str = "exact",
                        overlap: int = 64,
-                       backend: str = "auto") -> List[torch.Tensor]:
+                       backend: str = "auto",
+                       adaptive_p2: bool = True) -> List[torch.Tensor]:
     """8-direction SGM over one frame's row tiles.
 
     ``vols``: float32 or bf16 [Hl, W, D] blocks in tile order, each on its
@@ -300,7 +304,8 @@ def sharded_semiglobal(vols: Sequence[torch.Tensor],
     bit; so does ``"overlap"`` when ``overlap`` covers every predecessor
     ((n_tiles - 1) * Hl rows).  ``backend`` as ``aggregation.Semiglobal``
     takes it: "auto" runs the kernels on CUDA blocks and the plain
-    versions on CPU blocks.
+    versions on CPU blocks.  ``adaptive_p2=False`` (the port's own):
+    the constant P2' = max(P1, P2), as ``Semiglobal`` takes it.
     """
     if mode not in ("exact", "overlap"):
         raise ValueError(f"unknown SGM sharding mode: {mode!r}")
@@ -322,13 +327,13 @@ def sharded_semiglobal(vols: Sequence[torch.Tensor],
             for t, (vol, img) in enumerate(zip(vols, imgs)):
                 if is_local(vol):
                     outs[t] = _whole_traversal(vol, img, outs[t], step, p1,
-                                               p2, on_card)
+                                               p2, on_card, adaptive_p2)
         elif mode == "exact":
             _exact_traversal(vols, imgs, outs, step, p1, p2, on_card,
-                             last=i == len(TRAVERSALS) - 1)
+                             i == len(TRAVERSALS) - 1, adaptive_p2)
         else:
             _overlap_traversal(vols, imgs, outs, step, p1, p2, on_card,
-                               overlap, halos)
+                               overlap, halos, adaptive_p2)
     # The one rounding of a bf16 tile's float32 sum, where the chunk
     # kernel did not already store it rounded (overlap mode, the CPU).
     return each(lambda v, o: o.to(dtype), vols, outs)
@@ -646,9 +651,13 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                           min_confidence: Optional[float] = None,
                           speckle: bool = False,
                           speckle_fill: str = "zero",
-                          interpret: bool = False) -> Callable:
+                          interpret: bool = False,
+                          census_height: Optional[int] = None,
+                          adaptive_p2: bool = True) -> Callable:
     """The pipeline over a (batch, tile) mesh, with the JAX package's
-    keywords.
+    keywords, and the port's own ``census_height`` (the census window's
+    height, None: square; its row halos are half the height) and
+    ``adaptive_p2`` (False: SGM's constant P2' = max(P1, P2)).
 
     Returns ``fn(left, right) -> disparity``: [B, H, W] images (numpy or
     tensors, any device) -> [B, H, W] int32 on the mesh's first device,
@@ -713,8 +722,11 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                 "reproduce the single-device clipped sum at true image "
                 "edges")
         cost_fn = Census(max_disparity, window_size=census_window,
-                         cost_volume_dtype=dtype)
-        halo_rows = (census_window // 2, census_window // 2)
+                         cost_volume_dtype=dtype,
+                         window_height=census_height)
+        rows = (census_window if census_height is None
+                else census_height) // 2
+        halo_rows = (rows, rows)
     elif cost == "birchfield":          # float32, never leaves a row
         cost_fn = functools.partial(cost_ops.birchfield_cost_volume,
                                     max_disparity=max_disparity,
@@ -751,7 +763,8 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
             with profiling.stage("aggregation", device):
                 vols = sharded_semiglobal(vols, lefts, penalty1=penalty1,
                                           penalty2=penalty2, mode=mode,
-                                          overlap=overlap, backend=backend)
+                                          overlap=overlap, backend=backend,
+                                          adaptive_p2=adaptive_p2)
         elif aggregation == "cvf":
             with profiling.stage("aggregation", device):
                 vols = sharded_cvf(vols, lefts, radius=int(cvf_radius),

@@ -356,9 +356,15 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
                           min_confidence: Optional[float] = None,
                           speckle: bool = False,
                           speckle_fill: str = "zero",
-                          interpret: bool = False) -> Callable:
+                          interpret: bool = False,
+                          census_height: Optional[int] = None,
+                          adaptive_p2: bool = True) -> Callable:
     """Cost + aggregation + reduce over a 2-D tile mesh, with the JAX
-    package's keywords.
+    package's keywords, and the port's own ``census_height`` (the census
+    window's height, None: square; its row halos are half the height, and
+    a block's cost is computed from its full-width rows, so it needs no
+    column halo) and ``adaptive_p2`` (False: SGM's constant P2' =
+    max(P1, P2)).
 
     ``aggregation``: "sgm" (8-path SGM on the overlap-extended block:
     exact where ``overlap`` covers the image, a warm-up below it), "cvf"
@@ -400,10 +406,13 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
         kernel_size = 4 if cost == "birchfield" else 7
     n_batch = mesh.shape[BATCH_AXIS]
     n_tile, n_tile_w = mesh.shape[TILE_AXIS], mesh.shape[TILE_W_AXIS]
-    sgm = Semiglobal(penalty1, penalty2, backend=backend)
+    sgm = Semiglobal(penalty1, penalty2, adaptive_p2=adaptive_p2,
+                     backend=backend)
     if cost == "census":
-        cost_fn = Census(max_disparity, window_size=census_window)
-        halo_rows = (census_window // 2,) * 2
+        cost_fn = Census(max_disparity, window_size=census_window,
+                         window_height=census_height)
+        halo_rows = ((census_window if census_height is None
+                      else census_height) // 2,) * 2
     elif cost == "birchfield":              # never leaves a row
         cost_fn = functools.partial(cost_ops.birchfield_cost_volume,
                                     max_disparity=max_disparity,

@@ -98,9 +98,11 @@ class StreamStats:
     batch's uploads, widenings, narrowing and copy to the host; None
     once a frame ran eagerly or over a mesh, where the count would miss
     PyTorch's operations.  It leaves out the stage stamps that a
-    recording profiler adds, four a frame (``stamps``); of those,
-    ``stage_device_s`` sums the device seconds of each stage over the
-    ``frames_stamped`` frames whose stamps read back whole."""
+    recording profiler adds, four a frame and five with a census cost
+    (``stamps``); of those, ``stage_device_s`` sums the device seconds
+    of each stage over the ``frames_stamped`` frames whose stamps read
+    back whole, and, with a census cost, under "census_codes" those from
+    the frame's first stamp to the one after its census codes."""
     frames: int = 0
     batches: int = 0
     seconds: float = 0.0
@@ -169,7 +171,11 @@ class StreamingEstimator:
     unless "cpu" is asked for.  ``pyramid_levels`` > 0 runs the census
     pyramid (it ignores ``cost``/``aggregation``/``reducer``; its
     inter-level median is ``pyramid_median``) and refuses the options
-    that need a full cost volume.  ``stream`` is the CUDA stream the
+    that need a full cost volume, and a rectangular census window or the
+    constant P2, which its band stage and SGM do not take.
+    ``census_height`` (the census window's height, None: square) and
+    ``adaptive_p2`` (False: SGM's constant P2' = max(P1, P2)) are the
+    port's own options.  ``stream`` is the CUDA stream the
     frames are enqueued on (default: one the estimator creates); callers
     that share one must enqueue on it from one thread at a time.
     """
@@ -193,7 +199,9 @@ class StreamingEstimator:
                  wmf_window: int = 5,
                  fgs_lambda=None, fgs_sigma: float = 8.0,
                  speckle: bool = False, speckle_fill: str = "zero",
-                 device: Device = "cuda", stream=None):
+                 device: Device = "cuda", stream=None,
+                 census_height: Optional[int] = None,
+                 adaptive_p2: bool = True):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         if lr_mode not in ("mirror", "volume"):
@@ -204,6 +212,15 @@ class StreamingEstimator:
             raise ValueError(f"unknown reducer {reducer!r}; expected one of "
                              f"{sorted(_REGISTRY_REDUCERS)}")
         if pyramid_levels > 0:
+            shaped = [name for name, on in [
+                ("census_height", census_height is not None),
+                ("adaptive_p2=False", not adaptive_p2)] if on]
+            if shaped:
+                raise ValueError(
+                    f"pyramid_levels > 0 does not support {shaped}: the "
+                    "pyramid's census is square and its SGM takes the "
+                    "adaptive P2 (running them instead would misreport "
+                    "what ran)")
             wanted = [name for name, on in [
                 ("lr_check", lr_check), ("weighted_median", weighted_median),
                 ("fgs_lambda", fgs_lambda is not None)] if on]
@@ -262,8 +279,10 @@ class StreamingEstimator:
                 self._sharded = make_sharded_estimate(
                     mesh, max_disparity=max_disparity, cost=cost,
                     kernel_size=kernel_size, cost_dtype=dtype,
-                    census_window=census_window, aggregation=aggregation,
+                    census_window=census_window,
+                    census_height=census_height, aggregation=aggregation,
                     reducer=reducer, penalty1=penalty1, penalty2=penalty2,
+                    adaptive_p2=adaptive_p2,
                     cvf_radius=cvf_radius, cvf_eps=cvf_eps,
                     sgm_mode=sgm_mode, overlap=overlap, backend=backend,
                     lr_max_diff=lr_max_diff, speckle=speckle,
@@ -288,7 +307,8 @@ class StreamingEstimator:
                     cvf_eps=cvf_eps, census_window=census_window,
                     backend=backend,
                     volume_dtype=validation.dtype_name(dtype),
-                    device=self.device, kernel_size=kernel_size)
+                    device=self.device, kernel_size=kernel_size,
+                    census_height=census_height, adaptive_p2=adaptive_p2)
                 post = (median or subpixel or lr_check or weighted_median
                         or fgs_lambda is not None)
                 self._refine = refine if post else None
@@ -509,7 +529,7 @@ class StreamingEstimator:
             if complete:
                 frames += weight
                 for k, v in seconds.items():
-                    total[k] += v
+                    total[k] = total.get(k, 0.0) + v
         return total, frames, stamps
 
     # -- the stream -----------------------------------------------------
@@ -597,7 +617,8 @@ class StreamingEstimator:
         if fetched.stamps is not None:
             seconds, frames, stamps = fetched.stamps
             for k, v in seconds.items():
-                stats.stage_device_s[k] += v
+                stats.stage_device_s[k] = (stats.stage_device_s.get(k, 0.0)
+                                           + v)
             stats.frames_stamped += frames
             stats.stamps += stamps
         for i, disp in enumerate(fetched.disparities):

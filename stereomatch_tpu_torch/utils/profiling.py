@@ -60,6 +60,10 @@ BEGIN = 0
 STAGE_IDS = {"cost": 1, "aggregation": 2, "disparity_reduce": 3}
 # Stage ids -> the keys of stage_seconds and StreamStats.stage_device_s.
 STAGE_KEYS = {1: "cost", 2: "aggregation", 3: "reduce"}
+# Points inside a stage (:func:`point`): id -> the key of stage_seconds,
+# whose seconds run from the frame's BEGIN stamp to the point's.
+POINT_IDS = {"census_codes": 4}
+POINT_KEYS = {v: k for k, v in POINT_IDS.items()}
 
 
 def recording() -> bool:
@@ -100,6 +104,14 @@ def stage(name: str, device=None) -> Iterator[None]:
         yield
     if ring is not None:
         ring.stamp(STAGE_IDS[name])
+
+
+def point(name: str, device=None) -> None:
+    """A point ``name`` (a key of ``POINT_IDS``) inside the cost stage:
+    where :func:`stage` stamps, it stamps the current stream here too."""
+    ring = _stamp_ring_for(device)
+    if ring is not None:
+        ring.stamp(POINT_IDS[name])
 
 
 @contextlib.contextmanager
@@ -229,21 +241,27 @@ def stage_seconds(rows: np.ndarray) -> Tuple[Dict[str, float], int]:
     all of one frame number.  A stage's time runs from the stamp before
     it to the stamp after it: in a replayed graph its nodes and the gaps
     beside the stamps, in an eager frame the host's gaps between its
-    launches too.  The stages of an incomplete frame are left out."""
+    launches too.  A point's stamp (``POINT_IDS``)
+    inside a stage splits nothing: its key ("census_codes"), present
+    where a complete frame had one, takes the time from BEGIN to it (the
+    frame's last such stamp), and the stage keeps its whole time.  The
+    stages of an incomplete frame are left out."""
     total = dict.fromkeys(STAGE_KEYS.values(), 0.0)
     frames = 0
     part: Optional[Dict[str, float]] = None
-    prev = frame = 0
+    prev = frame = begin = 0
     for _, t, f, stage_id in rows.tolist():
         if stage_id == BEGIN:
-            part, prev, frame = {}, t, f
+            part, prev, frame, begin = {}, t, f, t
+        elif part is not None and f == frame and stage_id in POINT_KEYS:
+            part[POINT_KEYS[stage_id]] = (t - begin) * 1e-9
         elif part is not None and f == frame and stage_id in STAGE_KEYS:
             key = STAGE_KEYS[stage_id]
             part[key] = part.get(key, 0.0) + (t - prev) * 1e-9
             prev = t
             if stage_id == STAGE_IDS["disparity_reduce"]:
                 for k, v in part.items():
-                    total[k] += v
+                    total[k] = total.get(k, 0.0) + v
                 frames += 1
                 part = None
         else:
