@@ -20,6 +20,11 @@ with the launch counts set to 0 just before it and read just after:
   HD against the whole frame's rows with one launch a band, a
   ``utils.profiling.trace`` file of teddy frames naming the kernels and
   the ``stm/*`` spans, and the CUDA start watchdog silent with CUDA up;
+* the census kernels (``check_census``) at teddy (a 5x5 window) and at
+  KITTI 2015's 375x1242 D=128 with its 9x7 window: the codes launch and
+  the Hamming launch (float32, int32, bf16) each alone against the plain
+  step on the same card tensors, each one launch, and at KITTI both
+  launches timed against the plain version and the bound;
 * the two forms of the SGM aggregation (``check_sgm_forms``), serial
   and side by side, at teddy and HD on float32 and bf16 volumes:
   bit-equal, each launch counted, each timed beside the other, and the
@@ -263,6 +268,8 @@ COUNTERS = {"ssd": ("stm_ssd_f32", "stm_ssd_i32"),
             "dp_backward": ("stm_dp_backward",),
             "cvf": ("stm_cvf_stats_f32",),
             "cvf_filter": ("stm_cvf_filter_f32",),
+            "census_codes": ("stm_census_codes",),
+            "census": ("stm_census_hamming_f32", "stm_census_hamming_i32"),
             "ssd_bf16": ("stm_ssd_bf16",),
             "sgm_rows_bf16": ("stm_sgm_rows_bf16",),
             "sgm_chunk_bf16": ("stm_sgm_chunk_bf16",),
@@ -271,7 +278,16 @@ COUNTERS = {"ssd": ("stm_ssd_f32", "stm_ssd_i32"),
             "sgm_fold_bf16": ("stm_sgm_fold_bf16",),
             "dp_forward_bf16": ("stm_dp_forward_bf16",),
             "cvf_bf16": ("stm_cvf_stats_bf16",),
-            "cvf_filter_bf16": ("stm_cvf_filter_bf16",)}
+            "cvf_filter_bf16": ("stm_cvf_filter_bf16",),
+            "census_bf16": ("stm_census_hamming_bf16",)}
+
+# The census kernels launched alone (check_census): each geometry as (h,
+# w, D, window columns, window rows) on the scene of CENSUS_SEED; teddy's
+# 5x5 window is one code word, KITTI 2015's 9x7
+# (portbench/configs/kitti-census-sgm.json) two.
+CENSUS_CELLS = {"teddy": (375, 450, 128, 5, 5),
+                "kitti": (375, 1242, 128, 9, 7)}
+CENSUS_SEED = 15
 
 # The two-process phase (check_distributed): its workers' time limit;
 # each cell's tiles and runs (label -> ShardedPipeline keywords, the
@@ -437,7 +453,7 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_work(h, w, d, k, r, tiles, volume_bytes=4):
+def kernel_work(h, w, d, k, r, tiles, volume_bytes=4, census=(5, 5)):
     """Work of each kernel's function at [h, w, d], as {name: (bytes,
     operations, design_bytes)}.
 
@@ -467,8 +483,14 @@ def kernel_work(h, w, d, k, r, tiles, volume_bytes=4):
     halos (:func:`cvf_tile_reads`) and the guide planes and writes a0 and
     b0, the filter kernel reads its tiles of a0 and b0 and the guide and
     writes the result; dp_backward reads the final costs, writes the
-    disparities and copies each walked column's window.  The other
-    single-pass kernels move their function's bytes."""
+    disparities and copies each walked column's window; census, at a
+    window of ``census`` (columns, rows): its function reads both images
+    and writes the volume, its operations are each neighbour's
+    comparison, shift and OR a pixel of each image and each code word's
+    XOR, population count and addition a cell (as ``portbench/work.py``
+    counts them), and its two launches also write both images' int32
+    code words and read them back.  The other single-pass kernels move
+    their function's bytes."""
     vol, img, f = h * w * d, h * w, 4        # elements; float32 bytes
     v = volume_bytes
     hd = h * d * f
@@ -483,7 +505,12 @@ def kernel_work(h, w, d, k, r, tiles, volume_bytes=4):
             for name, (nbytes, ops) in single.items()}
     work["dp_backward"] = (*single["dp_backward"],
                            hd + img * f + h * (w - 1) * dp_window_bytes(d))
+    bits = census[0] * census[1] - 1
+    words = -(-bits // 32)
+    census_bytes = 2 * img * f + vol * v
     work.update({
+        "census": (census_bytes, 2 * img * bits * 3 + vol * words * 3,
+                   census_bytes + 2 * 2 * img * words * f),
         "sgm_rows": (2 * vol * v + img * f, vol * 9 * 6, rows),
         "sgm_chunk": (2 * vol * v + img * f + carries, vol * 9 * 6,
                       rows + carries),
@@ -530,13 +557,13 @@ def cvf_tile_reads(h, w, d, r, td, blocks_per_sm, sms=132, tx=32,
     return rows * cols
 
 
-def kernel_bounds(h, w, d, k, r, tiles, volume_bytes=4):
+def kernel_bounds(h, w, d, k, r, tiles, volume_bytes=4, census=(5, 5)):
     """{name: (bound_ms, bound_by, design_floor_ms)}: the least time of
     each kernel's function (:func:`bound`) and its design bytes over the
     card's memory rate."""
     return {name: (*bound(nbytes, ops), design / HBM_BYTES_PER_S * 1e3)
-            for name, (nbytes, ops, design)
-            in kernel_work(h, w, d, k, r, tiles, volume_bytes).items()}
+            for name, (nbytes, ops, design) in kernel_work(
+                h, w, d, k, r, tiles, volume_bytes, census).items()}
 
 
 def profile_path(torch, fn, frames: int = 10):
@@ -1134,7 +1161,9 @@ KERNEL_OF_ENTRY = {"stm_ssd": "ssd_kernel", "stm_sgm_rows": "sgm_rows_kernel",
                    "stm_sgm_fold": "sgm_fold_kernel",
                    "stm_dp_forward": "dp_forward_kernel",
                    "stm_dp_backward": "dp_backward_kernel",
-                   "stm_cvf": "cvf_kernel"}
+                   "stm_cvf": "cvf_kernel",
+                   "stm_census_codes": "census_codes_kernel",
+                   "stm_census_hamming": "census_hamming_kernel"}
 
 
 def compiled_paths(cli_common, shapes, p1, p2):
@@ -1747,6 +1776,108 @@ def check_sgm_forms(torch, dev, shapes, p1, p2, card) -> dict:
                 f"takes {rule}, faster here {faster} [{card}]")
             del vol
             torch.cuda.empty_cache()
+    return out
+
+
+def check_census(torch, dev, card) -> dict:
+    """The census kernels, each launch alone, against the plain steps on
+    the same card tensors at each CENSUS_CELLS geometry: the codes kernel
+    (``census_codes_cuda``) against ``census_transform``, then the
+    Hamming kernel (``census_hamming_from_codes_cuda``) storing float32,
+    int32 and bf16 against ``census_hamming_from_codes`` on the plain
+    codes, bit for bit; each call one launch of its own entry point (the
+    counts set to 0 just before and read just after), and the public
+    ``census_hamming_cost_volume`` under "auto" the same two launches and
+    the same volume.  At KITTI, float32 and bf16: both launches
+    (``backend="cuda"``) against the plain version (``backend="torch"``)
+    in turns plain, kernels, kernels, plain, each launch alone, and the
+    bound and design floor of ``kernel_work``'s census there.  Returns
+    {tag: {counter: {launches, max_abs_err[, timings]}}}."""
+    from stereomatch_tpu_torch.io.synthetic import stereo_pair
+    from stereomatch_tpu_torch.ops import _build, census_cuda
+    from stereomatch_tpu_torch.ops import cost as cost_ops
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, {n: c for n, c in launch_counts(
+            COUNTERS, _build.LAUNCHES).items() if c}
+
+    out = {}
+    for tag, (h, w, d, win_w, win_h) in CENSUS_CELLS.items():
+        log(f"[census] {tag} {h}x{w} D={d}, a {win_w}x{win_h} window, each "
+            f"launch against the plain steps on the card")
+        left, right, _ = stereo_pair(h, w, d, seed=CENSUS_SEED)
+        left = torch.from_numpy(left).to(dev)
+        right = torch.from_numpy(right).to(dev)
+        window = (win_w, win_h)
+        codes, counts = counted(
+            lambda: census_cuda.census_codes_cuda(left, right, *window))
+        require(counts == {"census_codes": 1},
+                f"census codes {tag} launched {counts}")
+        plain_codes = tuple(cost_ops.census_transform(image, *window)
+                            for image in (left, right))
+        for side, want, got in zip(("left", "right"), plain_codes, codes):
+            compare(f"census codes {side} {tag}", want, got, 0, 0,
+                    exact=True)
+        out[tag] = {}
+        for counter, dtype in (("census", torch.float32),
+                               ("census_int32", torch.int32),
+                               ("census_bf16", torch.bfloat16)):
+            kw = dict(max_disparity=d, cost_dtype=dtype)
+            entry = counter.replace("_int32", "")
+            vol, counts = counted(
+                lambda: census_cuda.census_hamming_from_codes_cuda(*codes,
+                                                                   **kw))
+            require(counts == {entry: 1},
+                    f"census Hamming {dtype} {tag} launched {counts}")
+            err = compare(f"census Hamming {dtype} {tag}",
+                          cost_ops.census_hamming_from_codes(*plain_codes,
+                                                             **kw),
+                          vol, 0, 0, exact=True)
+            whole, counts = counted(
+                lambda: cost_ops.census_hamming_cost_volume(
+                    left, right, window_size=win_w, window_height=win_h,
+                    **kw))
+            require(counts == {"census_codes": 1, entry: 1},
+                    f"census_hamming_cost_volume {dtype} {tag} under "
+                    f"auto launched {counts}")
+            require(torch.equal(whole, vol), f"census_hamming_cost_volume "
+                    f"{dtype} {tag} differs from its two launches")
+            out[tag][counter] = {"launches": counts, "max_abs_err": err}
+            del vol, whole
+        if tag != "kitti":
+            continue
+        for counter, dtype, v in (("census", torch.float32, 4),
+                                  ("census_bf16", torch.bfloat16, 2)):
+            def volume(backend, dtype=dtype):
+                return lambda: cost_ops.census_hamming_cost_volume(
+                    left, right, max_disparity=d, window_size=win_w,
+                    window_height=win_h, cost_dtype=dtype, backend=backend)
+            plain_reps = dict(warmup=PLAIN_WARMUP, reps=PLAIN_REPS)
+            t_plain = [time_ms(torch, volume("torch"), **plain_reps)]
+            t_kern = [time_ms(torch, volume("cuda")) for _ in range(2)]
+            t_plain.append(time_ms(torch, volume("torch"), **plain_reps))
+            t_codes = time_ms(torch, lambda: census_cuda.census_codes_cuda(
+                left, right, *window))
+            t_hamming = time_ms(
+                torch, lambda dtype=dtype:
+                census_cuda.census_hamming_from_codes_cuda(
+                    *codes, max_disparity=d, cost_dtype=dtype))
+            b_ms, b_by, floor_ms = kernel_bounds(
+                h, w, d, 1, 8, 1, volume_bytes=v, census=window)["census"]
+            out[tag][counter].update(
+                ms=min(t_kern), plain_ms=min(t_plain), codes_ms=t_codes,
+                hamming_ms=t_hamming, bound_ms=b_ms, bound_by=b_by,
+                design_floor_ms=floor_ms)
+            log(f"  {counter} {tag}: both launches {t_kern} ms (codes "
+                f"{t_codes!r}, Hamming {t_hamming!r}), plain {t_plain} ms, "
+                f"bound {b_ms!r} ms ({b_by}), design floor {floor_ms!r} ms "
+                f"[{card}]")
+        del left, right, codes, plain_codes
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3017,8 +3148,8 @@ def distributed_tiles_worker(rank: int, address: str) -> int:
         "golden_diff": int((got != golden_cvf["census_cvf_wta"][:, cols])
                            .sum()),
         "bad": int(bad.sum()), "scored": int(scored[:, cols].sum())}
-    log(f"  launches a frame on rank {rank}: {per_frame(counts, 1)} (census "
-        f"and the 2-D masked filter are plain PyTorch)")
+    log(f"  launches a frame on rank {rank}: {per_frame(counts, 1)} (the "
+        f"2-D masked filter is plain PyTorch)")
     del masked, fn, shards, mesh_w
 
     log(f"[rank {rank}] moves between the ranks, host-staged over gloo")
@@ -3309,6 +3440,27 @@ def main() -> int:
     # Phase 3: kernels against their plain versions, on the card.
     log("[kernels vs plain]")
     errors = {}
+
+    def census_on_card(tag, dtype, counter, census_kw):
+        """The census volume of ``left``, ``right`` on the card under
+        "auto", held against the CPU's: one launch of the codes kernel and
+        one of the Hamming kernel storing ``dtype``."""
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        volume = cost_ops.census_hamming_cost_volume(
+            left, right, cost_dtype=dtype, **census_kw)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in launch_counts(
+            COUNTERS, _build.LAUNCHES).items() if c}
+        require(counts == {"census_codes": 1, counter: 1},
+                f"census {dtype} {tag} launched {counts}")
+        errors[f"{counter}_{tag}"] = compare(
+            f"census kernels {dtype} card vs plain CPU {tag}",
+            cost_ops.census_hamming_cost_volume(
+                left.cpu(), right.cpu(), cost_dtype=dtype,
+                **census_kw).to(dev),
+            volume, 0, 0, exact=True)
+        return volume
     for tag, (left, right, _, d, k) in shapes.items():
         kw = dict(max_disparity=d, kernel_size=k)
         # The SSD kernel: f32 SSD and SAD, and the int32 chain on uint8
@@ -3384,13 +3536,10 @@ def main() -> int:
                     exact=True)
             del ptr_made
         del ref, ptr_ref, final_ref, ptr, final
-        # Census on the card equals census on the CPU; CVF on its volume.
+        # The census kernels on the card (one launch of each under
+        # "auto") equal the census on the CPU; CVF on its volume.
         census_kw = dict(max_disparity=d, window_size=5, kernel_size=1)
-        census = cost_ops.census_hamming_cost_volume(left, right, **census_kw)
-        compare(f"census plain card vs CPU {tag}",
-                cost_ops.census_hamming_cost_volume(left.cpu(), right.cpu(),
-                                                    **census_kw).to(dev),
-                census, 0, 0, exact=True)
+        census = census_on_card(tag, torch.float32, "census", census_kw)
         cvf_kw = dict(radius=8, eps=1e-4, wedge_offset=0)
         errors[f"cvf_{tag}"] = compare(
             f"cvf {tag}", cvf_ops.guided_filter_aggregate(census, left,
@@ -3448,8 +3597,7 @@ def main() -> int:
             compare(f"dp_forward bf16 final costs {tag}", final_ref, final,
                     0, 0, exact=True))
         del ref16, ptr_ref, final_ref, ptr, final
-        census16 = cost_ops.census_hamming_cost_volume(
-            left, right, cost_dtype=BF16, **census_kw)
+        census16 = census_on_card(tag, BF16, "census_bf16", census_kw)
         errors[f"cvf_bf16_{tag}"] = compare(
             f"cvf bf16 {tag}",
             cvf_ops.guided_filter_aggregate(census16, left, **cvf_kw),
@@ -3459,6 +3607,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     elapsed("the kernels against their plain versions")
+    census_out = check_census(torch, dev, card)
+    elapsed("the census kernels")
     forms_out = check_sgm_forms(torch, dev, shapes, p1, p2, card)
     elapsed("the two SGM forms")
     soak_out = check_soak(torch, dev, card)
@@ -3470,7 +3620,8 @@ def main() -> int:
     # The float32 kernels a bf16 path must not launch: no cast of a bf16
     # volume to float32 in front of them.
     f32_only = ("ssd", "sgm_rows", "sgm_chunk", "sgm_horizontal",
-                "sgm_side", "sgm_fold", "dp_forward", "cvf", "cvf_filter")
+                "sgm_side", "sgm_fold", "dp_forward", "cvf", "cvf_filter",
+                "census")
 
     def run_path(label, run, kernels, shape=(375, 450), d=128,
                  dtype=torch.int32):
@@ -3536,12 +3687,16 @@ def main() -> int:
         census_window=int(golden_cvf["census_window"]))
     disp_np, cvf_counts = run_path(
         "census -> cvf -> wta", lambda: pipe_cvf.estimate(left_np, right_np),
-        ("cvf", "cvf_filter"))
+        ("census_codes", "census", "cvf", "cvf_filter"))
+    require(cvf_counts["census_codes"] == cvf_counts["census"] == 1,
+            f"census -> cvf -> wta launched the census kernels "
+            f"{cvf_counts['census_codes']} and {cvf_counts['census']} times, "
+            f"not once each")
     check_golden("census_cvf_wta", disp_np, golden_cvf["census_cvf_wta"], gt,
                  d, CVF_GOLDEN_MAX_DIFF,
                  float(golden_cvf["bad_pixel_vs_gt"]), 1e-3)
-    launches["cvf"] = cvf_counts["cvf"]
-    launches["cvf_filter"] = cvf_counts["cvf_filter"]
+    for name in ("cvf", "cvf_filter", "census_codes", "census"):
+        launches[name] = cvf_counts[name]
     require(cvf_counts["cvf"] == cvf_counts["cvf_filter"],
             "the two CVF kernels launched a different number of times")
 
@@ -3554,7 +3709,8 @@ def main() -> int:
             ("ssd_sgm_dyn", ("ssd", "dyn", "sgm"),
              ("ssd_bf16", "sgm_bf16", "dp_forward_bf16", "dp_backward")),
             ("census_cvf_wta", ("census", "wta", "cvf"),
-             ("cvf_bf16", "cvf_filter_bf16"))):
+             ("census_codes", "census_bf16", "cvf_bf16",
+              "cvf_filter_bf16"))):
         log(f"[bf16 path] {cost} -> {aggr} -> {reducer}, teddy 375x450 "
             f"D=128, volume_dtype=bfloat16")
         pipe16 = cli_common.create_pipeline(
@@ -3578,6 +3734,12 @@ def main() -> int:
         launches.update((n, counts[n])
                         for n in expand_sgm(kernels, 375, 450, d)
                         if n.endswith("bf16"))
+        if cost == "census":
+            require(counts["census_codes"] == counts["census_bf16"] == 1,
+                    f"bf16 {name} launched the census kernels "
+                    f"{counts['census_codes']} and {counts['census_bf16']} "
+                    f"times, not once each")
+            launches["census_codes_bf16"] = counts["census_codes"]
 
     # The row-sharded pipeline: 5 row tiles of 75 rows on one card.
     mesh5 = parallel.make_mesh([dev] * 5, n_batch=1)
@@ -3853,6 +4015,14 @@ def main() -> int:
                     lambda: agg_ops.semiglobal_aggregate(
                         volume, image, penalty1=p1, penalty2=p2))
 
+        def census_volume(dtype):
+            """Both census launches (a 5x5 window) and the plain
+            version."""
+            return tuple(lambda backend=backend: (
+                cost_ops.census_hamming_cost_volume(
+                    left, right, max_disparity=d, cost_dtype=dtype,
+                    backend=backend)) for backend in ("cuda", "torch"))
+
         def chunks(volume, kernel, result=None):
             return lambda: chunked_rows(volume, image, out, p1, p2,
                                         CHUNK_CUTS[tag], kernel=kernel,
@@ -3892,6 +4062,8 @@ def main() -> int:
                              census16, image, **cvf_kw),
                          lambda: cvf_ops.guided_filter_aggregate(
                              census16, image, **cvf_kw)),
+            "census": census_volume(torch.float32),
+            "census_bf16": census_volume(BF16),
         }
         for name, (kern, plain) in pairs.items():
             # Plain, kernel, kernel, plain: the two orders cancel drift.
@@ -3909,9 +4081,6 @@ def main() -> int:
             t_wta = time_ms(torch, lambda: pipe.disparity_reduce(volume))
             log(f"  wta (torch.argmin) {label} {tag}: {t_wta!r} ms "
                 f"[{card}]")
-        t_census = time_ms(torch, lambda: cost_ops.census_hamming_cost_volume(
-            left, right, max_disparity=d))
-        log(f"  census plain {tag}: {t_census!r} ms [{card}]")
         # The whole CVF call (pairs["cvf"]) is the guide planes in PyTorch
         # plus the two launches; each timed alone here.
         planes = cvf_ops.guide_planes(image, 8, 0, d)
@@ -4025,11 +4194,13 @@ def main() -> int:
                "cvf": ("stereomatch_tpu_torch/csrc/cvf.cu",
                        "stereomatch_tpu/ops/cvf_pallas.py:105"),
                "sgm_chunk": ("stereomatch_tpu_torch/csrc/sgm.cu",
-                             "stereomatch_tpu/ops/sgm_pallas.py:552")}
+                             "stereomatch_tpu/ops/sgm_pallas.py:552"),
+               # The port's own: the JAX package's census is XLA.
+               "census": ("stereomatch_tpu_torch/csrc/census.cu", None)}
     # The bf16 instantiations of the same kernels, in the same sources;
     # the DP walk reads no costs and has none.
     for name in ("ssd", "sgm_rows", "sgm_horizontal", "sgm_side",
-                 "dp_forward", "cvf", "sgm_chunk"):
+                 "dp_forward", "cvf", "sgm_chunk", "census"):
         sources[f"{name}_bf16"] = sources[name]
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -4070,6 +4241,14 @@ def main() -> int:
             fold = name.replace("sgm_side", "sgm_fold")
             entry["launches_fold_kernel"] = launches[fold]
             entry["hd_launches_fold_kernel"] = hd_main.get(fold, 0)
+        if name.startswith("census"):
+            # launches: the Hamming kernel's in teddy's census+cvf+wta
+            # path; the codes kernel's beside them; ms, plain_ms and the
+            # bounds at a 5x5 window; kitti: the launches alone at KITTI
+            # 2015's geometry and 9x7 window (check_census).
+            entry["launches_codes_kernel"] = launches[
+                name.replace("census", "census_codes")]
+            entry["kitti"] = census_out["kitti"][name]
         if name.startswith("sgm_chunk"):
             # K6, the W-on-grid form of the same TPU kernel, at HD; the
             # launches are those of the sharded exact path (teddy, 5
@@ -4103,6 +4282,7 @@ def main() -> int:
     log(json.dumps({"distributed_tiles": tiles_out, "card": card}))
     log(json.dumps({"soak": soak_out, "card": card}))
     log(json.dumps({"sgm_forms": forms_out, "card": card}))
+    log(json.dumps({"census": census_out, "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {

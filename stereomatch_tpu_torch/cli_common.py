@@ -133,8 +133,9 @@ def recommended_dtype(height: int, width: int, aggregation: str = "sgm", *,
     (1280x720x64) up, float32 below (no size between 21.6M and 59.0M
     cells was measured).  Elsewhere float32: census + CVF + WTA measured
     level at 450x375 (host launches) and at 1280x1024 (38.03-38.74
-    against 38.29-38.30; plain PyTorch census takes about 27 ms there
-    and the CVF kernels are bound by their instruction rate), and
+    against 38.29-38.30, while the census was plain PyTorch, about 27 ms
+    there, before its kernels; the CVF kernels are bound by their
+    instruction rate), and
     without aggregation neither the SSD kernel (bound the same way) nor
     torch.argmin gains.
     """
@@ -208,7 +209,8 @@ def create_pipeline(cost_method: str, disp_method: str,
                          "volume_dtype int32 is not supported")
     if cost_cls is Census:
         cost = Census(max_disparity, window_size=census_window,
-                      cost_volume_dtype=dtype, window_height=census_height)
+                      cost_volume_dtype=dtype, window_height=census_height,
+                      backend=backend)
     elif cost_cls in (SSD, SAD):
         cost = cost_cls(max_disparity, cost_volume_dtype=dtype,
                         backend=backend)

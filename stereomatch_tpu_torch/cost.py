@@ -6,10 +6,12 @@
     workflow mutates it per scene).
   * ``cost_volume=`` is accepted for source compatibility with the
     reference and ignored: the caching allocator reuses the buffers.
-  * ``backend`` (routed by ``ops.cost.diff_cost_dispatch``): "auto"
-    launches the CUDA kernel (``ops/ssd_cuda.py``) for CUDA tensors
-    whose shape it serves (``ssd_cuda.fits``) and runs the plain
-    PyTorch version otherwise, on the images' own device;
+  * ``backend`` (routed by ``ops.cost.diff_cost_dispatch`` for SSD and
+    SAD, ``ops.cost.census_backend`` for Census): "auto" launches the
+    CUDA kernels (``ops/ssd_cuda.py``, ``ops/census_cuda.py``) for CUDA
+    tensors whose shape they serve (``ssd_cuda.fits``,
+    ``census_cuda.fits``) and runs the plain PyTorch version otherwise,
+    on the images' own device;
     "cuda" demands the kernel and raises on CPU tensors and on shapes it
     does not serve; "torch" runs the plain version on the images' own
     device.
@@ -76,10 +78,17 @@ class Census:
     """Census-transform + Hamming-distance cost (Zabih-Woodfill), the
     counterpart of the JAX package's ``Census``.
 
-    Plain PyTorch on every device: the JAX package computes it in XLA,
-    with no Pallas kernel, so the port has no CUDA kernel for it.  Inside
-    the cost stage it enters the spans ``stm/cost/census_codes`` and
-    ``stm/cost/census_hamming``, and stamps the card after the codes
+    Two steps, each a launch of the census kernels (``ops/census_cuda.py``,
+    ``csrc/census.cu``) on the card under ``backend`` "auto" or "cuda":
+    both images' codes, then their Hamming volume.  The kernels are the
+    port's own (the JAX package computes the census in XLA, with no
+    Pallas kernel) and equal the plain PyTorch version
+    (``ops.cost.census_transform``, ``census_hamming_from_codes``) bit for
+    bit; "auto" runs the plain version on CPU tensors and where the
+    kernels do not serve the window or the box sum (``census_cuda.fits``:
+    more than 4 code words, ``kernel_size`` > 1).  Inside the cost stage
+    the steps enter the spans ``stm/cost/census_codes`` and
+    ``stm/cost/census_hamming``, and the card is stamped between them
     where the stage stamps (``utils/profiling.py``).
 
     Attributes:
@@ -94,12 +103,14 @@ class Census:
         cost_volume_dtype: torch.float32, torch.bfloat16 (integers up to
             256, every pixelwise census distance, are exact in bf16) or
             torch.int32.
+        backend: "auto" | "cuda" | "torch" (``ops.cost.census_backend``).
     """
 
     def __init__(self, max_disparity: int, window_size: int = 5,
                  kernel_size: int = 1,
                  cost_volume_dtype: torch.dtype = torch.float32,
-                 window_height: Optional[int] = None):
+                 window_height: Optional[int] = None,
+                 backend: str = "auto"):
         validation.check_positive("max_disparity", max_disparity)
         validation.check_positive("window_size", window_size)
         if window_height is not None:
@@ -115,18 +126,21 @@ class Census:
         self.window_height = window_height
         self.kernel_size = kernel_size
         self.cost_volume_dtype = cost_volume_dtype
+        self.backend = backend
 
     def __call__(self, left_image: torch.Tensor, right_image: torch.Tensor,
                  cost_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
         validation.check_stereo_pair(left_image, right_image)
         window = (self.window_size, self.window_height)
+        route = cost_ops.census_backend(self.backend, left_image, *window,
+                                        self.kernel_size)
         with profiling.annotate("stm/cost/census_codes"):
-            codes = (cost_ops.census_transform(left_image, *window),
-                     cost_ops.census_transform(right_image, *window))
+            codes = cost_ops.census_codes(left_image, right_image, *window,
+                                          route=route)
         profiling.point("census_codes", left_image.device)
         with profiling.annotate("stm/cost/census_hamming"):
-            return cost_ops.census_hamming_from_codes(
-                *codes, max_disparity=self.max_disparity,
+            return cost_ops.census_hamming(
+                *codes, route=route, max_disparity=self.max_disparity,
                 kernel_size=self.kernel_size,
                 cost_dtype=self.cost_volume_dtype)
 

@@ -2,8 +2,9 @@
 ``cvf``, ``disparity``, and ``refine``, the post-processing, which has no
 kernel) and the launchers of the hand-written CUDA kernels
 that replace the JAX package's Pallas kernels (``ssd_cuda``,
-``sgm_cuda``, ``dp_cuda``, ``cvf_cuda``, built by ``_build``).  Importing
-them builds nothing.  The JAX package's ``*_pallas`` entry points have
+``sgm_cuda``, ``dp_cuda``, ``cvf_cuda``) and of the port's own census
+kernels (``census_cuda``), built by ``_build``.  Importing them builds
+nothing.  The JAX package's ``*_pallas`` entry points have
 no alias here: the CUDA launchers are their counterparts."""
 
 from .aggregation import semiglobal_aggregate

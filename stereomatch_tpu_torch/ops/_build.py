@@ -56,6 +56,7 @@ _DP_FORWARD = (_P, _P, _P, _I, _I, _I, _P)
 _CVF_STATS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
               _P)
 _CVF_FILTER = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_HAMMING = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 
 # C entry points of csrc/*.cu and their argument types.  Every one
 # returns the cudaError_t of its launch (0 = success).  The _bf16 entries
@@ -105,6 +106,14 @@ _SIGNATURES = {
     # (a0, b0, guide, q, H, W, D, r, off, stream)
     "stm_cvf_filter_f32": _CVF_FILTER,
     "stm_cvf_filter_bf16": _CVF_FILTER,
+    # (left, right, codes_left, codes_right, H, W, window width, window
+    #  height, stream)
+    "stm_census_codes": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (codes_left, codes_right, out, H, W, D, words, disparity offset,
+    #  stream)
+    "stm_census_hamming_f32": _HAMMING,
+    "stm_census_hamming_i32": _HAMMING,
+    "stm_census_hamming_bf16": _HAMMING,
     # csrc/trace.cu (TRACE_ENTRIES).  (ring, state, mask, stage, stream)
     "stm_stamp": (_P, _P, _L, _I, _P),
     # (bytes, host out, device out)

@@ -12,10 +12,14 @@ volumes are the oracle of the CUDA kernel in ``ops/ssd_cuda.py``;
 :func:`diff_cost_dispatch` chooses between the two, for
 ``cost.SSD``/``cost.SAD``/``cost.SSDTexture``, the padded-band
 ``ssd_cost_from_padded``/``sad_cost_from_padded`` and the disparity-block
-partitioner.
-Census, Birchfield and ZNCC have no kernel of their own (the JAX package
-computes them in XLA, with no Pallas kernel), so they run as plain
-PyTorch on the card too.
+partitioner.  The census codes and their Hamming volume are the oracles
+of the census kernels in ``ops/census_cuda.py`` (the port's own: the JAX
+package computes the census in XLA, with no Pallas kernel);
+:func:`census_backend` resolves the route of ``cost.Census`` and
+:func:`census_hamming_cost_volume`, and :func:`census_codes` and
+:func:`census_hamming` take it.
+Birchfield and ZNCC have no kernel (nor had they a Pallas one), so they
+run as plain PyTorch on the card too.
 
 ZNCC's sums are elementwise adds in fixed orders: the prefix planes
 take XLA's CPU cumsum association (``utils.numeric.prefix_sum_w``), the
@@ -51,7 +55,7 @@ first.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +64,7 @@ from ..utils import validation
 from ..utils.backend import resolve_backend
 from ..utils.numeric import fma, pairwise_sum_last, prefix_sum_w, sqrt_f32
 from ..utils.validation import compute_dtype, inf_value
-from . import ssd_cuda
+from . import census_cuda, ssd_cuda
 
 
 def shifted_right_stack(right: torch.Tensor, max_disparity: int,
@@ -271,11 +275,8 @@ def census_transform(image: torch.Tensor, window_size: int = 5,
     card, not one per neighbour); the bits of a word are distinct powers
     of two, so their int32 sum is their OR and cannot overflow.
     """
+    validation.census_words(window_size, window_height)
     height_w = window_size if window_height is None else window_height
-    for name, side in (("window_size", window_size),
-                       ("window_height", height_w)):
-        if side % 2 == 0 or side < 1:
-            raise ValueError(f"{name} must be odd and positive (got {side})")
     img = image.to(torch.float32)
     height, width = img.shape
     half_w, half_h = window_size // 2, height_w // 2
@@ -318,13 +319,26 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return x & 0x3F
 
 
+def census_backend(backend: str, image: torch.Tensor, window_size: int,
+                   window_height: Optional[int], kernel_size: int) -> str:
+    """``backend`` of a census cost resolved for ``image``: "auto" takes
+    the census kernels (``ops/census_cuda.py``) for a CUDA tensor whose
+    window and ``kernel_size`` they serve (``census_cuda.fits``: 1 to 4
+    code words, ``kernel_size`` 1) and the plain version otherwise, on
+    the image's own device; "cuda" demands the kernels; "torch" runs the
+    plain version."""
+    n_words = validation.census_words(window_size, window_height)
+    return resolve_backend(backend, image,
+                           census_cuda.fits(n_words, kernel_size))
+
+
 def census_hamming_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
                                max_disparity: int, window_size: int = 5,
                                kernel_size: int = 1,
                                cost_dtype: torch.dtype = torch.float32,
                                disparity_offset: int = 0,
-                               window_height: Optional[int] = None
-                               ) -> torch.Tensor:
+                               window_height: Optional[int] = None,
+                               backend: str = "auto") -> torch.Tensor:
     """Hamming distance between census codes as an [H, W, D] volume.
 
     cost[y, x, d] = popcount(census(L)[y, x] XOR census(R)[y, x - d]),
@@ -333,12 +347,39 @@ def census_hamming_cost_volume(left: torch.Tensor, right: torch.Tensor, *,
     disparity d + ``disparity_offset``, as in :func:`ssd_cost_volume`.
     The census window is ``window_size`` columns by ``window_height``
     rows (None: square), as :func:`census_transform` takes them.
+    ``backend`` as :func:`census_backend` resolves it.
     """
-    cl = census_transform(left, window_size, window_height)
-    cr = census_transform(right, window_size, window_height)
-    return census_hamming_from_codes(
-        cl, cr, max_disparity=max_disparity, kernel_size=kernel_size,
-        cost_dtype=cost_dtype, disparity_offset=disparity_offset)
+    route = census_backend(backend, left, window_size, window_height,
+                           kernel_size)
+    codes = census_codes(left, right, window_size, window_height,
+                         route=route)
+    return census_hamming(*codes, route=route, max_disparity=max_disparity,
+                          kernel_size=kernel_size, cost_dtype=cost_dtype,
+                          disparity_offset=disparity_offset)
+
+
+def census_codes(left: torch.Tensor, right: torch.Tensor,
+                 window_size: int = 5, window_height: Optional[int] = None,
+                 *, route: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both images' census codes (:func:`census_transform`'s layout) on
+    ``route``, :func:`census_backend`'s answer: "cuda" is one launch of
+    the codes kernel, "torch" the plain version."""
+    if route == "cuda":
+        return census_cuda.census_codes_cuda(left, right, window_size,
+                                             window_height)
+    return (census_transform(left, window_size, window_height),
+            census_transform(right, window_size, window_height))
+
+
+def census_hamming(cl: torch.Tensor, cr: torch.Tensor, *, route: str,
+                   **kw) -> torch.Tensor:
+    """The Hamming volume of two images' codes on ``route``
+    (:func:`census_backend`'s answer): "cuda" is one launch of the
+    Hamming kernel, "torch" :func:`census_hamming_from_codes`, whose
+    keywords ``kw`` are."""
+    if route == "cuda":
+        return census_cuda.census_hamming_from_codes_cuda(cl, cr, **kw)
+    return census_hamming_from_codes(cl, cr, **kw)
 
 
 def census_hamming_from_codes(cl: torch.Tensor, cr: torch.Tensor, *,

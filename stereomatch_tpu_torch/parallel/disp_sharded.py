@@ -25,9 +25,11 @@ a block's +inf cells are exactly ``x < d + offset``.  That is the
 single-card registry's wedge path restricted to the block.  On the CPU
 the filter is the plain masked path, as the JAX package filters each
 block (its ``guided_filter_aggregate`` with no ``wedge_offset``).
-Census, Birchfield and ZNCC have no kernel (plain PyTorch on any
-device).  In one process, one process drives every block; with one card
-a block, the blocks run concurrently.  Over processes (``make_disp_mesh``
+On the card a block's pixelwise census volume is the census kernels'
+two launches (``census_cuda``) at the block's offset.  Birchfield and
+ZNCC have no kernel (plain PyTorch on any device).  In one process, one
+process drives every block; with one card a block, the blocks run
+concurrently.  Over processes (``make_disp_mesh``
 of the world's devices), each rank builds only its own blocks, the rows
 of every block's (minimum, argmin) that a device's output rows need move
 to that device's owner (``transport.exchange``: JAX's ``pmin``, whose

@@ -723,7 +723,7 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
                 "edges")
         cost_fn = Census(max_disparity, window_size=census_window,
                          cost_volume_dtype=dtype,
-                         window_height=census_height)
+                         window_height=census_height, backend=backend)
         rows = (census_window if census_height is None
                 else census_height) // 2
         halo_rows = (rows, rows)

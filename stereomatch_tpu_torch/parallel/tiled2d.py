@@ -410,7 +410,7 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
                      backend=backend)
     if cost == "census":
         cost_fn = Census(max_disparity, window_size=census_window,
-                         window_height=census_height)
+                         window_height=census_height, backend=backend)
         halo_rows = ((census_window if census_height is None
                       else census_height) // 2,) * 2
     elif cost == "birchfield":              # never leaves a row

@@ -97,3 +97,16 @@ def check_cost_volume(volume) -> None:
 def check_positive(name: str, value: int) -> None:
     if value <= 0:
         raise ValueError(f"{name} must be positive, got {value}")
+
+
+def census_words(window_size: int, window_height=None) -> int:
+    """The int32 code words of a census window ``window_size`` columns by
+    ``window_height`` rows (None: square): one bit for each neighbour,
+    32 a word, 0 for a 1x1 window.  Raises ``ValueError`` unless both
+    sides are odd and positive."""
+    height = window_size if window_height is None else window_height
+    for name, side in (("window_size", window_size),
+                       ("window_height", height)):
+        if side % 2 == 0 or side < 1:
+            raise ValueError(f"{name} must be odd and positive (got {side})")
+    return -(-(window_size * height - 1) // 32)

@@ -5,8 +5,9 @@ Under "auto" a CUDA tensor goes to a kernel only where the kernel serves
 its shape; elsewhere the plain version runs on the same device, decided
 before any launch.  Each predicate states the limit its launcher's
 ``ValueError`` enforces: D <= 512 for the SGM and DP kernels, r <= 34
-for the CVF kernels, and for the SSD kernel the rows of the block grid
-and the shared memory of one streamed row.  The SSD and CVF bounds are
+for the CVF kernels, 1 to 4 code words and no box sum for the census
+kernels, and for the SSD kernel the rows of the block grid and the
+shared memory of one streamed row.  The SSD and CVF bounds are
 held here against the tile arithmetic of ``csrc/ssd.cu`` and
 ``csrc/cvf.cu`` (``tile_of``), restated below.  The card tests
 (``tests/test_torch_kernels_cuda.py``) run both sides of each bound.
@@ -17,8 +18,11 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from stereomatch_tpu_torch.ops import cvf_cuda, dp_cuda, sgm_cuda, ssd_cuda
+from stereomatch_tpu_torch.ops import (census_cuda, cvf_cuda, dp_cuda,
+                                       sgm_cuda, ssd_cuda)
+from stereomatch_tpu_torch.ops.cost import census_backend
 from stereomatch_tpu_torch.utils.backend import resolve_backend
+from stereomatch_tpu_torch.utils.validation import census_words
 
 from .torch_shapes import SSD_REFUSED_K
 
@@ -102,6 +106,32 @@ def test_sgm_and_dp_fit_up_to_512_disparities(module):
     assert not module.fits((8, 40, 513)) and not module.fits((8, 40, 600))
 
 
+# (width, height, code words): 1 to 4 words are served, up to 11x11.
+CENSUS_WINDOWS = [(1, 1, 0), (3, 3, 1), (5, 5, 1), (7, 7, 2), (9, 7, 2),
+                  (9, 9, 3), (11, 11, 4), (1, 129, 4), (13, 13, 6),
+                  (11, 13, 5)]
+
+
+@pytest.mark.parametrize("width,height,words", CENSUS_WINDOWS, ids=str)
+def test_census_fits_one_to_four_words_pixelwise(width, height, words):
+    assert census_words(width, height) == words
+    served = 1 <= words <= census_cuda.MAX_WORDS
+    assert census_cuda.fits(words, 1) == served
+    assert not census_cuda.fits(words, 2) and not census_cuda.fits(words, 7)
+    assert census_backend("auto", CARD_TENSOR, width, height, 1) == (
+        "cuda" if served else "torch")
+    assert census_backend("auto", CARD_TENSOR, width, height, 3) == "torch"
+    assert census_backend("auto", CPU_TENSOR, width, height, 1) == "torch"
+
+
+def test_census_fits_refuses_five_words_and_box_sums():
+    assert census_cuda.fits(4, 1) and not census_cuda.fits(5, 1)
+    assert not census_cuda.fits(2, 3) and not census_cuda.fits(0, 1)
+    assert census_backend("cuda", CARD_TENSOR, 13, 13, 1) == "cuda"
+    with pytest.raises(ValueError, match="odd"):
+        census_backend("auto", CARD_TENSOR, 8, None, 1)
+
+
 @pytest.mark.parametrize("fits,want", [(True, "cuda"), (False, "torch")])
 def test_auto_takes_the_kernel_only_where_it_fits(fits, want):
     assert resolve_backend("auto", CARD_TENSOR, fits) == want
@@ -120,15 +150,20 @@ def test_explicit_backends_ignore_the_predicate():
 
 
 def test_plain_paths_serve_what_the_kernels_refuse_on_the_cpu():
-    """D = 600 (SGM, DP) and r = 40 (CVF) run on CPU tensors under
-    "auto"; the card tests hold the same calls on the card."""
+    """D = 600 (SGM, DP), r = 40 (CVF), a 13x13 census (6 code words)
+    and a census box sum run on CPU tensors under "auto"; the card tests
+    hold the same calls on the card."""
     from stereomatch_tpu_torch import cli_common
     rng = torch.Generator().manual_seed(2)
     left = torch.rand(4, 620, generator=rng)
     right = torch.rand(4, 620, generator=rng)
     for cost, reducer, aggr, kw in (("ssd", "dyn", "sgm", {}),
                                     ("census", "wta", "cvf",
-                                     dict(cvf_radius=40))):
+                                     dict(cvf_radius=40)),
+                                    ("census", "wta", "sgm",
+                                     dict(census_window=13)),
+                                    ("census", "wta", "sgm",
+                                     dict(kernel_size=2))):
         pipe = cli_common.create_pipeline(cost, reducer, aggr,
                                           max_disparity=600, device="cpu",
                                           **kw)

@@ -30,6 +30,7 @@ def test_import_leaves_jax_out():
         "import stereomatch_tpu_torch.ops.sgm_cuda\n"
         "import stereomatch_tpu_torch.ops.dp_cuda\n"
         "import stereomatch_tpu_torch.ops.cvf_cuda\n"
+        "import stereomatch_tpu_torch.ops.census_cuda\n"
         "import stereomatch_tpu_torch.ops.cvf, stereomatch_tpu_torch.ops.disparity\n"
         "import stereomatch_tpu_torch.io.synthetic\n"
         "import stereomatch_tpu_torch.io.data\n"

@@ -15,11 +15,12 @@ import torch
 
 from stereomatch_tpu_torch import cli_common
 from stereomatch_tpu_torch.aggregation import CostFilter, Semiglobal
-from stereomatch_tpu_torch.cost import SAD, SSD
+from stereomatch_tpu_torch.cost import SAD, SSD, Census
 from stereomatch_tpu_torch.disparity_reduce import DynamicProgramming
 from stereomatch_tpu_torch.io.synthetic import stereo_pair
-from stereomatch_tpu_torch.ops import (_build, cvf_cuda, dp_cuda, sgm_cuda,
-                                       ssd_cuda)
+from stereomatch_tpu_torch.ops import (_build, census_cuda, cvf_cuda, dp_cuda,
+                                       sgm_cuda, ssd_cuda)
+from stereomatch_tpu_torch.ops import cost as cost_ops
 from stereomatch_tpu_torch.ops.aggregation import TRAVERSALS
 from stereomatch_tpu_torch.utils.backend import resolve_backend
 
@@ -43,12 +44,18 @@ def test_resolve_backend():
         resolve_backend("pallas", cpu)
 
 
-@pytest.mark.parametrize("stage", ["ssd", "sad", "sgm", "cvf", "dyn"])
+@pytest.mark.parametrize("stage", ["ssd", "sad", "sgm", "cvf", "dyn",
+                                   "census", "census_volume"])
 def test_cuda_backend_on_cpu_tensors_raises(stage, counters):
     left = torch.rand(8, 12)
     vol = torch.rand(8, 12, 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        if stage == "sgm":
+        if stage == "census":
+            Census(4, 9, window_height=7, backend="cuda")(left, left)
+        elif stage == "census_volume":
+            cost_ops.census_hamming_cost_volume(left, left, max_disparity=4,
+                                                backend="cuda")
+        elif stage == "sgm":
             Semiglobal(backend="cuda")(vol, left)
         elif stage == "cvf":
             CostFilter(backend="cuda", wedge_offset=0)(vol, left)
@@ -72,6 +79,84 @@ def test_new_plain_paths_launch_no_kernel(counters, cost, aggr, reducer):
     left, right, _ = stereo_pair(24, 40, 8, seed=4)
     pipe = cli_common.create_pipeline(cost, reducer, aggr, max_disparity=8)
     pipe.estimate(left, right, device="cpu")
+    assert _all_zero()
+
+
+@pytest.mark.parametrize("window", [(5, None), (9, 7), (11, 11), (13, 13)],
+                         ids=str)
+@pytest.mark.parametrize("kernel_size", [1, 3])
+def test_census_on_cpu_tensors_launches_nothing(counters, window,
+                                                kernel_size):
+    """Under "auto" the census of CPU tensors runs the plain version,
+    whether or not the kernels would serve its window and box sum, and
+    equals the plain functions called directly."""
+    left, right, _ = stereo_pair(12, 30, 6, seed=5)
+    left, right = torch.from_numpy(left), torch.from_numpy(right)
+    size, height = window
+    want = cost_ops.census_hamming_from_codes(
+        cost_ops.census_transform(left, size, height),
+        cost_ops.census_transform(right, size, height), max_disparity=6,
+        kernel_size=kernel_size)
+    got = Census(6, size, kernel_size, window_height=height)(left, right)
+    vol = cost_ops.census_hamming_cost_volume(
+        left, right, max_disparity=6, window_size=size,
+        window_height=height, kernel_size=kernel_size)
+    assert torch.equal(got, want) and torch.equal(vol, want)
+    assert _all_zero()
+
+
+@pytest.mark.parametrize("call", ["census", "census_volume"])
+def test_census_takes_no_unknown_backend(counters, call):
+    left = torch.rand(8, 12)
+    with pytest.raises(ValueError, match="unknown backend"):
+        if call == "census":
+            Census(4, backend="pallas")(left, left)
+        else:
+            cost_ops.census_hamming_cost_volume(left, left, max_disparity=4,
+                                                backend="xla")
+    assert _all_zero()
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda", "torch"])
+def test_create_pipeline_hands_its_backend_to_census(backend):
+    pipe = cli_common.create_pipeline("census", "wta", "sgm", max_disparity=8,
+                                      census_window=9, census_height=7,
+                                      backend=backend, device="cpu")
+    assert isinstance(pipe.cost, Census) and pipe.cost.backend == backend
+    assert pipe.aggregation.backend == backend
+
+
+@pytest.mark.parametrize("window", [(5, None), (9, 7)], ids=str)
+def test_census_routes_run_the_plain_steps_or_the_launchers(counters,
+                                                            window):
+    """census_codes and census_hamming on the "torch" route are the plain
+    steps; on the "cuda" route they are the launchers, which refuse CPU
+    tensors, so the route alone picks the implementation."""
+    left, right, _ = stereo_pair(10, 24, 5, seed=8)
+    left, right = torch.from_numpy(left), torch.from_numpy(right)
+    codes = cost_ops.census_codes(left, right, *window, route="torch")
+    for got, image in zip(codes, (left, right)):
+        assert torch.equal(got, cost_ops.census_transform(image, *window))
+    kw = dict(max_disparity=5, cost_dtype=torch.int32, disparity_offset=2)
+    assert torch.equal(
+        cost_ops.census_hamming(*codes, route="torch", **kw),
+        cost_ops.census_hamming_from_codes(*codes, **kw))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cost_ops.census_codes(left, right, *window, route="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cost_ops.census_hamming(*codes, route="cuda", **kw)
+    assert _all_zero()
+
+
+def test_census_launchers_refuse_cpu_tensors(counters):
+    left = torch.rand(6, 9)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        census_cuda.census_codes_cuda(left, left, 9, 7)
+    codes = torch.zeros(6, 9, 2, dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            census_cuda.census_hamming_from_codes_cuda(
+                codes, codes, max_disparity=4, cost_dtype=dtype)
     assert _all_zero()
 
 
@@ -147,7 +232,8 @@ def test_build_key_follows_sources_and_flags():
     key = _build._key()
     assert key == _build._key() and len(key) == 16
     names = {p.name for p in _build._sources()}
-    assert {"ssd.cu", "sgm.cu", "dp.cu", "cvf.cu", "cp_async.cuh"} <= names
+    assert {"ssd.cu", "sgm.cu", "dp.cu", "cvf.cu", "census.cu",
+            "cp_async.cuh"} <= names
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -163,6 +249,9 @@ def test_every_c_entry_point_is_declared():
                 r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
             declared[name] = len(params.split(","))
     assert declared.keys() == _build._SIGNATURES.keys()
+    assert {"stm_census_codes", "stm_census_hamming_f32",
+            "stm_census_hamming_i32", "stm_census_hamming_bf16"} <= set(
+                declared)
     for name, n_args in declared.items():
         assert len(_build._SIGNATURES[name]) == n_args, name
 
