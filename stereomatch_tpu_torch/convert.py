@@ -39,8 +39,6 @@ _COSTS = {"SSD": SSD, "SAD": SAD, "Census": Census, "NCC": NCC,
 # The cost classes whose volume dtype is a setting (the others compute
 # float32).
 _DTYPED = ("SSD", "SAD", "Census", "NCC")
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "int32": torch.int32}
 
 
 def _kind(stage) -> str:
@@ -58,10 +56,11 @@ def _not_ported(kind: str):
 
 
 def _dtype(jax_dtype) -> torch.dtype:
-    name = validation.dtype_name(jax_dtype)
-    if name not in _DTYPES:
-        raise _not_ported(f"cost volume dtype {name}")
-    return _DTYPES[name]
+    try:
+        return validation.volume_dtype(jax_dtype)
+    except ValueError:
+        raise _not_ported("cost volume dtype "
+                          f"{validation.dtype_name(jax_dtype)}") from None
 
 
 def tensor_from_jax(array, device: Device = "cuda") -> torch.Tensor:

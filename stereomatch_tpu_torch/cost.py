@@ -1,11 +1,14 @@
 """Cost-function API: ``SSD``, ``SSDTexture``, ``SAD``, ``NCC``,
 ``Census`` and ``Birchfield``, counterparts of
-``stereomatch_tpu/cost.py``.
+``stereomatch_tpu/cost.py``, and :func:`make_cost`, the one place a
+registry name (``COST_METHODS``) becomes one of them.
 
   * ``max_disparity`` is a mutable attribute (the reference's evaluation
     workflow mutates it per scene).
   * ``cost_volume=`` is accepted for source compatibility with the
     reference and ignored: the caching allocator reuses the buffers.
+  * ``row_halo`` is (before, after): the image rows above and below a
+    row that its window reads, which a row split's halos must hold.
   * ``backend`` (routed by ``ops.cost.diff_cost_dispatch`` for SSD and
     SAD, ``ops.cost.census_backend`` for Census): "auto" launches the
     CUDA kernels (``ops/ssd_cuda.py``, ``ops/census_cuda.py``) for CUDA
@@ -19,7 +22,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,7 +31,15 @@ from .texture import TextureImage
 from .utils import profiling, validation
 
 
-class _DiffCost:
+class _SSDWindow:
+    """A cost over the SSD window: rows [y-k, y+k) of each row y."""
+
+    @property
+    def row_halo(self) -> Tuple[int, int]:
+        return self.kernel_size, self.kernel_size - 1
+
+
+class _DiffCost(_SSDWindow):
     absolute = False
 
     def __init__(self, max_disparity: int, kernel_size: int = 7,
@@ -128,6 +139,15 @@ class Census:
         self.cost_volume_dtype = cost_volume_dtype
         self.backend = backend
 
+    @property
+    def row_halo(self) -> Tuple[int, int]:
+        """Half the code window's height a side (a Hamming box sum,
+        ``kernel_size`` > 1, reads more rows, with its own clipping at
+        the image's edges)."""
+        height = (self.window_size if self.window_height is None
+                  else self.window_height)
+        return height // 2, height // 2
+
     def __call__(self, left_image: torch.Tensor, right_image: torch.Tensor,
                  cost_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
         validation.check_stereo_pair(left_image, right_image)
@@ -145,7 +165,7 @@ class Census:
                 cost_dtype=self.cost_volume_dtype)
 
 
-class SSDTexture:
+class SSDTexture(_SSDWindow):
     """SSD over sampled textures (reference: stereomatch/cost.py:51-77).
 
     Takes :class:`~stereomatch_tpu_torch.texture.TextureImage` inputs;
@@ -171,7 +191,7 @@ class SSDTexture:
             absolute=False, backend=self.backend)
 
 
-class NCC:
+class NCC(_SSDWindow):
     """Zero-mean normalised cross-correlation cost, ``1 - zncc``, the
     counterpart of the JAX package's ``NCC``: invariant to a gain and a
     bias between the cameras over each window; the SSD window and
@@ -206,6 +226,8 @@ class Birchfield:
     stereomatch/cost.py:80-101), float32, over the scanline window
     [x-k, x+k); ``kernel_size`` defaults to 4, the reference's value."""
 
+    row_halo = (0, 0)                   # never leaves a row
+
     def __init__(self, max_disparity: int, kernel_size: int = 4):
         validation.check_positive("max_disparity", max_disparity)
         validation.check_positive("kernel_size", kernel_size)
@@ -218,3 +240,53 @@ class Birchfield:
         return cost_ops.birchfield_cost_volume(
             left_image, right_image, max_disparity=self.max_disparity,
             kernel_size=self.kernel_size)
+
+
+COST_METHODS = {"ssd": SSD, "ssd-texture": SSDTexture,
+                "birchfield": Birchfield, "census": Census, "sad": SAD,
+                "ncc": NCC}
+
+
+def make_cost(name: str, max_disparity: int, *,
+              kernel_size: Optional[int] = None,
+              cost_dtype: torch.dtype = torch.float32,
+              census_window: int = 5,
+              census_height: Optional[int] = None,
+              backend: str = "auto"):
+    """The cost stage that the registry name ``name`` (a key of
+    ``COST_METHODS``) means.
+
+    ``kernel_size`` None keeps the class's own default (7; Birchfield 4,
+    Census 1).  ``cost_dtype`` is the volume's dtype: ``ssd-texture`` and
+    ``birchfield`` ignore it and compute float32, ``ncc`` refuses an
+    integer one.  ``census_window``/``census_height`` are the census
+    code window's width and height (None: square), and ``backend``
+    reaches the classes that have kernels (SSD, SAD, Census, SSD over
+    textures).  An unknown name raises ``ValueError``.
+    """
+    if name not in COST_METHODS:
+        raise ValueError(f"unknown cost method {name!r}; expected one of "
+                         f"{sorted(COST_METHODS)}")
+    cls = COST_METHODS[name]
+    if cls is NCC and not cost_dtype.is_floating_point:
+        raise ValueError("ncc cost is a normalized float quantity; "
+                         f"volume dtype {validation.dtype_name(cost_dtype)} "
+                         "is not supported")
+    kw = {} if kernel_size is None else {"kernel_size": kernel_size}
+    if cls in (SSD, SAD, NCC, Census):
+        kw["cost_volume_dtype"] = cost_dtype
+    if cls in (SSD, SAD, SSDTexture, Census):
+        kw["backend"] = backend
+    if cls is Census:
+        kw.update(window_size=census_window, window_height=census_height)
+    return cls(max_disparity, **kw)
+
+
+def tensor_cost(name: str, max_disparity: int, **kw):
+    """:func:`make_cost` for callers that hold plain [H, W] tensors (the
+    mesh builders, the tuner): ``ssd-texture`` is float32 :class:`SSD`,
+    the volume :class:`SSDTexture` computes, since the textures' samples
+    at the pixel centres are the images."""
+    if name == "ssd-texture":
+        name, kw = "ssd", {**kw, "cost_dtype": torch.float32}
+    return make_cost(name, max_disparity, **kw)

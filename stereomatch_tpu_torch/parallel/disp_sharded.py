@@ -45,15 +45,15 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..aggregation import CostFilter
+from ..cost import make_cost
 from ..ops import cost as cost_ops
 from ..ops.cost import diff_cost_dispatch
 from ..pipeline import as_tensor
+from ..utils import validation
 from . import transport
 from .mesh import Mesh, world_layout
-from .sharded import _cost_dtype
 
 DISP_AXIS = "disp"
-_COSTS = ("ssd", "ssd-texture", "birchfield", "census", "sad", "ncc")
 
 
 def make_disp_mesh(devices: Optional[Sequence] = None,
@@ -93,14 +93,14 @@ def make_disp_sharded_wta(mesh: Mesh, *, max_disparity: int,
     blocks run the kernels where they serve the shape (``backend="auto"``
     of the cost and filter classes), CPU blocks the plain versions.
     """
-    if cost not in _COSTS:
-        raise ValueError(f"unknown cost {cost!r}")
+    dtype = validation.volume_dtype(cost_dtype)
+    # The stage names the cost and its window; each block calls the ops
+    # themselves, at the block's disparity offset.
+    kernel_size = make_cost(cost, max_disparity, kernel_size=kernel_size,
+                            cost_dtype=dtype).kernel_size
     if aggregation not in (None, "cvf"):
         raise ValueError(f"unknown aggregation {aggregation!r} (disparity "
                          "sharding supports None or 'cvf')")
-    if kernel_size is None:
-        kernel_size = {"birchfield": 4, "census": 1}.get(cost, 7)
-    dtype = _cost_dtype(cost_dtype)
     devices = mesh.devices
     n_disp = mesh.shape[DISP_AXIS]
     if max_disparity % n_disp:

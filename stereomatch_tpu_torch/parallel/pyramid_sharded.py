@@ -38,8 +38,8 @@ import torch
 
 from ..cost import Census
 from ..ops.disparity import winner_takes_all
-from ..pyramid import (_cost_dtype, band_refine_census, downsample2,
-                       upsample2_nearest)
+from ..pyramid import band_refine_census, downsample2, upsample2_nearest
+from ..utils import validation
 from . import halo
 from .mesh import TILE_AXIS, Mesh
 from .sharded import (_median3x3_rows, _speckle_rows, assemble,
@@ -130,7 +130,10 @@ def make_pyramid_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     if backend not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown backend {backend!r}; expected 'auto', "
                          "'cuda' or 'torch'")
-    dtype = _cost_dtype(cost_dtype)
+    dtype = validation.volume_dtype(cost_dtype)
+    if dtype == torch.int32:
+        raise ValueError(f"unknown cost dtype {cost_dtype!r}; expected "
+                         "float32 or bfloat16")
     d_coarse = max_disparity // (2 ** levels)
     census = Census(d_coarse, window_size=window_size,
                     cost_volume_dtype=dtype)

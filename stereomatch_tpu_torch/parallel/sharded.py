@@ -16,12 +16,13 @@ r + 1 overlaps traversal t + 1 on tile r.
 
 What crosses tile boundaries, and how:
 
-* The cost windows (SSD/SAD/SSD over textures: [y-k, y+k) rows; census:
-  +-window//2) pull image-row halos from the neighbours, compute the
-  existing cost on the halo-extended block and crop it.  Each output's
-  window taps are the same values in the same order as on one device,
-  and the zero halo at the ring ends is the clipped window's own zero
-  padding, so the crop equals the single-device volume bit for bit.
+* The cost windows (the stage's ``row_halo``: SSD/SAD/SSD over
+  textures [y-k, y+k) rows, census +-window//2) pull image-row halos
+  from the neighbours, compute the existing cost on the halo-extended
+  block and crop it.  Each output's window taps are the same values in
+  the same order as on one device, and the zero halo at the ring ends is
+  the clipped window's own zero padding, so the crop equals the
+  single-device volume bit for bit.
   Birchfield never leaves a row: no halo.  ZNCC takes the (k, k-1)
   halos, a row-validity mask (rows beyond the image stay out of the
   window count, for which zero is no identity) and the whole images'
@@ -110,7 +111,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..cost import SAD, SSD, Census
+from ..cost import NCC, Census, tensor_cost
 from ..disparity_reduce import DynamicProgramming
 from ..ops import cost as cost_ops
 from ..ops import refine, sgm_cuda
@@ -126,20 +127,7 @@ from .ici_model import select_sgm_mode
 from .mesh import BATCH_AXIS, TILE_AXIS, Mesh
 from .transport import each, first_local, is_local
 
-_COSTS = ("ssd", "ssd-texture", "birchfield", "census", "sad", "ncc")
 _REDUCERS = ("wta", "dynamic_programming")
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "int32": torch.int32}
-
-
-def _cost_dtype(dtype) -> torch.dtype:
-    """A torch, numpy or JAX dtype (or its name) -> torch.float32 /
-    bfloat16 / int32."""
-    name = validation.dtype_name(dtype)
-    if name not in _DTYPES:
-        raise ValueError(f"unknown cost dtype {dtype!r}; expected float32, "
-                         "bfloat16 or int32")
-    return _DTYPES[name]
 
 
 def _effective_overlap(overlap: int, h_loc: int, n_tiles: int) -> int:
@@ -692,8 +680,6 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
     if sgm_schedule not in ("auto", "wavefront", "naive"):
         raise ValueError(f"unknown sgm_schedule: {sgm_schedule!r} "
                          "(expected 'auto', 'wavefront' or 'naive')")
-    if cost not in _COSTS:
-        raise ValueError(f"unknown cost: {cost!r}")
     if reducer not in _REDUCERS:
         raise ValueError(f"unknown reducer: {reducer!r}")
     if aggregation not in (None, "sgm", "cvf"):
@@ -705,43 +691,16 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
         raise ValueError("interpret=True is the JAX package's Pallas "
                          "interpret mode; the port runs its plain versions "
                          "on CPU tiles instead")
-    dtype = _cost_dtype(cost_dtype)
-    if dtype == torch.int32 and aggregation is not None:
-        raise ValueError("int32 cost volumes do not support aggregation "
-                         "(SGM's adaptive P2 is a float quantity)")
-    if cost == "ncc" and not dtype.is_floating_point:
-        raise ValueError("ncc cost is a normalized float quantity; "
-                         "cost_dtype int32 is not supported")
-    if kernel_size is None:
-        kernel_size = {"birchfield": 4, "census": 1}.get(cost, 7)
-    if cost == "census":
-        if kernel_size != 1:
-            raise ValueError(
-                "sharded census supports kernel_size=1 (pixelwise Hamming) "
-                "only: a box window across row-tile boundaries cannot "
-                "reproduce the single-device clipped sum at true image "
-                "edges")
-        cost_fn = Census(max_disparity, window_size=census_window,
-                         cost_volume_dtype=dtype,
-                         window_height=census_height, backend=backend)
-        rows = (census_window if census_height is None
-                else census_height) // 2
-        halo_rows = (rows, rows)
-    elif cost == "birchfield":          # float32, never leaves a row
-        cost_fn = functools.partial(cost_ops.birchfield_cost_volume,
-                                    max_disparity=max_disparity,
-                                    kernel_size=kernel_size)
-        halo_rows = (0, 0)
-    elif cost != "ncc":
-        # "ssd-texture": the textures' nearest samples at the pixel
-        # centres are the images, so float32 SSD (the SSD kernel on the
-        # card), as the single-device SSDTexture.
-        cls = SAD if cost == "sad" else SSD
-        cost_fn = cls(max_disparity, kernel_size=kernel_size,
-                      cost_volume_dtype=(torch.float32
-                                         if cost == "ssd-texture" else dtype),
-                      backend=backend)
-        halo_rows = (kernel_size, kernel_size - 1)
+    stage = tensor_cost(cost, max_disparity, kernel_size=kernel_size,
+                        cost_dtype=validation.volume_dtype(cost_dtype,
+                                                           aggregation),
+                        census_window=census_window,
+                        census_height=census_height, backend=backend)
+    if isinstance(stage, Census) and stage.kernel_size != 1:
+        raise ValueError(
+            "sharded census supports kernel_size=1 (pixelwise Hamming) "
+            "only: a box window across row-tile boundaries cannot "
+            "reproduce the single-device clipped sum at true image edges")
     dp = DynamicProgramming(backend=backend)
     n_tiles = mesh.shape[TILE_AXIS]
     resolve = sgm_mode_resolver(mesh, sgm_mode, overlap=overlap,
@@ -753,12 +712,13 @@ def make_sharded_estimate(mesh: Mesh, *, max_disparity: int,
         ref = first_local(lefts)
         device = None if ref is None else ref.device
         with profiling.stage("cost", device):
-            if cost == "ncc":
+            if isinstance(stage, NCC):
                 vols = local_zncc(lefts, rights,
                                   max_disparity=max_disparity,
-                                  kernel_size=kernel_size, cost_dtype=dtype)
+                                  kernel_size=stage.kernel_size,
+                                  cost_dtype=stage.cost_volume_dtype)
             else:
-                vols = local_cost(lefts, rights, cost_fn, *halo_rows)
+                vols = local_cost(lefts, rights, stage, *stage.row_halo)
         if aggregation == "sgm":
             with profiling.stage("aggregation", device):
                 vols = sharded_semiglobal(vols, lefts, penalty1=penalty1,

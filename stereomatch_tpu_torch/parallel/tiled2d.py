@@ -58,8 +58,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from ..aggregation import Semiglobal
-from ..cost import SAD, SSD, Census
-from ..ops import cost as cost_ops
+from ..cost import NCC, tensor_cost
 from ..ops import refine
 from ..ops.cvf import _filter_body_masked
 from ..ops.disparity import (dp_backward_chunk, dp_end_disparities,
@@ -72,7 +71,6 @@ from .sharded import _as_frames, frame_shards, local_cost, local_zncc
 from .transport import each, first_local, is_local
 
 TILE_W_AXIS = "tile_w"
-_COSTS = ("ssd", "ssd-texture", "birchfield", "census", "sad", "ncc")
 
 Grid = List[List[torch.Tensor]]
 
@@ -382,8 +380,6 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
     flip crosses every tile_w block.  ``interpret`` exists on the JAX
     side only (Pallas interpret mode), so True raises.
     """
-    if cost not in _COSTS:
-        raise ValueError(f"unknown cost {cost!r}")
     if reducer not in ("wta", "dynamic_programming"):
         raise ValueError(f"unknown reducer {reducer!r}")
     if aggregation not in (None, "sgm", "cvf"):
@@ -402,28 +398,17 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
         raise ValueError("interpret=True is the JAX package's Pallas "
                          "interpret mode; the port runs its plain versions "
                          "on CPU tiles instead")
-    if kernel_size is None:
-        kernel_size = 4 if cost == "birchfield" else 7
+    # The census is pixelwise whatever kernel_size says: a Hamming box
+    # sum across 2-D tiles cannot reproduce the clipped sum at the
+    # image's edges.
+    stage = tensor_cost(cost, max_disparity,
+                        kernel_size=None if cost == "census" else kernel_size,
+                        census_window=census_window,
+                        census_height=census_height, backend=backend)
     n_batch = mesh.shape[BATCH_AXIS]
     n_tile, n_tile_w = mesh.shape[TILE_AXIS], mesh.shape[TILE_W_AXIS]
     sgm = Semiglobal(penalty1, penalty2, adaptive_p2=adaptive_p2,
                      backend=backend)
-    if cost == "census":
-        cost_fn = Census(max_disparity, window_size=census_window,
-                         window_height=census_height, backend=backend)
-        halo_rows = ((census_window if census_height is None
-                      else census_height) // 2,) * 2
-    elif cost == "birchfield":              # never leaves a row
-        cost_fn = functools.partial(cost_ops.birchfield_cost_volume,
-                                    max_disparity=max_disparity,
-                                    kernel_size=kernel_size)
-        halo_rows = (0, 0)
-    elif cost != "ncc":
-        # "ssd-texture": the textures' samples at the pixel centres are
-        # the images, so float32 SSD, as the single-device SSDTexture.
-        cost_fn = (SAD if cost == "sad" else SSD)(
-            max_disparity, kernel_size=kernel_size, backend=backend)
-        halo_rows = (kernel_size, kernel_size - 1)
 
     def volumes(lefts: Grid, rights: Grid, w_loc: int) -> Grid:
         """Each block's cost volume, from its full-width image rows."""
@@ -438,13 +423,13 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
         rf = [full(row) for row in rights]
         lines = []
         for lcol, rcol in zip(_lines(lf, 0), _lines(rf, 0)):
-            if cost == "ncc":
+            if isinstance(stage, NCC):
                 lines.append(local_zncc(lcol, rcol,
                                         max_disparity=max_disparity,
-                                        kernel_size=kernel_size,
+                                        kernel_size=stage.kernel_size,
                                         cost_dtype=torch.float32))
             else:
-                lines.append(local_cost(lcol, rcol, cost_fn, *halo_rows))
+                lines.append(local_cost(lcol, rcol, stage, *stage.row_halo))
         vols = _from_lines(lines, 0)
         return [[v[:, s * w_loc:(s + 1) * w_loc].to(torch.float32)
                  if is_local(v) else v for s, v in enumerate(row)]

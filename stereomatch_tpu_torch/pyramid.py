@@ -33,7 +33,6 @@ from .ops.refine import median_filter_3x3
 from .pipeline import Device, Image, as_tensor
 from .utils import validation
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Invalid candidates' cost in the band stage (beyond any Hamming sum).
 _BIG = 1 << 20
 
@@ -156,14 +155,6 @@ def band_refine_census(left: torch.Tensor, right: torch.Tensor,
     return out, torch.where(any_valid, best_cost.clamp(max=worst), worst)
 
 
-def _cost_dtype(dtype) -> torch.dtype:
-    name = validation.dtype_name(dtype)
-    if name not in _DTYPES:
-        raise ValueError(f"unknown cost dtype {dtype!r}; expected float32 or "
-                         "bfloat16")
-    return _DTYPES[name]
-
-
 class PyramidPipeline:
     """Coarse-to-fine census pipeline: SGM at 1/2^levels resolution and
     disparity range, then census band refinement up to full resolution.
@@ -212,7 +203,10 @@ class PyramidPipeline:
         self.band_kernel_size = band_kernel_size
         self.penalty1 = penalty1
         self.penalty2 = penalty2
-        self.cost_dtype = _cost_dtype(cost_dtype)
+        self.cost_dtype = validation.volume_dtype(cost_dtype)
+        if self.cost_dtype == torch.int32:
+            raise ValueError(f"unknown cost dtype {cost_dtype!r}; expected "
+                             "float32 or bfloat16")
         self.median = median
         self.backend = backend
         self.device = device

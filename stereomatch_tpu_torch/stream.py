@@ -49,7 +49,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .cli_common import STREAM_REDUCERS, VOLUME_DTYPES, create_pipeline
+from .cli_common import STREAM_REDUCERS, create_pipeline
 from .ops import _build
 from .pipeline import Device
 from .utils import profiling, validation
@@ -236,7 +236,7 @@ class StreamingEstimator:
         self.depth = depth
         # Effective fetch concurrency is min(fetch_workers, depth).
         self.fetch_workers = max(int(fetch_workers), 1)
-        dtype = VOLUME_DTYPES[validation.dtype_name(cost_dtype)]
+        dtype = validation.volume_dtype(cost_dtype)
         refine = dict(subpixel=subpixel, median=median, lr_check=lr_check,
                       lr_mode=lr_mode, max_diff=lr_max_diff,
                       weighted_median=weighted_median, wmf_sigma=wmf_sigma,

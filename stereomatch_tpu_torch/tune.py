@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from .ops import cost as cost_ops
+from .cost import tensor_cost
 from .ops.soft import semiglobal_aggregate_diff, soft_argmin
 from .pipeline import Device, as_tensor
 from .utils.numeric import exp_f32, fma, log1p_f32, sqrt_f32
@@ -120,27 +120,13 @@ def adam_step(theta: torch.Tensor, grad: torch.Tensor, state: AdamState, *,
 
 def _build_volumes(scenes, *, cost, max_disparity, kernel_size,
                    census_window, device):
-    if kernel_size is None:
-        kernel_size = {"birchfield": 4, "census": 1}.get(cost, 7)
+    stage = tensor_cost(cost, max_disparity, kernel_size=kernel_size,
+                        census_window=census_window)
     vols, imgs, gts = [], [], []
     for left, right, gt in scenes:
         left = as_tensor(left, device).to(torch.float32)
         right = as_tensor(right, device).to(torch.float32)
-        kw = dict(max_disparity=max_disparity, kernel_size=kernel_size)
-        if cost in ("ssd", "ssd-texture"):
-            vol = cost_ops.ssd_cost_volume(left, right, **kw)
-        elif cost == "sad":
-            vol = cost_ops.sad_cost_volume(left, right, **kw)
-        elif cost == "ncc":
-            vol = cost_ops.zncc_cost_volume(left, right, **kw)
-        elif cost == "census":
-            vol = cost_ops.census_hamming_cost_volume(
-                left, right, window_size=census_window, **kw)
-        elif cost == "birchfield":
-            vol = cost_ops.birchfield_cost_volume(left, right, **kw)
-        else:
-            raise ValueError(f"unknown cost {cost!r}")
-        vols.append(vol)
+        vols.append(stage(left, right))
         imgs.append(left)
         gts.append(as_tensor(np.asarray(gt), device).to(torch.float32))
     return torch.stack(vols), torch.stack(imgs), torch.stack(gts)

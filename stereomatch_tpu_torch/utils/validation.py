@@ -16,9 +16,11 @@ import torch
 # (uint8 / int16 / float32) plus bfloat16, as the JAX package takes them;
 # every cost widens its images to its compute dtype first.
 IMAGE_DTYPES = (torch.uint8, torch.int16, torch.float32, torch.bfloat16)
-# Cost volumes (reference: int32 / float32; bfloat16 stores a float
-# volume in half the bytes, its arithmetic staying float32).
-COST_DTYPES = (torch.int32, torch.float32, torch.bfloat16)
+# Cost volumes by name (reference: int32 / float32; bfloat16 stores a
+# float volume in half the bytes, its arithmetic staying float32).
+VOLUME_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "int32": torch.int32}
+COST_DTYPES = tuple(VOLUME_DTYPES.values())
 
 
 def compute_dtype(cost_dtype: torch.dtype) -> torch.dtype:
@@ -50,6 +52,24 @@ def dtype_name(dtype) -> str:
     if isinstance(dtype, str):
         return dtype
     return getattr(dtype, "__name__", None) or np.dtype(dtype).name
+
+
+def volume_dtype(dtype, aggregation=None) -> torch.dtype:
+    """The cost volume's torch dtype for a torch, numpy or JAX dtype, or
+    its name: float32, bfloat16 or int32, else ``ValueError``.  An int32
+    volume refuses an ``aggregation`` (a name, or None for none)."""
+    try:
+        name = dtype_name(dtype)
+    except TypeError:
+        name = None
+    if name not in VOLUME_DTYPES:
+        raise ValueError(f"unknown volume dtype {dtype!r}; expected one of "
+                         f"{sorted(VOLUME_DTYPES)}")
+    if name == "int32" and aggregation is not None:
+        raise ValueError("int32 cost volumes do not support aggregation "
+                         "(SGM's adaptive P2, semiglobal.cpp:137-138, and "
+                         "cvf's windowed means are float quantities)")
+    return VOLUME_DTYPES[name]
 
 
 def check_rank(name: str, arr, rank: int) -> None:

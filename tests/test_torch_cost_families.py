@@ -21,12 +21,18 @@ from stereomatch_tpu import cli_common as jax_cli
 from stereomatch_tpu import cost as jax_cost
 from stereomatch_tpu import texture as jax_texture
 from stereomatch_tpu.ops import cost as jax_ops
-from stereomatch_tpu_torch import cli_common, convert
-from stereomatch_tpu_torch.cost import NCC, SSD, Birchfield, SSDTexture
+from stereomatch_tpu_torch import cli_common, convert, tune
+from stereomatch_tpu_torch.cost import (NCC, SAD, SSD, Birchfield, Census,
+                                        SSDTexture, make_cost, tensor_cost)
 from stereomatch_tpu_torch.ops import cost as ops
 from stereomatch_tpu_torch.pipeline import Pipeline
 from stereomatch_tpu_torch.texture import TextureImage
 from stereomatch_tpu_torch.disparity_reduce import WinnerTakesAll
+from stereomatch_tpu_torch.parallel import (make_disp_mesh,
+                                            make_disp_sharded_wta, make_mesh,
+                                            make_mesh_2d,
+                                            make_sharded_estimate,
+                                            make_tiled2d_estimate)
 
 from .conftest import synthetic_stereo_pair
 from .torch_threads import one_torch_thread  # noqa: F401
@@ -228,3 +234,73 @@ def test_convert_carries_the_three_classes(cost, cls):
     assert (port_cost.max_disparity, port_cost.kernel_size) == (8, 3)
     np.testing.assert_array_equal(port.estimate(left, right).numpy(),
                                   np.asarray(jax_pipe.estimate(left, right)))
+
+
+# Registry name -> (class, default kernel_size, row halo of a 9x7 census
+# window), as the factory built each stage before ``make_cost`` took the
+# decision over.
+STAGES = {"ssd": (SSD, 7, (7, 6)), "sad": (SAD, 7, (7, 6)),
+          "ncc": (NCC, 7, (7, 6)), "ssd-texture": (SSDTexture, 7, (7, 6)),
+          "birchfield": (Birchfield, 4, (0, 0)), "census": (Census, 1, (3, 3))}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("name", sorted(STAGES))
+def test_make_cost_is_the_one_name_to_stage_decision(name, dtype):
+    """``make_cost`` builds the stage ``create_pipeline`` runs, with its
+    class's default window and the row halo the mesh builders read; the
+    builders refuse an unknown name, and the two that take an int32
+    volume refuse it for ncc."""
+    cpu = torch.device("cpu")
+    torch_dtype = cli_common.VOLUME_DTYPES[dtype]
+    kw = dict(census_window=9, census_height=7, backend="torch")
+    builders = {
+        "create_pipeline": lambda cost: cli_common.create_pipeline(
+            cost, "wta", max_disparity=8, volume_dtype=dtype, device="cpu",
+            **kw),
+        "make_sharded_estimate": lambda cost: make_sharded_estimate(
+            make_mesh([cpu] * 2, n_tile=2), max_disparity=8, cost=cost,
+            cost_dtype=dtype, aggregation=None),
+        "make_tiled2d_estimate": lambda cost: make_tiled2d_estimate(
+            make_mesh_2d([cpu] * 4, 1, 2, 2), max_disparity=8, cost=cost),
+        "make_disp_sharded_wta": lambda cost: make_disp_sharded_wta(
+            make_disp_mesh([cpu] * 2), max_disparity=8, cost=cost,
+            cost_dtype=dtype),
+        "tune_penalties": lambda cost: tune.tune_penalties(
+            [_pair(16, 24, 8, 1) + (np.zeros((16, 24), np.float32),)],
+            max_disparity=8, cost=cost, steps=1, device="cpu")}
+    for builder in builders.values():
+        with pytest.raises(ValueError, match="unknown cost"):
+            builder(name.upper())
+    if name == "ncc" and dtype == "int32":
+        for builder in ("create_pipeline", "make_sharded_estimate"):
+            with pytest.raises(ValueError, match="int32"):
+                builders[builder](name)
+        with pytest.raises(ValueError, match="int32"):
+            make_cost(name, 8, cost_dtype=torch_dtype)
+        return
+    cls, kernel_size, halo = STAGES[name]
+    stage = make_cost(name, 8, cost_dtype=torch_dtype, **kw)
+    pipe = builders["create_pipeline"](name)
+    built = getattr(pipe.cost, "cost_function", pipe.cost)
+    assert type(stage) is type(built) is cls
+    assert vars(stage) == vars(built)
+    assert (stage.max_disparity, stage.kernel_size) == (8, kernel_size)
+    assert stage.row_halo == halo
+    if cls in (SSD, SAD, NCC, Census):
+        assert stage.cost_volume_dtype == torch_dtype
+    if cls in (SSD, SAD, SSDTexture, Census):
+        assert stage.backend == "torch"
+    if cls is Census:
+        assert (stage.window_size, stage.window_height) == (9, 7)
+        assert make_cost(name, 8).row_halo == (2, 2)
+    else:
+        assert make_cost(name, 8, kernel_size=3).row_halo == (
+            (0, 0) if cls is Birchfield else (3, 2))
+    plain = tensor_cost(name, 8, cost_dtype=torch_dtype, **kw)
+    if cls is SSDTexture:
+        assert type(plain) is SSD
+        assert plain.cost_volume_dtype == torch.float32
+        assert (plain.kernel_size, plain.row_halo) == (7, (7, 6))
+    else:
+        assert vars(plain) == vars(stage)
