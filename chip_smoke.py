@@ -25,6 +25,13 @@ with the launch counts set to 0 just before it and read just after:
   the Hamming launch (float32, int32, bf16) each alone against the plain
   step on the same card tensors, each one launch, and at KITTI both
   launches timed against the plain version and the bound;
+* SGM's winner-takes-all fold (``check_fold_wta``) at teddy and at
+  KITTI 2015's cell (9x7 census, constant P2), float32 and bf16: the
+  fused call bit-equal to ``winner_takes_all`` of the plain aggregation,
+  one launch of each entry point, each cell's ``estimate_fn`` frame
+  launching it in place of the volume fold and equal to ``estimate()``,
+  and at KITTI timed against the plain version and the volume route,
+  with each launch's device time and the bounds;
 * the two forms of the SGM aggregation (``check_sgm_forms``), serial
   and side by side, at teddy and HD on float32 and bf16 volumes:
   bit-equal, each launch counted, each timed beside the other, and the
@@ -64,7 +71,8 @@ with the launch counts set to 0 just before it and read just after:
   paths and FAMILY_PATHS at teddy (float32 and bf16), the three main
   paths at HD and D = 600 under ``backend="auto"``: replay equal to the
   eager frame on two pairs in a row, the captured launch counts equal to
-  an eager frame's, eager and replay times, the profiler's view of the
+  an eager frame's (of ``estimate_fn``, which takes winner-takes-all in
+  SGM's fold), eager and replay times, the profiler's view of the
   replay and each graph's memory;
 * the plain guided-filter paths (the masked path, ``assume_finite``,
   the fast guided filter at s = 2 and 4): card equal to CPU at teddy in
@@ -88,7 +96,8 @@ with the launch counts set to 0 just before it and read just after:
   and 8 and depth 1 to 3, on float32 and bf16 volumes, with DP, the
   refine stages and the pyramid, then 16 HD frames: every frame equal to
   ``Pipeline.estimate`` on the card, the launches a frame equal to an
-  eager frame's; frames/s and the stage split, and the profiler's idle
+  eager frame's (a replayed graph's: ``estimate_fn``); frames/s and the
+  stage split, and the profiler's idle
   share of a batched run;
 * ``python -m stereomatch_tpu_torch.cli.video`` (batched, ``--temporal``
   and per frame) on the card, its PNGs against ``--device cpu``
@@ -264,6 +273,7 @@ COUNTERS = {"ssd": ("stm_ssd_f32", "stm_ssd_i32"),
             "sgm_horizontal": ("stm_sgm_horizontal_f32",),
             "sgm_side": ("stm_sgm_side_by_side_f32",),
             "sgm_fold": ("stm_sgm_fold_f32",),
+            "sgm_fold_wta": ("stm_sgm_fold_wta_f32",),
             "dp_forward": ("stm_dp_forward_f32",),
             "dp_backward": ("stm_dp_backward",),
             "cvf": ("stm_cvf_stats_f32",),
@@ -276,6 +286,7 @@ COUNTERS = {"ssd": ("stm_ssd_f32", "stm_ssd_i32"),
             "sgm_horizontal_bf16": ("stm_sgm_horizontal_bf16",),
             "sgm_side_bf16": ("stm_sgm_side_by_side_bf16",),
             "sgm_fold_bf16": ("stm_sgm_fold_bf16",),
+            "sgm_fold_wta_bf16": ("stm_sgm_fold_wta_bf16",),
             "dp_forward_bf16": ("stm_dp_forward_bf16",),
             "cvf_bf16": ("stm_cvf_stats_bf16",),
             "cvf_filter_bf16": ("stm_cvf_filter_bf16",),
@@ -288,6 +299,12 @@ COUNTERS = {"ssd": ("stm_ssd_f32", "stm_ssd_i32"),
 CENSUS_CELLS = {"teddy": (375, 450, 128, 5, 5),
                 "kitti": (375, 1242, 128, 9, 7)}
 CENSUS_SEED = 15
+
+# SGM's winner-takes-all fold launched alone (check_fold_wta): KITTI
+# 2015's cell (portbench/configs/kitti-census-sgm.json), a 9x7 census
+# volume aggregated with the constant P2, on the scene of CENSUS_SEED.
+FOLD_WTA_KITTI = dict(census_window=9, census_height=7, kernel_size=1,
+                      penalty1=10.0, penalty2=120.0, adaptive_p2=False)
 
 # The two-process phase (check_distributed): its workers' time limit;
 # each cell's tiles and runs (label -> ShardedPipeline keywords, the
@@ -376,13 +393,16 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-def sgm_form(h, w, d, sfx=""):
+def sgm_form(h, w, d, sfx="", wta=False):
     """{counter: launches} of one whole-image SGM aggregation of [h, w, d],
     in the form ``sgm_cuda.semiglobal_aggregate_cuda``'s rule takes
-    there (``sfx`` "_bf16" for a bf16 volume's entry points)."""
+    there (``sfx`` "_bf16" for a bf16 volume's entry points); ``wta``, a
+    frame that takes winner-takes-all in the fold where it can
+    (``Pipeline.estimate_fn``, a graph's frame)."""
     from stereomatch_tpu_torch.ops import sgm_cuda
     if sgm_cuda._takes_side_by_side(h, w, d):
-        return {f"sgm_side{sfx}": 1, f"sgm_fold{sfx}": 1}
+        fold = "sgm_fold_wta" if wta else "sgm_fold"
+        return {f"sgm_side{sfx}": 1, f"{fold}{sfx}": 1}
     return {f"sgm_rows{sfx}": 6, f"sgm_horizontal{sfx}": 2}
 
 
@@ -477,7 +497,12 @@ def kernel_work(h, w, d, k, r, tiles, volume_bytes=4, census=(5, 5)):
     its first launch reads the cost and the image and writes an L volume
     for each of seven traversals, the fold reads the cost, the image, out
     and the six partials and writes out (or the bf16 result), the bytes
-    of sgm_rows and sgm_horizontal together; sgm_chunk: sgm_rows'
+    of sgm_rows and sgm_horizontal together; sgm_fold_wta, the same
+    aggregation reduced by winner-takes-all in the fold
+    (``sgm_cuda.semiglobal_wta_cuda``): its function reads the cost and
+    the image and writes an int32 [H, W], its launches move sgm_side's
+    bytes less the fold's volume write, plus that int32 write (the fold
+    alone: :func:`fold_wta_bytes`); sgm_chunk: sgm_rows'
     traffic plus the carries; cvf: the
     stats kernel reads its tiles of the volume and the guide with their
     halos (:func:`cvf_tile_reads`) and the guide planes and writes a0 and
@@ -518,12 +543,22 @@ def kernel_work(h, w, d, k, r, tiles, volume_bytes=4, census=(5, 5)):
                            (2 * v + 3 * f) * vol + 2 * img * f),
         "sgm_side": (2 * vol * v + img * f, vol * 9 * 8,
                      (9 * v + 14 * f) * vol + 8 * img * f),
+        "sgm_fold_wta": (vol * v + img * f + img * 4, vol * 9 * 8,
+                         (8 * v + 14 * f) * vol + 8 * img * f + img * 4),
         "cvf": (2 * vol * v + 5 * img * f + 2 * hd, vol * (16 * r + 25),
                 cvf_tile_reads(h, w, d, r, 16, 2) * (d * v + f)
                 + (2 * cvf_tile_reads(h, w, d, r, 8, 3) * d + 2 * vol
                    + 5 * img) * f + vol * v + 2 * hd),
     })
     return work
+
+
+def fold_wta_bytes(h, w, d, volume_bytes=4):
+    """Bytes of the winner-takes-all fold's launch alone at [h, w, d]: it
+    reads eight volumes (the cost, ``volume_bytes`` a cell, then out and
+    the six partials, float32) and the image, and writes an int32
+    disparity a pixel."""
+    return (volume_bytes + 7 * 4) * h * w * d + h * w * 4 + h * w * 4
 
 
 def dp_window_bytes(d, reach=64, sector=32):
@@ -1158,7 +1193,9 @@ KERNEL_OF_ENTRY = {"stm_ssd": "ssd_kernel", "stm_sgm_rows": "sgm_rows_kernel",
                    "stm_sgm_horizontal": "sgm_horizontal_kernel",
                    "stm_sgm_chunk": "sgm_chunk_kernel",
                    "stm_sgm_side_by_side": "sgm_side_by_side_kernel",
-                   "stm_sgm_fold": "sgm_fold_kernel",
+                   "stm_sgm_fold_f32": "sgm_fold_kernel",
+                   "stm_sgm_fold_bf16": "sgm_fold_kernel",
+                   "stm_sgm_fold_wta": "sgm_fold_wta_kernel",
                    "stm_dp_forward": "dp_forward_kernel",
                    "stm_dp_backward": "dp_backward_kernel",
                    "stm_cvf": "cvf_kernel",
@@ -1209,8 +1246,10 @@ def check_compiled(torch, dev, shapes, p1, p2, card) -> dict:
     """``Pipeline.compiled()`` on the card (ROADMAP A.4): for each of
     :func:`compiled_paths`, the replay equals the eager frame bit for bit
     on two different pairs in a row (the static inputs refreshed, the
-    first result not overwritten); the capture's launch counts equal one
-    eager frame's, counted from 0 just before it; eager and replay
+    first result not overwritten); the capture's launch counts equal
+    those of one eager run of ``estimate_fn`` (the frame it captures,
+    winner-takes-all in SGM's fold where it can), counted from 0 just
+    before it; eager and replay
     ms/frame (CUDA events, median of REPS after WARMUP); the profiler
     over 10 replays: device busy time, idle share, device operations per
     frame, and each captured kernel seen on the device; the device memory
@@ -1240,7 +1279,7 @@ def check_compiled(torch, dev, shapes, p1, p2, card) -> dict:
         eager = [pipe.estimate(*pair).clone() for pair in two]
         torch.cuda.synchronize()
         _build.LAUNCHES.clear()
-        pipe.estimate(*two[0])
+        pipe.estimate_fn()(*two[0])
         torch.cuda.synchronize()
         eager_counts = collections.Counter(_build.LAUNCHES)
         fn = pipe.compiled()
@@ -1881,6 +1920,124 @@ def check_census(torch, dev, card) -> dict:
     return out
 
 
+def check_fold_wta(torch, dev, shapes, p1, p2, card) -> dict:
+    """SGM's winner-takes-all fold (``sgm_cuda.semiglobal_wta_cuda``: the
+    side-by-side launch, then ``sgm_fold_wta_kernel``) against the plain
+    version, ``winner_takes_all(agg_ops.semiglobal_aggregate(...))``, on
+    the same card volume, bit for bit: at teddy (the golden's SSD volume,
+    the adaptive P2) and at KITTI 2015's 375x1242 D=128 (FOLD_WTA_KITTI:
+    the 9x7 census volume, the constant P2), float32 and bf16, each call
+    one launch of each entry point.  Each cell's plain-WTA pipeline runs
+    ``estimate_fn``, the frame a graph captures: the fused fold once, no
+    volume fold, the disparities of ``estimate()``.  At KITTI, the call
+    against the plain version in turns plain, kernels, kernels, plain,
+    beside the volume route (``winner_takes_all`` of
+    ``semiglobal_aggregate_cuda``), the profiler's device time of each
+    launch, and the bounds of ``kernel_work``'s ``sgm_fold_wta`` and of
+    the fold alone (:func:`fold_wta_bytes`).  Returns {tag: {counter:
+    {launches, frame_launches, max_abs_err[, timings]}}}."""
+    from stereomatch_tpu_torch import cli_common
+    from stereomatch_tpu_torch.io.synthetic import stereo_pair
+    from stereomatch_tpu_torch.ops import _build, sgm_cuda
+    from stereomatch_tpu_torch.ops import aggregation as agg_ops
+    from stereomatch_tpu_torch.ops import disparity as disp_ops
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, {n: c for n, c in launch_counts(
+            COUNTERS, _build.LAUNCHES).items() if c}
+
+    t_left, t_right, _, d, k = shapes["teddy"]
+    k_left, k_right, _ = stereo_pair(375, 1242, d, seed=CENSUS_SEED)
+    cells = (("teddy", "ssd", (t_left, t_right),
+              dict(kernel_size=k, penalty1=p1, penalty2=p2)),
+             ("kitti", "census", (torch.from_numpy(k_left).to(dev),
+                                  torch.from_numpy(k_right).to(dev)),
+              FOLD_WTA_KITTI))
+    out = {}
+    for tag, cost, (left, right), options in cells:
+        h, w = left.shape
+        pen = {n: options[n] for n in ("penalty1", "penalty2")}
+        pen["adaptive_p2"] = options.get("adaptive_p2", True)
+        log(f"[fold wta] {tag} {h}x{w} D={d} {cost}, {pen}: the fused "
+            f"winner-takes-all against the plain version on the card")
+        out[tag] = {}
+        for sfx, dtype, v in (("", torch.float32, 4),
+                              ("_bf16", torch.bfloat16, 2)):
+            counter = f"sgm_fold_wta{sfx}"
+            pipe = cli_common.create_pipeline(
+                cost, "wta", "sgm", max_disparity=d, volume_dtype=dtype,
+                **options)
+            vol = pipe.cost(left, right)
+            require(vol.dtype == dtype and sgm_cuda.takes_wta(vol.shape),
+                    f"{tag} {dtype}: a {vol.dtype} {tuple(vol.shape)} "
+                    f"volume, not the fused fold's")
+
+            def kern(vol=vol):
+                return sgm_cuda.semiglobal_wta_cuda(vol, left, **pen)
+
+            def plain(vol=vol):
+                return disp_ops.winner_takes_all(
+                    agg_ops.semiglobal_aggregate(vol, left, **pen))
+
+            def volume_route(vol=vol):
+                return disp_ops.winner_takes_all(
+                    sgm_cuda.semiglobal_aggregate_cuda(vol, left, **pen))
+
+            fused, counts = counted(kern)
+            require(counts == {f"sgm_side{sfx}": 1, counter: 1},
+                    f"semiglobal_wta_cuda {tag} {dtype} launched {counts}")
+            err = compare(f"{counter} {tag} vs plain winner_takes_all of "
+                          f"semiglobal_aggregate", plain(), fused, 0, 0,
+                          exact=True)
+            frame, frame_counts = counted(lambda: pipe.estimate_fn()(left,
+                                                                     right))
+            require(frame_counts.get(counter) == 1
+                    and frame_counts.get(f"sgm_side{sfx}") == 1
+                    and not frame_counts.get(f"sgm_fold{sfx}"),
+                    f"{tag} {dtype} estimate_fn launched {frame_counts}")
+            require(torch.equal(frame, pipe.estimate(left, right)),
+                    f"{tag} {dtype} estimate_fn differs from estimate()")
+            out[tag][counter] = {"launches": counts,
+                                 "frame_launches": frame_counts,
+                                 "max_abs_err": err}
+            if tag == "kitti":
+                plain_reps = dict(warmup=PLAIN_WARMUP, reps=PLAIN_REPS)
+                t_plain = [time_ms(torch, plain, **plain_reps)]
+                t_kern = [time_ms(torch, kern) for _ in range(2)]
+                t_plain.append(time_ms(torch, plain, **plain_reps))
+                t_volume = time_ms(torch, volume_route)
+                _, by_name, _, _ = profile_path(torch, kern)
+                device = {name: sum(ms for n, ms in by_name.items()
+                                    if name in n)
+                          for name in ("sgm_side_by_side_kernel",
+                                       "sgm_fold_wta_kernel")}
+                require(all(device.values()),
+                        f"the profiler missed a launch: {device}")
+                b_ms, b_by, floor_ms = kernel_bounds(
+                    h, w, d, 1, 8, 1, volume_bytes=v)["sgm_fold_wta"]
+                fold_bound = fold_wta_bytes(h, w, d, v) / HBM_BYTES_PER_S * 1e3
+                out[tag][counter].update(
+                    ms=min(t_kern), plain_ms=min(t_plain),
+                    volume_route_ms=t_volume,
+                    side_device_ms=device["sgm_side_by_side_kernel"],
+                    fold_device_ms=device["sgm_fold_wta_kernel"],
+                    bound_ms=b_ms, bound_by=b_by, design_floor_ms=floor_ms,
+                    fold_bound_ms=fold_bound)
+                log(f"  {counter} {tag}: both launches {t_kern} ms (device: "
+                    f"side by side {device['sgm_side_by_side_kernel']!r}, "
+                    f"fold {device['sgm_fold_wta_kernel']!r}), plain "
+                    f"{t_plain} ms, volume route {t_volume!r} ms, bound "
+                    f"{b_ms!r} ms ({b_by}), design floor {floor_ms!r} ms, "
+                    f"the fold's bound {fold_bound!r} ms [{card}]")
+            del pipe, vol, fused, frame
+            torch.cuda.empty_cache()
+    return out
+
+
 def check_soak(torch, dev, card) -> dict:
     """The kernels at the JAX package's soak geometries, the padded-band
     cost, ``profiling.trace`` and the CUDA start watchdog, on the card.
@@ -2124,7 +2281,8 @@ def check_stream(torch, dev, golden, counters, card) -> dict:
     yielded disparity equals ``Pipeline.estimate`` (``estimate_refined``,
     ``PyramidPipeline.estimate``) of the same uint8 frame on the card;
     the run launched each kernel of its path, and its launches a frame
-    (a replayed frame counting its graph's) equal an eager frame's.  A
+    (a replayed frame counting its graph's) equal an eager frame's, of
+    ``Pipeline.estimate_fn`` where the stream replays a graph.  A
     second run of each estimator is timed with the host clock (frames/s
     and the stage split), beside ``Pipeline.estimate`` timed with CUDA
     events on device-resident images; one batched run is profiled for
@@ -2141,17 +2299,17 @@ def check_stream(torch, dev, golden, counters, card) -> dict:
     out = {"runs": []}
 
     def reference(d, options, kernel_size, shape):
-        """(frame function on uint8 pair -> card tensor, the kernels the
+        """(frame function on uint8 pair -> card tensor, the frame the
+        stream runs (a replayed graph's: ``estimate_fn``), the kernels the
         path launches at [H, W] ``shape``)."""
         sfx = "_bf16" if options.get("cost_dtype") == "bfloat16" else ""
-        flat = (f"ssd{sfx}", *sgm_form(*shape, d, sfx))
         if options.get("pyramid_levels"):
             levels = options["pyramid_levels"]
             pyr = PyramidPipeline(d, levels=levels, penalty1=p1, penalty2=p2)
             scale = 2 ** levels
-            return pyr.estimate, tuple(sgm_form(-(-shape[0] // scale),
-                                                -(-shape[1] // scale),
-                                                d // scale))
+            return pyr.estimate, pyr.estimate, tuple(
+                sgm_form(-(-shape[0] // scale), -(-shape[1] // scale),
+                         d // scale))
         dyn = options.get("reducer") == "dynamic_programming"
         pipe = cli_common.create_pipeline(
             "ssd", "dyn" if dyn else "wta", "sgm", max_disparity=d,
@@ -2159,10 +2317,12 @@ def check_stream(torch, dev, golden, counters, card) -> dict:
             volume_dtype=options.get("cost_dtype", "float32"),
             kernel_size=kernel_size)
         if options.get("subpixel"):
-            return (lambda l, r: pipe.estimate_refined(l, r, subpixel=True,
-                                                       median=True), flat)
-        return pipe.estimate, flat + (("dp_forward", "dp_backward")
-                                      if dyn else ())
+            refined = (lambda l, r: pipe.estimate_refined(
+                l, r, subpixel=True, median=True))
+            return refined, refined, (f"ssd{sfx}", *sgm_form(*shape, d, sfx))
+        flat = (f"ssd{sfx}", *sgm_form(*shape, d, sfx, wta=not dyn))
+        return pipe.estimate, pipe.estimate_fn(), flat + (
+            ("dp_forward", "dp_backward") if dyn else ())
 
     def on_card(frame):
         w = frame.shape[1] // 2
@@ -2174,14 +2334,14 @@ def check_stream(torch, dev, golden, counters, card) -> dict:
             label = (f"{tag} batch {batch} depth {depth} "
                      f"{options or 'ssd+sgm+wta'}")
             log(f"[stream] {label}")
-            frame_fn, kernels = reference(
+            frame_fn, streamed_fn, kernels = reference(
                 d, options, kernel_size,
                 (scenes[0].shape[0], scenes[0].shape[1] // 2))
             pairs = [on_card(f) for f in scenes]
             refs = [frame_fn(*p).cpu().numpy() for p in pairs]
             torch.cuda.synchronize()
             _build.LAUNCHES.clear()
-            frame_fn(*pairs[0])
+            streamed_fn(*pairs[0])
             torch.cuda.synchronize()
             eager = collections.Counter(_build.LAUNCHES)
             est = StreamingEstimator(d, batch=batch, depth=depth,
@@ -3508,6 +3668,12 @@ def main() -> int:
             f"semiglobal_aggregate side by side {tag}", agg,
             sgm_cuda._aggregate_side_by_side(ref, left, p1, p2), 0, 0,
             exact=True)
+        if sgm_cuda.takes_wta(ref.shape):
+            errors[f"sgm_fold_wta_{tag}"] = compare(
+                f"winner-takes-all in the fold {tag}",
+                disp_ops.winner_takes_all(agg),
+                sgm_cuda.semiglobal_wta_cuda(ref, left, penalty1=p1,
+                                             penalty2=p2), 0, 0, exact=True)
         del agg
         # The chunk kernel (K5; at HD also K6's discharge) on the chunks
         # of the sharded path's row tiles.
@@ -3586,6 +3752,12 @@ def main() -> int:
             f"rounding the sum once)", agg16,
             sgm_cuda._aggregate_side_by_side(ref16, left, p1, p2), 0, 0,
             exact=True)
+        if sgm_cuda.takes_wta(ref16.shape):
+            errors[f"sgm_fold_wta_bf16_{tag}"] = compare(
+                f"winner-takes-all in the fold bf16 {tag}",
+                disp_ops.winner_takes_all(agg16),
+                sgm_cuda.semiglobal_wta_cuda(ref16, left, penalty1=p1,
+                                             penalty2=p2), 0, 0, exact=True)
         del agg16
         errors[f"sgm_chunk_bf16_{tag}"] = check_chunks(tag, ref16, left, p1,
                                                        p2)
@@ -3609,6 +3781,8 @@ def main() -> int:
     elapsed("the kernels against their plain versions")
     census_out = check_census(torch, dev, card)
     elapsed("the census kernels")
+    fold_wta_out = check_fold_wta(torch, dev, shapes, p1, p2, card)
+    elapsed("the winner-takes-all fold")
     forms_out = check_sgm_forms(torch, dev, shapes, p1, p2, card)
     elapsed("the two SGM forms")
     soak_out = check_soak(torch, dev, card)
@@ -4015,6 +4189,15 @@ def main() -> int:
                     lambda: agg_ops.semiglobal_aggregate(
                         volume, image, penalty1=p1, penalty2=p2))
 
+        def fold_wta(volume):
+            """The whole aggregation reduced by winner-takes-all in the
+            fold, and its plain version."""
+            return (lambda: sgm_cuda.semiglobal_wta_cuda(
+                        volume, image, penalty1=p1, penalty2=p2),
+                    lambda: disp_ops.winner_takes_all(
+                        agg_ops.semiglobal_aggregate(
+                            volume, image, penalty1=p1, penalty2=p2)))
+
         def census_volume(dtype):
             """Both census launches (a 5x5 window) and the plain
             version."""
@@ -4065,6 +4248,9 @@ def main() -> int:
             "census": census_volume(torch.float32),
             "census_bf16": census_volume(BF16),
         }
+        if sgm_cuda.takes_wta(vol.shape):     # teddy; HD takes the serial form
+            pairs.update(sgm_fold_wta=fold_wta(vol),
+                         sgm_fold_wta_bf16=fold_wta(vol16))
         for name, (kern, plain) in pairs.items():
             # Plain, kernel, kernel, plain: the two orders cancel drift.
             plain_reps = dict(warmup=PLAIN_WARMUP, reps=PLAIN_REPS)
@@ -4196,15 +4382,26 @@ def main() -> int:
                "sgm_chunk": ("stereomatch_tpu_torch/csrc/sgm.cu",
                              "stereomatch_tpu/ops/sgm_pallas.py:552"),
                # The port's own: the JAX package's census is XLA.
-               "census": ("stereomatch_tpu_torch/csrc/census.cu", None)}
+               "census": ("stereomatch_tpu_torch/csrc/census.cu", None),
+               # The port's own: the JAX package reduces with XLA's
+               # argmin after its SGM kernels.
+               "sgm_fold_wta": ("stereomatch_tpu_torch/csrc/sgm.cu", None)}
     # The bf16 instantiations of the same kernels, in the same sources;
     # the DP walk reads no costs and has none.
     for name in ("ssd", "sgm_rows", "sgm_horizontal", "sgm_side",
-                 "dp_forward", "cvf", "sgm_chunk", "census"):
+                 "dp_forward", "cvf", "sgm_chunk", "census",
+                 "sgm_fold_wta"):
         sources[f"{name}_bf16"] = sources[name]
+    # The fused fold's launches: one teddy estimate_fn frame's
+    # (check_fold_wta), the frame a graph captures.
+    for name in ("sgm_fold_wta", "sgm_fold_wta_bf16"):
+        launches[name] = fold_wta_out["teddy"][name]["frame_launches"][name]
     kernels = []
     for name, (source, replaces) in sources.items():
         b_ms, b_by, _ = bounds["teddy"][name]
+        # None at HD where the kernel is not taken there (sgm_fold_wta:
+        # HD D=256 takes the serial form).
+        hd_ms, hd_plain_ms = times.get((name, "hd"), (None, None))
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -4212,8 +4409,7 @@ def main() -> int:
             "ms": times[(name, "teddy")][0],
             "plain_ms": times[(name, "teddy")][1],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "hd_ms": times[(name, "hd")][0],
-            "hd_plain_ms": times[(name, "hd")][1],
+            "hd_ms": hd_ms, "hd_plain_ms": hd_plain_ms,
             "hd_bound_ms": bounds["hd"][name][0],
         }
         if name.startswith("cvf"):
@@ -4249,6 +4445,13 @@ def main() -> int:
             entry["launches_codes_kernel"] = launches[
                 name.replace("census", "census_codes")]
             entry["kitti"] = census_out["kitti"][name]
+        if name.startswith("sgm_fold_wta"):
+            # Both launches of the side-by-side form, the fold taking
+            # winner-takes-all (the frame a graph replays, where the main
+            # path's estimate runs sgm_side and torch.argmin); kitti: at
+            # KITTI 2015's cell, with each launch's device time
+            # (check_fold_wta).
+            entry["kitti"] = fold_wta_out["kitti"][name]
         if name.startswith("sgm_chunk"):
             # K6, the W-on-grid form of the same TPU kernel, at HD; the
             # launches are those of the sharded exact path (teddy, 5
@@ -4283,6 +4486,7 @@ def main() -> int:
     log(json.dumps({"soak": soak_out, "card": card}))
     log(json.dumps({"sgm_forms": forms_out, "card": card}))
     log(json.dumps({"census": census_out, "card": card}))
+    log(json.dumps({"fold_wta": fold_wta_out, "card": card}))
     log(json.dumps({"kernels": kernels, "e2e_ms": e2e, "card": card}))
     log(f"[done] in {time.perf_counter() - started:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,20 @@ from .utils import validation
 from .utils.backend import resolve_backend
 
 
+def _check_inputs(cost_volume: torch.Tensor,
+                  left_image: torch.Tensor) -> None:
+    """Raise unless ``cost_volume`` is an [H, W, D] volume of a cost dtype
+    over the [H, W] ``left_image`` on its device."""
+    validation.check_cost_volume(cost_volume)
+    validation.check_rank("left_image", left_image, 2)
+    validation.check_same_device("cost_volume", cost_volume,
+                                 "left_image", left_image)
+    if tuple(cost_volume.shape[:2]) != tuple(left_image.shape):
+        raise validation.ShapeError(
+            f"cost_volume spatial dims {tuple(cost_volume.shape[:2])} do "
+            f"not match left_image {tuple(left_image.shape)}")
+
+
 class Semiglobal:
     """Semiglobal-matching aggregation (Hirschmuller 2005) over 8 path
     directions with an image-gradient-adaptive second penalty
@@ -51,24 +65,41 @@ class Semiglobal:
 
     def __call__(self, cost_volume: torch.Tensor, left_image: torch.Tensor,
                  sga_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
-        validation.check_cost_volume(cost_volume)
-        validation.check_rank("left_image", left_image, 2)
-        validation.check_same_device("cost_volume", cost_volume,
-                                     "left_image", left_image)
-        if tuple(cost_volume.shape[:2]) != tuple(left_image.shape):
-            raise validation.ShapeError(
-                f"cost_volume spatial dims {tuple(cost_volume.shape[:2])} do "
-                f"not match left_image {tuple(left_image.shape)}")
-        fits = sgm_cuda.fits(cost_volume.shape)
-        if resolve_backend(self.backend, cost_volume, fits) == "cuda":
+        _check_inputs(cost_volume, left_image)
+        if self._route(cost_volume) == "cuda":
             return sgm_cuda.semiglobal_aggregate_cuda(
-                cost_volume, left_image, penalty1=float(self.penalty1),
-                penalty2=float(self.penalty2),
-                adaptive_p2=bool(self.adaptive_p2))
+                cost_volume, left_image, **self._penalties())
         return semiglobal_aggregate(cost_volume, left_image,
-                                    penalty1=float(self.penalty1),
-                                    penalty2=float(self.penalty2),
-                                    adaptive_p2=bool(self.adaptive_p2))
+                                    **self._penalties())
+
+    def winner_takes_all(self, cost_volume: torch.Tensor,
+                         left_image: torch.Tensor) -> Optional[torch.Tensor]:
+        """The int32 [H, W] winner-takes-all of this aggregation, equal to
+        ``WinnerTakesAll()(self(cost_volume, left_image))`` bit for bit,
+        taken in the kernels' last launch with no volume written
+        (``sgm_cuda.semiglobal_wta_cuda``); None where :meth:`_fuses_wta`
+        does not hold, and the caller takes the volume route."""
+        _check_inputs(cost_volume, left_image)
+        if not self._fuses_wta(cost_volume):
+            return None
+        return sgm_cuda.semiglobal_wta_cuda(cost_volume, left_image,
+                                            **self._penalties())
+
+    def _fuses_wta(self, cost_volume: torch.Tensor) -> bool:
+        """Whether this stage sends ``cost_volume`` to the kernels (the
+        route ``__call__`` takes) at a shape where they take the
+        side-by-side form (``sgm_cuda.takes_wta``)."""
+        return (self._route(cost_volume) == "cuda"
+                and sgm_cuda.takes_wta(cost_volume.shape))
+
+    def _route(self, cost_volume: torch.Tensor) -> str:
+        return resolve_backend(self.backend, cost_volume,
+                               sgm_cuda.fits(cost_volume.shape))
+
+    def _penalties(self) -> dict:
+        return dict(penalty1=float(self.penalty1),
+                    penalty2=float(self.penalty2),
+                    adaptive_p2=bool(self.adaptive_p2))
 
 
 class CostFilter:
@@ -124,14 +155,7 @@ class CostFilter:
 
     def __call__(self, cost_volume: torch.Tensor, left_image: torch.Tensor,
                  sga_volume: Optional[torch.Tensor] = None) -> torch.Tensor:
-        validation.check_cost_volume(cost_volume)
-        validation.check_rank("left_image", left_image, 2)
-        validation.check_same_device("cost_volume", cost_volume,
-                                     "left_image", left_image)
-        if tuple(cost_volume.shape[:2]) != tuple(left_image.shape):
-            raise validation.ShapeError(
-                f"cost_volume spatial dims {tuple(cost_volume.shape[:2])} do "
-                f"not match left_image {tuple(left_image.shape)}")
+        _check_inputs(cost_volume, left_image)
         if not cost_volume.dtype.is_floating_point:
             raise validation.DTypeError(
                 "cost-volume filtering computes windowed means, a float "

@@ -76,7 +76,11 @@
 // at teddy), so their step chains overlap and the walk is bound by bytes:
 // the same 23 volume passes as the serial structure (14 in the side-by-side
 // launch, 9 in the fold, whose ring stages carry eight rows a step), plus
-// six volumes of scratch, which ops/sgm_cuda.py bounds at 4 GiB.  Past that
+// six volumes of scratch, which ops/sgm_cuda.py bounds at 4 GiB.  Where
+// nothing reads the summed volume (a plain winner-takes-all frame), the
+// fold's winner-takes-all form (sgm_fold_wta_kernel) writes each pixel's
+// int32 argmin in place of its row: 22 volume passes a frame, and no
+// argmin pass after them.  Past that
 // bound, at HD D = 256 (1280-2303 warps), one traversal already fills the
 // card, the serial structure is bound by the bytes of its launches, three
 // volumes a traversal, and it is the faster.  One-warp blocks spread the
@@ -100,6 +104,14 @@
 // offset into its first piece (bf16.cuh's copy_row_pieces).  The ring's
 // bf16 cost slots take half the float32 ones' bytes plus one piece; out is
 // read and written as before.
+//
+// Winner-takes-all in the fold (WTA): as the warp forms a pixel's final sum
+// (bf16: rounded as `result` would hold it), it takes the index
+// torch.argmin(sum, dim=2) gives, in int32: the first NaN, else the first
+// least value, -0.0 equal to +0.0, so an all-+inf row gives 0.  Each lane
+// keys its values in that order (wta_key) and keeps its first least; one
+// redux.sync finds the warp's least key and a ballot the lowest lane that
+// holds it, which stores its index.  None of it feeds the recurrence.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -168,6 +180,17 @@ __host__ __device__ __forceinline__ int path_count(int H, int W, int dy,
 
 // The recurrence, in three parts: m = min_d prev over the warp, P2' from
 // the two intensities, and L from m, P2' and the costs c.
+
+// A value's place in torch.argmin's order as an unsigned key, least
+// first: NaN 0, then the numbers in increasing order from 1, with -0.0
+// taken as +0.0.  The largest key of a number, +inf's, is 0xff800001, so
+// 0xffffffff (a lane past D) never wins.
+__device__ __forceinline__ unsigned wta_key(float x) {
+  if (x != x) return 0u;
+  unsigned u = __float_as_uint(x);
+  if ((u << 1) == 0u) u = 0u;  // -0.0 ties +0.0
+  return ((u & 0x80000000u) ? ~u : (u | 0x80000000u)) + 1u;
+}
 
 template <int VPL>
 __device__ __forceinline__ float warp_min(const float (&prev)[VPL]) {
@@ -320,6 +343,10 @@ constexpr int kRingBytes =
 // The partials are only read, at the pixel the step reads, so fetching
 // them S - 1 steps early is safe as fetching out is.
 //
+// WTA (the folding launch's winner-takes-all form): store writes no row;
+// it forms the sums as above and stores, at the step's pixel, the index of
+// their least value into disparity [H, W] (the header of this file).
+//
 // P2' leaves the step chain: lane k computes it for step t0 + k of each
 // block of 32 steps from intensities loaded a block ahead, and step t
 // takes it by one shuffle, so the division runs once per 32 steps.  The
@@ -330,20 +357,24 @@ constexpr int kRingBytes =
 // bf16 also needs D % 8 == 0, so that every row starts on a 16-byte
 // boundary), and 8-byte stores of four bf16 sums into an 8-byte-aligned
 // result; otherwise 4-byte copies and element stores.
-template <typename T, int VPL, bool VEC, bool ACC, bool FINAL, int NF = 0>
+template <typename T, int VPL, bool VEC, bool ACC, bool FINAL, int NF = 0,
+          bool WTA = false>
 __device__ void ring_path(const T* __restrict__ cost,
                           const float* __restrict__ image,
                           float* __restrict__ out,
                           __nv_bfloat16* __restrict__ result, int H, int W,
                           int D, int dy, int dx, float p1, float p2,
                           bool adaptive, int path, const Carry& carry,
-                          const Fold& fold, unsigned char* ring) {
+                          const Fold& fold, unsigned char* ring,
+                          int* __restrict__ disparity = nullptr) {
   static_assert(kRingStages >= 4 && (kRingStages & (kRingStages - 1)) == 0,
                 "kRingStages is a power of two of at least 4");
   static_assert(!VEC || VPL % 4 == 0, "16-byte pieces need VPL % 4 == 0");
   static_assert(!FINAL || (ACC && !kIsF32<T>),
                 "a final launch rounds a bf16 volume's accumulated sum");
   static_assert(NF == 0 || ACC, "partials are folded into an out row");
+  static_assert(!WTA || (NF > 0 && !FINAL),
+                "winner-takes-all takes the folding launch's final sums");
   constexpr int kRow = 32 * VPL;
   constexpr int kPiece = VEC ? 4 : 1;           // floats a copy moves
   constexpr int kPieces = VPL / kPiece;         // copies a lane a row
@@ -476,17 +507,36 @@ __device__ void ring_path(const T* __restrict__ cost,
       }
     }
   };
-  // out (+)= L at the pixel `at` (FINAL: result = bf16(out + L)); prev
+  // out (+)= L at element `at` of the volume, pixel `pix` (FINAL: result =
+  // bf16(out + L); WTA: disparity[pix] = the argmin of out + L); prev
   // takes L (+inf past D).
-  auto store = [&](long at, const float (&o)[VPL], const float (&L)[VPL],
-                   float (&prev)[VPL]) {
+  auto store = [&](long at, long pix, const float (&o)[VPL],
+                   const float (&L)[VPL], float (&prev)[VPL]) {
     float v[VPL];
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
       v[j] = ACC ? __fadd_rn(o[j], L[j]) : L[j];
       prev[j] = d0 + j < D ? L[j] : inf_f();
     }
-    if constexpr (FINAL) {
+    if constexpr (WTA) {
+      unsigned best = 0xffffffffu;
+      int arg = 0;
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        float x = v[j];
+        if constexpr (!kIsF32<T>) {
+          x = __bfloat162float(__float2bfloat16_rn(x));
+        }
+        const unsigned key = d0 + j < D ? wta_key(x) : 0xffffffffu;
+        if (key < best) {
+          best = key;
+          arg = j;
+        }
+      }
+      const unsigned least = __reduce_min_sync(kFullMask, best);
+      const unsigned holders = __ballot_sync(kFullMask, best == least);
+      if (lane == __ffs(holders) - 1) disparity[pix] = d0 + arg;
+    } else if constexpr (FINAL) {
       __nv_bfloat16* const dst = result + at + d0;
 #pragma unroll
       for (int q = 0; q < VPL; q += kPiece) {
@@ -551,11 +601,12 @@ __device__ void ring_path(const T* __restrict__ cost,
     float L[VPL];
     advance<VPL>(L, c, prev, warp_min<VPL>(prev),
                  __shfl_sync(kFullMask, p2s, 0), lane, D, p1);
-    store(first, o, L, prev);
+    store(first, first_pix, o, L, prev);
   } else {
-    store(first, o, c, prev);  // L = C
+    store(first, first_pix, o, c, prev);  // L = C
   }
   long at = first + step;
+  long pix = first_pix + step_pix;
   for (int s = 1; s < p.len; ++s) {
     if ((s & 31) == 0) {
       block_int = next_int;
@@ -567,8 +618,9 @@ __device__ void ring_path(const T* __restrict__ cost,
     fetch();
     float L[VPL];
     advance<VPL>(L, c, prev, warp_min<VPL>(prev), p2_adj, lane, D, p1);
-    store(at, o, L, prev);
+    store(at, pix, o, L, prev);
     at += step;
+    pix += step_pix;
   }
 
   // prev holds L at the path's last pixel.
@@ -661,6 +713,29 @@ __global__ void sgm_fold_kernel(const T* __restrict__ cost,
       path, Carry{nullptr, nullptr, nullptr, true}, fold,
       reinterpret_cast<unsigned char*>(ring) +
           warp * kRingBytes<T, VPL, VEC, true, kFolded>);
+}
+
+// The folding launch in its winner-takes-all form: the sums
+// sgm_fold_kernel forms (bf16: rounded as its result holds them), each
+// pixel's argmin stored into disparity [H, W] in place of its row; out is
+// only read.
+template <typename T, int VPL, bool VEC>
+__global__ void sgm_fold_wta_kernel(const T* __restrict__ cost,
+                                    const float* __restrict__ image,
+                                    const float* __restrict__ out,
+                                    int* __restrict__ disparity, Fold fold,
+                                    int H, int W, int D, int dy, int dx,
+                                    float p1, float p2, int adaptive) {
+  extern __shared__ __align__(16) float ring[];
+  const int warp = threadIdx.x >> 5;
+  const int path = blockIdx.x * kRingWarpsPerBlock + warp;
+  if (path >= path_count(H, W, dy, dx)) return;  // whole warp leaves
+  ring_path<T, VPL, VEC, true, false, kFolded, true>(
+      cost, image, const_cast<float*>(out), nullptr, H, W, D, dy, dx, p1, p2,
+      adaptive != 0, path, Carry{nullptr, nullptr, nullptr, true}, fold,
+      reinterpret_cast<unsigned char*>(ring) +
+          warp * kRingBytes<T, VPL, VEC, true, kFolded>,
+      disparity);
 }
 
 enum class Kind { kRows, kHorizontal, kChunk };
@@ -866,13 +941,16 @@ int dispatch_side(const void* cost, const void* image, void* out,
 
 // The folding launch: the row traversal (dy, dx) = the last of TRAVERSALS,
 // adding the kFolded partial volumes and its L onto out, or (bf16, with a
-// result) storing that sum rounded into result.
+// result) storing that sum rounded into result, or (with a disparity
+// [H, W], then no result) storing each pixel's argmin of that sum there.
 template <typename T>
 int dispatch_fold(const void* cost, const void* image, void* out,
-                  const void* partials, void* result, int H, int W, int D,
-                  int dy, int dx, float p1, float p2, int adaptive,
-                  void* stream) {
-  const bool final_ok = kIsF32<T> ? result == nullptr : result != nullptr;
+                  const void* partials, void* result, void* disparity,
+                  int H, int W, int D, int dy, int dx, float p1, float p2,
+                  int adaptive, void* stream) {
+  const bool wta = disparity != nullptr;
+  const bool final_ok =
+      (kIsF32<T> || wta) ? result == nullptr : result != nullptr;
   if (!(dy == 1 || dy == -1) || dx < -1 || dx > 1 || !final_ok ||
       out == nullptr || partials == nullptr || D < 1 || D > 32 * 16 ||
       H < 1 || W < 1) {
@@ -882,21 +960,27 @@ int dispatch_fold(const void* cost, const void* image, void* out,
                   static_cast<long>(H) * W * D};
   const bool vec = D % (kIsF32<T> ? 4 : 8) == 0 && aligned(cost, 16) &&
                    aligned(out, 16) && aligned(partials, 16) &&
-                   (kIsF32<T> || aligned(result, 8));
+                   (kIsF32<T> || wta || aligned(result, 8));
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* c = static_cast<const T*>(cost);
   const auto* img = static_cast<const float*>(image);
   auto* o = static_cast<float*>(out);
   auto* r = static_cast<__nv_bfloat16*>(result);
+  auto* disp = static_cast<int*>(disparity);
   const int paths = path_count(H, W, dy, dx);
   const int blocks = (paths + kRingWarpsPerBlock - 1) / kRingWarpsPerBlock;
   return by_vpl(D, [&](auto vpl) {
     constexpr int VPL = decltype(vpl)::value;
     return by_vec<VPL>(vec, [&](auto v) {
       constexpr bool VEC = decltype(v)::value;
-      return launch_blocks(&sgm_fold_kernel<T, VPL, VEC, !kIsF32<T>>,
-                           static_cast<size_t>(kRingWarpsPerBlock) *
-                               kRingBytes<T, VPL, VEC, true, kFolded>,
+      const size_t smem = static_cast<size_t>(kRingWarpsPerBlock) *
+                          kRingBytes<T, VPL, VEC, true, kFolded>;
+      if (wta) {
+        return launch_blocks(&sgm_fold_wta_kernel<T, VPL, VEC>, smem, blocks,
+                             s, c, img, o, disp, fold, H, W, D, dy, dx, p1,
+                             p2, adaptive);
+      }
+      return launch_blocks(&sgm_fold_kernel<T, VPL, VEC, !kIsF32<T>>, smem,
                            blocks, s, c, img, o, r, fold, H, W, D, dy, dx, p1,
                            p2, adaptive);
     });
@@ -1011,8 +1095,8 @@ extern "C" int stm_sgm_fold_f32(const void* cost, const void* image,
                                 void* out, const void* partials, int H, int W,
                                 int D, int dy, int dx, float p1, float p2,
                                 int adaptive, void* stream) {
-  return dispatch_fold<float>(cost, image, out, partials, nullptr, H, W, D,
-                              dy, dx, p1, p2, adaptive, stream);
+  return dispatch_fold<float>(cost, image, out, partials, nullptr, nullptr,
+                              H, W, D, dy, dx, p1, p2, adaptive, stream);
 }
 
 // As stm_sgm_fold_f32, the sum stored rounded to bf16 into result (out is
@@ -1022,6 +1106,33 @@ extern "C" int stm_sgm_fold_bf16(const void* cost, const void* image,
                                  void* result, int H, int W, int D, int dy,
                                  int dx, float p1, float p2, int adaptive,
                                  void* stream) {
-  return dispatch_fold<__nv_bfloat16>(cost, image, out, partials, result, H,
-                                      W, D, dy, dx, p1, p2, adaptive, stream);
+  return dispatch_fold<__nv_bfloat16>(cost, image, out, partials, result,
+                                      nullptr, H, W, D, dy, dx, p1, p2,
+                                      adaptive, stream);
+}
+
+// The fold in its winner-takes-all form: the sum stm_sgm_fold_f32 forms,
+// and in place of it each pixel's int32 argmin (torch.argmin's: the first
+// NaN, else the first least value, -0.0 equal to +0.0) into disparity
+// [H, W]; out is only read.
+extern "C" int stm_sgm_fold_wta_f32(const void* cost, const void* image,
+                                    void* out, const void* partials,
+                                    void* disparity, int H, int W, int D,
+                                    int dy, int dx, float p1, float p2,
+                                    int adaptive, void* stream) {
+  return dispatch_fold<float>(cost, image, out, partials, nullptr,
+                              disparity, H, W, D, dy, dx, p1, p2, adaptive,
+                              stream);
+}
+
+// As stm_sgm_fold_wta_f32, each sum rounded to bf16 first, as
+// stm_sgm_fold_bf16's result holds it.
+extern "C" int stm_sgm_fold_wta_bf16(const void* cost, const void* image,
+                                     void* out, const void* partials,
+                                     void* disparity, int H, int W, int D,
+                                     int dy, int dx, float p1, float p2,
+                                     int adaptive, void* stream) {
+  return dispatch_fold<__nv_bfloat16>(cost, image, out, partials, nullptr,
+                                      disparity, H, W, D, dy, dx, p1, p2,
+                                      adaptive, stream);
 }

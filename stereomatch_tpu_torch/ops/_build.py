@@ -52,6 +52,7 @@ _SSD = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 _SGM = (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P)
 _SIDE = (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P)
 _FOLD = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P)
+_FOLD_INTO = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P)
 _DP_FORWARD = (_P, _P, _P, _I, _I, _I, _P)
 _CVF_STATS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
               _P)
@@ -88,12 +89,14 @@ _SIGNATURES = {
     # The side-by-side form: (cost, image, out, partials, steps (seven
     # (dy, dx) pairs, host ints), H, W, D, p1, p2, adaptive, stream), then
     # the fold (cost, image, out, partials, H, W, D, dy, dx, p1, p2,
-    # adaptive, stream), the bf16 fold with result after partials.
+    # adaptive, stream), the bf16 fold with result after partials, and
+    # the winner-takes-all folds with the int32 disparity [H, W] there.
     "stm_sgm_side_by_side_f32": _SIDE,
     "stm_sgm_side_by_side_bf16": _SIDE,
     "stm_sgm_fold_f32": _FOLD,
-    "stm_sgm_fold_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
-                          _P),
+    "stm_sgm_fold_bf16": _FOLD_INTO,
+    "stm_sgm_fold_wta_f32": _FOLD_INTO,
+    "stm_sgm_fold_wta_bf16": _FOLD_INTO,
     # (cost, ptr, final_costs, H, W, D, stream)
     "stm_dp_forward_f32": _DP_FORWARD,
     "stm_dp_forward_bf16": _DP_FORWARD,

@@ -29,7 +29,18 @@ on the card at once where one traversal's paths (one warp each) leave
 most of it idle, and pays six volumes of scratch for it.
 ``_takes_side_by_side``, a function of the shape alone, picks the
 side-by-side form wherever its scratch stays within
-``SIDE_BY_SIDE_SCRATCH_BYTES``.  The row-sharded, disparity-block and
+``SIDE_BY_SIDE_SCRATCH_BYTES``.
+
+:func:`semiglobal_wta_cuda` is the winner-takes-all of that aggregation
+for a caller that reads no volume: the same two launches, the fold in
+its winner-takes-all form (``sgm_fold_wta_kernel``), which takes each
+pixel's argmin as it forms the pixel's sum and writes the int32 index in
+place of the row.  It equals ``winner_takes_all`` of the aggregated
+volume bit for bit (``torch.argmin``'s order: the first NaN, else the
+first least value) and saves the fold's write of the volume, the
+argmin's read of it and its int64-to-int32 cast: 22 volume passes a
+frame and no argmin pass.  It serves the shapes where
+:func:`takes_wta` holds.  The row-sharded, disparity-block and
 process-mesh paths call :func:`traverse_cuda` and
 :func:`sweep_chunk_with_carry_cuda` themselves and keep the serial
 chain: their carries cross tiles.
@@ -51,8 +62,8 @@ argument of the same kernels, computed off the step chain as the
 adaptive one is.
 
 ``_build.LAUNCHES`` counts the launches of each entry point
-(``stm_sgm_{rows,horizontal,chunk,side_by_side,fold}_{f32,bf16}``), so a
-run can show that it went through them, and in which form.
+(``stm_sgm_{rows,horizontal,chunk,side_by_side,fold,fold_wta}_{f32,bf16}``),
+so a run can show that it went through them, and in which form.
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ import torch
 
 from . import _build
 from .aggregation import TRAVERSALS
+from .disparity import winner_takes_all
 
 VOLUME_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -197,16 +209,19 @@ def _aggregate_serial(cost: torch.Tensor, image: torch.Tensor,
 
 def _aggregate_side_by_side(cost: torch.Tensor, image: torch.Tensor,
                             penalty1: float, penalty2: float,
-                            adaptive_p2: bool = True) -> torch.Tensor:
+                            adaptive_p2: bool = True,
+                            wta: bool = False) -> torch.Tensor:
     """The side-by-side form: one launch walks the first seven traversals
     at once, the first into ``out`` and the others each into a float32
     partial volume of its own; a second walks the last and forms
     ``out + P1 + ... + P6 + L`` in that order (bf16: rounded once into
-    the result).  Bit-equal to :func:`_aggregate_serial`."""
+    the result).  Bit-equal to :func:`_aggregate_serial`.  With ``wta``
+    the second stores each pixel's argmin of that sum, int32 [H, W], and
+    writes no volume."""
     height, width, max_disp = cost.shape
     out = torch.empty(cost.shape, dtype=torch.float32, device=cost.device)
     if cost.numel() == 0:
-        return out.to(cost.dtype)
+        return winner_takes_all(out) if wta else out.to(cost.dtype)
     partials = torch.empty((len(TRAVERSALS) - 2, *cost.shape),
                            dtype=torch.float32, device=cost.device)
     bf16 = cost.dtype == torch.bfloat16
@@ -224,17 +239,21 @@ def _aggregate_side_by_side(cost: torch.Tensor, image: torch.Tensor,
             partials.data_ptr(), ctypes.addressof(steps), height, width,
             max_disp, p1, p2, adaptive, stream))
         dy, dx = TRAVERSALS[-1]
-        name = f"stm_sgm_fold_{sfx}"
+        name = f"stm_sgm_fold_{'wta_' if wta else ''}{sfx}"
         args = [cost.data_ptr(), image.data_ptr(), out.data_ptr(),
                 partials.data_ptr()]
-        result = None
-        if bf16:
+        result = out
+        if wta:
+            result = torch.empty((height, width), dtype=torch.int32,
+                                 device=cost.device)
+        elif bf16:
             result = torch.empty_like(cost)
+        if result is not out:
             args.append(result.data_ptr())
         _build.check_launch(name, getattr(lib, name)(
             *args, height, width, max_disp, dy, dx, p1, p2, adaptive,
             stream))
-    return out if result is None else result
+    return result
 
 
 def semiglobal_aggregate_cuda(cost_volume: torch.Tensor,
@@ -254,6 +273,33 @@ def semiglobal_aggregate_cuda(cost_volume: torch.Tensor,
         return _aggregate_side_by_side(cost, image, penalty1, penalty2,
                                        adaptive_p2)
     return _aggregate_serial(cost, image, penalty1, penalty2, adaptive_p2)
+
+
+def takes_wta(shape) -> bool:
+    """Whether :func:`semiglobal_wta_cuda` serves an [H, W, D] cost
+    volume: the kernels serve its D (:func:`fits`) and the aggregation
+    takes the side-by-side form there (:func:`_takes_side_by_side`)."""
+    return fits(shape) and _takes_side_by_side(*shape)
+
+
+def semiglobal_wta_cuda(cost_volume: torch.Tensor,
+                        left_image: torch.Tensor, *,
+                        penalty1: float = 0.1, penalty2: float = 0.2,
+                        adaptive_p2: bool = True) -> torch.Tensor:
+    """Winner-takes-all over the 8-direction SGM aggregation on the card,
+    int32 [H, W]: ``winner_takes_all(semiglobal_aggregate_cuda(...))``
+    bit for bit, taken in the fold's last launch with no volume written
+    (the module's docstring).  Raises ``ValueError`` where
+    :func:`takes_wta` does not hold."""
+    cost = cost_volume.contiguous()
+    image = left_image.to(torch.float32).contiguous()
+    _check(cost, image)
+    if not takes_wta(cost.shape):
+        raise ValueError(f"a {tuple(cost.shape)} volume does not take the "
+                         f"side-by-side form, which the fused "
+                         f"winner-takes-all needs")
+    return _aggregate_side_by_side(cost, image, penalty1, penalty2,
+                                   adaptive_p2, wta=True)
 
 
 def sweep_chunk_with_carry_cuda(cost: torch.Tensor, image: torch.Tensor,

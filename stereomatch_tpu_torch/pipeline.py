@@ -14,6 +14,15 @@ reference's ``_TexCostFunctionWrapper``, pipeline.py:22-33).
 dtype and device (:class:`CompiledPipeline`), replayed with one host
 call where the eager frame makes one launch for each kernel and
 PyTorch operation.
+
+``estimate_fn``, and so ``compiled()``, returns the disparity alone, so
+nothing reads the aggregated volume there: a ``Semiglobal`` aggregation
+reduced by ``WinnerTakesAll``, on the kernels at a shape where they take
+the side-by-side form, takes the argmin in SGM's last launch
+(``Semiglobal.winner_takes_all``) and writes no volume.  The
+``disparity_reduce`` stage is then empty.  ``estimate`` and
+``estimate_refined`` keep the volume, which ``last_confidence``,
+sub-pixel refinement and the LR check read.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from .cost import SSDTexture
+from .disparity_reduce import WinnerTakesAll
 from .ops import _build
 from .texture import TextureImage
 from .utils import profiling, validation
@@ -127,19 +137,34 @@ class Pipeline:
         names it."""
         return profiling.last_stage()
 
-    def _run(self, left_image: torch.Tensor, right_image: torch.Tensor):
+    def _run(self, left_image: torch.Tensor, right_image: torch.Tensor,
+             fuse: bool = False):
+        """(cost volume, aggregated volume, disparity) of one frame.  With
+        ``fuse``, a ``WinnerTakesAll`` reducer takes the disparity from
+        the aggregation's ``winner_takes_all`` where that gives one
+        (``Semiglobal``'s, in SGM's last launch), and the aggregated
+        volume is None."""
         # Stage spans show up in torch.profiler captures, and stamps on
         # the card while one records (utils/profiling.py).
         device = left_image.device
         with profiling.stage("cost", device):
             cost_volume = self.cost(left_image, right_image)
-        if self.aggregation is not None:
-            with profiling.stage("aggregation", device):
-                aggregation_volume = self.aggregation(cost_volume, left_image)
-        else:
+        fused = (getattr(self.aggregation, "winner_takes_all", None)
+                 if fuse and isinstance(self.disparity_reduce, WinnerTakesAll)
+                 else None)
+        aggregation_volume = disparity = None
+        if self.aggregation is None:
             aggregation_volume = cost_volume
+        else:
+            with profiling.stage("aggregation", device):
+                if fused is not None:
+                    disparity = fused(cost_volume, left_image)
+                if disparity is None:
+                    aggregation_volume = self.aggregation(cost_volume,
+                                                          left_image)
         with profiling.stage("disparity_reduce", device):
-            disparity = self.disparity_reduce(aggregation_volume)
+            if disparity is None:   # else taken in the aggregation
+                disparity = self.disparity_reduce(aggregation_volume)
         return cost_volume, aggregation_volume, disparity
 
     def estimate(self, left_image: Image, right_image: Image,
@@ -236,9 +261,11 @@ class Pipeline:
 
     def estimate_fn(self) -> Callable:
         """The pipeline as a plain function ``(left, right) -> disparity``
-        on tensors, with no capture of intermediates."""
+        on tensors, with no capture of intermediates; SGM then takes
+        winner-takes-all in its last launch where it can (the module's
+        docstring)."""
         def fn(left_image, right_image):
-            return self._run(left_image, right_image)[2]
+            return self._run(left_image, right_image, fuse=True)[2]
         return fn
 
     def compiled(self, donate: bool = True) -> "CompiledPipeline":

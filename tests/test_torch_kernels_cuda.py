@@ -1078,14 +1078,14 @@ def test_compiled_replay_equals_eager(device, launches, cost, reducer, aggr,
                                       dtype):
     """Two different pairs in a row: each replay equals the eager frame
     bit for bit (the static inputs are refreshed, the first result is
-    not overwritten), and the capture recorded one eager frame's kernel
-    launches."""
+    not overwritten), and the capture recorded the kernel launches of
+    one eager run of ``estimate_fn``, the frame it captures."""
     pipe = cli_common.create_pipeline(cost, reducer, aggr, max_disparity=24,
                                       cvf_radius=3, volume_dtype=dtype)
     pairs = [_images(37, 53, seed, device) for seed in (1, 2)]
     want = [pipe.estimate(*p).clone() for p in pairs]
     launches.clear()
-    pipe.estimate(*pairs[0])
+    pipe.estimate_fn()(*pairs[0])       # the frame the graph captures
     eager = collections.Counter(launches)
     fn = pipe.compiled()
     first = fn(*pairs[0])
@@ -1117,6 +1117,175 @@ def test_compiled_replays_past_the_kernels_under_auto(device, launches):
     pipe = cli_common.create_pipeline("ssd", "dyn", "sgm", max_disparity=600)
     pair = _images(8, 640, 5, device)
     assert torch.equal(pipe.compiled()(*pair), pipe.estimate(*pair))
+
+
+# --------------------------------------------------------------------------
+# Winner-takes-all in SGM's fold (semiglobal_wta_cuda): torch.argmin's
+# disparities with no volume written
+# --------------------------------------------------------------------------
+
+WTA_SHAPES = [(37, 53), (375, 450), (375, 1242)]       # teddy, KITTI
+WTA_DISPARITIES = [37, 64, 100, 126, 128]   # 37, 126: 4-byte copies
+
+
+def _wta_both(vol, left, **kw):
+    """(the fused disparities, winner_takes_all of the aggregated volume)
+    of ``vol`` over ``left``."""
+    fused = sgm_cuda.semiglobal_wta_cuda(vol, left, **kw)
+    summed = sgm_cuda.semiglobal_aggregate_cuda(vol, left, **kw)
+    return fused, disp_ops.winner_takes_all(summed)
+
+
+def _wta_plain(vol, left, **kw):
+    """winner_takes_all of the plain PyTorch aggregation of ``vol``, which
+    shares no code with the kernels."""
+    return disp_ops.winner_takes_all(
+        agg_ops.semiglobal_aggregate(vol, left, **kw))
+
+
+@pytest.mark.parametrize("adaptive", [True, False],
+                         ids=["adaptive", "constant"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", WTA_DISPARITIES)
+@pytest.mark.parametrize("hw", WTA_SHAPES, ids=str)
+def test_sgm_fold_wta_equals_argmin_of_the_volume(device, launches, hw, d,
+                                                  dtype, adaptive):
+    h, w = hw
+    left, right = _images(h, w, h + d, device)
+    vol = cost_ops.ssd_cost_volume(left, right, max_disparity=d,
+                                   kernel_size=3, cost_dtype=dtype)
+    kw = dict(penalty1=0.05, penalty2=0.3, adaptive_p2=adaptive)
+    fused, want = _wta_both(vol, left, **kw)
+    assert fused.dtype == torch.int32 and fused.shape == (h, w)
+    assert torch.equal(fused, want)
+    assert torch.equal(fused, _wta_plain(vol, left, **kw))
+    sfx = "bf16" if dtype == BF16 else "f32"
+    assert launches[f"stm_sgm_fold_wta_{sfx}"] == 1
+    assert launches[f"stm_sgm_fold_{sfx}"] == 1
+    assert launches[f"stm_sgm_side_by_side_{sfx}"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hw", WTA_SHAPES, ids=str)
+def test_sgm_fold_wta_on_integer_costs_full_of_ties(device, hw, dtype):
+    """Census-like costs (integers 0-62, P1 10, P2 120 constant): many
+    pixels' sums tie at their minimum, and the lowest index wins."""
+    h, w = hw
+    rng = np.random.default_rng(w)
+    vol = torch.from_numpy(rng.integers(0, 63, (h, w, 128)).astype(
+        np.float32)).to(device).to(dtype)
+    left = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(
+        np.float32)).to(device)
+    kw = dict(penalty1=10.0, penalty2=120.0, adaptive_p2=False)
+    fused, want = _wta_both(vol, left, **kw)
+    assert torch.equal(fused, want)
+    assert torch.equal(fused, _wta_plain(vol, left, **kw))
+    summed = sgm_cuda.semiglobal_aggregate_cuda(vol, left, **kw)
+    ties = (summed == summed.min(dim=2, keepdim=True).values).sum(dim=2)
+    assert (ties > 1).any()
+
+
+def _special_rows(d):
+    """[N, d] float32 rows of NaN, infinities, signed zeros and ties, the
+    minimum in the first and the last lane."""
+    nan, inf = float("nan"), float("inf")
+    rows = []
+
+    def row(fill, **at):
+        r = np.full(d, fill, np.float32)
+        for index, value in at.items():
+            r[int(index[1:]) % d] = value
+        rows.append(r)
+
+    row(inf)                                          # all +inf: 0
+    row(inf, i0=5.0)
+    row(inf, **{f"i{d - 1}": 7.0})                    # the last lane
+    row(3.0, i5=nan, i20=nan, i2=-inf)                # the first NaN
+    row(2.0, **{f"i{d - 1}": nan})
+    row(1.0, i9=-0.0, i3=0.0)                         # -0.0 ties +0.0
+    row(1.0, i3=-0.0, i9=0.0)
+    row(0.0)
+    row(-0.0, i30=0.0)
+    row(4.0, i30=-inf, i31=-inf)
+    row(2.0, i2=1.0, **{f"i{d - 1}": 1.0})            # ties: lowest wins
+    row(5.0, **{f"i{d - 1}": 4.0})
+    row(0.5, i17=-3.0, i33=-3.5, i34=-3.5)
+    row(-inf, i11=nan)
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [37, 64, 128])
+def test_sgm_fold_wta_nan_inf_and_signed_zero(device, d, dtype):
+    """Planted in a volume: an all-+inf pixel and a NaN, whose NaN runs
+    down its paths.  And row by row in a one-pixel volume, where each of
+    the eight traversals is one step (L = C), so the sum is the cost row
+    eight times over with its NaN, infinities and zero signs: torch.
+    argmin's answer, the first NaN, else the first least value."""
+    left, right = _images(19, 27, d, device)
+    vol = cost_ops.ssd_cost_volume(left, right, max_disparity=d,
+                                   kernel_size=2, cost_dtype=dtype)
+    vol[4, 7, :] = float("inf")
+    vol[2, 3, 5] = float("nan")
+    vol[11, 20, 3] = -0.0
+    fused, want = _wta_both(vol, left)
+    summed = sgm_cuda.semiglobal_aggregate_cuda(vol, left)
+    assert torch.isnan(summed).any() and torch.isinf(summed).any()
+    assert torch.equal(fused, want)
+    pixel = torch.zeros((1, 1), device=device)
+    for row in _special_rows(d):
+        one = torch.from_numpy(row).to(device).to(dtype).view(1, 1, d)
+        fused, want = _wta_both(one, pixel)
+        expect = torch.from_numpy(row).to(dtype).argmin()
+        assert fused.item() == want.item() == expect.item(), row
+
+
+def test_sgm_fold_wta_refuses_the_serial_shapes(device, launches):
+    """HD at D = 256 takes the serial form, so the fused call refuses it
+    and launches nothing."""
+    vol = torch.zeros((1024, 1280, 256), device=device)
+    left = torch.zeros((1024, 1280), device=device)
+    assert not sgm_cuda.takes_wta(vol.shape)
+    with pytest.raises(ValueError, match="side-by-side"):
+        sgm_cuda.semiglobal_wta_cuda(vol, left)
+    assert sum(launches.values()) == 0
+
+
+def _kitti_pipeline():
+    return cli_common.create_pipeline(
+        "census", "wta", "sgm", max_disparity=128, census_window=9,
+        census_height=7, kernel_size=1, adaptive_p2=False, penalty1=10,
+        penalty2=120)
+
+
+@pytest.mark.parametrize("cell", ["teddy", "kitti"])
+def test_compiled_takes_wta_in_the_fold_and_equals_estimate(device, launches,
+                                                           cell):
+    """A plain-WTA graph at teddy (SSD) and at KITTI (9x7 census, constant
+    P2) holds one side-by-side launch and one winner-takes-all fold, no
+    volume fold and no argmin, and replays ``estimate()``'s disparities,
+    which still come from the aggregated volume."""
+    if cell == "teddy":
+        pipe = cli_common.create_pipeline("ssd", "wta", "sgm",
+                                          max_disparity=128)
+        pairs = [_images(375, 450, seed, device) for seed in (1, 2)]
+    else:
+        pipe = _kitti_pipeline()
+        pairs = [tuple(t * 255 for t in _images(375, 1242, seed, device))
+                 for seed in (3, 4)]
+    launches.clear()
+    want = [pipe.estimate(*p).clone() for p in pairs]
+    assert launches["stm_sgm_fold_f32"] == 2
+    assert launches["stm_sgm_fold_wta_f32"] == 0
+    assert pipe._aggregation_volume.shape == (*pairs[0][0].shape, 128)
+    fn = pipe.compiled()
+    got = [fn(*p) for p in pairs]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    (graph,) = fn.graphs.values()
+    assert graph.launches["stm_sgm_side_by_side_f32"] == 1
+    assert graph.launches["stm_sgm_fold_wta_f32"] == 1
+    assert graph.launches["stm_sgm_fold_f32"] == 0
 
 
 # --------------------------------------------------------------------------
@@ -1270,8 +1439,8 @@ def test_stream_staging_ring_under_depth_3_at_teddy(device, launches):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_stream_equals_pipeline_estimate_at_teddy(device, launches, dtype):
     """Batches of 4 (the last padded) replay one graph a frame; every
-    frame equals the eager pipeline and a frame's launches equal an
-    eager frame's."""
+    frame equals the eager pipeline and a frame's launches equal those
+    of an eager run of ``estimate_fn``, the frame the graph captures."""
     from stereomatch_tpu_torch.io.capture import ImageSequenceCapture
     from stereomatch_tpu_torch.stream import StreamingEstimator
     frames = _teddy_frames(6, seed0=60)
@@ -1279,8 +1448,10 @@ def test_stream_equals_pipeline_estimate_at_teddy(device, launches, dtype):
                                       volume_dtype=dtype)
     want = _estimates(pipe, frames, device)
     launches.clear()
-    _estimates(pipe, frames[:1], device)
-    eager = collections.Counter(launches)
+    pipe.estimate_fn()(*(torch.from_numpy(half).to(device).float()
+                         for half in (frames[0][:, :450],
+                                      frames[0][:, 450:])))
+    eager = collections.Counter(launches)       # the frame a graph holds
     est = StreamingEstimator(128, batch=4, cost_dtype=dtype)
     outs = list(est.run(ImageSequenceCapture(frames)))
     assert len(est._compiled.graphs) == 1

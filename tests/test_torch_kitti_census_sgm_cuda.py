@@ -11,7 +11,8 @@ its reason, where there is none.  On the card:
   bit for bit, at the ring's edges and at KITTI's 375x1242, D = 128.
 * ``StreamingEstimator`` with the KITTI options (a 9x7 census, P1 = 10,
   P2 = 120 constant) at 375x1242, D = 128 replays one CUDA graph whose
-  SGM runs side by side, and its disparities equal the plain reference
+  SGM runs side by side and takes the argmin in its fold, and its
+  disparities equal the plain reference
   (``portbench/reference/census_sgm.py``).
 * A traced census stream stamps five times a frame, and its census codes'
   share of the cost stage lies inside it.
@@ -144,7 +145,8 @@ def test_the_kitti_stream_replays_one_graph_equal_to_the_reference(
     assert sgm_cuda._takes_side_by_side(375, 1242, 128)
     (graph,) = est._compiled.graphs.values()
     assert graph.launches["stm_sgm_side_by_side_f32"] == 1
-    assert graph.launches["stm_sgm_fold_f32"] == 1
+    assert graph.launches["stm_sgm_fold_wta_f32"] == 1      # WTA in the fold
+    assert graph.launches["stm_sgm_fold_f32"] == 0
     assert graph.launches["stm_sgm_rows_f32"] == 0
     assert est.stats.device_ops is not None      # replayed, not eager
     config = dict(CONFIG)
